@@ -1,0 +1,646 @@
+#!/usr/bin/env python3
+"""On-card smoke run of the ``pathway_tpu_torch`` port: RAG requests on
+one GPU.
+
+Run from the repository root with no arguments: ``python3 chip_smoke.py``.
+
+Phases (any failure exits non-zero; no phase catches its own failure):
+
+1. print the card's name and power limit, build every CUDA kernel from
+   ``pathway_tpu_torch/csrc`` (one nvcc per source, started together);
+2. hold each kernel against its plain PyTorch version at the main path's
+   widths and at edge cases;
+3. retrieval: embed ``N_DOCS`` (16,384) synthetic documents with the
+   MiniLM-width encoder, load them into ``BruteForceKnn`` on the card,
+   embed ``N_QUERIES`` (64) queries and ``search_batch(k=10)``; top-k
+   must equal the plain version's apart from exact ties;
+4. generation: RAG prompts built from the retrieved documents go through
+   the paged engine at GPT-2-small width — in f32 the greedy tokens must
+   equal the port's dense plain path (prefill + decode_step), then the
+   same requests run in bf16 through ``TorchDecoderLM.generate_batch``;
+5. print one ``{"kernels": [...]}`` line (launches on the main path,
+   error against the plain version, kernel / plain / bound / library
+   times at the main path's shapes) and one line of end-to-end numbers.
+
+The last line of standard output is ``{"ok": true, "device": {...}}``.
+Exits non-zero, printing no result, when no CUDA device is present or
+the package is not beside this script.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+# published H100 SXM peaks (dense): device memory, bf16 tensor cores,
+# f32 outside the tensor cores
+HBM_BYTES_S = 3.35e12
+PEAK_OPS_S = {"bfloat16": 989e12, "float32": 67e12}
+
+# f32: kernel and plain version differ only in summation order (online
+# softmax across tiles, FMA order in the GEMM).  bf16: the plain version
+# rounds scores and probabilities to bf16 between its einsums, the kernel
+# keeps them in f32, and both round the output to bf16 (2^-8 relative).
+TOL = {"float32": 1e-4, "bfloat16": 3e-2}
+KNN_TOL = 1e-4  # |score| <= 1 on L2-normalized rows; f32 FMA order only
+
+GPT2_SMALL = dict(vocab_size=50257, d_model=768, n_layers=12, n_heads=12,
+                  d_ff=3072, max_len=1024, act="gelu_tanh", ln_eps=1e-5)
+# the main path's sizes: documents indexed, queries searched, RAG prompts
+# and greedy tokens generated for each
+N_DOCS, N_QUERIES, N_PROMPTS, NEW_TOKENS = 16384, 64, 8, 32
+
+MINILM = dict(vocab_size=30522, d_model=384, n_layers=6, n_heads=12,
+              d_ff=1536, max_len=512, ln_placement="post", act="gelu",
+              ln_eps=1e-12)
+
+
+def log(*a):
+    print(*a, file=sys.stderr, flush=True)
+
+
+def cuda_time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def max_abs_err(a, b) -> float:
+    return float((a.float() - b.float()).abs().max())
+
+
+def require(cond: bool, what: str) -> None:
+    if not cond:
+        raise AssertionError(what)
+
+
+# -- phase 2: kernels against their plain versions -------------------------
+
+
+def random_pool_case(torch, g, *, B, C, H, hd, BS, NBLK, NBT, dtype, ragged,
+                     null_row=False):
+    dev = "cuda"
+    q = torch.randn((B, C, H, hd), generator=g).to(dev, dtype)
+    kp = torch.randn((NBLK, BS, H, hd), generator=g).to(dev, dtype)
+    vp = torch.randn((NBLK, BS, H, hd), generator=g).to(dev, dtype)
+    perm = torch.randperm(NBLK - 1, generator=g)[: B * NBT] + 1
+    bt = perm.reshape(B, NBT).to(torch.int32)
+    max_ctx = NBT * BS
+    if ragged:
+        n_valid = torch.randint(1, C + 1, (B,), generator=g)
+        start = torch.randint(0, max_ctx - C + 1, (B,), generator=g)
+        if null_row:  # context 1 against the null block
+            start[-1], n_valid[-1] = 0, 1
+            bt[-1] = 0
+        kw = dict(start_pos=start.to(torch.int32).to(dev),
+                  n_valid=n_valid.to(torch.int32).to(dev))
+    else:
+        cl = torch.randint(C, max_ctx + 1, (B,), generator=g)
+        if null_row:
+            cl[-1] = C
+            bt[-1] = 0
+        kw = dict(context_lens=cl.to(torch.int32).to(dev))
+    return q, kp, vp, bt.to(dev), kw
+
+
+def check_paged_attention(torch, pa, g, prefill_chunk: int) -> list[str]:
+    lines = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for hd in (32, 64, 128):
+            for C in (1, prefill_chunk):
+                for ragged in (False, True):
+                    q, kp, vp, bt, kw = random_pool_case(
+                        torch, g, B=8, C=C, H=12, hd=hd, BS=16, NBLK=300,
+                        NBT=32, dtype=dtype, ragged=ragged, null_row=True,
+                    )
+                    out = pa.paged_attention(q, kp, vp, bt, **kw)
+                    ref = pa.paged_attention_reference(q, kp, vp, bt, **kw)
+                    torch.cuda.synchronize()
+                    err = max_abs_err(out, ref)
+                    tol = TOL[str(dtype).split(".")[1]]
+                    require(bool(torch.isfinite(out).all()),
+                            f"paged_attention non-finite ({dtype}, hd {hd})")
+                    require(err <= tol, f"paged_attention {dtype} hd={hd} "
+                            f"C={C} ragged={ragged}: err {err} > {tol}")
+                    lines.append(f"paged_attention {str(dtype)[6:]} hd={hd} "
+                                 f"C={C} ragged={ragged} err={err:.3g}")
+    return lines
+
+
+def check_append(torch, pa, g) -> list[str]:
+    lines = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for hd in (32, 64, 128):
+            B, H, BS, NBLK, NBT = 8, 12, 16, 300, 32
+            q, kp, vp, bt, kw = random_pool_case(
+                torch, g, B=B, C=1, H=H, hd=hd, BS=BS, NBLK=NBLK, NBT=NBT,
+                dtype=dtype, ragged=False,
+            )
+            cl = kw["context_lens"].long()
+            k_new = torch.randn((B, H, hd), generator=g).to("cuda", dtype)
+            v_new = torch.randn((B, H, hd), generator=g).to("cuda", dtype)
+            rows = torch.arange(B, device="cuda")
+            sb = bt.long()[rows, (cl - 1) // BS].to(torch.int32)
+            so = ((cl - 1) % BS).to(torch.int32)
+            kk, vk = kp.clone(), vp.clone()
+            out, kk, vk = pa.paged_append_attend(
+                q, k_new, v_new, kk, vk, bt, cl, sb, so)
+            kr, vr = kp.clone(), vp.clone()
+            kr[sb.long(), so.long()] = k_new
+            vr[sb.long(), so.long()] = v_new
+            ref = pa.paged_attention_reference(q, kr, vr, bt, cl)
+            torch.cuda.synchronize()
+            err = max_abs_err(out, ref)
+            tol = TOL[str(dtype).split(".")[1]]
+            require(err <= tol, f"append {dtype} hd={hd}: err {err} > {tol}")
+            require(torch.equal(kk, kr) and torch.equal(vk, vr),
+                    f"append {dtype} hd={hd}: pools differ from "
+                    "scatter-then-plain")
+            lines.append(f"paged_append_attend {str(dtype)[6:]} hd={hd} "
+                         f"err={err:.3g} pools bit-identical")
+    return lines
+
+
+def check_knn(torch, kc, g) -> list[str]:
+    from pathway_tpu_torch.ops.knn import _l2_normalize
+
+    lines = []
+    for Q in (1, 64):
+        for N in (16384, 16384 - 37):
+            q = _l2_normalize(torch.randn((Q, 384), generator=g)).cuda()
+            m = _l2_normalize(torch.randn((N, 384), generator=g)).cuda()
+            out = kc.knn_scores(q, m)
+            ref = kc.knn_scores_reference(q, m)
+            torch.cuda.synchronize()
+            err = max_abs_err(out, ref)
+            require(err <= KNN_TOL, f"knn_scores Q={Q} N={N}: err {err}")
+            lines.append(f"knn_scores Q={Q} N={N} d=384 err={err:.3g}")
+    return lines
+
+
+# -- capture of the main path's kernel inputs ------------------------------
+
+
+class Capture:
+    """Wraps the kernel wrappers to keep a copy of each call's small
+    inputs (queries, tables, contexts), so the heaviest call can be
+    replayed after the run at exactly the main path's shapes.  The pools
+    are not copied per call: a replay reads the run's final pools, which
+    hold every token the call read."""
+
+    def __init__(self, torch, pa, kc):
+        self.torch, self.pa, self.kc = torch, pa, kc
+        self.calls = {"paged_attention": [], "paged_append_attend": [],
+                      "knn_scores": []}
+        self.orig = (pa.paged_attention_cuda, pa.paged_append_attend_cuda,
+                     kc.knn_scores_cuda)
+
+    def __enter__(self):
+        pa, kc = self.pa, self.kc
+        f_pa, f_ap, f_kn = self.orig
+        calls = self.calls
+
+        def paged(q, k_pool, v_pool, bt, c0, cl):
+            calls["paged_attention"].append(dict(
+                q=q.clone(), bt=bt.clone(), c0=c0.clone(), cl=cl.clone(),
+                pools=(k_pool, v_pool)))
+            return f_pa(q, k_pool, v_pool, bt, c0, cl)
+
+        def append(q, k_new, v_new, k_pool, v_pool, bt, cl, sb, so):
+            calls["paged_append_attend"].append(dict(
+                q=q.clone(), k_new=k_new.clone(), v_new=v_new.clone(),
+                bt=bt.clone(), cl=cl.clone(), sb=sb.clone(), so=so.clone(),
+                pools=(k_pool, v_pool)))
+            return f_ap(q, k_new, v_new, k_pool, v_pool, bt, cl, sb, so)
+
+        def scores(q, m):
+            calls["knn_scores"].append(dict(q=q.clone(), m=m.clone()))
+            return f_kn(q, m)
+
+        pa.paged_attention_cuda = paged
+        pa.paged_append_attend_cuda = append
+        kc.knn_scores_cuda = scores
+        return self
+
+    def __exit__(self, *exc):
+        (self.pa.paged_attention_cuda, self.pa.paged_append_attend_cuda,
+         self.kc.knn_scores_cuda) = self.orig
+
+    def heaviest(self, name):
+        """The captured call whose contexts sum highest (attention; for
+        append, over the rows that honour its contract), or the largest
+        product (scores)."""
+        calls = self.calls[name]
+        require(bool(calls), f"no {name} call captured on the main path")
+        if name == "knn_scores":
+            return max(calls, key=lambda c: c["q"].shape[0] * c["m"].shape[0])
+        if name == "paged_append_attend":
+            return max(calls, key=lambda c: int(c["cl"][tail_rows(c)].sum()))
+        return max(calls, key=lambda c: int(c["cl"].sum()))
+
+
+def tail_rows(call):
+    """Rows of an append call whose write slot is their context tail
+    (the kernel's contract).  A chain's surplus steps (rows past their
+    budget, idle rows) write the null block instead; their output is
+    discarded by the engine."""
+    import torch
+
+    cl, bs = call["cl"].long(), call["pools"][0].shape[1]
+    rows = torch.arange(cl.shape[0], device=cl.device)
+    return ((call["bt"].long()[rows, (cl - 1) // bs] == call["sb"].long())
+            & ((cl - 1) % bs == call["so"].long()))
+
+
+# -- phase 5: timing at the main path's shapes -----------------------------
+
+
+def attention_work(torch, call, C: int, append: bool):
+    """(bytes, ops) the call's data needs: each row reads K and V of the
+    tokens its last valid column attends to; each valid column does
+    4 * hd flops per attended token per head."""
+    q = call["q"]
+    B, _, H, hd = q.shape
+    es = q.element_size()
+    cl = call["cl"].long().cpu()
+    c0 = call["c0"].long().cpu() if "c0" in call else cl
+    n_cols = torch.clamp(cl - c0 + 1, max=C)
+    ctx_sum = 0
+    for b in range(B):
+        for c in range(int(n_cols[b])):
+            ctx_sum += min(int(c0[b]) + c, int(cl[b]))
+    kv_tokens = int(cl.sum())
+    nbytes = (2 * q.numel() * es                     # q read, out written
+              + 2 * kv_tokens * H * hd * es          # K and V read
+              + call["bt"].numel() * 4 + 2 * B * 4)  # tables and contexts
+    if append:
+        # the tail token's K/V is read from k_new/v_new (counted above as
+        # part of the context) and written once into each pool
+        nbytes += 2 * B * H * hd * es
+    ops = 4 * hd * H * ctx_sum
+    return nbytes, ops
+
+
+def bound_entry(nbytes: float, ops: float, dtype: str) -> tuple[float, str]:
+    t_bytes = nbytes / HBM_BYTES_S * 1e3
+    t_ops = ops / PEAK_OPS_S[dtype] * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
+
+
+def time_kernels(torch, pa, kc, cap: Capture, launches: dict) -> list[dict]:
+    out = []
+    # 1. ragged paged attention (mixed step)
+    call = cap.heaviest("paged_attention")
+    kp, vp = call["pools"]
+    q, bt, c0, cl = call["q"], call["bt"], call["c0"], call["cl"]
+    C = q.shape[1]
+    kern = lambda: pa.paged_attention_cuda(q, kp, vp, bt, c0, cl)  # noqa: E731
+    plain = lambda: pa.paged_attention_reference(  # noqa: E731
+        q, kp, vp, bt, start_pos=c0 - 1, n_valid=cl - c0 + 1)
+    err = max_abs_err(kern(), plain())
+    dt = str(q.dtype).split(".")[1]
+    require(err <= TOL[dt], f"paged_attention main-path err {err}")
+    nbytes, ops = attention_work(torch, call, C, append=False)
+    bound, by = bound_entry(nbytes, ops, dt)
+    out.append(dict(
+        name="paged_attention", route="cuda",
+        source="pathway_tpu_torch/csrc/paged_attention.cu",
+        replaces="pathway_tpu/kvcache/paged_attention.py:159",
+        launches=launches["paged_attention"], max_abs_err=err,
+        ms=cuda_time_ms(kern), plain_ms=cuda_time_ms(plain),
+        bound_ms=bound, bound_by=by, library_ms=None,
+        shape=f"q{tuple(q.shape)} {dt} ctx_sum={int(cl.sum())}",
+    ))
+    # 2. append + attend (decode steps); replays write the same slot
+    call = cap.heaviest("paged_append_attend")
+    kp0, vp0 = call["pools"]
+    kk, vk = kp0.clone(), vp0.clone()
+    kr, vr = kp0.clone(), vp0.clone()
+    a = call
+    kern = lambda: pa.paged_append_attend_cuda(  # noqa: E731
+        a["q"], a["k_new"], a["v_new"], kk, vk, a["bt"], a["cl"], a["sb"],
+        a["so"])
+
+    def plain():
+        kr[a["sb"].long(), a["so"].long()] = a["k_new"]
+        vr[a["sb"].long(), a["so"].long()] = a["v_new"]
+        return pa.paged_attention_reference(a["q"], kr, vr, a["bt"], a["cl"])
+
+    # only rows honouring the contract are compared (tail_rows), and the
+    # pools outside the null block, where several surplus rows write
+    tail = tail_rows(a)
+    require(bool(tail.any()), "no append row with its slot at the tail")
+    err = max_abs_err(kern()[tail], plain()[tail])
+    dt = str(a["q"].dtype).split(".")[1]
+    require(err <= TOL[dt], f"append main-path err {err}")
+    require(torch.equal(kk[1:], kr[1:]) and torch.equal(vk[1:], vr[1:]),
+            "append main-path pools differ from scatter-then-plain")
+    nbytes, ops = attention_work(torch, call, 1, append=True)
+    bound, by = bound_entry(nbytes, ops, dt)
+    out.append(dict(
+        name="paged_append_attend", route="cuda",
+        source="pathway_tpu_torch/csrc/paged_attention.cu",
+        replaces="pathway_tpu/kvcache/paged_attention.py:284",
+        launches=launches["paged_append_attend"], max_abs_err=err,
+        ms=cuda_time_ms(kern), plain_ms=cuda_time_ms(plain),
+        bound_ms=bound, bound_by=by, library_ms=None,
+        shape=f"q{tuple(a['q'].shape)} {dt} ctx_sum={int(a['cl'].sum())}",
+    ))
+    # 3. KNN scores (batched search)
+    call = cap.heaviest("knn_scores")
+    q, m = call["q"], call["m"]
+    kern = lambda: kc.knn_scores_cuda(q, m)  # noqa: E731
+    plain = lambda: kc.knn_scores_reference(q, m)  # noqa: E731
+    err = max_abs_err(kern(), plain())
+    require(err <= KNN_TOL, f"knn_scores main-path err {err}")
+    Q, d = q.shape
+    N = m.shape[0]
+    bound, by = bound_entry((Q * d + N * d + Q * N) * 4, 2 * Q * N * d,
+                            "float32")
+    ms_plain = cuda_time_ms(plain)
+    out.append(dict(
+        name="knn_scores", route="cuda",
+        source="pathway_tpu_torch/csrc/knn_scores.cu",
+        replaces="pathway_tpu/ops/knn_pallas.py:27",
+        launches=launches["knn_scores"], max_abs_err=err,
+        ms=cuda_time_ms(kern), plain_ms=ms_plain, bound_ms=bound,
+        bound_by=by, library_ms=cuda_time_ms(lambda: torch.matmul(q, m.T)),
+        shape=f"Q={Q} N={N} d={d} float32",
+    ))
+    return out
+
+
+def profile_generation(torch, lm, prompts, n_new, wall_s) -> dict:
+    """Device time of the bf16 generation, from a second run of the same
+    requests under torch.profiler: busy time (CUDA kernels and copies)
+    against the wall time of the unprofiled run, and the kernels that
+    take the most of it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    lm.paged_engine().prefix.clear()  # the same work as the timed run
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        lm.generate_batch(prompts, n_new)
+        torch.cuda.synchronize()
+    by_name: dict[str, list] = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            tot = by_name.setdefault(e.name, [0.0, 0])
+            tot[0] += e.time_range.elapsed_us() / 1e3
+            tot[1] += 1
+    busy_ms = sum(v[0] for v in by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
+    return {
+        "unprofiled_wall_ms": wall_s * 1e3,
+        "device_busy_ms": busy_ms,
+        "device_idle_share": 1.0 - busy_ms / (wall_s * 1e3),
+        "device_ops": sum(v[1] for v in by_name.values()),
+        "top": [{"name": n[:80], "ms": v[0], "count": v[1]} for n, v in top],
+    }
+
+
+# -- phases 3 and 4: the main path -----------------------------------------
+
+
+def make_docs(rng, n_docs: int, vocab_words: int = 20000):
+    words = [f"w{i}" for i in range(vocab_words)]
+    lens = rng.integers(60, 121, size=n_docs)
+    picks = rng.integers(0, vocab_words, size=int(lens.sum()))
+    docs, at = [], 0
+    for n in lens:
+        docs.append(" ".join(words[j] for j in picks[at:at + n]))
+        at += n
+    return docs
+
+
+def dense_greedy(torch, dec, cfg, params, prompt, n_new):
+    """The port's dense plain path: prefill + decode_step."""
+    n = len(prompt)
+    T = -(-(n + n_new) // 64) * 64
+    buf = torch.zeros((1, T), dtype=torch.long, device="cuda")
+    buf[0, :n] = torch.tensor(prompt, device="cuda")
+    logits, cache = dec.prefill(params, cfg, buf,
+                                torch.tensor([n], device="cuda"))
+    out = [int(dec.greedy(logits)[0])]
+    pos = n
+    for _ in range(n_new - 1):
+        logits, cache = dec.decode_step(
+            params, cfg, cache, torch.tensor([out[-1]], device="cuda"), pos)
+        out.append(int(dec.greedy(logits)[0]))
+        pos += 1
+    return out
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args()
+
+    import numpy as np
+    import torch
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, here)
+    import pathway_tpu_torch  # noqa: F401 - fails alone, without the package
+
+    if not torch.cuda.is_available():
+        log("chip_smoke: torch.cuda.is_available() is False; no result")
+        return 2
+    log(f"python {sys.version.split()[0]} torch {torch.__version__} "
+        f"cuda {torch.version.cuda}")
+    from pathway_tpu_torch.kvcache import paged_attention as pa
+    from pathway_tpu_torch.models import decoder as dec
+    from pathway_tpu_torch.models.encoder import EncoderConfig, TorchEncoder
+    from pathway_tpu_torch.ops import _cuda
+    from pathway_tpu_torch.ops import knn_cuda as kc
+    from pathway_tpu_torch.ops.knn import metric_scores
+    from pathway_tpu_torch.stdlib.indexing.inner_index import BruteForceKnn
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
+
+    # phase 1: the card, then the kernels' build
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+    t0 = time.perf_counter()
+    build_logs = _cuda.build_all()
+    log(f"built kernels in {time.perf_counter() - t0:.1f}s")
+    for src, text in build_logs.items():
+        for line in text.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"  {src}: {line.strip()}")
+
+    # phase 2: kernels against their plain versions
+    g = torch.Generator().manual_seed(args.seed)
+    engine_sizes = dict(num_blocks=512, block_size=16, max_batch_size=8,
+                        chain_steps=8)
+    prefill_chunk = 2 * engine_sizes["block_size"]
+    for line in (check_paged_attention(torch, pa, g, prefill_chunk)
+                 + check_append(torch, pa, g) + check_knn(torch, kc, g)):
+        log("  " + line)
+    log("phase 2 ok: kernels agree with their plain versions")
+
+    # phase 3: retrieval
+    rng = np.random.default_rng(args.seed)
+    docs = make_docs(rng, N_DOCS)
+    enc = TorchEncoder(EncoderConfig(**MINILM), seed=args.seed,
+                       device="cuda")
+    enc.embed_batch(docs[:256])  # warm-up: cuBLAS handles, allocator
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    emb = enc.embed_batch(docs)
+    torch.cuda.synchronize()
+    t_embed = time.perf_counter() - t0
+    index = BruteForceKnn(enc.dimensions, reserved_space=N_DOCS,
+                          metric="cos", device="cuda")
+    for i in range(N_DOCS):
+        index.add(i, emb[i])
+    torch.cuda.synchronize()
+    t_index = time.perf_counter() - t0
+    require(tuple(emb.shape) == (N_DOCS, 384)
+            and bool(torch.isfinite(emb).all()), "document embeddings")
+    q_docs = rng.integers(0, N_DOCS, size=N_QUERIES)
+    queries = [" ".join(docs[j].split()[5:17]) for j in q_docs]
+
+    cap = Capture(torch, pa, kc)
+    main_launches = {}
+    _cuda.reset_launches()
+    with cap:
+        q_emb = enc.embed_batch(queries)
+        hits = index.search_batch(q_emb, 10)
+    main_launches["knn_scores"] = _cuda.LAUNCHES["knn_scores"]
+    require(main_launches["knn_scores"] > 0, "retrieval never launched knn")
+    # top-k against the plain version, apart from exact ties
+    plain = metric_scores(q_emb, index.matrix[: index.n], "cos",
+                          kc.knn_scores_reference)
+    p_vals, p_idx = torch.topk(plain, 10, dim=1)
+    n_tie_swaps = 0
+    for qi, row in enumerate(hits):
+        got = [k for k, _s in row]
+        want = p_idx[qi].tolist()
+        for a, b in zip(got, want):
+            if a != b:
+                require(float(plain[qi, a]) == float(plain[qi, b]),
+                        f"query {qi}: top-k differs beyond ties")
+                n_tie_swaps += 1
+    recall1 = float(np.mean([row[0][0] == int(j)
+                             for row, j in zip(hits, q_docs)]))
+    latencies = []
+    for text in queries:
+        t0 = time.perf_counter()
+        index.search_batch(enc.embed_batch([text]), 10)
+        latencies.append((time.perf_counter() - t0) * 1e3)
+    log(f"phase 3 ok: {N_DOCS} docs, top-1 = source doc for "
+        f"{recall1:.3f} of queries, {n_tie_swaps} tie swaps")
+
+    # phase 4: generation
+    cfg32 = dec.DecoderConfig(**GPT2_SMALL,
+                              dtype=torch.float32)
+    lm32 = dec.TorchDecoderLM(cfg32, seed=args.seed, device="cuda")
+    system = ("answer the question using only the context below . "
+              "cite the passages you use . ") * 3
+    prompts = []
+    targets = np.linspace(100, 600, N_PROMPTS).astype(int)
+    for i, n_tok in enumerate(targets):
+        ctx = []
+        for key, _s in hits[i % len(hits)] + hits[(i + 1) % len(hits)]:
+            ctx.extend(docs[key].split())
+        body = f"question : {queries[i % len(queries)]} context : "
+        words = (system + body).split() + ctx
+        prompts.append(" ".join(words[:n_tok]))
+    reqs = [(ids, NEW_TOKENS)
+            for ids in lm32.encode_prompts(prompts, NEW_TOKENS)]
+    eng32 = lm32.paged_engine(**engine_sizes)
+    _cuda.reset_launches()
+    toks32 = eng32.generate_batch(reqs)
+    torch.cuda.synchronize()
+    f32_launches = dict(_cuda.LAUNCHES)
+    require(f32_launches.get("paged_attention", 0) > 0
+            and f32_launches.get("paged_append_attend", 0) > 0,
+            f"f32 engine run launched {f32_launches}")
+    for i, (ids, _n) in enumerate(reqs):
+        want = dense_greedy(torch, dec, cfg32, eng32.params, ids,
+                            NEW_TOKENS)
+        require(toks32[i] == want,
+                f"prompt {i}: paged f32 tokens {toks32[i]} != dense {want}")
+    log(f"phase 4 f32 ok: {len(reqs)} prompts of "
+        f"{[len(r[0]) for r in reqs]} tokens match the dense path; "
+        f"rounds {eng32.rounds}")
+
+    cfg16 = dec.DecoderConfig(**GPT2_SMALL)
+    lm16 = dec.TorchDecoderLM(cfg16, params=lm32.params, device="cuda")
+    del eng32, lm32
+    eng16 = lm16.paged_engine(**engine_sizes)
+    require(eng16.dtype == torch.bfloat16, "bf16 engine")
+    # a first pass over the same requests warms the allocator and cuBLAS
+    # and keeps each kernel call's inputs for phase 5's replays; the
+    # timed run below copies nothing
+    with cap:
+        lm16.generate_batch(prompts, NEW_TOKENS)
+    eng16.prefix.clear()  # the timed run starts with an empty prefix cache
+    torch.cuda.synchronize()
+    _cuda.reset_launches()
+    t0 = time.perf_counter()
+    texts = lm16.generate_batch(prompts, NEW_TOKENS)
+    torch.cuda.synchronize()
+    t_gen = time.perf_counter() - t0
+    for name in ("paged_attention", "paged_append_attend"):
+        main_launches[name] = _cuda.LAUNCHES[name]
+        require(main_launches[name] > 0, f"generation never launched {name}")
+    toks16 = [[int(t.strip("<>")) for t in s.split()] for s in texts]
+    require(all(len(t) == NEW_TOKENS
+                and all(0 <= x < cfg16.vocab_size for x in t)
+                for t in toks16), "bf16 generation output")
+    agree = float(np.mean([a == b for x, y in zip(toks16, toks32)
+                           for a, b in zip(x, y)]))
+    n_gen = sum(len(t) for t in toks16)
+    log(f"phase 4 bf16 ok: {n_gen} tokens in {t_gen:.3f}s; "
+        f"{agree:.3f} of tokens equal the f32 run; rounds {eng16.rounds}")
+
+    # phase 5: numbers
+    kernels = time_kernels(torch, pa, kc, cap, main_launches)
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"generation_profile": profile_generation(
+        torch, lm16, prompts, NEW_TOKENS, t_gen)}), flush=True)
+    print(json.dumps({
+        "rag": {
+            "docs": N_DOCS,
+            "docs_per_s_embedded": N_DOCS / t_embed,
+            "docs_per_s_indexed": N_DOCS / t_index,
+            "query_p50_ms": statistics.median(latencies),
+            "query_top1_is_source": recall1,
+            "generated_tokens": n_gen,
+            "generated_tokens_per_s_bf16": n_gen / t_gen,
+            "prompt_tokens": [len(r[0]) for r in reqs],
+            "bf16_f32_token_agreement": agree,
+            "decoder_layers": GPT2_SMALL["n_layers"],
+            "wall_s": time.perf_counter() - t_start,
+        }
+    }), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count(),
+    }}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

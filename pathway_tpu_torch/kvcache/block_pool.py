@@ -1,0 +1,308 @@
+"""Fixed-size device block pool for paged KV caching.
+
+One K and one V tensor hold the entire cache for every live sequence:
+``(n_layers, num_blocks, block_size, n_kv_heads, head_dim)`` on the
+pool's device.  Sequences address the pool through per-sequence block
+tables (ordered lists of physical block ids); attention reads blocks
+through the table (paged_attention.py) and writes land at
+``(block, offset)`` slots.
+
+Allocation is a free-list pop; blocks are refcounted so full prompt
+blocks can be shared between sequences (prefix_cache.py) and forks are
+copy-on-write: a fork shares every block of its parent, and the first
+append into a shared tail block copies it first — an in-place copy of
+one block across all layers, the parent's bytes never mutated.  When the
+pool is exhausted the engine preempts a victim (lowest priority class
+first, most recent arrival within a class).
+
+Physical block 0 is reserved as the null block: padded block-table
+entries and padded batch rows write/read there, so scatter/gather never
+needs a branch for invalid rows (the results are masked out).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import itertools
+import threading
+
+import numpy as np
+import torch
+
+from .._device import resolve_device
+from .backend import CacheBackend
+
+
+class PoolExhausted(RuntimeError):
+    """Not enough free blocks; caller should evict prefix blocks or preempt."""
+
+    def __init__(self, message: str = "KV block pool exhausted",
+                 needed: int = 0, free: int = 0):
+        super().__init__(message)
+        self.needed = needed
+        self.free = free
+
+
+@dataclasses.dataclass
+class SequenceState:
+    """Host-side bookkeeping for one live sequence in the pool."""
+
+    seq_id: int
+    block_ids: list[int]
+    n_tokens: int
+    priority: int = 1  # lower = more urgent
+    arrival: int = 0  # pool-local admission counter (preemption tie-break)
+
+    def num_blocks(self) -> int:
+        return len(self.block_ids)
+
+
+class BlockPool(CacheBackend):
+    """Refcounted block allocator over stacked per-layer K/V tensors."""
+
+    def __init__(self, *, num_blocks: int, block_size: int, n_layers: int,
+                 n_heads: int, head_dim: int, dtype=torch.float32,
+                 device="cuda"):
+        if num_blocks < 2:
+            raise ValueError("num_blocks must be >= 2 (block 0 is reserved)")
+        self.device = resolve_device(device)
+        self.num_blocks = int(num_blocks)
+        self.block_size = int(block_size)
+        self.n_layers = int(n_layers)
+        self.n_heads = int(n_heads)
+        self.head_dim = int(head_dim)
+        self.dtype = dtype
+        shape = (n_layers, num_blocks, block_size, n_heads, head_dim)
+        self.k = torch.zeros(shape, dtype=dtype, device=self.device)
+        self.v = torch.zeros(shape, dtype=dtype, device=self.device)
+        # block 0 reserved: never allocated, target of padded writes
+        self._free: list[int] = list(range(num_blocks - 1, 0, -1))
+        self._ref = np.zeros(num_blocks, np.int32)
+        self._seqs: dict[int, SequenceState] = {}
+        self._arrival = itertools.count()
+        self._lock = threading.RLock()
+        self.n_cow = 0
+        self.n_preemptions = 0
+
+    # -- capacity ----------------------------------------------------------
+    @property
+    def num_free(self) -> int:
+        return len(self._free)
+
+    def blocks_for(self, n_tokens: int) -> int:
+        # 0 tokens -> 0 blocks: a token-less sequence owns nothing
+        return -(-n_tokens // self.block_size)
+
+    def sequence(self, seq_id: int) -> SequenceState:
+        return self._seqs[seq_id]
+
+    def sequences(self) -> list[SequenceState]:
+        return list(self._seqs.values())
+
+    # -- allocation --------------------------------------------------------
+    def _pop_free(self) -> int:
+        b = self._free.pop()
+        self._ref[b] = 1
+        return b
+
+    def incref(self, block_id: int) -> None:
+        with self._lock:
+            if self._ref[block_id] <= 0:
+                raise ValueError(f"incref on free block {block_id}")
+            self._ref[block_id] += 1
+
+    def decref(self, block_id: int) -> None:
+        with self._lock:
+            if self._ref[block_id] <= 0:
+                raise ValueError(f"double free of block {block_id}")
+            self._ref[block_id] -= 1
+            if self._ref[block_id] == 0:
+                self._free.append(block_id)
+
+    def refcount(self, block_id: int) -> int:
+        return int(self._ref[block_id])
+
+    def allocate(self, seq_id: int, n_tokens: int, *,
+                 shared_blocks: list[int] | tuple = (),
+                 priority: int = 1) -> SequenceState:
+        """Register a sequence holding ``n_tokens`` tokens: leading
+        ``shared_blocks`` (full blocks already resident — each gets a new
+        reference) plus fresh blocks for the remainder.  Raises
+        :class:`PoolExhausted` (without side effects) when the free list
+        cannot cover the fresh blocks."""
+        with self._lock:
+            if seq_id in self._seqs:
+                raise ValueError(f"sequence {seq_id} already allocated")
+            total = self.blocks_for(n_tokens)
+            n_shared = len(shared_blocks)
+            if n_shared * self.block_size > n_tokens:
+                raise ValueError(
+                    f"{n_shared} shared blocks cover more than "
+                    f"{n_tokens} tokens"
+                )
+            fresh = total - n_shared
+            if fresh > len(self._free):
+                raise PoolExhausted(
+                    f"need {fresh} blocks, {len(self._free)} free",
+                    needed=fresh, free=len(self._free),
+                )
+            for b in shared_blocks:
+                self.incref(b)
+            block_ids = list(shared_blocks) + [
+                self._pop_free() for _ in range(fresh)
+            ]
+            state = SequenceState(
+                seq_id=seq_id, block_ids=block_ids, n_tokens=n_tokens,
+                priority=priority, arrival=next(self._arrival),
+            )
+            self._seqs[seq_id] = state
+            return state
+
+    def _cow_block(self, block_id: int) -> int:
+        """Copy-on-write: a private copy of a shared block, every layer,
+        copied in place into a fresh block of the same tensors."""
+        new = self._pop_free()
+        self.k[:, new].copy_(self.k[:, block_id])
+        self.v[:, new].copy_(self.v[:, block_id])
+        self.decref(block_id)
+        self.n_cow += 1
+        return new
+
+    def extend_slots(self, seq_id: int, k: int) -> list[tuple[int, int]]:
+        """Pre-extend a sequence by ``k`` write slots in one call (the
+        chained-decode contract: a whole chain's slots are reserved
+        before dispatch).  Returns the ``(block_id, offset)`` slots in
+        append order and advances ``n_tokens`` by ``k``.  ATOMIC: the
+        needed block count (a COW of a shared tail + one fresh block per
+        crossed boundary) is checked up front, and :class:`PoolExhausted`
+        is raised with NO state change when the free list cannot cover
+        it."""
+        if k <= 0:
+            return []
+        with self._lock:
+            seq = self._seqs[seq_id]
+            offset0 = seq.n_tokens % self.block_size
+            need = -(-(offset0 + k) // self.block_size) - (1 if offset0 else 0)
+            if offset0 and self._ref[seq.block_ids[-1]] > 1:
+                need += 1  # COW of the shared tail block
+            if need > len(self._free):
+                raise PoolExhausted(
+                    f"need {need} blocks, {len(self._free)} free",
+                    needed=need, free=len(self._free),
+                )
+            slots: list[tuple[int, int]] = []
+            for _ in range(k):
+                offset = seq.n_tokens % self.block_size
+                if offset == 0:
+                    seq.block_ids.append(self._pop_free())
+                else:
+                    tail = seq.block_ids[-1]
+                    if self._ref[tail] > 1:
+                        seq.block_ids[-1] = self._cow_block(tail)
+                seq.n_tokens += 1
+                slots.append((seq.block_ids[-1], offset))
+            return slots
+
+    def truncate_slots(self, seq_id: int, k: int) -> None:
+        """Roll back the sequence's last ``k`` reserved slots (the inverse
+        of :meth:`extend_slots`): ``n_tokens`` shrinks by ``k`` and blocks
+        past the new span are released.  Stale bytes past the new end are
+        harmless: every read is masked to the live positions."""
+        if k <= 0:
+            return
+        with self._lock:
+            seq = self._seqs[seq_id]
+            if k > seq.n_tokens:
+                raise ValueError(
+                    f"cannot roll back {k} slots: sequence {seq_id} "
+                    f"holds {seq.n_tokens} tokens"
+                )
+            seq.n_tokens -= k
+            keep = self.blocks_for(seq.n_tokens)
+            while len(seq.block_ids) > keep:
+                self.decref(seq.block_ids.pop())
+
+    def fork(self, parent_id: int, child_id: int, *,
+             priority: int | None = None) -> SequenceState:
+        """Child shares every parent block (refcounted); diverging appends
+        copy-on-write, so the parent's bytes are preserved."""
+        with self._lock:
+            parent = self._seqs[parent_id]
+            if child_id in self._seqs:
+                raise ValueError(f"sequence {child_id} already allocated")
+            for b in parent.block_ids:
+                self.incref(b)
+            child = SequenceState(
+                seq_id=child_id, block_ids=list(parent.block_ids),
+                n_tokens=parent.n_tokens,
+                priority=parent.priority if priority is None else priority,
+                arrival=next(self._arrival),
+            )
+            self._seqs[child_id] = child
+            return child
+
+    def free_sequence(self, seq_id: int) -> None:
+        """Release the sequence's references; blocks whose refcount reaches
+        0 return to the free list."""
+        with self._lock:
+            seq = self._seqs.pop(seq_id)
+            for b in seq.block_ids:
+                self.decref(b)
+
+    # -- preemption --------------------------------------------------------
+    def preempt(self, *, exclude: set | frozenset = frozenset()
+                ) -> SequenceState | None:
+        """Evict one victim: the lowest-priority class first (highest
+        numeric priority), most recent arrival within the class.  Returns
+        its state (for recompute re-admission), or None when every live
+        sequence is excluded."""
+        with self._lock:
+            candidates = [
+                s for s in self._seqs.values() if s.seq_id not in exclude
+            ]
+            if not candidates:
+                return None
+            victim = max(candidates, key=lambda s: (s.priority, s.arrival))
+            self.free_sequence(victim.seq_id)
+            self.n_preemptions += 1
+            return victim
+
+    # -- verification ------------------------------------------------------
+    def check_invariants(self, external_refs: dict[int, int] | None = None
+                         ) -> None:
+        """Assert allocator consistency: the free list and refcounts
+        exactly partition the pool, and every reference is accounted for
+        by a sequence table or ``external_refs`` (the prefix cache's own
+        holds)."""
+        with self._lock:
+            free = list(self._free)
+            assert len(free) == len(set(free)), "duplicate free-list entry"
+            assert 0 not in free, "reserved block 0 on the free list"
+            for b in free:
+                assert self._ref[b] == 0, f"free block {b} has refs"
+            counted = np.zeros(self.num_blocks, np.int64)
+            for seq in self._seqs.values():
+                assert len(seq.block_ids) == len(set(seq.block_ids)), (
+                    f"sequence {seq.seq_id} table references a block twice"
+                )
+                assert len(seq.block_ids) == self.blocks_for(seq.n_tokens), (
+                    f"sequence {seq.seq_id} table/token-count mismatch"
+                )
+                for b in seq.block_ids:
+                    counted[b] += 1
+            for b, n in (external_refs or {}).items():
+                counted[b] += n
+            mismatched = [
+                b for b in range(1, self.num_blocks)
+                if counted[b] != self._ref[b]
+            ]
+            assert not mismatched, (
+                f"refcount mismatch on blocks {mismatched[:8]}: "
+                f"counted {[int(counted[b]) for b in mismatched[:8]]} vs "
+                f"ref {[int(self._ref[b]) for b in mismatched[:8]]}"
+            )
+            in_use = sum(1 for b in range(1, self.num_blocks)
+                         if self._ref[b] > 0)
+            assert in_use + len(free) == self.num_blocks - 1, (
+                "free list + in-use blocks do not partition the pool"
+            )

@@ -1,0 +1,147 @@
+"""Build, load and count the port's hand-written CUDA kernels.
+
+Each source under ``csrc/`` is compiled by ``nvcc`` for ``sm_90a`` into
+its own shared library with a plain C interface and loaded with
+``ctypes``.  Nothing here runs at import: the first launch on a CUDA
+tensor builds (or finds) the library, so importing the package never
+needs ``nvcc``.  Libraries are named by a hash of their source and
+flags, so an edited kernel is rebuilt and an unchanged one is reused.
+
+Every wrapper adds one to ``LAUNCHES[name]`` where it launches its
+kernel, and nowhere else, so a run can show that its main path went
+through the kernels.
+"""
+
+from __future__ import annotations
+
+import collections
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
+
+#: source file -> {C function name: argtypes}
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+SOURCES = {
+    "paged_attention.cu": {
+        # q, k_pool, v_pool, out, block_tables, c0, cl;
+        # B, C, H, hd, BS, NBT, dtype; scale; stream
+        "pw_paged_attention": [_P] * 7 + [_I] * 7 + [_F, _P],
+        # q, k_new, v_new, k_pool, v_pool, out, block_tables, cl,
+        # slot_blocks, slot_offsets; B, H, hd, BS, NBT, dtype; scale; stream
+        "pw_paged_append_attend": [_P] * 10 + [_I] * 6 + [_F, _P],
+    },
+    "knn_scores.cu": {
+        # queries, matrix, out; Q, N, d; stream
+        "pw_knn_scores": [_P] * 3 + [_I] * 3 + [_P],
+    },
+}
+
+LAUNCHES: collections.Counter = collections.Counter()
+_LIBS: dict[str, ctypes.CDLL] = {}
+_LOCK = threading.Lock()
+
+
+def reset_launches() -> None:
+    LAUNCHES.clear()
+
+
+def nvcc_path() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(default):
+        return default
+    raise RuntimeError(
+        "nvcc not found (PATH or /usr/local/cuda/bin): the port's CUDA "
+        "kernels are built from csrc/ at first launch on a CUDA tensor"
+    )
+
+
+def _lib_path(source: str) -> Path:
+    text = (CSRC / source).read_bytes()
+    digest = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return BUILD_DIR / f"{Path(source).stem}-{digest[:16]}.so"
+
+
+def _start_build(source: str):
+    """Start one nvcc process for ``source``; None when already built."""
+    out = _lib_path(source)
+    if out.exists():
+        return None
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp.so")
+    cmd = [nvcc_path(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", str(tmp),
+           str(CSRC / source)]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    return proc, tmp, out
+
+
+def _finish_build(source: str, job) -> str:
+    proc, tmp, out = job
+    log, _ = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {source}:\n{log}")
+    os.replace(tmp, out)
+    return log
+
+
+def build_all() -> dict[str, str]:
+    """Compile every kernel source, one nvcc per source, all started
+    together; returns each source's compiler log (registers, shared
+    memory and spills from ``-Xptxas -v``; empty when already built)."""
+    with _LOCK:
+        jobs = {s: _start_build(s) for s in SOURCES}
+        return {s: (_finish_build(s, j) if j is not None else "")
+                for s, j in jobs.items()}
+
+
+def lib(source: str) -> ctypes.CDLL:
+    """The loaded library for ``source``, building it on first use."""
+    with _LOCK:
+        handle = _LIBS.get(source)
+        if handle is not None:
+            return handle
+        job = _start_build(source)
+        if job is not None:
+            _finish_build(source, job)
+        handle = ctypes.CDLL(str(_lib_path(source)))
+        for fn, argtypes in SOURCES[source].items():
+            getattr(handle, fn).argtypes = argtypes
+            getattr(handle, fn).restype = ctypes.c_int
+        _LIBS[source] = handle
+        return handle
+
+
+def launch(source: str, fn: str, name: str, *args) -> None:
+    """Call C function ``fn`` on PyTorch's current stream, raise on a
+    non-zero ``cudaGetLastError()``, and count the launch under ``name``."""
+    stream = torch.cuda.current_stream().cuda_stream
+    err = getattr(lib(source), fn)(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"{fn} launch failed: cudaError {err}")
+    LAUNCHES[name] += 1
+
+
+def check(t: torch.Tensor, name: str, *, dtype=None, ndim=None) -> None:
+    """Device/dtype/shape/contiguity checks a kernel's inputs must pass."""
+    if t.device.type != "cuda":
+        raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+    if dtype is not None and t.dtype != dtype:
+        raise ValueError(f"{name} must be {dtype}, got {t.dtype}")
+    if ndim is not None and t.ndim != ndim:
+        raise ValueError(f"{name} must have {ndim} dims, got {t.ndim}")

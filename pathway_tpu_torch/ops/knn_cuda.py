@@ -1,0 +1,65 @@
+"""Batched exact KNN: scores from the CUDA kernel, then ``torch.topk``.
+
+Counterpart of ``pathway_tpu/ops/knn_pallas.py``: the Pallas
+``_scores_kernel`` becomes ``csrc/knn_scores.cu`` (a tiled f32 GEMM), and
+top-k runs after it with ``torch.topk`` as the JAX package runs
+``lax.top_k`` outside its kernel.  CPU tensors take the plain version
+(``q @ m.T`` in f32); CUDA tensors launch the kernel or raise.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .._device import resolve_device
+from . import _cuda
+from .knn import metric_scores
+
+_SOURCE = "knn_scores.cu"
+
+
+def knn_scores_reference(queries: torch.Tensor,
+                         matrix: torch.Tensor) -> torch.Tensor:
+    """Plain version: (Q, d) x (N, d)^T -> (Q, N) in f32."""
+    return queries.float() @ matrix.float().T
+
+
+def knn_scores_cuda(queries: torch.Tensor, matrix: torch.Tensor) -> torch.Tensor:
+    """Launch the scores kernel on f32, contiguous CUDA tensors."""
+    _cuda.check(queries, "queries", dtype=torch.float32, ndim=2)
+    _cuda.check(matrix, "matrix", dtype=torch.float32, ndim=2)
+    Q, d = queries.shape
+    N = matrix.shape[0]
+    if matrix.shape[1] != d:
+        raise ValueError(f"matrix dim {matrix.shape[1]} != query dim {d}")
+    out = torch.empty((Q, N), dtype=torch.float32, device=queries.device)
+    if Q and N:
+        _cuda.launch(_SOURCE, "pw_knn_scores", "knn_scores",
+                     queries.data_ptr(), matrix.data_ptr(), out.data_ptr(),
+                     Q, N, d)
+    return out
+
+
+def knn_scores(queries: torch.Tensor, matrix: torch.Tensor) -> torch.Tensor:
+    """Kernel for CUDA tensors, plain version for CPU tensors."""
+    if queries.device.type == "cuda":
+        return knn_scores_cuda(queries, matrix)
+    return knn_scores_reference(queries, matrix)
+
+
+def knn_topk(matrix, queries, k: int, metric: str = "cos", *,
+             device="cuda") -> tuple[torch.Tensor, torch.Tensor]:
+    """Batched exact KNN over ``matrix`` (N, d): returns ``(scores (Q, k),
+    indices (Q, k))`` as tensors on ``device``.  Inputs may be numpy
+    arrays or tensors; they are moved to ``device`` first."""
+    dev = resolve_device(device)
+
+    def on_dev(x):
+        if isinstance(x, np.ndarray):
+            x = torch.from_numpy(x)
+        return x.to(device=dev, dtype=torch.float32)
+
+    m, q = on_dev(matrix), on_dev(queries)
+    scores = metric_scores(q, m, metric, knn_scores)
+    return torch.topk(scores, min(k, m.shape[0]), dim=1)

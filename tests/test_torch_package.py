@@ -1,0 +1,114 @@
+"""pathway_tpu_torch package rules.
+
+- importing the package and every submodule loads neither ``jax`` nor
+  ``pathway_tpu`` (checked in a fresh interpreter), and no source file
+  of the port or ``chip_smoke.py`` imports them;
+- entry points called without ``device=`` on a machine with no CUDA
+  device raise instead of falling back to the CPU;
+- ``chip_smoke.py`` exits non-zero and prints no result without a card.
+"""
+
+import ast
+import os
+import pathlib
+import shutil
+import subprocess
+import sys
+
+import pytest
+import torch
+
+import pathway_tpu_torch
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT = pathlib.Path(pathway_tpu_torch.__file__).parent
+
+
+def _modules():
+    names = set()
+    for p in PORT.rglob("*.py"):
+        parts = p.relative_to(PORT).with_suffix("").parts
+        if parts[-1] == "__init__":
+            parts = parts[:-1]
+        names.add(".".join(("pathway_tpu_torch",) + parts))
+    return sorted(names)
+
+
+def test_import_loads_neither_jax_nor_the_jax_package():
+    code = (
+        "import importlib, sys\n"
+        f"for m in {_modules()!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' "
+        "or m.startswith('jax.') or m == 'pathway_tpu' "
+        "or m.startswith('pathway_tpu.'))\n"
+        "print(len(sys.modules), bad)\n"
+        "assert not bad, bad\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
+@pytest.mark.parametrize("path", [*sorted(PORT.rglob("*.py")),
+                                  ROOT / "chip_smoke.py"],
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_source_imports_jax_or_the_jax_package(path):
+    tree = ast.parse(path.read_text())
+    for node in ast.walk(tree):
+        names = []
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module or ""]
+        for name in names:
+            top = name.split(".")[0]
+            assert top not in ("jax", "jaxlib", "pathway_tpu"), (path, name)
+
+
+def _entry_points():
+    from pathway_tpu_torch.kvcache.block_pool import BlockPool
+    from pathway_tpu_torch.kvcache.engine import PagedDecodeEngine
+    from pathway_tpu_torch.models import decoder, encoder
+    from pathway_tpu_torch.ops.knn_cuda import knn_topk
+    from pathway_tpu_torch.stdlib.indexing.inner_index import BruteForceKnn
+
+    dcfg = decoder.DecoderConfig(vocab_size=32, d_model=8, n_layers=1,
+                                 n_heads=2, d_ff=16, max_len=16)
+    ecfg = encoder.EncoderConfig(vocab_size=32, d_model=8, n_layers=1,
+                                 n_heads=2, d_ff=16, max_len=16)
+    params = decoder.init_decoder_params(dcfg, 0, device="cpu")
+    return {
+        "TorchEncoder": lambda: encoder.TorchEncoder(ecfg),
+        "init_params": lambda: encoder.init_params(ecfg),
+        "TorchDecoderLM": lambda: decoder.TorchDecoderLM(dcfg),
+        "PagedDecodeEngine": lambda: PagedDecodeEngine(dcfg, params),
+        "BlockPool": lambda: BlockPool(num_blocks=4, block_size=4,
+                                       n_layers=1, n_heads=2, head_dim=4),
+        "BruteForceKnn": lambda: BruteForceKnn(8),
+        "knn_topk": lambda: knn_topk(torch.zeros(4, 8), torch.zeros(1, 8), 2),
+    }
+
+
+@pytest.mark.parametrize("name", [
+    "BlockPool", "BruteForceKnn", "PagedDecodeEngine", "TorchDecoderLM",
+    "TorchEncoder", "init_params", "knn_topk",
+])
+def test_entry_point_without_a_card_raises(name, monkeypatch):
+    # decided inside the test: the default device is the card, and a
+    # machine without one raises rather than computing on the CPU
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        _entry_points()[name]()
+
+
+def test_chip_smoke_fails_without_a_card_or_the_package(tmp_path):
+    # no visible card, both in the checkout and beside nothing of the repo
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    shutil.copy(ROOT / "chip_smoke.py", tmp_path / "chip_smoke.py")
+    for cwd in (ROOT, tmp_path):
+        out = subprocess.run([sys.executable, str(cwd / "chip_smoke.py")],
+                             cwd=cwd, env=env, capture_output=True,
+                             text=True, timeout=120)
+        assert out.returncode != 0
+        assert '"ok"' not in out.stdout
