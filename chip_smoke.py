@@ -16,8 +16,15 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    must equal the plain version's apart from exact ties;
 4. generation: RAG prompts built from the retrieved documents go through
    the paged engine at GPT-2-small width — in f32 the greedy tokens must
-   equal the port's dense plain path (prefill + decode_step), then the
-   same requests run in bf16 through ``TorchDecoderLM.generate_batch``;
+   equal the port's dense plain path (einsum prefill + decode_step), then
+   the same requests run in bf16 through ``TorchDecoderLM.generate_batch``;
+4b. single-stream generation and whole-bucket prefill: in f32,
+   ``TorchDecoderLM.generate(fused=True)`` and a
+   ``PagedDecodeEngine(chunked_prefill=False)`` must each give the dense
+   plain path's tokens for every prompt, both through the flash kernel
+   (every prompt's bucket is >= 256); in bf16 ``generate`` is timed one
+   prompt at a time (tokens/s) and the prefill alone gives the time to
+   first token;
 5. print one ``{"kernels": [...]}`` line (launches on the main path,
    error against the plain version, kernel / plain / bound / library
    times at the main path's shapes) and one line of end-to-end numbers.
@@ -192,6 +199,40 @@ def check_knn(torch, kc, g) -> list[str]:
     return lines
 
 
+def check_flash(torch, ac, g) -> list[str]:
+    lines = []
+    for dtype in (torch.float32, torch.bfloat16):
+        tol = TOL[str(dtype).split(".")[1]]
+        for hd in (32, 64, 128):
+            for causal in (False, True):
+                worst = 0.0
+                for T in (1, 63, 200, 256, 1024):
+                    for B in (1, 2):
+                        q, k, v = (torch.randn((B, T, 12, hd), generator=g)
+                                   .to("cuda", dtype) for _ in range(3))
+                        out = ac.flash_attention_cuda(q, k, v, causal)
+                        ref = ac.flash_attention_reference(q, k, v, causal)
+                        torch.cuda.synchronize()
+                        err = max_abs_err(out, ref)
+                        require(bool(torch.isfinite(out).all()),
+                                f"flash non-finite ({dtype} hd {hd} T {T})")
+                        require(err <= tol, f"flash {dtype} hd={hd} "
+                                f"causal={causal} T={T} B={B}: err {err}")
+                        worst = max(worst, err)
+                lines.append(f"flash_attention {str(dtype)[6:]} hd={hd} "
+                             f"causal={causal} T in 1..1024 B in 1,2 "
+                             f"max err={worst:.3g}")
+        # the prefill's layout: strided chunk(3) views of a fused product
+        qkv = torch.randn((2, 1024, 3 * 768), generator=g).to("cuda", dtype)
+        q, k, v = (t.reshape(2, 1024, 12, 64) for t in qkv.chunk(3, -1))
+        err = max_abs_err(ac.flash_attention_cuda(q, k, v, True),
+                          ac.flash_attention_reference(q, k, v, True))
+        require(err <= tol, f"flash strided {dtype}: err {err}")
+        lines.append(f"flash_attention {str(dtype)[6:]} strided qkv views "
+                     f"err={err:.3g}")
+    return lines
+
+
 # -- capture of the main path's kernel inputs ------------------------------
 
 
@@ -202,17 +243,18 @@ class Capture:
     are not copied per call: a replay reads the run's final pools, which
     hold every token the call read."""
 
-    def __init__(self, torch, pa, kc):
-        self.torch, self.pa, self.kc = torch, pa, kc
+    def __init__(self, torch, pa, kc, ac):
+        self.torch, self.pa, self.kc, self.ac = torch, pa, kc, ac
         self.calls = {"paged_attention": [], "paged_append_attend": [],
-                      "knn_scores": []}
+                      "knn_scores": [], "flash_attention": []}
         self.orig = (pa.paged_attention_cuda, pa.paged_append_attend_cuda,
-                     kc.knn_scores_cuda)
+                     kc.knn_scores_cuda, ac.flash_attention_cuda)
 
     def __enter__(self):
-        pa, kc = self.pa, self.kc
-        f_pa, f_ap, f_kn = self.orig
+        pa, kc, ac = self.pa, self.kc, self.ac
+        f_pa, f_ap, f_kn, f_fl = self.orig
         calls = self.calls
+        torch = self.torch
 
         def paged(q, k_pool, v_pool, bt, c0, cl):
             calls["paged_attention"].append(dict(
@@ -231,23 +273,36 @@ class Capture:
             calls["knn_scores"].append(dict(q=q.clone(), m=m.clone()))
             return f_kn(q, m)
 
+        def flash(q, k, v, causal=False):
+            # rebuilt as chunk(3) views of one fused buffer, the strides
+            # the prefill hands the kernel
+            B, T = q.shape[:2]
+            qkv = torch.cat([t.reshape(B, T, -1) for t in (q, k, v)], -1)
+            views = [t.reshape(q.shape) for t in qkv.chunk(3, dim=-1)]
+            calls["flash_attention"].append(dict(
+                q=views[0], k=views[1], v=views[2], causal=causal))
+            return f_fl(q, k, v, causal)
+
         pa.paged_attention_cuda = paged
         pa.paged_append_attend_cuda = append
         kc.knn_scores_cuda = scores
+        ac.flash_attention_cuda = flash
         return self
 
     def __exit__(self, *exc):
         (self.pa.paged_attention_cuda, self.pa.paged_append_attend_cuda,
-         self.kc.knn_scores_cuda) = self.orig
+         self.kc.knn_scores_cuda, self.ac.flash_attention_cuda) = self.orig
 
     def heaviest(self, name):
-        """The captured call whose contexts sum highest (attention; for
-        append, over the rows that honour its contract), or the largest
-        product (scores)."""
+        """The captured call whose contexts sum highest (paged attention;
+        for append, over the rows that honour its contract), or the
+        largest product (scores), or the longest sequence (flash)."""
         calls = self.calls[name]
         require(bool(calls), f"no {name} call captured on the main path")
         if name == "knn_scores":
             return max(calls, key=lambda c: c["q"].shape[0] * c["m"].shape[0])
+        if name == "flash_attention":
+            return max(calls, key=lambda c: c["q"].shape[0] * c["q"].shape[1])
         if name == "paged_append_attend":
             return max(calls, key=lambda c: int(c["cl"][tail_rows(c)].sum()))
         return max(calls, key=lambda c: int(c["cl"].sum()))
@@ -301,7 +356,8 @@ def bound_entry(nbytes: float, ops: float, dtype: str) -> tuple[float, str]:
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
 
 
-def time_kernels(torch, pa, kc, cap: Capture, launches: dict) -> list[dict]:
+def time_kernels(torch, pa, kc, ac, cap: Capture,
+                 launches: dict) -> list[dict]:
     out = []
     # 1. ragged paged attention (mixed step)
     call = cap.heaviest("paged_attention")
@@ -381,6 +437,33 @@ def time_kernels(torch, pa, kc, cap: Capture, launches: dict) -> list[dict]:
         bound_by=by, library_ms=cuda_time_ms(lambda: torch.matmul(q, m.T)),
         shape=f"Q={Q} N={N} d={d} float32",
     ))
+    # 4. flash attention (dense prefill), on the captured strided views
+    import torch.nn.functional as F
+
+    call = cap.heaviest("flash_attention")
+    q, k, v, causal = call["q"], call["k"], call["v"], call["causal"]
+    kern = lambda: ac.flash_attention_cuda(q, k, v, causal)  # noqa: E731
+    plain = lambda: ac.flash_attention_reference(q, k, v, causal)  # noqa: E731
+    err = max_abs_err(kern(), plain())
+    dt = str(q.dtype).split(".")[1]
+    require(err <= TOL[dt], f"flash main-path err {err}")
+    B, T, H, hd = q.shape
+    pairs = B * H * (T * (T + 1) // 2 if causal else T * T)
+    bound, by = bound_entry(4 * q.numel() * q.element_size(), 4 * hd * pairs,
+                            dt)
+    # the library call takes (B, H, T, hd): transposed before timing
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        qt, kt, vt, is_causal=causal)
+    out.append(dict(
+        name="flash_attention", route="cuda",
+        source="pathway_tpu_torch/csrc/flash_attention.cu",
+        replaces="pathway_tpu/ops/attention_pallas.py:29",
+        launches=launches["flash_attention"], max_abs_err=err,
+        ms=cuda_time_ms(kern), plain_ms=cuda_time_ms(plain), bound_ms=bound,
+        bound_by=by, library_ms=cuda_time_ms(lib),
+        shape=f"q{tuple(q.shape)} {dt} causal={causal} strided views",
+    ))
     return out
 
 
@@ -427,13 +510,15 @@ def make_docs(rng, n_docs: int, vocab_words: int = 20000):
 
 
 def dense_greedy(torch, dec, cfg, params, prompt, n_new):
-    """The port's dense plain path: prefill + decode_step."""
+    """The port's dense plain path: einsum prefill (``flash=False``, so
+    the oracle never runs the flash kernel it checks) + decode_step."""
     n = len(prompt)
     T = -(-(n + n_new) // 64) * 64
     buf = torch.zeros((1, T), dtype=torch.long, device="cuda")
     buf[0, :n] = torch.tensor(prompt, device="cuda")
     logits, cache = dec.prefill(params, cfg, buf,
-                                torch.tensor([n], device="cuda"))
+                                torch.tensor([n], device="cuda"),
+                                flash=False)
     out = [int(dec.greedy(logits)[0])]
     pos = n
     for _ in range(n_new - 1):
@@ -442,6 +527,22 @@ def dense_greedy(torch, dec, cfg, params, prompt, n_new):
         out.append(int(dec.greedy(logits)[0]))
         pos += 1
     return out
+
+
+def first_token_ms(torch, dec, lm, prompt: str, n_new: int) -> float:
+    """Time to first token of one ``generate`` request: its prefill at
+    the bucket ``generate`` pads it to, and the first id on the host."""
+    ids = lm.encode_prompts([prompt], n_new)[0]
+    L = lm._bucket(len(ids) + n_new)
+    ids = ids[-max(L - n_new, 1):] if len(ids) + n_new > L else ids
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    buf = torch.zeros((1, L), dtype=torch.long)
+    buf[0, : len(ids)] = torch.tensor(ids)
+    logits, _ = dec.prefill(lm.dense_params(), lm.cfg, buf.to("cuda"),
+                            torch.tensor([len(ids)], device="cuda"))
+    int(dec.greedy(logits)[0])
+    return (time.perf_counter() - t0) * 1e3
 
 
 def main() -> int:
@@ -462,9 +563,11 @@ def main() -> int:
     log(f"python {sys.version.split()[0]} torch {torch.__version__} "
         f"cuda {torch.version.cuda}")
     from pathway_tpu_torch.kvcache import paged_attention as pa
+    from pathway_tpu_torch.kvcache.engine import PagedDecodeEngine
     from pathway_tpu_torch.models import decoder as dec
     from pathway_tpu_torch.models.encoder import EncoderConfig, TorchEncoder
     from pathway_tpu_torch.ops import _cuda
+    from pathway_tpu_torch.ops import attention_cuda as ac
     from pathway_tpu_torch.ops import knn_cuda as kc
     from pathway_tpu_torch.ops.knn import metric_scores
     from pathway_tpu_torch.stdlib.indexing.inner_index import BruteForceKnn
@@ -494,7 +597,8 @@ def main() -> int:
                         chain_steps=8)
     prefill_chunk = 2 * engine_sizes["block_size"]
     for line in (check_paged_attention(torch, pa, g, prefill_chunk)
-                 + check_append(torch, pa, g) + check_knn(torch, kc, g)):
+                 + check_append(torch, pa, g) + check_knn(torch, kc, g)
+                 + check_flash(torch, ac, g)):
         log("  " + line)
     log("phase 2 ok: kernels agree with their plain versions")
 
@@ -520,7 +624,7 @@ def main() -> int:
     q_docs = rng.integers(0, N_DOCS, size=N_QUERIES)
     queries = [" ".join(docs[j].split()[5:17]) for j in q_docs]
 
-    cap = Capture(torch, pa, kc)
+    cap = Capture(torch, pa, kc, ac)
     main_launches = {}
     _cuda.reset_launches()
     with cap:
@@ -576,18 +680,48 @@ def main() -> int:
     require(f32_launches.get("paged_attention", 0) > 0
             and f32_launches.get("paged_append_attend", 0) > 0,
             f"f32 engine run launched {f32_launches}")
-    for i, (ids, _n) in enumerate(reqs):
-        want = dense_greedy(torch, dec, cfg32, eng32.params, ids,
-                            NEW_TOKENS)
+    dense = [dense_greedy(torch, dec, cfg32, eng32.params, ids, NEW_TOKENS)
+             for ids, _n in reqs]
+    for i, want in enumerate(dense):
         require(toks32[i] == want,
                 f"prompt {i}: paged f32 tokens {toks32[i]} != dense {want}")
     log(f"phase 4 f32 ok: {len(reqs)} prompts of "
         f"{[len(r[0]) for r in reqs]} tokens match the dense path; "
         f"rounds {eng32.rounds}")
+    del eng32
+
+    # phase 4b, f32: the single-stream generator and the whole-bucket
+    # engine give the dense plain path's tokens, through the flash kernel
+    _cuda.reset_launches()
+    single32 = [[int(t.strip("<>")) for t in
+                 lm32.generate(p, NEW_TOKENS, fused=True).split()]
+                for p in prompts]
+    torch.cuda.synchronize()
+    require(_cuda.LAUNCHES["flash_attention"] > 0,
+            f"f32 generate launched {dict(_cuda.LAUNCHES)}")
+    for i, want in enumerate(dense):
+        require(single32[i] == want,
+                f"prompt {i}: generate f32 tokens {single32[i]} != {want}")
+    whole32 = PagedDecodeEngine(cfg32, lm32.params, chunked_prefill=False,
+                                device="cuda", **engine_sizes)
+    _cuda.reset_launches()
+    toks_whole = whole32.generate_batch(reqs)
+    torch.cuda.synchronize()
+    whole_launches = dict(_cuda.LAUNCHES)
+    require(whole_launches.get("flash_attention", 0) > 0
+            and whole_launches.get("paged_append_attend", 0) > 0,
+            f"whole-bucket f32 engine launched {whole_launches}")
+    for i, want in enumerate(dense):
+        require(toks_whole[i] == want,
+                f"prompt {i}: whole-bucket f32 tokens {toks_whole[i]} != "
+                f"{want}")
+    log(f"phase 4b f32 ok: generate(fused=True) and the whole-bucket "
+        f"engine match the dense path for {len(dense)} prompts; engine "
+        f"rounds {whole32.rounds}, launches {whole_launches}")
 
     cfg16 = dec.DecoderConfig(**GPT2_SMALL)
     lm16 = dec.TorchDecoderLM(cfg16, params=lm32.params, device="cuda")
-    del eng32, lm32
+    del whole32, lm32
     eng16 = lm16.paged_engine(**engine_sizes)
     require(eng16.dtype == torch.bfloat16, "bf16 engine")
     # a first pass over the same requests warms the allocator and cuBLAS
@@ -615,8 +749,30 @@ def main() -> int:
     log(f"phase 4 bf16 ok: {n_gen} tokens in {t_gen:.3f}s; "
         f"{agree:.3f} of tokens equal the f32 run; rounds {eng16.rounds}")
 
+    # phase 4b, bf16: single-stream generate, one prompt at a time.  A
+    # first pass warms up and keeps the flash calls' inputs; the timed
+    # run copies nothing
+    with cap:
+        for p in prompts:
+            lm16.generate(p, NEW_TOKENS)
+    torch.cuda.synchronize()
+    _cuda.reset_launches()
+    t0 = time.perf_counter()
+    singles = [lm16.generate(p, NEW_TOKENS) for p in prompts]
+    torch.cuda.synchronize()
+    t_single = time.perf_counter() - t0
+    main_launches["flash_attention"] = _cuda.LAUNCHES["flash_attention"]
+    require(main_launches["flash_attention"] > 0,
+            "single-stream generation never launched flash_attention")
+    n_single = sum(len(s.split()) for s in singles)
+    require(n_single == NEW_TOKENS * len(prompts), "bf16 generate output")
+    ttft = [first_token_ms(torch, dec, lm16, p, NEW_TOKENS) for p in prompts]
+    log(f"phase 4b bf16 ok: {n_single} tokens in {t_single:.3f}s one "
+        f"prompt at a time; time to first token p50 "
+        f"{statistics.median(ttft):.2f} ms")
+
     # phase 5: numbers
-    kernels = time_kernels(torch, pa, kc, cap, main_launches)
+    kernels = time_kernels(torch, pa, kc, ac, cap, main_launches)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"generation_profile": profile_generation(
         torch, lm16, prompts, NEW_TOKENS, t_gen)}), flush=True)
@@ -629,6 +785,8 @@ def main() -> int:
             "query_top1_is_source": recall1,
             "generated_tokens": n_gen,
             "generated_tokens_per_s_bf16": n_gen / t_gen,
+            "single_stream_generated_tokens_per_s_bf16": n_single / t_single,
+            "single_stream_ttft_p50_ms": statistics.median(ttft),
             "prompt_tokens": [len(r[0]) for r in reqs],
             "bf16_f32_token_agreement": agree,
             "decoder_layers": GPT2_SMALL["n_layers"],

@@ -1,9 +1,10 @@
 """PyTorch/CUDA port of ``pathway_tpu``'s RAG serving path.
 
 The generation half (``kvcache.engine.PagedDecodeEngine`` over the paged
-KV cache) and the retrieval half (``models.encoder.TorchEncoder`` plus
+KV cache, and ``models.decoder.TorchDecoderLM.generate`` over a dense
+one) and the retrieval half (``models.encoder.TorchEncoder`` plus
 ``stdlib.indexing.inner_index.BruteForceKnn``) run on one NVIDIA H100.
-The three TPU kernels on that path are hand-written CUDA kernels under
+The four TPU kernels on that path are hand-written CUDA kernels under
 ``csrc/``, built with ``nvcc`` at first launch (``ops/_cuda.py``).
 
 The package imports ``torch`` and nothing of JAX or ``pathway_tpu``;

@@ -11,6 +11,11 @@ its default configuration:
   kernel) in ``prefill_chunk``-token chunks packed beside the in-flight
   decode rows — an arrival never stalls running decodes behind a
   monolithic prefill;
+- admission (``chunked_prefill=False``): the prompt is prefilled whole,
+  padded to its ``seq_buckets`` bucket, by ONE dense pass
+  (``models/decoder.paged_prefill``; the flash-attention kernel on the
+  card for buckets >= 256) whose K/V is scattered into the sequence's
+  blocks, and its greedy first token is emitted at admission;
 - decode: rows with no chunk in flight advance one token per step
   (``paged_decode_step``, the append+attend kernel), or, when the queue
   is quiet, up to ``chain_steps`` greedy steps per dispatch
@@ -46,7 +51,8 @@ import torch
 
 from .._device import resolve_device, resolve_dtype
 from ..models.decoder import (greedy, paged_chained_decode, paged_decode_step,
-                              paged_mixed_step, plan_decode_params)
+                              paged_mixed_step, paged_prefill,
+                              plan_decode_params)
 from ..models.encoder import params_to
 from .block_pool import BlockPool, PoolExhausted
 from .prefix_cache import PrefixCache
@@ -100,7 +106,7 @@ class PagedDecodeEngine:
                  max_batch_size: int = 8, seq_buckets=(64, 256, 1024),
                  prefix_sharing: bool = True, stop_token: int | None = None,
                  prefill_chunk: int | None = None, chain_steps: int = 8,
-                 device="cuda"):
+                 chunked_prefill: bool = True, device="cuda"):
         self.device = resolve_device(device)
         self.cfg = cfg
         self.stop_token = stop_token
@@ -127,6 +133,7 @@ class PagedDecodeEngine:
         self.seq_buckets = sorted({
             min(-(-b // bs) * bs, bucket_cap) for b in seq_buckets
         }) or [bucket_cap]
+        self.chunked_prefill = bool(chunked_prefill)
         # chunk width: block-aligned, default two blocks per step
         if prefill_chunk is None:
             prefill_chunk = 2 * bs
@@ -136,7 +143,7 @@ class PagedDecodeEngine:
         # costs one token, the rest is chunk headroom
         self.mixed_tokens = self.max_batch_size + self.prefill_chunk
         self.chain_steps = max(1, int(chain_steps))
-        self.rounds = {"mixed": 0, "decode": 0, "chain": 0}
+        self.rounds = {"mixed": 0, "decode": 0, "chain": 0, "prefill": 0}
         self._seq_counter = 0
         self._lock = threading.RLock()
         # chain key -> (writer _Active, physical block) for blocks an
@@ -292,9 +299,10 @@ class PagedDecodeEngine:
     # -- admission ---------------------------------------------------------
     def _try_admit(self, req: _Request, running, deliver) -> str:
         """Allocate one request's blocks and queue its prompt for chunked
-        streaming (no device work).  Returns "admitted", "done" (nothing
-        to generate), "failed" (delivered as an error) or "wait" (pool
-        full while other sequences run)."""
+        streaming (no device work), or, with ``chunked_prefill=False``,
+        prefill it whole (:meth:`_prefill_whole`).  Returns "admitted",
+        "done" (nothing left to generate), "failed" (delivered as an
+        error) or "wait" (pool full while other sequences run)."""
         if req.max_new - len(req.emitted) <= 0:
             deliver(req)
             return "done"
@@ -340,6 +348,9 @@ class PagedDecodeEngine:
                         f"{n}-token sequence"
                     ))
                     return "failed"
+        if not self.chunked_prefill:
+            return self._prefill_whole(req, seq_id, tokens, shared, keys,
+                                       running, deliver)
         act = _Active(seq_id, req)
         act.tokens = tokens
         # shared leading blocks need no recompute, but the prompt's LAST
@@ -354,6 +365,50 @@ class PagedDecodeEngine:
                                 state.block_ids[len(shared):len(keys)]):
                 self._inflight_prefix.setdefault(key, (act, blk))
         running.append(act)
+        return "admitted"
+
+    def _prefill_whole(self, req: _Request, seq_id: int, tokens, shared,
+                       keys, running, deliver) -> str:
+        """Whole-bucket admission (``chunked_prefill=False``): ONE dense
+        prefill of the prompt padded to its bucket (the flash kernel on
+        the card for buckets >= 256), its K/V scattered into the
+        sequence's blocks, and the greedy first token emitted.  The
+        prefix-shared leading blocks already hold the right K/V: their
+        scatter goes to the null block instead of rewriting them (a live
+        sequence may be reading them, and a rewrite from another bucket
+        need not be bit-identical)."""
+        n = len(tokens)
+        seq = self.pool.sequence(seq_id)
+        try:
+            bucket = next(b for b in self.seq_buckets if b >= n)
+            buf = np.zeros((1, bucket), np.int64)
+            buf[0, :n] = tokens
+            scatter_bt = np.zeros((1, bucket // self.pool.block_size),
+                                  np.int32)
+            scatter_bt[0, : len(seq.block_ids)] = seq.block_ids
+            scatter_bt[0, : len(shared)] = 0
+            logits, _, _ = paged_prefill(
+                self.params, self.cfg, self._dev(buf),
+                self._dev(np.array([n], np.int64)), self.pool.k,
+                self.pool.v, self._dev(scatter_bt),
+            )
+            first = int(greedy(logits)[0])
+            self.rounds["prefill"] += 1
+            if self.prefix is not None:
+                # insert() keeps only the full-block keys: the partial
+                # tail block (the decode-write target) is never shared
+                self.prefix.insert(keys, seq.block_ids)
+        except BaseException:
+            # not yet in `running`: the loop's failure cleanup cannot see
+            # this sequence, so free its blocks here
+            self.pool.free_sequence(seq_id)
+            raise
+        req.emitted.append(first)
+        if self._is_done(req, seq_id):
+            self.pool.free_sequence(seq_id)
+            deliver(req)
+            return "done"
+        running.append(_Active(seq_id, req))
         return "admitted"
 
     # -- stepping ----------------------------------------------------------

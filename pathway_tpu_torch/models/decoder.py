@@ -3,10 +3,11 @@ no quantization, greedy).
 
 Plain functions on the JAX package's parameter-dict layout, so the same
 weights run in both (``models/convert.py``).  Attention on the paged
-path goes through ``kvcache/paged_attention.py``: the CUDA kernels for
-CUDA tensors, the plain version for CPU tensors.  The paged steps update
-the pools IN PLACE (the JAX package returns new, donated arrays) and
-return them for symmetry with the JAX signatures.
+path goes through ``kvcache/paged_attention.py``, the dense prefill's
+(``flash``) through ``ops/attention_cuda.py``: the CUDA kernels for CUDA
+tensors, the plain versions for CPU tensors.  The paged steps update the
+pools IN PLACE (the JAX package returns new, donated arrays) and return
+them for symmetry with the JAX signatures.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ from typing import Any
 import torch
 
 from .._device import resolve_device, resolve_dtype
+from ..ops.attention_cuda import flash_attention
 from .encoder import (EncoderConfig, _act, _layer_norm, _proj, init_params,
                       params_to)
 
@@ -115,20 +117,29 @@ def plan_decode_params(cfg: DecoderConfig, params: dict) -> dict:
 
 
 def prefill(params: dict, cfg: DecoderConfig, token_ids: torch.Tensor,
-            n_valid: torch.Tensor):
+            n_valid: torch.Tensor, *, flash: bool | None = None):
     """Dense full-context forward over the (padded) prompt: returns the
     logits at position ``n_valid - 1`` and the per-layer K/V cache
-    (``{"k", "v"}`` of shape (B, T, H, hd)).  The plain einsum path (the
-    JAX package's ``flash=False``): the in-port identity oracle."""
+    (``{"k", "v"}`` of shape (B, T, H, hd)).
+
+    ``flash`` routes attention through ``ops/attention_cuda.
+    flash_attention`` (the CUDA kernel on the card, reading the fused QKV
+    product's q/k/v views in place); default: on the card for T >= 256,
+    as the JAX package defaults to its Pallas kernel on the TPU.
+    ``flash=False`` is the plain einsum path, the in-port identity
+    oracle."""
     dtype = resolve_dtype(cfg.dtype, token_ids.device)
     B, T = token_ids.shape
     hd = cfg.d_model // cfg.n_heads
+    if flash is None:
+        flash = token_ids.device.type == "cuda" and T >= 256
     x = _embed_rows(params["embed"].to(dtype), token_ids)
     x = x + params["pos_embed"].to(dtype)[:T][None, :, :]
     eps = cfg.ln_eps
     act = _act_fn(cfg)
-    causal = torch.tril(torch.ones((T, T), dtype=torch.bool,
-                                   device=token_ids.device))
+    if not flash:
+        causal = torch.tril(torch.ones((T, T), dtype=torch.bool,
+                                       device=token_ids.device))
     cache = []
     for layer in params["layers"]:
         h = _layer_norm(x, layer["ln1_scale"], layer["ln1_bias"], eps)
@@ -137,10 +148,13 @@ def prefill(params: dict, cfg: DecoderConfig, token_ids: torch.Tensor,
         k = k.reshape(B, T, -1, hd)
         v = v.reshape(B, T, -1, hd)
         cache.append({"k": k, "v": v})
-        scores = torch.einsum("bqhd,bkhd->bhqk", q, k) / math.sqrt(hd)
-        scores = scores.masked_fill(~causal[None, None], -1e9)
-        probs = torch.softmax(scores.float(), dim=-1).to(h.dtype)
-        a = torch.einsum("bhqk,bkhd->bqhd", probs, v).reshape(B, T, -1)
+        if flash:
+            a = flash_attention(q, k, v, causal=True).reshape(B, T, -1)
+        else:
+            scores = torch.einsum("bqhd,bkhd->bhqk", q, k) / math.sqrt(hd)
+            scores = scores.masked_fill(~causal[None, None], -1e9)
+            probs = torch.softmax(scores.float(), dim=-1).to(h.dtype)
+            a = torch.einsum("bhqk,bkhd->bqhd", probs, v).reshape(B, T, -1)
         x = x + _row_proj(layer, a, "wo", "bo")
         h = _layer_norm(x, layer["ln2_scale"], layer["ln2_bias"], eps)
         ff = act(_proj_p(layer, h, "w_up", "b_up"))
@@ -154,7 +168,8 @@ def decode_step(params: dict, cfg: DecoderConfig, cache: list[dict],
                 token: torch.Tensor, pos: int):
     """One incremental token: (B,) ids at position ``pos`` -> (B, V)
     logits; the dense cache is updated in place at ``pos`` and returned.
-    Attention reads the cache rows <= pos only."""
+    Attention reads the cache rows <= pos only.  ``pos`` is an int or a
+    0-dim tensor on the device (the fused loop keeps it there)."""
     dtype = resolve_dtype(cfg.dtype, token.device)
     B = token.shape[0]
     H = cfg.n_heads
@@ -182,6 +197,68 @@ def decode_step(params: dict, cfg: DecoderConfig, cache: list[dict],
         x = x + _proj(layer, ff, "w_down", "b_down")
     x = _layer_norm(x, params["ln_f_scale"], params["ln_f_bias"], eps)
     return _head_out(_head_weight(params), x[:, 0, :]), cache
+
+
+def generate_tokens_fused(params: dict, cfg: DecoderConfig,
+                          token_ids: torch.Tensor, n_valid: torch.Tensor,
+                          max_new: int, stop_token: int | None):
+    """Prefill + the whole greedy decode loop with no host sync per token
+    (the JAX package's one-program ``lax.while_loop``).  Returns device
+    tensors ``(out (B, max_new) int32, n_steps int32)`` for the caller to
+    fetch once.
+
+    The loop's exit — every row done (its stop token emitted) or the
+    cache full (``pos == L``) — is computed on the device: the host
+    issues all ``max_new - 1`` steps, and a step past the exit neither
+    writes ``out`` (its columns stay 0, as in the JAX package) nor counts
+    in ``n_steps``; its position is clamped inside the cache.  All rows
+    share the prompt length, as the JAX package's host wrapper asserts."""
+    B, L = token_ids.shape
+    dev = token_ids.device
+    logits, cache = prefill(params, cfg, token_ids, n_valid)
+    tok = greedy(logits)
+    out = torch.zeros((B, max_new), dtype=torch.int32, device=dev)
+    out[:, 0] = tok
+    if stop_token is not None:
+        done = tok == stop_token
+    else:
+        done = torch.zeros(B, dtype=torch.bool, device=dev)
+    pos = n_valid.to(dev).max().long()
+    n_steps = torch.ones((), dtype=torch.int32, device=dev)
+    for step in range(1, max_new):
+        live = ~done.all() & (pos < L)
+        logits, cache = decode_step(params, cfg, cache, tok,
+                                    torch.clamp(pos, max=L - 1))
+        tok = greedy(logits)
+        out[:, step] = torch.where(live, tok, out[:, step])
+        if stop_token is not None:
+            done = done | (live & (tok == stop_token))
+        n_steps += live
+        pos = pos + 1
+    return out, n_steps
+
+
+def paged_prefill(params: dict, cfg: DecoderConfig, token_ids: torch.Tensor,
+                  n_valid: torch.Tensor, k_pool: torch.Tensor,
+                  v_pool: torch.Tensor, block_tables: torch.Tensor, *,
+                  flash: bool | None = None):
+    """Prefill through the paged KV cache: the dense :func:`prefill` (so
+    the prompt's logits are those of the dense path), then each layer's
+    K/V scattered into the pool blocks ``block_tables`` names, IN PLACE.
+
+    token_ids: (B, T), T a multiple of the pool's block size; pools
+    (n_layers, num_blocks, block_size, H, hd); block_tables (B, T //
+    block_size) int, padded with the null block 0 — padding rows write
+    there, and block 0 is never read.  Returns ``(logits, k_pool,
+    v_pool)``."""
+    logits, cache = prefill(params, cfg, token_ids, n_valid, flash=flash)
+    B, T = token_ids.shape
+    BS, H, hd = k_pool.shape[2:]
+    bt = block_tables.long()
+    for li, kv in enumerate(cache):
+        k_pool[li][bt] = kv["k"].reshape(B, T // BS, BS, H, hd)
+        v_pool[li][bt] = kv["v"].reshape(B, T // BS, BS, H, hd)
+    return logits, k_pool, v_pool
 
 
 def paged_decode_step(params: dict, cfg: DecoderConfig, k_pool, v_pool,
@@ -299,11 +376,17 @@ def paged_chained_decode(params: dict, cfg: DecoderConfig, k_pool, v_pool,
 
 
 class TorchDecoderLM:
-    """Host-facing text generator over the paged engine (counterpart of
-    ``JaxDecoderLM``'s batched path)."""
+    """Host-facing text generator (counterpart of ``JaxDecoderLM``):
+    :meth:`generate` for one prompt over the dense cache, and
+    :meth:`generate_batch` over the paged engine."""
+
+    # max_new bucketing of the fused tier (the JAX package compiles one
+    # program per (seq bucket, new bucket, stop); here it bounds the loop)
+    new_buckets = (16, 32, 64, 128, 256)
 
     def __init__(self, cfg: DecoderConfig | None = None, seed: int = 0,
-                 params: dict | None = None, tokenizer=None, device="cuda"):
+                 params: dict | None = None, tokenizer=None, device="cuda",
+                 seq_buckets=(64, 256, 1024)):
         self.device = resolve_device(device)
         self.cfg = cfg or DecoderConfig()
         self.params = (params if params is not None
@@ -313,7 +396,10 @@ class TorchDecoderLM:
 
             tokenizer = HashTokenizer(self.cfg.vocab_size)
         self.tokenizer = tokenizer
+        self.seq_buckets = [b for b in seq_buckets
+                            if b <= self.cfg.max_len] or [self.cfg.max_len]
         self._engine = None
+        self._dense = None
 
     def paged_engine(self, **kwargs):
         """The paged decode engine over this LM's weights, built on first
@@ -329,12 +415,97 @@ class TorchDecoderLM:
         self._engine = (self.params, eng)
         return eng
 
+    def dense_params(self) -> dict:
+        """The decode plan :meth:`generate` runs with: fused ``wqkv`` and
+        ``embed_t`` (exact), on this LM's device in the compute dtype,
+        built on first use and keyed on the params object."""
+        if self._dense is not None and self._dense[0] is self.params:
+            return self._dense[1]
+        dtype = resolve_dtype(self.cfg.dtype, self.device)
+        plan = params_to(plan_decode_params(self.cfg, self.params),
+                         self.device, dtype)
+        self._dense = (self.params, plan)
+        return plan
+
     def encode_prompts(self, prompts: list[str], max_new_tokens: int):
         """Token ids per prompt, trimmed to leave room for every new
         token (the JAX package's trimming rule)."""
         keep = self.cfg.max_len - max_new_tokens
         return [self.tokenizer.encode(p)[-max(keep, 1):] or [4]
                 for p in prompts]
+
+    def _bucket(self, n: int) -> int:
+        for b in self.seq_buckets:
+            if n <= b:
+                return b
+        return self.seq_buckets[-1]
+
+    def _decode_out(self, out: list[int]) -> str:
+        if hasattr(self.tokenizer, "decode"):
+            return self.tokenizer.decode(out)
+        # the hash tokenizer cannot invert ids: each comes back as "<id>"
+        return " ".join(f"<{t}>" for t in out)
+
+    def generate(self, prompt: str, max_new_tokens: int = 32,
+                 stop_token: int | None = None,
+                 fused: bool | str = "auto") -> str:
+        """Greedy completion of one prompt over the dense cache, padded
+        to its sequence bucket.  ``fused=True`` (and ``"auto"``, the JAX
+        package's choice on the accelerator) runs
+        :func:`generate_tokens_fused`: prefill plus the whole decode loop
+        with one host fetch at the end.  ``fused=False`` is the stepwise
+        tier, one ``decode_step`` and one id fetch per token."""
+        if fused == "int8":
+            raise NotImplementedError(
+                "fused='int8' (the int8 host tier) is not ported yet: "
+                "ROADMAP queue A item 6"
+            )
+        if fused == "auto":
+            fused = True
+        ids = self.encode_prompts([prompt], max_new_tokens)[0]
+        L = self._bucket(len(ids) + max_new_tokens)
+        if len(ids) + max_new_tokens > L:
+            # largest bucket smaller than prompt+completion: keep the most
+            # recent context that still leaves room for every new token
+            ids = ids[-max(L - max_new_tokens, 1):]
+        n = len(ids)
+        buf = torch.zeros((1, L), dtype=torch.long)
+        buf[0, :n] = torch.tensor(ids)
+        buf = buf.to(self.device)
+        n_valid = torch.tensor([n], device=self.device)
+        params = self.dense_params()
+        if fused:
+            new_b = next(
+                (b for b in self.new_buckets if max_new_tokens <= b),
+                # beyond the largest bucket: round up to a 64-multiple
+                -(-max_new_tokens // 64) * 64,
+            )
+            new_b = min(new_b, L - n) or 1
+            tokens, n_steps = generate_tokens_fused(
+                params, self.cfg, buf, n_valid, new_b, stop_token)
+            # the one host fetch: the ids and the step count together
+            got = torch.cat([tokens[0], n_steps.reshape(1)]).tolist()
+            toks = got[:-1][: got[-1]][:max_new_tokens]
+            out = []
+            for t in toks:
+                out.append(t)
+                if stop_token is not None and t == stop_token:
+                    break
+            return self._decode_out(out)
+        logits, kv = prefill(params, self.cfg, buf, n_valid)
+        out = [int(greedy(logits)[0])]
+        for _ in range(max_new_tokens - 1):
+            nxt = out[-1]
+            if stop_token is not None and nxt == stop_token:
+                break
+            if n >= L:
+                break
+            logits, kv = decode_step(
+                params, self.cfg, kv,
+                torch.tensor([nxt], device=self.device), n)
+            n += 1
+            out.append(int(greedy(logits)[0]))
+        return self._decode_out(out)
 
     def generate_batch(self, prompts: list[str], max_new_tokens: int = 32,
                        stop_token: int | None = None) -> list[str]:
@@ -344,12 +515,12 @@ class TorchDecoderLM:
         reqs = [(ids, max_new_tokens)
                 for ids in self.encode_prompts(prompts, max_new_tokens)]
         outs = self.paged_engine().generate_batch(reqs, stop_token=stop_token)
-        # the hash tokenizer cannot invert ids: each comes back as "<id>"
-        return [" ".join(f"<{t}>" for t in toks) for toks in outs]
+        return [self._decode_out(toks) for toks in outs]
 
 
 __all__ = [
-    "DecoderConfig", "TorchDecoderLM", "decode_step", "greedy",
-    "init_decoder_params", "paged_chained_decode", "paged_decode_step",
-    "paged_mixed_step", "params_to", "plan_decode_params", "prefill",
+    "DecoderConfig", "TorchDecoderLM", "decode_step",
+    "generate_tokens_fused", "greedy", "init_decoder_params",
+    "paged_chained_decode", "paged_decode_step", "paged_mixed_step",
+    "paged_prefill", "params_to", "plan_decode_params", "prefill",
 ]

@@ -32,7 +32,14 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 #: source file -> {C function name: argtypes}
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_L = ctypes.c_longlong
 SOURCES = {
+    "flash_attention.cu": {
+        # q, k, v, out; B, T, H, hd; (batch, token, head) strides of q, k
+        # and v in elements; causal, dtype; scale; stream
+        "pw_flash_attention": [_P] * 4 + [_I] * 4 + [_L] * 9 + [_I] * 2
+                              + [_F, _P],
+    },
     "paged_attention.cu": {
         # q, k_pool, v_pool, out, block_tables, c0, cl;
         # B, C, H, hd, BS, NBT, dtype; scale; stream

@@ -214,3 +214,162 @@ def test_paged_chained_decode_matches_jax(weights):
 def test_greedy_ties_go_to_the_smallest_id():
     logits = torch.tensor([[0.0, 2.0, 2.0, 1.0], [5.0, 5.0, 5.0, 5.0]])
     assert tdec.greedy(logits).tolist() == [1, 0]
+
+
+@pytest.mark.parametrize("plan", [False, True])
+def test_prefill_flash_and_einsum_match_jax(weights, plan):
+    # flash=True takes the plain flash version on the CPU in both
+    # packages (the JAX package's XLA fallback); the plan hands the
+    # flash path strided q/k/v views of the fused QKV product
+    pj, pt = weights
+    if plan:
+        pj = jdec.plan_decode_params(CFG_J, pj)
+        pt = tdec.plan_decode_params(CFG_T, pt)
+    rng = np.random.default_rng(5)
+    ids = rng.integers(4, WIDTHS["vocab_size"], size=(2, 40)).astype(np.int32)
+    n_valid = np.array([40, 23], np.int32)
+    ref = None
+    for flash in (True, False):
+        lj, cj = jdec.prefill(pj, CFG_J, *_j(ids, n_valid), flash=flash)
+        lt, ct = tdec.prefill(pt, CFG_T, *_t(ids.astype(np.int64), n_valid),
+                              flash=flash)
+        np.testing.assert_allclose(lt.numpy(), np.asarray(lj), **TOL)
+        for a, b in zip(cj, ct):
+            np.testing.assert_allclose(b["k"].numpy(), np.asarray(a["k"]),
+                                       **TOL)
+            np.testing.assert_allclose(b["v"].numpy(), np.asarray(a["v"]),
+                                       **TOL)
+        np.testing.assert_array_equal(tdec.greedy(lt).numpy(),
+                                      np.asarray(jnp.argmax(lj, axis=-1)))
+        if ref is None:
+            ref = lt
+        else:  # flash and einsum agree inside the port too
+            np.testing.assert_allclose(lt.numpy(), ref.numpy(), **TOL)
+
+
+def test_prefill_flash_default_is_the_card_only(weights, monkeypatch):
+    # on CPU tensors the default is the einsum path whatever T is
+    calls = []
+    orig = tdec.flash_attention
+    monkeypatch.setattr(tdec, "flash_attention",
+                        lambda *a, **k: calls.append(1) or orig(*a, **k))
+    ids = torch.zeros((1, 128), dtype=torch.long)
+    tdec.prefill(weights[1], CFG_T, ids, torch.tensor([5]))
+    assert not calls
+    tdec.prefill(weights[1], CFG_T, ids, torch.tensor([5]), flash=True)
+    assert len(calls) == WIDTHS["n_layers"]
+
+
+def test_paged_prefill_matches_jax(weights):
+    pj, pt = weights
+    pj = jdec.plan_decode_params(CFG_J, pj)
+    pt = tdec.plan_decode_params(CFG_T, pt)
+    kp, vp, rng = _pools(6)
+    B, T = 2, 4 * BS
+    ids = rng.integers(4, WIDTHS["vocab_size"], size=(B, T)).astype(np.int32)
+    n_valid = np.array([T, 11], np.int32)
+    blocks = rng.permutation(NBLK - 1)[:6] + 1
+    bt = np.array([blocks[:4], [blocks[4], blocks[5], 0, 0]], np.int32)
+    for flash in (False, True):
+        lj, kj, vj = jdec.paged_prefill(pj, CFG_J, *_j(ids, n_valid, kp, vp,
+                                                       bt), flash=flash)
+        kt, vt = _t(kp, vp)
+        lt, kt2, vt2 = tdec.paged_prefill(
+            pt, CFG_T, *_t(ids.astype(np.int64), n_valid), kt, vt,
+            torch.from_numpy(bt), flash=flash)
+        assert kt2 is kt and vt2 is vt  # in place
+        np.testing.assert_allclose(lt.numpy(), np.asarray(lj), **TOL)
+        # block 0 takes the padding rows' writes and is never read
+        np.testing.assert_allclose(kt.numpy()[:, 1:], np.asarray(kj)[:, 1:],
+                                   **TOL)
+        np.testing.assert_allclose(vt.numpy()[:, 1:], np.asarray(vj)[:, 1:],
+                                   **TOL)
+        # the blocks the tables name were written; the others kept
+        untouched = np.setdiff1d(np.arange(1, NBLK), blocks)
+        np.testing.assert_array_equal(kt.numpy()[:, untouched],
+                                      kp[:, untouched])
+
+
+# (B, max_new, stop): no stop; a stop token one row emits mid-run; every
+# row stopping (the loop exits early); max_new past the cache (exit at
+# pos == L)
+@pytest.mark.parametrize("case", [(2, 8, None), (2, 8, "row0"),
+                                  (1, 8, "row0"), (1, 12, None)])
+def test_generate_tokens_fused_matches_jax(weights, case):
+    pj, pt = weights
+    B, max_new, stop = case
+    rng = np.random.default_rng(8)
+    L = 32
+    n = 26 if max_new == 12 else 20
+    ids = np.zeros((B, L), np.int32)
+    ids[:, :n] = rng.integers(4, WIDTHS["vocab_size"], size=(B, n))
+    n_valid = np.full(B, n, np.int32)
+    if stop == "row0":
+        free_j, _ = jdec.generate_tokens_fused(pj, CFG_J, *_j(ids, n_valid),
+                                               max_new, None)
+        stop = int(np.asarray(free_j)[0, 3])
+    out_j, steps_j = jdec.generate_tokens_fused(pj, CFG_J, *_j(ids, n_valid),
+                                                max_new, stop)
+    out_t, steps_t = tdec.generate_tokens_fused(
+        pt, CFG_T, *_t(ids.astype(np.int64), n_valid), max_new, stop)
+    steps = int(steps_j)
+    assert int(steps_t) == steps
+    np.testing.assert_array_equal(out_t.numpy()[:, :steps],
+                                  np.asarray(out_j)[:, :steps])
+    if case == (1, 8, "row0"):
+        assert steps <= 4  # stopped early
+    if max_new == 12:
+        assert steps == L - n + 1  # the cache filled up
+
+
+LONG = dict(WIDTHS, max_len=320)  # buckets 64 and 256 (1024 is capped off)
+
+
+@pytest.fixture(scope="module")
+def long_lms():
+    rng = np.random.default_rng(9)
+    tree = _np_params(0)
+    tree["pos_embed"] = (0.1 * rng.standard_normal(
+        (LONG["max_len"], WIDTHS["d_model"]))).astype(np.float32)
+    cfg_j, cfg_t = jdec.DecoderConfig(**LONG), tdec.DecoderConfig(**LONG)
+    jax_lm = jdec.JaxDecoderLM(cfg_j, params=jax.tree_util.tree_map(
+        jnp.asarray, tree))
+    lm = tdec.TorchDecoderLM(
+        cfg_t, params=decoder_params_from_numpy(tree, cfg_t, device="cpu"),
+        device="cpu")
+    return jax_lm, lm
+
+
+def _words(n, seed):
+    rng = np.random.default_rng(seed)
+    return " ".join(f"w{i}" for i in rng.integers(0, 5000, n))
+
+
+# (prompt words, max_new): bucket 64; bucket 256; a prompt trimmed to
+# fit the largest bucket; a max_new past the largest new bucket
+@pytest.mark.parametrize("n_words,max_new", [(20, 8), (120, 6), (300, 8),
+                                             (40, 20)])
+def test_generate_fused_and_stepwise_match_jax(long_lms, n_words, max_new):
+    jax_lm, lm = long_lms
+    prompt = _words(n_words, n_words)
+    n_ids = len(lm.encode_prompts([prompt], max_new)[0])
+    assert lm._bucket(n_ids + max_new) == (64 if n_words <= 40 else 256)
+    want = jax_lm.generate(prompt, max_new, fused=False)
+    assert jax_lm.generate(prompt, max_new, fused=True) == want
+    assert lm.generate(prompt, max_new, fused=True) == want
+    assert lm.generate(prompt, max_new, fused=False) == want
+    assert lm.generate(prompt, max_new) == want  # "auto" is the fused tier
+    assert len(want.split()) == max_new
+
+
+def test_generate_stop_token_and_unported_tier(long_lms):
+    jax_lm, lm = long_lms
+    prompt = _words(30, 1)
+    full = lm.generate(prompt, 8)
+    stop = int(full.split()[2].strip("<>"))
+    want = jax_lm.generate(prompt, 8, stop_token=stop, fused=True)
+    assert lm.generate(prompt, 8, stop_token=stop, fused=True) == want
+    assert lm.generate(prompt, 8, stop_token=stop, fused=False) == want
+    assert want.split() == full.split()[: want.split().index(f"<{stop}>") + 1]
+    with pytest.raises(NotImplementedError, match="queue A item 6"):
+        lm.generate(prompt, 8, fused="int8")

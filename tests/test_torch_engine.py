@@ -181,3 +181,80 @@ def test_prefix_cache_shares_full_blocks_and_evicts_lru():
     pool.check_invariants(cache.external_refs())
     assert cache.evict(5) == 2 and len(cache) == 0
     pool.check_invariants()
+
+
+# (num_blocks, max_batch_size, chain_steps): the default shape, per-step
+# decode only, and a pool small enough to preempt
+@pytest.mark.parametrize("sizes", [(64, 4, 4), (64, 3, 1), (12, 4, 4)])
+def test_whole_bucket_prefill_matches_jax_and_chunked(weights, sizes):
+    pj, pt = weights
+    nb, mb, chain = sizes
+    kw = dict(num_blocks=nb, block_size=8, max_batch_size=mb,
+              chain_steps=chain)
+    reqs = [(p, n) for p, n in zip(_prompts(), (12, 5, 9, 16, 1, 7))]
+    want = JaxEngine(CFG_J, pj, attn="reference", chunked_prefill=False,
+                     name=f"t_torch_whole_{nb}_{mb}_{chain}",
+                     **kw).generate_batch(reqs)
+    eng = PagedDecodeEngine(CFG_T, pt, device="cpu", chunked_prefill=False,
+                            **kw)
+    assert eng.generate_batch(reqs) == want
+    assert eng.rounds["prefill"] >= len(reqs) and eng.rounds["mixed"] == 0
+    chunked = PagedDecodeEngine(CFG_T, pt, device="cpu", prefill_chunk=16,
+                                **kw)
+    assert chunked.generate_batch(reqs) == want
+    if nb == 12:
+        assert eng.pool.n_preemptions > 0
+    assert not eng.pool.sequences()
+    eng.pool.check_invariants(eng.prefix.external_refs())
+
+
+def test_whole_bucket_prefill_keeps_shared_blocks(weights, monkeypatch):
+    from pathway_tpu_torch.kvcache import engine as eng_mod
+
+    pj, pt = weights
+    kw = dict(num_blocks=64, block_size=8, max_batch_size=4)
+    first, second = _prompts()[1], _prompts()[2]  # 20 shared tokens
+    eng = PagedDecodeEngine(CFG_T, pt, device="cpu", chunked_prefill=False,
+                            **kw)
+    assert eng.generate_batch([(first, 6)]) == JaxEngine(
+        CFG_J, pj, attn="reference", chunked_prefill=False,
+        name="t_torch_whole_shared", **kw).generate_batch([(first, 6)])
+    shared, _ = eng.prefix.match(second)
+    assert len(shared) == 2  # the two full blocks of the shared prefix
+    before_k = eng.pool.k[:, shared].clone()
+    before_v = eng.pool.v[:, shared].clone()
+    tables = []
+    orig = eng_mod.paged_prefill
+
+    def spy(params, cfg, ids, n_valid, k_pool, v_pool, bt, **kwargs):
+        tables.append(bt.clone())
+        return orig(params, cfg, ids, n_valid, k_pool, v_pool, bt, **kwargs)
+
+    monkeypatch.setattr(eng_mod, "paged_prefill", spy)
+    got = eng.generate_batch([(second, 9)])
+    # the prefix-shared leading entries scatter to the null block
+    assert tables and tables[0][0, :2].tolist() == [0, 0]
+    assert bool((tables[0][0, 2:3] != 0).all())
+    assert torch.equal(eng.pool.k[:, shared], before_k)
+    assert torch.equal(eng.pool.v[:, shared], before_v)
+    # and the sharer's tokens are those of a fresh engine
+    fresh = PagedDecodeEngine(CFG_T, pt, device="cpu", chunked_prefill=False,
+                              **kw)
+    assert got == fresh.generate_batch([(second, 9)])
+
+
+def test_whole_bucket_prefill_failure_frees_blocks(weights, monkeypatch):
+    from pathway_tpu_torch.kvcache import engine as eng_mod
+
+    _pj, pt = weights
+    eng = PagedDecodeEngine(CFG_T, pt, device="cpu", chunked_prefill=False,
+                            num_blocks=64, block_size=8, max_batch_size=4)
+
+    def boom(*a, **k):
+        raise RuntimeError("prefill failed")
+
+    monkeypatch.setattr(eng_mod, "paged_prefill", boom)
+    with pytest.raises(RuntimeError, match="prefill failed"):
+        eng.generate_batch([(_prompts()[0], 4)])
+    assert not eng.pool.sequences()
+    assert eng.pool.num_free == eng.pool.num_blocks - 1

@@ -82,6 +82,8 @@ def _entry_points():
         "TorchEncoder": lambda: encoder.TorchEncoder(ecfg),
         "init_params": lambda: encoder.init_params(ecfg),
         "TorchDecoderLM": lambda: decoder.TorchDecoderLM(dcfg),
+        "TorchDecoderLM.generate": lambda: decoder.TorchDecoderLM(
+            dcfg, params=params).generate("a b", 2),
         "PagedDecodeEngine": lambda: PagedDecodeEngine(dcfg, params),
         "BlockPool": lambda: BlockPool(num_blocks=4, block_size=4,
                                        n_layers=1, n_heads=2, head_dim=4),
@@ -92,7 +94,7 @@ def _entry_points():
 
 @pytest.mark.parametrize("name", [
     "BlockPool", "BruteForceKnn", "PagedDecodeEngine", "TorchDecoderLM",
-    "TorchEncoder", "init_params", "knn_topk",
+    "TorchDecoderLM.generate", "TorchEncoder", "init_params", "knn_topk",
 ])
 def test_entry_point_without_a_card_raises(name, monkeypatch):
     # decided inside the test: the default device is the card, and a
