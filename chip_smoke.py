@@ -12,8 +12,10 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    widths and at edge cases;
 3. retrieval: embed ``N_DOCS`` (16,384) synthetic documents with the
    MiniLM-width encoder, load them into ``BruteForceKnn`` on the card,
-   embed ``N_QUERIES`` (64) queries and ``search_batch(k=10)``; top-k
-   must equal the plain version's apart from exact ties;
+   embed ``N_QUERIES`` (64) queries and ``search_batch(k=10)`` (the
+   scores kernel's GEMM); top-k must equal the plain version's apart
+   from exact ties; then each query alone, embedded and searched (the
+   GEMV), timed for the query latency;
 4. generation: RAG prompts built from the retrieved documents go through
    the paged engine at GPT-2-small width — in f32 the greedy tokens must
    equal the port's dense plain path (einsum prefill + decode_step), then
@@ -27,7 +29,12 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    first token;
 5. print one ``{"kernels": [...]}`` line (launches on the main path,
    error against the plain version, kernel / plain / bound / library
-   times at the main path's shapes) and one line of end-to-end numbers.
+   times at the main path's shapes: the median of 5 windows of 50
+   calls, with the windows' min and max, the kernel and its library
+   call taking turns; KNN at both its shapes with the matrix cold in
+   L2) and one line of end-to-end numbers.
+
+``--checks-only`` stops after phase 2 and prints no result.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``.
 Exits non-zero, printing no result, when no CUDA device is present or
@@ -37,6 +44,7 @@ the package is not beside this script.
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
 import os
 import statistics
@@ -71,19 +79,89 @@ def log(*a):
     print(*a, file=sys.stderr, flush=True)
 
 
-def cuda_time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+def cuda_times_ms(fns: dict, reps: int = 5, iters: int = 50,
+                  warmup: int = 3, graph: bool = True) -> dict:
+    """{name: (median, min, max)} ms per call of each function: ``reps``
+    windows of ``iters`` back-to-back calls, timed by CUDA events, the
+    functions taking turns window by window so that each one's windows
+    see the same conditions as the others'.  With ``graph`` each
+    function's ``iters`` calls are captured once into a CUDA graph and a
+    window is one replay: the device's time, free of the Python issue
+    rate that bounds a few-microsecond kernel called eagerly."""
     import torch
 
-    for _ in range(warmup):
-        fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for fn in fns.values():
+            for _ in range(warmup):
+                fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    runs = {}
+    for name, fn in fns.items():
+        if graph:
+            g = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(g):
+                for _ in range(iters):
+                    fn()
+            g.replay()  # the first replay also uploads the graph
+            runs[name] = g.replay
+        else:
+            runs[name] = lambda fn=fn: [fn() for _ in range(iters)]
+    samples: dict = {name: [] for name in fns}
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    for _ in range(reps):
+        for name, run in runs.items():
+            torch.cuda.synchronize()
+            start.record()
+            run()
+            end.record()
+            torch.cuda.synchronize()
+            samples[name].append(start.elapsed_time(end) / iters)
+    return {name: (statistics.median(v), min(v), max(v))
+            for name, v in samples.items()}
+
+
+def rotating(fn, mats):
+    """``fn`` called on the next of ``mats`` at each call: with copies
+    that together exceed the 50 MB L2, each call finds its matrix cold."""
+    it = itertools.cycle(mats)
+    return lambda: fn(next(it))
+
+
+def timed_entry(fns: dict) -> dict:
+    """The kernels line's time keys for ``kernel``, ``plain`` and (where
+    there is one) ``library``: each the median of 5 graph replays of 50
+    calls with their min and max; and, for kernel and library, the same
+    eagerly (``eager_ms``: what a Python caller pays per call)."""
+    times = cuda_times_ms(fns)
+    eager = cuda_times_ms({n: f for n, f in fns.items() if n != "plain"},
+                          graph=False)
+    out = {"ms": times["kernel"][0], "ms_min_max": list(times["kernel"][1:]),
+           "eager_ms": eager["kernel"][0],
+           "plain_ms": times["plain"][0],
+           "plain_ms_min_max": list(times["plain"][1:]),
+           "library_ms": None, "library_ms_min_max": None,
+           "library_eager_ms": None}
+    if "library" in fns:
+        out.update(library_ms=times["library"][0],
+                   library_ms_min_max=list(times["library"][1:]),
+                   library_eager_ms=eager["library"][0])
+    return out
+
+
+def demangle(name: str) -> str:
+    """A kernel's C++ name from its mangled symbol, where c++filt exists."""
+    import shutil
+
+    if shutil.which("c++filt"):
+        res = subprocess.run(["c++filt", name], capture_output=True,
+                             text=True, timeout=30)
+        if res.returncode == 0:
+            return res.stdout.strip()
+    return name
 
 
 def max_abs_err(a, b) -> float:
@@ -183,19 +261,38 @@ def check_append(torch, pa, g) -> list[str]:
 
 
 def check_knn(torch, kc, g) -> list[str]:
+    """Both variants (GEMV below 16 queries, GEMM from 16) at ragged Q and
+    N, the 16-byte path (d = 384, 24) and the scalar one (d = 37, and a
+    matrix that starts 4 bytes off a 16-byte boundary)."""
     from pathway_tpu_torch.ops.knn import _l2_normalize
 
     lines = []
+    for d in (384, 24, 37):
+        worst = 0.0
+        for Q in (1, 3, 15, 16, 64, 65):
+            for N in (16384, 16384 - 37):
+                q = _l2_normalize(torch.randn((Q, d), generator=g)).cuda()
+                m = _l2_normalize(torch.randn((N, d), generator=g)).cuda()
+                out = kc.knn_scores(q, m)
+                ref = kc.knn_scores_reference(q, m)
+                torch.cuda.synchronize()
+                err = max_abs_err(out, ref)
+                require(err <= KNN_TOL, f"knn_scores Q={Q} N={N} d={d}: "
+                        f"err {err}")
+                worst = max(worst, err)
+        lines.append(f"knn_scores d={d} Q in 1,3,15,16,64,65 N in "
+                     f"16384,16347 max err={worst:.3g}")
     for Q in (1, 64):
-        for N in (16384, 16384 - 37):
-            q = _l2_normalize(torch.randn((Q, 384), generator=g)).cuda()
-            m = _l2_normalize(torch.randn((N, 384), generator=g)).cuda()
-            out = kc.knn_scores(q, m)
-            ref = kc.knn_scores_reference(q, m)
-            torch.cuda.synchronize()
-            err = max_abs_err(out, ref)
-            require(err <= KNN_TOL, f"knn_scores Q={Q} N={N}: err {err}")
-            lines.append(f"knn_scores Q={Q} N={N} d=384 err={err:.3g}")
+        N, d = 16384 - 37, 384
+        flat = torch.empty(N * d + 1, device="cuda")
+        m = flat[1:].view(N, d)  # 4 bytes past a 16-byte boundary
+        m.copy_(_l2_normalize(torch.randn((N, d), generator=g)))
+        q = _l2_normalize(torch.randn((Q, d), generator=g)).cuda()
+        require(m.data_ptr() % 16 == 4, "misaligned matrix view")
+        err = max_abs_err(kc.knn_scores(q, m), kc.knn_scores_reference(q, m))
+        torch.cuda.synchronize()
+        require(err <= KNN_TOL, f"knn_scores misaligned Q={Q}: err {err}")
+        lines.append(f"knn_scores Q={Q} misaligned matrix err={err:.3g}")
     return lines
 
 
@@ -206,7 +303,9 @@ def check_flash(torch, ac, g) -> list[str]:
         for hd in (32, 64, 128):
             for causal in (False, True):
                 worst = 0.0
-                for T in (1, 63, 200, 256, 1024):
+                Ts = (1, 63, 200, 256, 1024) + ((65, 4096) if hd == 64
+                                                else ())
+                for T in Ts:
                     for B in (1, 2):
                         q, k, v = (torch.randn((B, T, 12, hd), generator=g)
                                    .to("cuda", dtype) for _ in range(3))
@@ -220,7 +319,7 @@ def check_flash(torch, ac, g) -> list[str]:
                                 f"causal={causal} T={T} B={B}: err {err}")
                         worst = max(worst, err)
                 lines.append(f"flash_attention {str(dtype)[6:]} hd={hd} "
-                             f"causal={causal} T in 1..1024 B in 1,2 "
+                             f"causal={causal} T in {Ts} B in 1,2 "
                              f"max err={worst:.3g}")
         # the prefill's layout: strided chunk(3) views of a fused product
         qkv = torch.randn((2, 1024, 3 * 768), generator=g).to("cuda", dtype)
@@ -293,11 +392,17 @@ class Capture:
         (self.pa.paged_attention_cuda, self.pa.paged_append_attend_cuda,
          self.kc.knn_scores_cuda, self.ac.flash_attention_cuda) = self.orig
 
-    def heaviest(self, name):
+    def heaviest(self, name, *, small: bool = False, max_t: int = 1 << 30):
         """The captured call whose contexts sum highest (paged attention;
         for append, over the rows that honour its contract), or the
-        largest product (scores), or the longest sequence (flash)."""
+        largest product (scores; ``small``: among the GEMV's calls, Q <
+        16), or the longest sequence up to ``max_t`` (flash)."""
         calls = self.calls[name]
+        if name == "knn_scores":
+            calls = [c for c in calls
+                     if (c["q"].shape[0] < self.kc.GEMM_MIN_Q) == small]
+        if name == "flash_attention":
+            calls = [c for c in calls if c["q"].shape[1] <= max_t]
         require(bool(calls), f"no {name} call captured on the main path")
         if name == "knn_scores":
             return max(calls, key=lambda c: c["q"].shape[0] * c["m"].shape[0])
@@ -377,8 +482,8 @@ def time_kernels(torch, pa, kc, ac, cap: Capture,
         source="pathway_tpu_torch/csrc/paged_attention.cu",
         replaces="pathway_tpu/kvcache/paged_attention.py:159",
         launches=launches["paged_attention"], max_abs_err=err,
-        ms=cuda_time_ms(kern), plain_ms=cuda_time_ms(plain),
-        bound_ms=bound, bound_by=by, library_ms=None,
+        bound_ms=bound, bound_by=by,
+        **timed_entry({"kernel": kern, "plain": plain}),
         shape=f"q{tuple(q.shape)} {dt} ctx_sum={int(cl.sum())}",
     ))
     # 2. append + attend (decode steps); replays write the same slot
@@ -412,31 +517,39 @@ def time_kernels(torch, pa, kc, ac, cap: Capture,
         source="pathway_tpu_torch/csrc/paged_attention.cu",
         replaces="pathway_tpu/kvcache/paged_attention.py:284",
         launches=launches["paged_append_attend"], max_abs_err=err,
-        ms=cuda_time_ms(kern), plain_ms=cuda_time_ms(plain),
-        bound_ms=bound, bound_by=by, library_ms=None,
+        bound_ms=bound, bound_by=by,
+        **timed_entry({"kernel": kern, "plain": plain}),
         shape=f"q{tuple(a['q'].shape)} {dt} ctx_sum={int(a['cl'].sum())}",
     ))
-    # 3. KNN scores (batched search)
-    call = cap.heaviest("knn_scores")
-    q, m = call["q"], call["m"]
-    kern = lambda: kc.knn_scores_cuda(q, m)  # noqa: E731
-    plain = lambda: kc.knn_scores_reference(q, m)  # noqa: E731
-    err = max_abs_err(kern(), plain())
-    require(err <= KNN_TOL, f"knn_scores main-path err {err}")
-    Q, d = q.shape
-    N = m.shape[0]
-    bound, by = bound_entry((Q * d + N * d + Q * N) * 4, 2 * Q * N * d,
-                            "float32")
-    ms_plain = cuda_time_ms(plain)
-    out.append(dict(
-        name="knn_scores", route="cuda",
-        source="pathway_tpu_torch/csrc/knn_scores.cu",
-        replaces="pathway_tpu/ops/knn_pallas.py:27",
-        launches=launches["knn_scores"], max_abs_err=err,
-        ms=cuda_time_ms(kern), plain_ms=ms_plain, bound_ms=bound,
-        bound_by=by, library_ms=cuda_time_ms(lambda: torch.matmul(q, m.T)),
-        shape=f"Q={Q} N={N} d={d} float32",
-    ))
+    # 3. KNN scores: the batched search (GEMM) and one query's search
+    # (GEMV), each with its matrix cold in L2 (rotating over 4 copies)
+    for name, small in (("knn_scores", False), ("knn_scores_q1", True)):
+        call = cap.heaviest("knn_scores", small=small)
+        q, m = call["q"], call["m"]
+        mats = [m] + [m.clone() for _ in range(3)]
+        err = max_abs_err(kc.knn_scores_cuda(q, m),
+                          kc.knn_scores_reference(q, m))
+        require(err <= KNN_TOL, f"{name} main-path err {err}")
+        Q, d = q.shape
+        N = m.shape[0]
+        bound, by = bound_entry((Q * d + N * d + Q * N) * 4, 2 * Q * N * d,
+                                "float32")
+        times = timed_entry({
+            "kernel": rotating(lambda mm: kc.knn_scores_cuda(q, mm), mats),
+            "library": rotating(lambda mm: torch.matmul(q, mm.T), mats),
+            "plain": rotating(lambda mm: kc.knn_scores_reference(q, mm),
+                              mats),
+        })
+        out.append(dict(
+            name=name, route="cuda",
+            source="pathway_tpu_torch/csrc/knn_scores.cu",
+            replaces="pathway_tpu/ops/knn_pallas.py:27",
+            variant="gemv" if small else "gemm",
+            launches=launches[name], max_abs_err=err, bound_ms=bound,
+            bound_by=by, **times,
+            shape=f"Q={Q} N={N} d={d} float32, matrix cold in L2",
+        ))
+        del mats
     # 4. flash attention (dense prefill), on the captured strided views
     import torch.nn.functional as F
 
@@ -460,10 +573,26 @@ def time_kernels(torch, pa, kc, ac, cap: Capture,
         source="pathway_tpu_torch/csrc/flash_attention.cu",
         replaces="pathway_tpu/ops/attention_pallas.py:29",
         launches=launches["flash_attention"], max_abs_err=err,
-        ms=cuda_time_ms(kern), plain_ms=cuda_time_ms(plain), bound_ms=bound,
-        bound_by=by, library_ms=cuda_time_ms(lib),
+        bound_ms=bound, bound_by=by,
+        **timed_entry({"kernel": kern, "library": lib, "plain": plain}),
         shape=f"q{tuple(q.shape)} {dt} causal={causal} strided views",
     ))
+    # the T = 256 bucket's flash call too (32-row blocks: 96 of them)
+    small = cap.heaviest("flash_attention", max_t=256)
+    if small["q"].shape[1] < T:
+        q, k, v = small["q"], small["k"], small["v"]
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        times = cuda_times_ms({
+            "kernel": lambda: ac.flash_attention_cuda(q, k, v, causal),
+            "library": lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=causal)})
+        pairs = H * 256 * 257 // 2 if causal else H * 256 * 256
+        out[-1]["t256"] = dict(
+            ms=times["kernel"][0], ms_min_max=list(times["kernel"][1:]),
+            library_ms=times["library"][0],
+            bound_ms=bound_entry(4 * q.numel() * q.element_size(),
+                                 4 * hd * pairs, dt)[0],
+            shape=f"q{tuple(q.shape)} {dt} causal={causal} strided views")
     return out
 
 
@@ -548,6 +677,9 @@ def first_token_ms(torch, dec, lm, prompt: str, n_new: int) -> float:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--checks-only", action="store_true",
+                    help="stop after phase 2 (build + kernel checks); "
+                         "prints no result")
     args = ap.parse_args()
 
     import numpy as np
@@ -588,8 +720,12 @@ def main() -> int:
     log(f"built kernels in {time.perf_counter() - t0:.1f}s")
     for src, text in build_logs.items():
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  {src}: {line.strip()}")
+            if "Compiling entry function" in line:
+                name = demangle(line.split(chr(39))[1])
+                name = name.replace("(anonymous namespace)::", "")
+                log(f"  {src}: {name.split('(')[0]}")
+            elif "registers" in line or "spill" in line:
+                log(f"  {src}:   {line.strip()}")
 
     # phase 2: kernels against their plain versions
     g = torch.Generator().manual_seed(args.seed)
@@ -601,6 +737,9 @@ def main() -> int:
                  + check_flash(torch, ac, g)):
         log("  " + line)
     log("phase 2 ok: kernels agree with their plain versions")
+    if args.checks_only:
+        log("--checks-only: stopping after phase 2")
+        return 0
 
     # phase 3: retrieval
     rng = np.random.default_rng(args.seed)
@@ -647,11 +786,19 @@ def main() -> int:
                 n_tie_swaps += 1
     recall1 = float(np.mean([row[0][0] == int(j)
                              for row, j in zip(hits, q_docs)]))
+    # one query's search (the GEMV), captured in an untimed pass
+    with cap:
+        index.search_batch(enc.embed_batch([queries[0]]), 10)
+    torch.cuda.synchronize()
     latencies = []
+    _cuda.reset_launches()
     for text in queries:
         t0 = time.perf_counter()
         index.search_batch(enc.embed_batch([text]), 10)
         latencies.append((time.perf_counter() - t0) * 1e3)
+    main_launches["knn_scores_q1"] = _cuda.LAUNCHES["knn_scores"]
+    require(main_launches["knn_scores_q1"] == len(queries),
+            f"query loop launched knn {main_launches['knn_scores_q1']} times")
     log(f"phase 3 ok: {N_DOCS} docs, top-1 = source doc for "
         f"{recall1:.3f} of queries, {n_tie_swaps} tie swaps")
 

@@ -49,8 +49,10 @@ SOURCES = {
         "pw_paged_append_attend": [_P] * 10 + [_I] * 6 + [_F, _P],
     },
     "knn_scores.cu": {
-        # queries, matrix, out; Q, N, d; stream
-        "pw_knn_scores": [_P] * 3 + [_I] * 3 + [_P],
+        # queries, matrix, out; Q, N, d; stream (GEMM for Q >= 16, GEMV
+        # for Q < 16)
+        "pw_knn_scores_gemm": [_P] * 3 + [_I] * 3 + [_P],
+        "pw_knn_scores_gemv": [_P] * 3 + [_I] * 3 + [_P],
     },
 }
 

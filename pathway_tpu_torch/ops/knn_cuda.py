@@ -1,10 +1,13 @@
 """Batched exact KNN: scores from the CUDA kernel, then ``torch.topk``.
 
 Counterpart of ``pathway_tpu/ops/knn_pallas.py``: the Pallas
-``_scores_kernel`` becomes ``csrc/knn_scores.cu`` (a tiled f32 GEMM), and
-top-k runs after it with ``torch.topk`` as the JAX package runs
-``lax.top_k`` outside its kernel.  CPU tensors take the plain version
-(``q @ m.T`` in f32); CUDA tensors launch the kernel or raise.
+``_scores_kernel`` becomes ``csrc/knn_scores.cu`` in f32 FMA, as a
+register-blocked GEMM for batches of ``GEMM_MIN_Q`` queries or more and
+a streaming GEMV below (one query's latency path); both count as
+``knn_scores`` launches.  Top-k runs after it with ``torch.topk`` as the
+JAX package runs ``lax.top_k`` outside its kernel.  CPU tensors take the
+plain version (``q @ m.T`` in f32); CUDA tensors launch the kernel or
+raise.
 """
 
 from __future__ import annotations
@@ -17,6 +20,8 @@ from . import _cuda
 from .knn import metric_scores
 
 _SOURCE = "knn_scores.cu"
+#: batches of at least this many queries take the GEMM, smaller ones the GEMV
+GEMM_MIN_Q = 16
 
 
 def knn_scores_reference(queries: torch.Tensor,
@@ -35,9 +40,9 @@ def knn_scores_cuda(queries: torch.Tensor, matrix: torch.Tensor) -> torch.Tensor
         raise ValueError(f"matrix dim {matrix.shape[1]} != query dim {d}")
     out = torch.empty((Q, N), dtype=torch.float32, device=queries.device)
     if Q and N:
-        _cuda.launch(_SOURCE, "pw_knn_scores", "knn_scores",
-                     queries.data_ptr(), matrix.data_ptr(), out.data_ptr(),
-                     Q, N, d)
+        fn = "pw_knn_scores_gemm" if Q >= GEMM_MIN_Q else "pw_knn_scores_gemv"
+        _cuda.launch(_SOURCE, fn, "knn_scores", queries.data_ptr(),
+                     matrix.data_ptr(), out.data_ptr(), Q, N, d)
     return out
 
 

@@ -24,7 +24,8 @@ from pathway_tpu_torch.ops.attention_cuda import (flash_attention,
                                                   flash_attention_reference)
 
 TOL = dict(rtol=2e-4, atol=2e-4)
-SHAPES = [(1, 128, 2, 16), (2, 256, 2, 32), (1, 200, 3, 24)]
+SHAPES = [(1, 128, 2, 16), (2, 256, 2, 32), (1, 200, 3, 24),
+          (1, 65, 2, 32)]
 
 
 def _qkv(shape, seed):

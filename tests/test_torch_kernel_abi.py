@@ -1,0 +1,175 @@
+"""The ctypes bindings of the port's CUDA kernels against their C sources.
+
+``pathway_tpu_torch/ops/_cuda.py`` declares, for every ``extern "C"``
+function of ``csrc/*.cu``, the ctypes ``argtypes`` it is called with.
+Nothing on the CPU compiles or calls those functions, so a binding that
+drifts from its prototype (a parameter added on one side only, or a
+pointer declared ``c_int``, which ctypes cuts to 32 bits) would show only
+on the card.  Here each prototype is parsed from its source and held
+against its binding: the same number of parameters, a ``c_void_p`` for
+every pointer, and the matching ctypes type for every scalar.  The
+wrappers are then run on CPU tensors up to their launch, which is
+recorded: each passes one Python value of the bound kind per parameter
+(the stream aside), and the KNN wrapper picks the GEMV below 16 queries
+and the GEMM from 16.
+"""
+
+import ctypes
+import re
+
+import pytest
+import torch
+
+from pathway_tpu_torch.ops import _cuda
+
+_PROTO = re.compile(r'extern\s+"C"\s+int\s+(\w+)\s*\(([^)]*)\)', re.S)
+_SCALARS = {"int": ctypes.c_int, "long long": ctypes.c_longlong,
+            "float": ctypes.c_float}
+
+BINDINGS = [(src, fn) for src, fns in sorted(_cuda.SOURCES.items())
+            for fn in sorted(fns)]
+
+
+def _prototypes(source: str) -> dict[str, list[str]]:
+    """{function: [parameter declarations]} of a source's C interface."""
+    text = re.sub(r"//[^\n]*", "", (_cuda.CSRC / source).read_text())
+    return {name: [p.strip() for p in params.split(",") if p.strip()]
+            for name, params in _PROTO.findall(text)}
+
+
+def _ctype(decl: str):
+    """The ctypes type a C parameter declaration is passed as."""
+    if "*" in decl:
+        return ctypes.c_void_p
+    words = decl.replace("const ", "").split()
+    return _SCALARS[" ".join(words[:-1])]
+
+
+@pytest.mark.parametrize("source,fn", BINDINGS, ids=lambda x: str(x))
+def test_binding_matches_the_c_prototype(source, fn):
+    protos = _prototypes(source)
+    assert fn in protos, f"{fn} is bound but not exported by {source}"
+    params = protos[fn]
+    argtypes = _cuda.SOURCES[source][fn]
+    assert len(argtypes) == len(params), (
+        f"{fn}: {len(argtypes)} argtypes for {len(params)} C parameters")
+    for i, (decl, bound) in enumerate(zip(params, argtypes)):
+        assert bound is _ctype(decl), (
+            f"{fn} parameter {i} ({decl!r}) bound as {bound.__name__}")
+    # _cuda.launch appends PyTorch's current stream
+    assert params[-1].endswith("* stream")
+
+
+@pytest.mark.parametrize("source", sorted(_cuda.SOURCES))
+def test_every_exported_function_is_bound(source):
+    assert set(_prototypes(source)) == set(_cuda.SOURCES[source])
+
+
+def test_every_kernel_source_is_registered():
+    on_disk = {p.name for p in _cuda.CSRC.glob("*.cu")}
+    assert on_disk == set(_cuda.SOURCES)
+
+
+def test_prototype_parser_reads_pointers_and_scalars():
+    assert _ctype("const void* q") is ctypes.c_void_p
+    assert _ctype("void* stream") is ctypes.c_void_p
+    assert _ctype("long long q_sb") is ctypes.c_longlong
+    assert _ctype("int causal") is ctypes.c_int
+    assert _ctype("float scale") is ctypes.c_float
+    with pytest.raises(KeyError):
+        _ctype("double x")
+
+
+# -- the Python call sites ---------------------------------------------------
+
+
+@pytest.fixture
+def recorded_launches(monkeypatch):
+    """Run the kernel wrappers on CPU tensors up to their launch: the
+    device check is lifted (the others stay) and ``_cuda.launch`` records
+    its arguments instead of calling the library."""
+    from pathway_tpu_torch.ops import attention_cuda
+
+    check = _cuda.check
+
+    def check_any_device(t, name, **kw):
+        assert t.device.type == "cpu"
+        check(_OnCuda(t), name, **kw)
+
+    calls = []
+    monkeypatch.setattr(_cuda, "check", check_any_device)
+    monkeypatch.setattr(attention_cuda, "_check_operand", lambda *a: None)
+    monkeypatch.setattr(_cuda, "launch",
+                        lambda source, fn, name, *args:
+                        calls.append((source, fn, name, args)))
+    return calls
+
+
+class _OnCuda:
+    """A CPU tensor that reports a CUDA device to ``_cuda.check``."""
+
+    def __init__(self, t):
+        self._t = t
+        self.device = torch.device("cuda")
+
+    def __getattr__(self, attr):
+        return getattr(self._t, attr)
+
+
+def _assert_call_matches_binding(call):
+    source, fn, _name, args = call
+    argtypes = _cuda.SOURCES[source][fn]
+    # the stream is appended by _cuda.launch itself
+    assert len(args) == len(argtypes) - 1, f"{fn}: {len(args)} arguments"
+    for i, (arg, bound) in enumerate(zip(args, argtypes)):
+        want = float if bound is ctypes.c_float else int
+        assert type(arg) is want, f"{fn} argument {i}: {type(arg).__name__}"
+
+
+@pytest.mark.parametrize("Q,fn", [(1, "pw_knn_scores_gemv"),
+                                  (15, "pw_knn_scores_gemv"),
+                                  (16, "pw_knn_scores_gemm"),
+                                  (64, "pw_knn_scores_gemm")])
+def test_knn_wrapper_picks_its_variant_by_query_count(recorded_launches, Q,
+                                                      fn):
+    from pathway_tpu_torch.ops.knn_cuda import knn_scores_cuda
+
+    out = knn_scores_cuda(torch.zeros((Q, 37)), torch.zeros((300, 37)))
+    assert tuple(out.shape) == (Q, 300)
+    [call] = recorded_launches
+    assert call[1] == fn and call[2] == "knn_scores"
+    _assert_call_matches_binding(call)
+    assert call[3][3:] == (Q, 300, 37)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_wrapper_passes_every_bound_argument(recorded_launches, dtype):
+    from pathway_tpu_torch.ops.attention_cuda import flash_attention_cuda
+
+    qkv = torch.zeros((2, 65, 3 * 4 * 32), dtype=dtype)
+    q, k, v = (t.reshape(2, 65, 4, 32) for t in qkv.chunk(3, -1))
+    flash_attention_cuda(q, k, v, causal=True)
+    [call] = recorded_launches
+    _assert_call_matches_binding(call)
+    args = call[3]
+    # B, T, H, hd, then the (batch, token, head) strides of the views
+    assert args[4:8] == (2, 65, 4, 32)
+    assert args[8:11] == (65 * 384, 384, 32)
+
+
+def test_paged_wrappers_pass_every_bound_argument(recorded_launches):
+    from pathway_tpu_torch.kvcache import paged_attention as pa
+
+    B, C, H, hd, NB, BS = 2, 3, 2, 32, 6, 4
+    q = torch.zeros((B, C, H, hd))
+    pool = torch.zeros((NB, BS, H, hd))
+    bt = torch.zeros((B, 2), dtype=torch.int32)
+    ctx = torch.full((B,), 4, dtype=torch.int32)
+    pa.paged_attention_cuda(q, pool, pool.clone(), bt, ctx, ctx)
+    new = torch.zeros((B, H, hd))
+    pa.paged_append_attend_cuda(torch.zeros((B, 1, H, hd)), new, new.clone(),
+                                pool, pool.clone(), bt, ctx, ctx, ctx)
+    assert [c[1] for c in recorded_launches] == ["pw_paged_attention",
+                                                 "pw_paged_append_attend"]
+    for call in recorded_launches:
+        _assert_call_matches_binding(call)

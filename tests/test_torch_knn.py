@@ -53,6 +53,18 @@ def test_plain_scores_match_the_interpreted_pallas_kernel():
         knn_scores_cuda(torch.from_numpy(q), torch.from_numpy(m))
 
 
+@pytest.mark.parametrize("Q,d", [(1, 24), (3, 37), (16, 37), (65, 24)])
+def test_plain_scores_at_both_kernel_variants_shapes(Q, d):
+    """The shapes the kernel splits at (GEMV below 16 queries, GEMM from
+    16; a d that is not a multiple of 4 takes the scalar copies): the
+    plain version against the interpreted Pallas kernel."""
+    m, q = _data(10 + Q, Q=Q, N=300, d=d)
+    want = np.asarray(pallas_scores(q, m, interpret=True))
+    got = knn_scores(torch.from_numpy(q), torch.from_numpy(m))
+    assert tuple(got.shape) == (Q, 300)
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+
+
 def test_unknown_metric_is_rejected():
     m, q = _data(3)
     with pytest.raises(ValueError, match="unknown metric"):
