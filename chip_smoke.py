@@ -32,7 +32,9 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    times at the main path's shapes: the median of 5 windows of 50
    calls, with the windows' min and max, the kernel and its library
    call taking turns; KNN at both its shapes with the matrix cold in
-   L2) and one line of end-to-end numbers.
+   L2; the paged kernels warm, on their heaviest call, and ``cold``,
+   rotating over that step's calls of every layer) and one line of
+   end-to-end numbers.
 
 ``--checks-only`` stops after phase 2 and prints no result.
 
@@ -226,37 +228,127 @@ def check_paged_attention(torch, pa, g, prefill_chunk: int) -> list[str]:
     return lines
 
 
+# Edge cases of the split kernels (block size 16, 64-entry tables: a
+# 1024-token row spans 4 ragged splits of 256 and 8 append splits of 128):
+# contexts at tile (64), split and block (16) edges, one row alone, and
+# causal bands of C = 32 that straddle a tile or a split edge.
+EDGE_BS, EDGE_NBT = 16, 64
+EDGE_CONTEXTS = ([1, 15, 16, 17, 63, 64, 65, 1024],
+                 [127, 128, 129, 255, 256, 257, 511, 513], [1024], [1])
+EDGE_C32_CONTEXTS = ([32, 33, 63, 64, 65, 256, 257, 1024], [1024], [40])
+# (start_pos, n_valid) of ragged C = 32 rows
+EDGE_RAGGED = ([(50, 32), (240, 32), (0, 17), (992, 32), (31, 2), (0, 1),
+                (127, 32), (600, 9)], [(1000, 24)])
+
+
+def edge_operands(torch, g, *, B, C, hd, dtype, order):
+    """q (B, C, 12, hd), pools of B * EDGE_NBT blocks past the null block
+    0, and (B, EDGE_NBT) tables of distinct blocks: in random order, or
+    each row's blocks in descending order."""
+    nblk = B * EDGE_NBT + 1
+    q = torch.randn((B, C, 12, hd), generator=g).to("cuda", dtype)
+    kp, vp = (torch.randn((nblk, EDGE_BS, 12, hd), generator=g)
+              .to("cuda", dtype) for _ in range(2))
+    bt = (torch.randperm(nblk - 1, generator=g) + 1).reshape(B, EDGE_NBT)
+    if order == "descending":
+        bt = bt.sort(dim=1, descending=True).values
+    return q, kp, vp, bt.to(torch.int32).cuda()
+
+
+def check_paged_edges(torch, pa, g) -> list[str]:
+    lines = []
+    for dtype in (torch.float32, torch.bfloat16):
+        tol = TOL[str(dtype).split(".")[1]]
+        for hd in (32, 64, 128):
+            worst, n = 0.0, 0
+            cases = ([(1, dict(context_lens=c)) for c in EDGE_CONTEXTS]
+                     + [(32, dict(context_lens=c)) for c in EDGE_C32_CONTEXTS]
+                     + [(32, dict(start_pos=[r[0] for r in rows],
+                                  n_valid=[r[1] for r in rows]))
+                        for rows in EDGE_RAGGED])
+            for i, (C, kw) in enumerate(cases):
+                B = len(next(iter(kw.values())))
+                kw = {k: torch.tensor(v, dtype=torch.int32).cuda()
+                      for k, v in kw.items()}
+                order = "descending" if i % 2 else "random"
+                q, kp, vp, bt = edge_operands(torch, g, B=B, C=C, hd=hd,
+                                              dtype=dtype, order=order)
+                out = pa.paged_attention(q, kp, vp, bt, **kw)
+                ref = pa.paged_attention_reference(q, kp, vp, bt, **kw)
+                torch.cuda.synchronize()
+                err = max_abs_err(out, ref)
+                require(bool(torch.isfinite(out).all()),
+                        f"paged_attention edge non-finite ({dtype} hd {hd} "
+                        f"C {C} {kw})")
+                require(err <= tol, f"paged_attention edge {dtype} hd={hd} "
+                        f"C={C} {order} {kw}: err {err} > {tol}")
+                worst, n = max(worst, err), n + 1
+            lines.append(f"paged_attention {str(dtype)[6:]} hd={hd} {n} edge "
+                         f"cases (B 1 and 8, tables to 1024 tokens) max "
+                         f"err={worst:.3g}")
+    return lines
+
+
+def append_case(torch, pa, g, q, kp, vp, bt, cl):
+    """One append+attend call with the tail slot of each row against
+    scatter-then-plain: (output error, whether both pools are
+    bit-identical)."""
+    B, _, H, hd = q.shape
+    BS, dtype = kp.shape[1], q.dtype
+    k_new = torch.randn((B, H, hd), generator=g).to("cuda", dtype)
+    v_new = torch.randn((B, H, hd), generator=g).to("cuda", dtype)
+    cl = cl.long()
+    rows = torch.arange(B, device="cuda")
+    sb = bt.long()[rows, (cl - 1) // BS].to(torch.int32)
+    so = ((cl - 1) % BS).to(torch.int32)
+    kk, vk = kp.clone(), vp.clone()
+    out, kk, vk = pa.paged_append_attend(q, k_new, v_new, kk, vk, bt, cl, sb,
+                                         so)
+    kr, vr = kp.clone(), vp.clone()
+    kr[sb.long(), so.long()] = k_new
+    vr[sb.long(), so.long()] = v_new
+    ref = pa.paged_attention_reference(q, kr, vr, bt, cl)
+    torch.cuda.synchronize()
+    require(bool(torch.isfinite(out).all()),
+            f"append non-finite ({dtype} hd {hd} contexts {cl.tolist()})")
+    return (max_abs_err(out, ref),
+            torch.equal(kk, kr) and torch.equal(vk, vr))
+
+
 def check_append(torch, pa, g) -> list[str]:
     lines = []
     for dtype in (torch.float32, torch.bfloat16):
+        tol = TOL[str(dtype).split(".")[1]]
         for hd in (32, 64, 128):
             B, H, BS, NBLK, NBT = 8, 12, 16, 300, 32
             q, kp, vp, bt, kw = random_pool_case(
                 torch, g, B=B, C=1, H=H, hd=hd, BS=BS, NBLK=NBLK, NBT=NBT,
                 dtype=dtype, ragged=False,
             )
-            cl = kw["context_lens"].long()
-            k_new = torch.randn((B, H, hd), generator=g).to("cuda", dtype)
-            v_new = torch.randn((B, H, hd), generator=g).to("cuda", dtype)
-            rows = torch.arange(B, device="cuda")
-            sb = bt.long()[rows, (cl - 1) // BS].to(torch.int32)
-            so = ((cl - 1) % BS).to(torch.int32)
-            kk, vk = kp.clone(), vp.clone()
-            out, kk, vk = pa.paged_append_attend(
-                q, k_new, v_new, kk, vk, bt, cl, sb, so)
-            kr, vr = kp.clone(), vp.clone()
-            kr[sb.long(), so.long()] = k_new
-            vr[sb.long(), so.long()] = v_new
-            ref = pa.paged_attention_reference(q, kr, vr, bt, cl)
-            torch.cuda.synchronize()
-            err = max_abs_err(out, ref)
-            tol = TOL[str(dtype).split(".")[1]]
+            err, same = append_case(torch, pa, g, q, kp, vp, bt,
+                                    kw["context_lens"])
             require(err <= tol, f"append {dtype} hd={hd}: err {err} > {tol}")
-            require(torch.equal(kk, kr) and torch.equal(vk, vr),
-                    f"append {dtype} hd={hd}: pools differ from "
+            require(same, f"append {dtype} hd={hd}: pools differ from "
                     "scatter-then-plain")
             lines.append(f"paged_append_attend {str(dtype)[6:]} hd={hd} "
                          f"err={err:.3g} pools bit-identical")
+            # tails in the first pool block (contexts 1-16) and in later
+            # ones, at tile, split and block edges
+            worst = 0.0
+            for i, cls in enumerate(EDGE_CONTEXTS):
+                order = "descending" if i % 2 else "random"
+                q, kp, vp, bt = edge_operands(torch, g, B=len(cls), C=1,
+                                              hd=hd, dtype=dtype, order=order)
+                err, same = append_case(torch, pa, g, q, kp, vp, bt,
+                                        torch.tensor(cls, device="cuda"))
+                require(err <= tol, f"append edge {dtype} hd={hd} contexts "
+                        f"{cls}: err {err} > {tol}")
+                require(same, f"append edge {dtype} hd={hd} contexts {cls}: "
+                        "pools differ from scatter-then-plain")
+                worst = max(worst, err)
+            lines.append(f"paged_append_attend {str(dtype)[6:]} hd={hd} "
+                         f"edge contexts {EDGE_CONTEXTS} max err={worst:.3g} "
+                         "pools bit-identical")
     return lines
 
 
@@ -413,6 +505,34 @@ class Capture:
         return max(calls, key=lambda c: int(c["cl"].sum()))
 
 
+def step_calls(calls, call, keys):
+    """The captured calls of ``call``'s step: the run of adjacent calls
+    (one per layer) with the same tables and contexts, each with its own
+    layer's pools."""
+    import torch
+
+    i = next(j for j, c in enumerate(calls) if c is call)
+    def same(c):
+        return all(torch.equal(c[k], call[k]) for k in keys)
+
+    lo = i
+    while lo > 0 and same(calls[lo - 1]):
+        lo -= 1
+    hi = i + 1
+    while hi < len(calls) and same(calls[hi]):
+        hi += 1
+    return calls[lo:hi]
+
+
+def cold_entry(fns: dict, calls: list) -> dict:
+    """``timed_entry`` with each function rotating over a step's layer
+    calls, so that each call finds its layer's K/V cold in L2 as the main
+    path does (a step's K/V over all layers exceeds the 50 MB L2)."""
+    return {k: v for k, v in timed_entry(
+        {name: rotating(fn, calls) for name, fn in fns.items()}).items()
+        if not k.startswith("library")}
+
+
 def tail_rows(call):
     """Rows of an append call whose write slot is their context tail
     (the kernel's contract).  A chain's surplus steps (rows past their
@@ -477,6 +597,13 @@ def time_kernels(torch, pa, kc, ac, cap: Capture,
     require(err <= TOL[dt], f"paged_attention main-path err {err}")
     nbytes, ops = attention_work(torch, call, C, append=False)
     bound, by = bound_entry(nbytes, ops, dt)
+    step = step_calls(cap.calls["paged_attention"], call, ("bt", "c0", "cl"))
+    cold = cold_entry({
+        "kernel": lambda c: pa.paged_attention_cuda(
+            c["q"], *c["pools"], c["bt"], c["c0"], c["cl"]),
+        "plain": lambda c: pa.paged_attention_reference(
+            c["q"], *c["pools"], c["bt"], start_pos=c["c0"] - 1,
+            n_valid=c["cl"] - c["c0"] + 1)}, step)
     out.append(dict(
         name="paged_attention", route="cuda",
         source="pathway_tpu_torch/csrc/paged_attention.cu",
@@ -484,7 +611,9 @@ def time_kernels(torch, pa, kc, ac, cap: Capture,
         launches=launches["paged_attention"], max_abs_err=err,
         bound_ms=bound, bound_by=by,
         **timed_entry({"kernel": kern, "plain": plain}),
-        shape=f"q{tuple(q.shape)} {dt} ctx_sum={int(cl.sum())}",
+        cold=dict(cold, layers=len(step)),
+        shape=f"q{tuple(q.shape)} {dt} ctx_sum={int(cl.sum())} "
+              f"longest_ctx={int(cl.max())}",
     ))
     # 2. append + attend (decode steps); replays write the same slot
     call = cap.heaviest("paged_append_attend")
@@ -512,14 +641,32 @@ def time_kernels(torch, pa, kc, ac, cap: Capture,
             "append main-path pools differ from scatter-then-plain")
     nbytes, ops = attention_work(torch, call, 1, append=True)
     bound, by = bound_entry(nbytes, ops, dt)
+    warm = timed_entry({"kernel": kern, "plain": plain})
+    # cold: each layer's call on its own pools, which the replays write at
+    # the step's own slots (the run is over; nothing reads them after)
+    step = step_calls(cap.calls["paged_append_attend"], call,
+                      ("bt", "cl", "sb", "so"))
+
+    def plain_cold(c):
+        kp, vp = c["pools"]
+        kp[c["sb"].long(), c["so"].long()] = c["k_new"]
+        vp[c["sb"].long(), c["so"].long()] = c["v_new"]
+        return pa.paged_attention_reference(c["q"], kp, vp, c["bt"], c["cl"])
+
+    cold = cold_entry({
+        "kernel": lambda c: pa.paged_append_attend_cuda(
+            c["q"], c["k_new"], c["v_new"], *c["pools"], c["bt"], c["cl"],
+            c["sb"], c["so"]),
+        "plain": plain_cold}, step)
     out.append(dict(
         name="paged_append_attend", route="cuda",
         source="pathway_tpu_torch/csrc/paged_attention.cu",
         replaces="pathway_tpu/kvcache/paged_attention.py:284",
         launches=launches["paged_append_attend"], max_abs_err=err,
-        bound_ms=bound, bound_by=by,
-        **timed_entry({"kernel": kern, "plain": plain}),
-        shape=f"q{tuple(a['q'].shape)} {dt} ctx_sum={int(a['cl'].sum())}",
+        bound_ms=bound, bound_by=by, **warm,
+        cold=dict(cold, layers=len(step)),
+        shape=f"q{tuple(a['q'].shape)} {dt} ctx_sum={int(a['cl'].sum())} "
+              f"longest_ctx={int(a['cl'].max())}",
     ))
     # 3. KNN scores: the batched search (GEMM) and one query's search
     # (GEMV), each with its matrix cold in L2 (rotating over 4 copies)
@@ -733,6 +880,7 @@ def main() -> int:
                         chain_steps=8)
     prefill_chunk = 2 * engine_sizes["block_size"]
     for line in (check_paged_attention(torch, pa, g, prefill_chunk)
+                 + check_paged_edges(torch, pa, g)
                  + check_append(torch, pa, g) + check_knn(torch, kc, g)
                  + check_flash(torch, ac, g)):
         log("  " + line)

@@ -37,6 +37,37 @@ _SOURCE = "paged_attention.cu"
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (32, 64, 128)
 
+#: Tokens per key split: each kernel gives every (row, head) one thread
+#: block per split of the table's span (``NBT * BS`` tokens, known on the
+#: host), and the row's last split to finish merges their partials inside
+#: the same launch.  The ragged split is 4 of the kernel's 64-token tiles.
+RAGGED_SPLIT = 256
+APPEND_SPLIT = 128
+#: query columns of one ragged block (and of one partial record)
+_COLUMN_GROUP = 32
+_SCRATCH: dict = {}
+
+
+def _n_splits(block_tables, block_size: int, split: int) -> int:
+    return -(-block_tables.shape[1] * block_size // split)
+
+
+def _scratch(device, groups: int, n_split: int, rows: int, hd: int):
+    """The cached partials and arrival counters of one launch shape:
+    ``groups`` (row, head, column group) triples, each with ``n_split``
+    f32 records of ``rows * (hd + 4)`` floats (O, then m and l per
+    column), and one int32 counter per triple, which starts at 0 and
+    which every launch leaves at 0.  Launches that share a shape share
+    the scratch: they must run one after another (one stream)."""
+    key = (device, groups, n_split, rows, hd)
+    hit = _SCRATCH.get(key)
+    if hit is None:
+        hit = (torch.empty(groups * n_split * rows * (hd + 4),
+                           dtype=torch.float32, device=device),
+               torch.zeros(groups, dtype=torch.int32, device=device))
+        _SCRATCH[key] = hit
+    return hit
+
 
 def _query_context(C: int, context_lens, start_pos, n_valid, device):
     """Per-row ``(c0, cl_last)`` int32: column ``c`` attends to
@@ -138,14 +169,15 @@ def _check_kernel_inputs(q, k_pool, v_pool, block_tables):
                          f"got {hd}")
     if block_tables.shape[0] != q.shape[0]:
         raise ValueError("block_tables rows must match the batch")
-    _require_aligned(k_pool, v_pool)
+    _require_aligned(q, k_pool, v_pool)
 
 
 def _require_aligned(*tensors):
-    # the kernel reads K/V rows with 16-byte vector loads
+    # the kernels read q and K/V rows with 16-byte vector loads
     for t in tensors:
         if t.data_ptr() % 16:
-            raise ValueError("K/V operands must start on a 16-byte boundary")
+            raise ValueError("q and K/V operands must start on a 16-byte "
+                             "boundary")
 
 
 def paged_attention_cuda(q, k_pool, v_pool, block_tables, c0, cl):
@@ -155,12 +187,17 @@ def paged_attention_cuda(q, k_pool, v_pool, block_tables, c0, cl):
     B, C, H, hd = q.shape
     for name, t in (("c0", c0), ("cl", cl)):
         _cuda.check(t, name, dtype=torch.int32, ndim=1)
+    BS = k_pool.shape[1]
+    n_split = _n_splits(block_tables, BS, RAGGED_SPLIT)
+    part, counters = _scratch(q.device, B * H * -(-C // _COLUMN_GROUP),
+                              n_split, _COLUMN_GROUP, hd)
     out = torch.empty_like(q)
     _cuda.launch(
         _SOURCE, "pw_paged_attention", "paged_attention",
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), out.data_ptr(),
         block_tables.data_ptr(), c0.data_ptr(), cl.data_ptr(),
-        B, C, H, hd, k_pool.shape[1], block_tables.shape[1],
+        part.data_ptr(), counters.data_ptr(),
+        B, C, H, hd, BS, block_tables.shape[1], RAGGED_SPLIT, n_split,
         _DTYPE_CODE[q.dtype], 1.0 / math.sqrt(hd),
     )
     return out
@@ -181,14 +218,18 @@ def paged_append_attend_cuda(q, k_new, v_new, k_pool, v_pool, block_tables,
     for name, t in (("cl", cl), ("slot_blocks", slot_blocks),
                     ("slot_offsets", slot_offsets)):
         _cuda.check(t, name, dtype=torch.int32, ndim=1)
+    BS = k_pool.shape[1]
+    n_split = _n_splits(block_tables, BS, APPEND_SPLIT)
+    part, counters = _scratch(q.device, B * H, n_split, 1, hd)
     out = torch.empty_like(q)
     _cuda.launch(
         _SOURCE, "pw_paged_append_attend", "paged_append_attend",
         q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
         k_pool.data_ptr(), v_pool.data_ptr(), out.data_ptr(),
         block_tables.data_ptr(), cl.data_ptr(), slot_blocks.data_ptr(),
-        slot_offsets.data_ptr(), B, H, hd, k_pool.shape[1],
-        block_tables.shape[1], _DTYPE_CODE[q.dtype], 1.0 / math.sqrt(hd),
+        slot_offsets.data_ptr(), part.data_ptr(), counters.data_ptr(),
+        B, H, hd, BS, block_tables.shape[1], APPEND_SPLIT, n_split,
+        _DTYPE_CODE[q.dtype], 1.0 / math.sqrt(hd),
     )
     return out
 

@@ -41,12 +41,13 @@ SOURCES = {
                               + [_F, _P],
     },
     "paged_attention.cu": {
-        # q, k_pool, v_pool, out, block_tables, c0, cl;
-        # B, C, H, hd, BS, NBT, dtype; scale; stream
-        "pw_paged_attention": [_P] * 7 + [_I] * 7 + [_F, _P],
+        # q, k_pool, v_pool, out, block_tables, c0, cl, scratch, counters;
+        # B, C, H, hd, BS, NBT, split, n_split, dtype; scale; stream
+        "pw_paged_attention": [_P] * 9 + [_I] * 9 + [_F, _P],
         # q, k_new, v_new, k_pool, v_pool, out, block_tables, cl,
-        # slot_blocks, slot_offsets; B, H, hd, BS, NBT, dtype; scale; stream
-        "pw_paged_append_attend": [_P] * 10 + [_I] * 6 + [_F, _P],
+        # slot_blocks, slot_offsets, scratch, counters; B, H, hd, BS, NBT,
+        # split, n_split, dtype; scale; stream
+        "pw_paged_append_attend": [_P] * 12 + [_I] * 8 + [_F, _P],
     },
     "knn_scores.cu": {
         # queries, matrix, out; Q, N, d; stream (GEMM for Q >= 16, GEMV

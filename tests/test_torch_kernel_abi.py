@@ -173,3 +173,27 @@ def test_paged_wrappers_pass_every_bound_argument(recorded_launches):
                                                  "pw_paged_append_attend"]
     for call in recorded_launches:
         _assert_call_matches_binding(call)
+
+
+def test_paged_wrappers_split_the_table_span(recorded_launches):
+    """The split length and count the wrappers pass (and size the scratch
+    for): one split per ``RAGGED_SPLIT`` / ``APPEND_SPLIT`` tokens of the
+    table's span, which the host knows without reading the contexts."""
+    from pathway_tpu_torch.kvcache import paged_attention as pa
+
+    B, C, H, hd, BS, NBT = 2, 32, 2, 64, 16, 40  # tables span 640 tokens
+    pool = torch.zeros((B * NBT + 1, BS, H, hd), dtype=torch.bfloat16)
+    bt = torch.zeros((B, NBT), dtype=torch.int32)
+    ctx = torch.full((B,), 640, dtype=torch.int32)
+    bf16 = dict(dtype=torch.bfloat16)
+    pa.paged_attention_cuda(torch.zeros((B, C, H, hd), **bf16), pool,
+                            pool.clone(), bt, ctx, ctx)
+    new = torch.zeros((B, H, hd), **bf16)
+    pa.paged_append_attend_cuda(torch.zeros((B, 1, H, hd), **bf16), new,
+                                new.clone(), pool, pool.clone(), bt, ctx,
+                                ctx, ctx)
+    ragged, append = (call[3] for call in recorded_launches)
+    # ... B, C, H, hd, BS, NBT, split, n_split, dtype, scale
+    assert ragged[9:18] == (B, C, H, hd, BS, NBT, pa.RAGGED_SPLIT, 3, 1)
+    # ... B, H, hd, BS, NBT, split, n_split, dtype, scale
+    assert append[12:20] == (B, H, hd, BS, NBT, pa.APPEND_SPLIT, 5, 1)

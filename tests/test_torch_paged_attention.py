@@ -8,6 +8,7 @@ CUDA kernels themselves run only on the card (``chip_smoke.py``).
 """
 
 import importlib
+import math
 
 import jax.numpy as jnp
 import numpy as np
@@ -136,3 +137,74 @@ def test_append_attend_rejects_zero_context():
             torch.from_numpy(zero), torch.from_numpy(zero),
             torch.from_numpy(zero),
         )
+
+
+# The split structure of the CUDA kernels (csrc/paged_attention.cu): keys
+# in tiles of 64 tokens, a block's tiles dealt to 2 key groups of warps.
+KEY_TILE, KEY_GROUPS = 64, 2
+_EMPTY = (torch.tensor(-1e30), torch.tensor(0.0))
+
+
+def _part(q, k, v, scale):
+    """(m, l, acc) of one part of a column's keys, in log2 units as the
+    kernels keep them; an empty part is (-1e30, 0, 0)."""
+    if k.shape[0] == 0:
+        return (*_EMPTY, torch.zeros(q.shape[-1]))
+    s = (k @ q) * (scale * math.log2(math.e))
+    m = s.max()
+    p = torch.exp2(s - m)
+    return m, p.sum(), p @ v
+
+
+def _merge(parts):
+    """The online softmax's merge: m the largest m_i, each part's l and
+    acc scaled by 2^(m_i - m)."""
+    m = torch.stack([p[0] for p in parts]).max()
+    c = [torch.exp2(p[0] - m) for p in parts]
+    return (m, sum(ci * p[1] for ci, p in zip(c, parts)),
+            sum(ci * p[2] for ci, p in zip(c, parts)))
+
+
+@pytest.mark.parametrize("split", [tpa.RAGGED_SPLIT, tpa.APPEND_SPLIT])
+def test_key_splits_merge_to_the_plain_version(split):
+    """A row's keys cut at the kernels' split points (one thread block a
+    split), each split's tiles dealt to the key groups, every part's
+    (m, l, acc) merged by the rule the kernels use (groups in shared
+    memory, splits by the row's last block to finish): the plain
+    version's output, f32, within 1e-5."""
+    rng = np.random.default_rng(7)
+    C, Hs, hd, bs, nbt = 4, 2, 16, 16, 40  # tables span 640 tokens
+    cl = np.array([640, 257, 130, 4], np.int32)  # the last column's context
+    Bs = cl.shape[0]
+    q = torch.from_numpy(rng.standard_normal((Bs, C, Hs, hd), np.float32))
+    kp, vp = (torch.from_numpy(rng.standard_normal(
+        (Bs * nbt + 1, bs, Hs, hd), np.float32)) for _ in range(2))
+    bt = torch.from_numpy((rng.permutation(Bs * nbt) + 1).reshape(Bs, nbt)
+                          .astype(np.int32))
+    ref = tpa.paged_attention_reference(q, kp, vp, bt, torch.from_numpy(cl))
+    k = kp[bt.long()].reshape(Bs, nbt * bs, Hs, hd)
+    v = vp[bt.long()].reshape(Bs, nbt * bs, Hs, hd)
+    scale = 1.0 / math.sqrt(hd)
+    out = torch.empty_like(ref)
+    n_splits = set()
+    for b in range(Bs):
+        for c in range(C):
+            ctx = min(int(cl[b]) - (C - 1) + c, int(cl[b]))
+            for h in range(Hs):
+                splits = []
+                for s0 in range(0, ctx, split):
+                    s1 = min(s0 + split, ctx)
+                    tiles = [(t, min(t + KEY_TILE, s1))
+                             for t in range(s0, s1, KEY_TILE)]
+                    groups = [
+                        _merge([_part(q[b, c, h], k[b, t0:t1, h],
+                                      v[b, t0:t1, h], scale)
+                                for t0, t1 in tiles[g::KEY_GROUPS]]
+                               or [(*_EMPTY, torch.zeros(hd))])
+                        for g in range(KEY_GROUPS)]
+                    splits.append(_merge(groups))
+                n_splits.add(len(splits))
+                _m, l, acc = _merge(splits)
+                out[b, c, h] = acc / torch.clamp(l, min=1e-20)
+    assert max(n_splits) == -(-640 // split) and min(n_splits) == 1
+    torch.testing.assert_close(out, ref, atol=1e-5, rtol=1e-5)
