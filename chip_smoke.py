@@ -27,14 +27,33 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    (every prompt's bucket is >= 256); in bf16 ``generate`` is timed one
    prompt at a time (tokens/s) and the prefill alone gives the time to
    first token;
+4c. sampling, restart, watchdog and speculation: in f32 each must give
+   identical tokens — temperature-0 rows beside greedy rows equal the
+   greedy run; a fixed seed replays and another seed differs; the seeded
+   run again with one injected chain failure and ``max_restarts=1``
+   (exactly one restart), and with a wedged sync tripping the watchdog;
+   ``speculative="ngram"`` on the greedy prompts (the verify step runs
+   the ragged kernel at C = k+1 = 5); the whole-bucket engine replays its
+   own seeded run.  In bf16: batched tokens/s of the sampled prompts and
+   of the speculative engine (with its verify count and acceptance), the
+   sampling head's device time per step, and a torch.profiler count of
+   the ragged and append kernels in those runs;
 5. print one ``{"kernels": [...]}`` line (launches on the main path,
    error against the plain version, kernel / plain / bound / library
    times at the main path's shapes: the median of 5 windows of 50
    calls, with the windows' min and max, the kernel and its library
    call taking turns; KNN at both its shapes with the matrix cold in
    L2; the paged kernels warm, on their heaviest call, and ``cold``,
-   rotating over that step's calls of every layer) and one line of
-   end-to-end numbers.
+   rotating over that step's calls of every layer; the ragged kernel
+   twice, at the mixed step's C = 32 and at the verify step's C = 5) and
+   lines of end-to-end numbers.
+
+Phase 2 also holds the port's PRNG (``models/prng.py``) on the card to
+``PRNG_KNOWN``, keys and bits that ``jax.random`` gives (the CPU tests
+hold these constants to JAX), and the sampling head on the card to the
+same head on the CPU.  Every engine runs with ``max_restarts=0`` except
+phase 4c's restart and watchdog checks; an ``EngineFailedError`` exits
+non-zero.
 
 ``--checks-only`` stops after phase 2 and prints no result.
 
@@ -71,6 +90,31 @@ GPT2_SMALL = dict(vocab_size=50257, d_model=768, n_layers=12, n_heads=12,
 # the main path's sizes: documents indexed, queries searched, RAG prompts
 # and greedy tokens generated for each
 N_DOCS, N_QUERIES, N_PROMPTS, NEW_TOKENS = 16384, 64, 8, 32
+
+# speculative decoding: proposals per row, so the verify step's ragged
+# kernel call has C = SPEC_K + 1 query columns a row
+SPEC_K = 4
+
+# the threefry constants and jax.random's answers for fold_in(fold_in(
+# PRNGKey(0), seed), emit): (seed, emit) -> (key words, first 4 uint32
+# bits).  tests/test_torch_sampling.py holds these to jax.random.
+PRNG_KS_PARITY = 0x1BD11BDA
+PRNG_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+PRNG_KNOWN = {
+    (0, 0): ((4165894930, 804218099),
+             (1214273199, 3384852239, 1707608394, 3966931780)),
+    (100, 0): ((3622970267, 559455039),
+               (2687823271, 3663732911, 3906645144, 3723841787)),
+    (107, 5): ((1724859793, 3675569027),
+               (1164670735, 26955028, 621662955, 1058987097)),
+    (-1, 31): ((4156831547, 1158201769),
+               (2984856344, 3726984041, 924100348, 2942920681)),
+    (2147483647, 1000): ((1038449009, 1014204950),
+                         (3081113843, 3058134164, 3916803409, 4185931933)),
+}
+# Gumbel draws on the card against the CPU: bit-identical uniforms through
+# two backends' log; an ulp of the outer log at |g| <= 16 is 1.9e-6
+GUMBEL_TOL = (1e-6, 5e-7)  # (absolute, relative)
 
 MINILM = dict(vocab_size=30522, d_model=384, n_layers=6, n_heads=12,
               d_ff=1536, max_len=512, ln_placement="post", act="gelu",
@@ -352,6 +396,89 @@ def check_append(torch, pa, g) -> list[str]:
     return lines
 
 
+def check_verify_shape(torch, pa, g) -> list[str]:
+    """The speculative verify step's call: q (8, SPEC_K + 1, 12, 64),
+    rows at decode-length contexts spread to ~600 tokens, each with 1 to
+    SPEC_K + 1 valid columns (the ragged form the engine passes), and the
+    same contexts in the consecutive form."""
+    lines = []
+    C = SPEC_K + 1
+    for dtype in (torch.float32, torch.bfloat16):
+        tol = TOL[str(dtype).split(".")[1]]
+        q, kp, vp, bt, _kw = random_pool_case(
+            torch, g, B=8, C=C, H=12, hd=64, BS=16, NBLK=400, NBT=40,
+            dtype=dtype, ragged=False)
+        start = torch.linspace(0, 600, 8).long()
+        n_valid = torch.randint(1, C + 1, (8,), generator=g)
+        n_valid[0] = C
+        cases = {"ragged": dict(start_pos=start.int().cuda(),
+                                n_valid=n_valid.int().cuda()),
+                 "consecutive": dict(context_lens=(start + C).int().cuda())}
+        for form, kw in cases.items():
+            out = pa.paged_attention(q, kp, vp, bt, **kw)
+            ref = pa.paged_attention_reference(q, kp, vp, bt, **kw)
+            torch.cuda.synchronize()
+            err = max_abs_err(out, ref)
+            require(bool(torch.isfinite(out).all()),
+                    f"verify-shape paged_attention non-finite ({dtype})")
+            require(err <= tol, f"verify-shape paged_attention {dtype} "
+                    f"{form}: err {err} > {tol}")
+            lines.append(f"paged_attention {str(dtype)[6:]} verify shape "
+                         f"q{tuple(q.shape)} {form} contexts to 605 "
+                         f"err={err:.3g}")
+    return lines
+
+
+def check_sampling(torch, prng, dec, g) -> list[str]:
+    """The PRNG on the card against jax.random's known answers and the
+    CPU (bits identical, Gumbel within GUMBEL_TOL), and the sampling head
+    on the card against the CPU at GPT-2's vocab: ids identical, keep
+    masks counted."""
+    require((prng.KS_PARITY, prng.ROTATIONS) == (PRNG_KS_PARITY,
+                                                 PRNG_ROTATIONS),
+            "threefry constants differ from jax.random's")
+    for (seed, emit), (key, bits) in PRNG_KNOWN.items():
+        k = prng.fold_in(prng.fold_in(prng.prng_key(0, "cuda"), seed), emit)
+        require(k.tolist() == list(key), f"key ({seed}, {emit}) {k.tolist()}")
+        got = prng.random_bits_32(k, len(bits)).tolist()
+        require(got == list(bits), f"bits ({seed}, {emit}) {got}")
+    V = GPT2_SMALL["vocab_size"]
+    B = N_PROMPTS
+    seeds = torch.tensor([100 + i for i in range(B)])
+    emits = torch.tensor([0, 1, 2, 31, 100, 500, 1000, 1023])
+    keys = dec._row_sample_keys(seeds, emits)
+    kc = dec._row_sample_keys(seeds.cuda(), emits.cuda())
+    require(torch.equal(kc.cpu(), keys), "row keys differ on the card")
+    require(torch.equal(prng.random_bits_32(kc, V).cpu(),
+                        prng.random_bits_32(keys, V)),
+            "random bits differ on the card")
+    g_cpu = prng.gumbel(keys, V)
+    g_dev = prng.gumbel(kc, V).cpu()
+    atol, rtol = GUMBEL_TOL
+    g_err = float(((g_dev - g_cpu).abs() - rtol * g_cpu.abs()).max())
+    require(g_err <= atol, f"gumbel card vs CPU: excess {g_err} > {atol}")
+    logits = torch.randn((B, V), generator=g) * 3.0
+    temp = torch.tensor([0.0, 0.8, 1.0, 0.7, 1.2, 0.8, 0.5, 0.9])
+    top_k = torch.tensor([0, 40, 0, 40, 0, 1, 8, 0])
+    top_p = torch.tensor([1.0, 0.95, 1.0, 1.0, 0.9, 1.0, 0.95, 0.5])
+    args = (temp, top_k, top_p)
+    ids = dec._sample_rows(logits, dec.greedy(logits), *args, keys)
+    lc = logits.cuda()
+    ids_dev = dec._sample_rows(lc, dec.greedy(lc), *(a.cuda() for a in args),
+                               kc).cpu()
+    keep = dec._nucleus(logits, *args)[2]
+    keep_dev = dec._nucleus(lc, *(a.cuda() for a in args))[2].cpu()
+    torch.cuda.synchronize()
+    require(torch.equal(ids_dev, ids),
+            f"sampling head card {ids_dev.tolist()} vs CPU {ids.tolist()}")
+    return [f"prng: {len(PRNG_KNOWN)} jax.random keys/bits and {B}x{V} bits "
+            f"identical on the card; gumbel card vs CPU within "
+            f"{atol} + {rtol}|g| (excess {g_err:.3g})",
+            f"sampling head card vs CPU at V={V}: ids identical, keep masks "
+            f"differ at {int((keep_dev != keep).sum())} of {keep.numel()} "
+            "entries"]
+
+
 def check_knn(torch, kc, g) -> list[str]:
     """Both variants (GEMV below 16 queries, GEMM from 16) at ragged Q and
     N, the 16-byte path (d = 384, 24) and the scalar one (d = 37, and a
@@ -484,12 +611,16 @@ class Capture:
         (self.pa.paged_attention_cuda, self.pa.paged_append_attend_cuda,
          self.kc.knn_scores_cuda, self.ac.flash_attention_cuda) = self.orig
 
-    def heaviest(self, name, *, small: bool = False, max_t: int = 1 << 30):
-        """The captured call whose contexts sum highest (paged attention;
-        for append, over the rows that honour its contract), or the
-        largest product (scores; ``small``: among the GEMV's calls, Q <
-        16), or the longest sequence up to ``max_t`` (flash)."""
+    def heaviest(self, name, *, small: bool = False, max_t: int = 1 << 30,
+                 cols: int | None = None):
+        """The captured call whose contexts sum highest (paged attention,
+        among its calls with ``cols`` query columns; for append, over the
+        rows that honour its contract), or the largest product (scores;
+        ``small``: among the GEMV's calls, Q < 16), or the longest
+        sequence up to ``max_t`` (flash)."""
         calls = self.calls[name]
+        if cols is not None:
+            calls = [c for c in calls if c["q"].shape[1] == cols]
         if name == "knn_scores":
             calls = [c for c in calls
                      if (c["q"].shape[0] < self.kc.GEMM_MIN_Q) == small]
@@ -581,11 +712,11 @@ def bound_entry(nbytes: float, ops: float, dtype: str) -> tuple[float, str]:
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
 
 
-def time_kernels(torch, pa, kc, ac, cap: Capture,
-                 launches: dict) -> list[dict]:
-    out = []
-    # 1. ragged paged attention (mixed step)
-    call = cap.heaviest("paged_attention")
+def ragged_entry(torch, pa, cap: Capture, name: str, cols: int,
+                 launches: int) -> dict:
+    """The kernels-line entry of the ragged kernel at its heaviest
+    captured call with ``cols`` query columns, warm and cold."""
+    call = cap.heaviest("paged_attention", cols=cols)
     kp, vp = call["pools"]
     q, bt, c0, cl = call["q"], call["bt"], call["c0"], call["cl"]
     C = q.shape[1]
@@ -594,7 +725,7 @@ def time_kernels(torch, pa, kc, ac, cap: Capture,
         q, kp, vp, bt, start_pos=c0 - 1, n_valid=cl - c0 + 1)
     err = max_abs_err(kern(), plain())
     dt = str(q.dtype).split(".")[1]
-    require(err <= TOL[dt], f"paged_attention main-path err {err}")
+    require(err <= TOL[dt], f"{name} main-path err {err}")
     nbytes, ops = attention_work(torch, call, C, append=False)
     bound, by = bound_entry(nbytes, ops, dt)
     step = step_calls(cap.calls["paged_attention"], call, ("bt", "c0", "cl"))
@@ -604,17 +735,26 @@ def time_kernels(torch, pa, kc, ac, cap: Capture,
         "plain": lambda c: pa.paged_attention_reference(
             c["q"], *c["pools"], c["bt"], start_pos=c["c0"] - 1,
             n_valid=c["cl"] - c["c0"] + 1)}, step)
-    out.append(dict(
-        name="paged_attention", route="cuda",
+    return dict(
+        name=name, route="cuda",
         source="pathway_tpu_torch/csrc/paged_attention.cu",
         replaces="pathway_tpu/kvcache/paged_attention.py:159",
-        launches=launches["paged_attention"], max_abs_err=err,
-        bound_ms=bound, bound_by=by,
+        launches=launches, max_abs_err=err, bound_ms=bound, bound_by=by,
         **timed_entry({"kernel": kern, "plain": plain}),
         cold=dict(cold, layers=len(step)),
         shape=f"q{tuple(q.shape)} {dt} ctx_sum={int(cl.sum())} "
               f"longest_ctx={int(cl.max())}",
-    ))
+    )
+
+
+def time_kernels(torch, pa, kc, ac, cap: Capture, cap_spec: Capture,
+                 launches: dict, prefill_chunk: int) -> list[dict]:
+    # 1. ragged paged attention: the mixed step (chunked prefill beside
+    # decode rows), and the speculative verify step
+    out = [ragged_entry(torch, pa, cap, "paged_attention", prefill_chunk,
+                        launches["paged_attention"]),
+           ragged_entry(torch, pa, cap_spec, "paged_attention_verify",
+                        SPEC_K + 1, launches["paged_attention_verify"])]
     # 2. append + attend (decode steps); replays write the same slot
     call = cap.heaviest("paged_append_attend")
     kp0, vp0 = call["pools"]
@@ -821,6 +961,218 @@ def first_token_ms(torch, dec, lm, prompt: str, n_new: int) -> float:
     return (time.perf_counter() - t0) * 1e3
 
 
+# -- phase 4c: sampling, restart, watchdog and speculation -----------------
+
+# a watchdog deadline far above any sync of these runs, and a hang past it
+WATCHDOG_S, HANG_MS = 1.5, 3000
+
+
+def seeded(reqs, seed0: int, spec=(0.8, 40, 0.95)):
+    """The requests with a sampling spec, seeds ``seed0 + i``."""
+    return [(ids, n, {"sampling": spec + (seed0 + i,)})
+            for i, (ids, n) in enumerate(reqs)]
+
+
+class ColumnTally:
+    """Counts the ragged kernel's launches by query columns (C) while
+    active, beside the wrapper's own count."""
+
+    def __init__(self, pa):
+        self.pa, self.by_cols = pa, {}
+
+    def __enter__(self):
+        orig = self.orig = self.pa.paged_attention_cuda
+
+        def counted(q, *args):
+            self.by_cols[q.shape[1]] = self.by_cols.get(q.shape[1], 0) + 1
+            return orig(q, *args)
+
+        self.pa.paged_attention_cuda = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.pa.paged_attention_cuda = self.orig
+
+
+def phase4c_f32(torch, engine, faults, _cuda, reqs, greedy_toks) -> dict:
+    """The six f32 identity checks; ``engine(**kw)`` builds an engine
+    over the f32 weights at the main path's sizes."""
+    out = {}
+    # a. temperature-0 rows riding beside greedy rows equal the greedy run
+    eng = engine()
+    mixed = [(ids, n, {"sampling": (0.0, 0, 1.0, 200 + i)}) if i % 2 == 0
+             else (ids, n) for i, (ids, n) in enumerate(reqs)]
+    require(eng.generate_batch(mixed) == greedy_toks,
+            "4c.a: temperature-0 rows differ from the greedy run")
+    # b. a fixed seed replays (the second run over a warm prefix cache);
+    # another seed differs somewhere
+    spec = seeded(reqs, 100)
+    first = eng.generate_batch(spec)
+    require(eng.generate_batch(spec) == first, "4c.b: seeded run differs")
+    require(eng.generate_batch(seeded(reqs, 900)) != first,
+            "4c.b: another seed drew the same tokens")
+    require(first != greedy_toks, "4c.b: sampled tokens equal greedy")
+    del eng
+    # c. one injected chain failure: exactly one restart, same tokens
+    eng = engine(max_restarts=1)
+    faults.install("engine.dispatch.chain", "raise", nth=2)
+    try:
+        got = eng.generate_batch(spec)
+    finally:
+        faults.clear()
+    require(got == first and eng.n_restarts == 1,
+            f"4c.c: restart ({eng.n_restarts}) changed the tokens")
+    del eng
+    # d. a wedged sync trips the watchdog into the same restart path
+    eng = engine(max_restarts=1, watchdog_timeout_s=WATCHDOG_S)
+    faults.install("engine.sync", "hang", nth=3, arg_ms=HANG_MS)
+    t0 = time.perf_counter()
+    try:
+        got = eng.generate_batch(spec)
+    finally:
+        faults.clear()
+    out["watchdog_run_s"] = time.perf_counter() - t0
+    require(got == first and eng.n_restarts == 1,
+            f"4c.d: watchdog restart ({eng.n_restarts}) changed the tokens")
+    del eng
+    # e. speculation on the greedy prompts gives the greedy tokens
+    eng = engine(speculative="ngram")
+    _cuda.reset_launches()
+    got = eng.generate_batch(reqs)
+    torch.cuda.synchronize()
+    require(got == greedy_toks, "4c.e: speculative tokens differ from greedy")
+    require(eng.rounds["verify"] > 0, "4c.e: no verify round ran")
+    out["spec_f32"] = dict(rounds=dict(eng.rounds),
+                           accept_rate=eng._spec.accept_rate,
+                           proposed=eng._spec.proposed,
+                           accepted=eng._spec.accepted,
+                           launches=dict(_cuda.LAUNCHES))
+    del eng
+    # f. whole-bucket sampled admission replays its own seeded run
+    eng = engine(chunked_prefill=False)
+    _cuda.reset_launches()
+    whole = eng.generate_batch(spec)
+    require(_cuda.LAUNCHES["flash_attention"] > 0,
+            f"4c.f launched {dict(_cuda.LAUNCHES)}")
+    require(eng.generate_batch(spec) == whole, "4c.f: whole-bucket replay")
+    out["whole_bucket_equals_chunked_share"] = float(
+        sum(a == b for x, y in zip(whole, first) for a, b in zip(x, y))
+        / sum(len(x) for x in first))
+    return out
+
+
+def kernel_profile(torch, run) -> dict:
+    """torch.profiler's count of the ragged (``paged_tc_kernel``) and
+    append (``append_kernel``) kernels in ``run()``."""
+    events = device_events(torch, run)
+    return {k: sum(k in name for name, _us in events)
+            for k in ("paged_tc_kernel", "append_kernel")}
+
+
+def device_events(torch, run) -> list[tuple[str, float]]:
+    """(name, µs) of every device event of ``run()``, by torch.profiler
+    tracing the device only (host tracing would record every op of a
+    generation run, which only slows the script)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    return [(e.name, e.time_range.elapsed_us()) for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def device_ms_per_call(torch, fn, n: int = 20) -> float:
+    """The device time of one ``fn()`` call, over ``n`` profiled calls."""
+    fn()
+    events = device_events(torch, lambda: [fn() for _ in range(n)])
+    return sum(us for _name, us in events) / 1e3 / n
+
+
+def phase4c_bf16(torch, dec, pa, _cuda, cap, engine, eng16, reqs) -> dict:
+    """Batched bf16 tokens/s of the sampled prompts (on the greedy
+    engine of phase 4) and of a speculative engine; the sampling head's
+    device time; kernel counts by torch.profiler.  ``cap`` keeps the
+    speculative warm-up's kernel inputs for phase 5."""
+    out = {}
+    spec = seeded(reqs, 100)
+    n_tok = sum(n for _ids, n in reqs)
+    eng16.generate_batch(spec)  # warm-up of the sampled programs
+    eng16.prefix.clear()
+    torch.cuda.synchronize()
+    _cuda.reset_launches()
+    t0 = time.perf_counter()
+    toks = eng16.generate_batch(spec)
+    torch.cuda.synchronize()
+    out["sampled_tokens_per_s_bf16"] = n_tok / (time.perf_counter() - t0)
+    out["sampled_launches"] = dict(_cuda.LAUNCHES)
+    require(all(len(t) == n for t, (_i, n) in zip(toks, reqs)),
+            "bf16 sampled output")
+    for name in ("paged_attention", "paged_append_attend"):
+        require(_cuda.LAUNCHES[name] > 0, f"sampled run never launched {name}")
+    # speculation: a first engine warms up and keeps the verify calls'
+    # inputs for phase 5; the timed engine starts fresh (empty prefix
+    # cache, untrained drafter)
+    with cap:
+        engine(speculative="ngram").generate_batch(reqs)
+    eng = engine(speculative="ngram")
+    torch.cuda.synchronize()
+    _cuda.reset_launches()
+    with ColumnTally(pa) as tally:
+        t0 = time.perf_counter()
+        got = eng.generate_batch(reqs)
+        torch.cuda.synchronize()
+        t_spec = time.perf_counter() - t0
+    c5 = tally.by_cols.get(SPEC_K + 1, 0)
+    require(c5 > 0, f"speculative run: ragged kernel calls by C "
+            f"{tally.by_cols}")
+    require(sum(tally.by_cols.values()) == _cuda.LAUNCHES["paged_attention"],
+            "column tally disagrees with the wrapper's count")
+    out.update(
+        speculative_tokens_per_s_bf16=sum(len(t) for t in got) / t_spec,
+        spec_rounds=dict(eng.rounds), spec_accept_rate=eng._spec.accept_rate,
+        spec_proposed=eng._spec.proposed, spec_accepted=eng._spec.accepted,
+        spec_emitted_per_verify=eng._spec.emitted / max(
+            eng._spec.dispatches, 1),
+        spec_host_ms_per_verify=eng._spec.ms_total / max(
+            eng._spec.dispatches, 1),
+        spec_launches=dict(_cuda.LAUNCHES), spec_ragged_by_cols=tally.by_cols,
+    )
+    del eng
+    # the sampling head alone, per step: (8, 50257) f32 logits
+    g = torch.Generator().manual_seed(1)
+    logits = (torch.randn((N_PROMPTS, GPT2_SMALL["vocab_size"]), generator=g)
+              * 3.0).cuda()
+    B = N_PROMPTS
+    args = (torch.full((B,), 0.8, device="cuda"),
+            torch.full((B,), 40, dtype=torch.int64, device="cuda"),
+            torch.full((B,), 0.95, device="cuda"))
+    seeds = torch.arange(100, 100 + B, device="cuda")
+    emits = torch.full((B,), 17, dtype=torch.int64, device="cuda")
+
+    def head():
+        return dec._sample_rows(logits, dec.greedy(logits), *args,
+                                dec._row_sample_keys(seeds, emits))
+
+    fns = {"sampling": head, "greedy": lambda: dec.greedy(logits)}
+    eager = cuda_times_ms(fns, iters=20, graph=False)
+    graph = cuda_times_ms(fns, iters=20)
+    out["head_ms"] = {k: dict(device=device_ms_per_call(torch, f),
+                              graph=graph[k][0], eager=eager[k][0])
+                      for k, f in fns.items()}
+    # which kernels ran: torch.profiler over a sampled and a speculative
+    # run of the same requests
+    eng16.prefix.clear()
+    out["profile_kernel_counts"] = {
+        "sampled": kernel_profile(torch, lambda: eng16.generate_batch(spec)),
+        "speculative": kernel_profile(
+            torch, lambda: engine(speculative="ngram").generate_batch(reqs)),
+    }
+    for run, counts in out["profile_kernel_counts"].items():
+        require(all(counts.values()), f"profile of the {run} run: {counts}")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -841,9 +1193,11 @@ def main() -> int:
         return 2
     log(f"python {sys.version.split()[0]} torch {torch.__version__} "
         f"cuda {torch.version.cuda}")
+    from pathway_tpu_torch import faults
     from pathway_tpu_torch.kvcache import paged_attention as pa
     from pathway_tpu_torch.kvcache.engine import PagedDecodeEngine
     from pathway_tpu_torch.models import decoder as dec
+    from pathway_tpu_torch.models import prng
     from pathway_tpu_torch.models.encoder import EncoderConfig, TorchEncoder
     from pathway_tpu_torch.ops import _cuda
     from pathway_tpu_torch.ops import attention_cuda as ac
@@ -877,12 +1231,14 @@ def main() -> int:
     # phase 2: kernels against their plain versions
     g = torch.Generator().manual_seed(args.seed)
     engine_sizes = dict(num_blocks=512, block_size=16, max_batch_size=8,
-                        chain_steps=8)
+                        chain_steps=8, max_restarts=0)
     prefill_chunk = 2 * engine_sizes["block_size"]
     for line in (check_paged_attention(torch, pa, g, prefill_chunk)
                  + check_paged_edges(torch, pa, g)
                  + check_append(torch, pa, g) + check_knn(torch, kc, g)
-                 + check_flash(torch, ac, g)):
+                 + check_verify_shape(torch, pa, g)
+                 + check_flash(torch, ac, g) + check_sampling(torch, prng, dec,
+                                                              g)):
         log("  " + line)
     log("phase 2 ok: kernels agree with their plain versions")
     if args.checks_only:
@@ -1016,7 +1372,19 @@ def main() -> int:
 
     cfg16 = dec.DecoderConfig(**GPT2_SMALL)
     lm16 = dec.TorchDecoderLM(cfg16, params=lm32.params, device="cuda")
-    del whole32, lm32
+    # phase 4c, f32: sampling, restart, watchdog, speculation, sampled
+    # whole-bucket admission, each token-identical where it must be
+    def engine32(**kw):
+        return PagedDecodeEngine(cfg32, lm32.params, device="cuda",
+                                 **dict(engine_sizes, **kw))
+
+    del whole32
+    t0 = time.perf_counter()
+    f32_checks = phase4c_f32(torch, engine32, faults, _cuda, reqs, toks32)
+    f32_checks["phase_s"] = time.perf_counter() - t0
+    log(f"phase 4c f32 ok: temperature 0, seed replay, restart, watchdog, "
+        f"speculation and whole-bucket sampling identical; {f32_checks}")
+    del lm32
     eng16 = lm16.paged_engine(**engine_sizes)
     require(eng16.dtype == torch.bfloat16, "bf16 engine")
     # a first pass over the same requests warms the allocator and cuBLAS
@@ -1066,11 +1434,31 @@ def main() -> int:
         f"prompt at a time; time to first token p50 "
         f"{statistics.median(ttft):.2f} ms")
 
+    # phase 4c, bf16: sampled and speculative throughput
+    def engine16(**kw):
+        return PagedDecodeEngine(cfg16, lm16.params, device="cuda",
+                                 **dict(engine_sizes, **kw))
+
+    cap_spec = Capture(torch, pa, kc, ac)
+    t0 = time.perf_counter()
+    sampling = phase4c_bf16(torch, dec, pa, _cuda, cap_spec, engine16, eng16,
+                            reqs)
+    sampling["phase_s"] = time.perf_counter() - t0
+    main_launches["paged_attention_verify"] = sampling[
+        "spec_ragged_by_cols"][SPEC_K + 1]
+    sampling.update(greedy_tokens_per_s_bf16=n_gen / t_gen, f32=f32_checks)
+    log(f"phase 4c bf16 ok: sampled {sampling['sampled_tokens_per_s_bf16']:.1f}"
+        f" tokens/s, speculative "
+        f"{sampling['speculative_tokens_per_s_bf16']:.1f} (accept "
+        f"{sampling['spec_accept_rate']:.3f}), greedy {n_gen / t_gen:.1f}")
+
     # phase 5: numbers
-    kernels = time_kernels(torch, pa, kc, ac, cap, main_launches)
+    kernels = time_kernels(torch, pa, kc, ac, cap, cap_spec, main_launches,
+                           prefill_chunk)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"generation_profile": profile_generation(
         torch, lm16, prompts, NEW_TOKENS, t_gen)}), flush=True)
+    print(json.dumps({"sampling": sampling}), flush=True)
     print(json.dumps({
         "rag": {
             "docs": N_DOCS,

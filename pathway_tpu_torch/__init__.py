@@ -1,8 +1,9 @@
 """PyTorch/CUDA port of ``pathway_tpu``'s RAG serving path.
 
 The generation half (``kvcache.engine.PagedDecodeEngine`` over the paged
-KV cache, and ``models.decoder.TorchDecoderLM.generate`` over a dense
-one) and the retrieval half (``models.encoder.TorchEncoder`` plus
+KV cache, greedy or seeded sampling, with supervised restart and
+speculative decoding; ``models.decoder.TorchDecoderLM.generate`` over a
+dense one) and the retrieval half (``models.encoder.TorchEncoder`` plus
 ``stdlib.indexing.inner_index.BruteForceKnn``) run on one NVIDIA H100.
 The four TPU kernels on that path are hand-written CUDA kernels under
 ``csrc/``, built with ``nvcc`` at first launch (``ops/_cuda.py``).

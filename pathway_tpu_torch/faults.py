@@ -1,0 +1,115 @@
+"""Fault-injection registry for the port's decode engine.
+
+The port's own copy of the part of ``pathway_tpu/faults.py`` the engine
+and its tests use: named fault points call :func:`fire`, and a fault
+installed at that point (:func:`install`) acts there.  Failure handling
+that only real failures exercise is failure handling that does not work.
+
+Fault points of ``kvcache/engine.py`` (the JAX package's names):
+
+=============================  ==========================================
+``engine.dispatch.step``       before a decode step's dispatch
+``engine.dispatch.mixed``      before a ragged mixed step's dispatch
+``engine.dispatch.chain``      before a chained decode's dispatch
+``engine.dispatch.prefill``    before a whole-bucket prefill's dispatch
+``engine.dispatch.verify``     before a speculative verify dispatch
+``engine.draft``               before the speculative draft; ``drop``
+                               skips drafting for the round
+``engine.sync``                inside the device->host pull of the ids
+                               (on the watchdog's thread when one is on);
+                               ``hang`` models a wedged device program
+=============================  ==========================================
+
+Actions: ``raise`` raises :class:`InjectedFault`; ``delay`` and ``hang``
+sleep ``arg_ms`` milliseconds; ``drop`` is returned to the caller, which
+interprets it.  ``nth`` is the 1-based hit at which a fault fires (0:
+every hit).
+"""
+
+from __future__ import annotations
+
+import logging
+import threading
+import time
+
+logger = logging.getLogger(__name__)
+
+_ACTIONS = ("raise", "hang", "delay", "drop")
+
+
+class InjectedFault(RuntimeError):
+    """Raised at a fault point armed with the ``raise`` action."""
+
+
+class FaultSpec:
+    __slots__ = ("point", "action", "nth", "arg_ms", "hits")
+
+    def __init__(self, point: str, action: str, nth: int = 1,
+                 arg_ms: float = 0.0):
+        if action not in _ACTIONS:
+            raise ValueError(
+                f"unknown fault action {action!r}; expected one of {_ACTIONS}"
+            )
+        self.point = point
+        self.action = action
+        self.nth = int(nth)
+        self.arg_ms = float(arg_ms)
+        self.hits = 0
+
+    def should_fire(self) -> bool:
+        """(caller holds the registry lock)  Count this hit; decide."""
+        self.hits += 1
+        return self.nth == 0 or self.hits == self.nth
+
+
+class FaultRegistry:
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._specs: list[FaultSpec] = []
+
+    def install(self, point: str, action: str, *, nth: int = 1,
+                arg_ms: float = 0.0) -> FaultSpec:
+        spec = FaultSpec(point, action, nth, arg_ms)
+        with self._lock:
+            self._specs.append(spec)
+        return spec
+
+    def clear(self) -> None:
+        with self._lock:
+            self._specs = []
+
+    def fire(self, point: str) -> str | None:
+        """Advance the counters of every spec at ``point`` and act on
+        those that fire: ``raise`` raises, ``delay``/``hang`` sleep,
+        ``drop`` is returned.  Returns None when nothing fired (or the
+        sleep's action name after a delay or hang)."""
+        with self._lock:
+            if not self._specs:
+                return None
+            # every matching spec counts every hit, so two armed faults
+            # at one point both fire at their own hit
+            triggered = [s for s in self._specs
+                         if s.point == point and s.should_fire()]
+        result = None
+        for spec in triggered:
+            logger.warning("fault injected: %s -> %s (hit %d)", point,
+                           spec.action, spec.hits)
+            if spec.action == "raise":
+                raise InjectedFault(
+                    f"injected fault at {point} (hit {spec.hits})"
+                )
+            if spec.action in ("delay", "hang"):
+                time.sleep(max(spec.arg_ms, 0.0) / 1000.0)
+            if result != "drop":
+                result = spec.action
+        return result
+
+
+_REGISTRY = FaultRegistry()
+
+install = _REGISTRY.install
+clear = _REGISTRY.clear
+fire = _REGISTRY.fire
+
+__all__ = ["FaultRegistry", "FaultSpec", "InjectedFault", "clear", "fire",
+           "install"]

@@ -1,7 +1,6 @@
-"""Continuous-batching greedy generation over the paged KV cache.
+"""Continuous-batching generation over the paged KV cache.
 
-The port of ``pathway_tpu/kvcache/engine.py`` ``PagedDecodeEngine`` in
-its default configuration:
+The port of ``pathway_tpu/kvcache/engine.py`` ``PagedDecodeEngine``:
 
 - admission (chunked): a request's prompt is matched against the prefix
   cache (shared leading blocks are mapped instead of re-stored and
@@ -15,20 +14,35 @@ its default configuration:
   padded to its ``seq_buckets`` bucket, by ONE dense pass
   (``models/decoder.paged_prefill``; the flash-attention kernel on the
   card for buckets >= 256) whose K/V is scattered into the sequence's
-  blocks, and its greedy first token is emitted at admission;
+  blocks, and its first token is emitted at admission;
 - decode: rows with no chunk in flight advance one token per step
   (``paged_decode_step``, the append+attend kernel), or, when the queue
-  is quiet, up to ``chain_steps`` greedy steps per dispatch
+  is quiet, up to ``chain_steps`` steps per dispatch
   (``paged_chained_decode``) with one [B, K] ids sync per chain, the
   next chain dispatched before the previous chain's completions are
   delivered;
-- greedy argmax runs on the device; only [B] (or [B, K]) int32 ids come
-  back to the host per round;
+- sampling: a request may carry ``sampling=(temperature, top_k, top_p,
+  seed)``; a round in which such a row emits dispatches the
+  ``*_sampled`` twin of its program (greedy rows ride it at temperature
+  0, which returns the argmax exactly), any other round the greedy
+  program.  A row's n-th token is drawn from a key of (seed, n) alone,
+  so every recompute below replays it bit for bit;
+- the token choice runs on the device; only [B] (or [B, K]) int32 ids
+  come back to the host per round;
 - preemption: when the pool is exhausted, refcount-1 prefix blocks are
   evicted first, then a victim (lowest priority class, most recent
   arrival) is preempted and later re-admitted by recompute over
   ``prompt + emitted`` — token-identical to never having been
-  preempted.
+  preempted;
+- failure: a device->host sync blocked past ``watchdog_timeout_s``
+  raises :class:`EngineHungError`; any failure with restart budget left
+  (``max_restarts``) rebuilds the pool and prefix cache and re-admits
+  every in-flight request by the same recompute; with the budget spent
+  every waiter gets a typed ``EngineFailedError``;
+- speculation (``speculative=``): a drafter proposes up to K tokens per
+  greedy row and ONE ragged verify dispatch (``paged_mixed_step`` with
+  C = K+1 query columns a row) checks them; the greedy accept rule keeps
+  the tokens identical to non-speculative decode.
 
 Shapes per round are fixed: ``max_batch_size`` rows, ``prefill_chunk``
 query columns, ``max_batch_size + prefill_chunk`` packed tokens in a
@@ -36,60 +50,167 @@ mixed round; idle rows and columns write to the reserved null block.
 
 Sizes (``num_blocks``, ``block_size``, ``max_batch_size``,
 ``chain_steps``) are explicit arguments with plain defaults; the JAX
-package's HBM/cost-store planner, watchdog/restart/degrade, sessions,
-speculation, sampling, int8 and tensor parallelism are not ported yet.
+package's HBM/cost-store planner, degrade hook, sessions, int8 and
+tensor parallelism are not ported yet.
 """
 
 from __future__ import annotations
 
+import logging
+import os
+import queue
 import threading
+import time
+import uuid
 from collections import deque
 from typing import Any, Callable
 
 import numpy as np
 import torch
 
+from .. import faults
 from .._device import resolve_device, resolve_dtype
-from ..models.decoder import (greedy, paged_chained_decode, paged_decode_step,
-                              paged_mixed_step, paged_prefill,
+from ..models.decoder import (greedy, paged_chained_decode,
+                              paged_chained_decode_sampled,
+                              paged_decode_step, paged_decode_step_sampled,
+                              paged_mixed_step, paged_mixed_step_sampled,
+                              paged_prefill, paged_prefill_sampled,
                               plan_decode_params)
 from ..models.encoder import params_to
+from ..serve.admission import EngineFailedError
 from .block_pool import BlockPool, PoolExhausted
 from .prefix_cache import PrefixCache
+from .speculative import resolve_speculative
+
+logger = logging.getLogger(__name__)
 
 
-def _payload_extras(r) -> int:
-    """The optional priority after ``(prompt, max_new)`` (default 1)."""
-    return int(r[2]) if len(r) > 2 and r[2] is not None else 1
+class EngineHungError(RuntimeError):
+    """A device->host sync exceeded the engine watchdog's deadline: the
+    program is presumed wedged.  Handled like a failed dispatch
+    (supervised restart while budget remains)."""
+
+
+class _WatchdogSync:
+    """Deadline-bounded device->host sync.
+
+    A blocked ``.cpu()`` cannot be interrupted from Python, so the pull
+    runs on a helper thread and the engine thread waits with a timeout.
+    On expiry the helper is ORPHANED (a daemon parked on the wedged pull)
+    and the next sync spawns a fresh one; the restarted engine's new pool
+    makes the wedged program's result irrelevant."""
+
+    def __init__(self):
+        self._thread: threading.Thread | None = None
+        self._inbox: queue.Queue | None = None
+
+    def _spawn(self) -> None:
+        self._inbox = queue.Queue()
+        self._thread = threading.Thread(
+            target=self._loop, args=(self._inbox,), daemon=True,
+            name="pw-engine-watchdog",
+        )
+        self._thread.start()
+
+    @staticmethod
+    def _loop(inbox) -> None:
+        while True:
+            job = inbox.get()
+            if job is None:
+                return  # orphaned after a timeout: wind down
+            fn, box = job
+            try:
+                box["result"] = fn()
+            except BaseException as exc:  # noqa: BLE001 - re-raised in run()
+                box["error"] = exc
+            box["done"].set()
+
+    def run(self, fn: Callable, timeout_s: float):
+        if self._thread is None or not self._thread.is_alive():
+            self._spawn()
+        box: dict = {"done": threading.Event(), "result": None, "error": None}
+        self._inbox.put((fn, box))
+        if not box["done"].wait(timeout_s):
+            # the helper is stuck inside fn(): abandon it (the None
+            # sentinel stops it if fn ever returns) and fail typed
+            self._inbox.put(None)
+            self._thread = None
+            raise EngineHungError(
+                f"device dispatch still blocked after {timeout_s}s "
+                "(watchdog deadline)"
+            )
+        if box["error"] is not None:
+            raise box["error"]
+        return box["result"]
+
+
+def _norm_sampling(s) -> tuple | None:
+    """A sampling spec (dict or 4-tuple) as ``(temperature, top_k, top_p,
+    seed)``, or None for greedy.  A temperature-0 spec is KEPT: it rides
+    the sampled program, whose head returns the exact argmax for it."""
+    if s is None:
+        return None
+    if isinstance(s, dict):
+        return (float(s.get("temperature", 1.0)), int(s.get("top_k", 0)),
+                float(s.get("top_p", 1.0)), int(s.get("seed", 0)))
+    t, k, p, seed = s
+    return (float(t), int(k), float(p), int(seed))
+
+
+def _payload_extras(r) -> tuple[Any, dict | None]:
+    """The optional tail of a request tuple: after ``(prompt, max_new)``
+    may come a priority and/or an options dict (``sampling``,
+    ``on_token``, ``emitted``), in either slot.  Returns ``(priority,
+    options)``, priority 1 by default."""
+    priority: Any = 1
+    opts = None
+    for el in r[2:4]:
+        if isinstance(el, dict):
+            opts = el
+        elif el is not None:
+            priority = el
+    return priority, opts
 
 
 class _Request:
     __slots__ = ("prompt", "max_new", "priority", "stop_token", "emitted",
-                 "index", "on_done", "on_error")
+                 "index", "on_done", "on_error", "sampling", "on_token")
 
     def __init__(self, prompt, max_new: int, *, priority: int = 1,
                  stop_token: int | None = None, index: int | None = None,
                  on_done: Callable | None = None,
-                 on_error: Callable | None = None):
+                 on_error: Callable | None = None, sampling=None,
+                 on_token: Callable | None = None, emitted=None):
         self.prompt = [int(t) for t in prompt]
         self.max_new = int(max_new)
         self.priority = int(priority)
         self.stop_token = stop_token
-        self.emitted: list[int] = []
+        # tokens already produced (a continued request): admission
+        # recomputes prompt + emitted, and the seed schedule resumes at
+        # emit index len(emitted); max_new counts them
+        self.emitted: list[int] = [int(t) for t in emitted or ()]
         self.index = index
         self.on_done = on_done
         self.on_error = on_error
+        self.sampling = _norm_sampling(sampling)
+        # streams each emitted token as it lands (best-effort)
+        self.on_token = on_token
 
 
 class _Active:
     __slots__ = ("seq_id", "req", "tokens", "n_filled", "n_diverted",
-                 "prefix_keys", "wait_writer")
+                 "prefix_keys", "wait_writer", "admitted", "emit_base")
 
     def __init__(self, seq_id: int, req: _Request):
         self.seq_id = seq_id
         self.req = req
         # the (trimmed) prompt still streaming in; None once prefilled
         self.tokens: list[int] | None = None
+        # the token list a chunked admission started from (kept past
+        # prefill), and len(emitted) when this _Active was made: the
+        # drafter's context is admitted + emitted[emit_base:]
+        self.admitted: list[int] | None = None
+        self.emit_base = len(req.emitted)
         self.n_filled = 0
         self.n_diverted = 0  # positions < this are prefix-shared blocks
         self.prefix_keys: list | None = None
@@ -99,14 +220,23 @@ class _Active:
 
 
 class PagedDecodeEngine:
-    """Batched greedy decoding through BlockPool + PrefixCache."""
+    """Batched greedy or sampled decoding through BlockPool + PrefixCache.
+
+    ``max_restarts`` (default ``PW_ENGINE_MAX_RESTARTS`` or 0) and
+    ``watchdog_timeout_s`` (default ``PW_ENGINE_WATCHDOG_S`` or off) set
+    the failure handling; ``speculative`` (``None``/``"off"``,
+    ``"ngram"``, ``"auto"``, a ``Drafter`` or a ``SpecController``)
+    turns on speculative decoding for greedy rows."""
 
     def __init__(self, cfg, params, *, num_blocks: int = 512,
                  block_size: int = 16, max_blocks_per_seq: int | None = None,
                  max_batch_size: int = 8, seq_buckets=(64, 256, 1024),
                  prefix_sharing: bool = True, stop_token: int | None = None,
                  prefill_chunk: int | None = None, chain_steps: int = 8,
-                 chunked_prefill: bool = True, device="cuda"):
+                 chunked_prefill: bool = True,
+                 max_restarts: int | None = None,
+                 watchdog_timeout_s: float | None = None,
+                 speculative=None, device="cuda"):
         self.device = resolve_device(device)
         self.cfg = cfg
         self.stop_token = stop_token
@@ -114,12 +244,15 @@ class PagedDecodeEngine:
         self.params = params_to(plan_decode_params(cfg, params),
                                 self.device, self.dtype)
         self.max_batch_size = int(max_batch_size)
-        self.pool = BlockPool(
+        # kept so a supervised restart can rebuild the pool from scratch
+        self._pool_kwargs = dict(
             num_blocks=num_blocks, block_size=block_size,
             n_layers=cfg.n_layers, n_heads=cfg.n_heads,
             head_dim=cfg.d_model // cfg.n_heads, dtype=self.dtype,
             device=self.device,
         )
+        self.pool = BlockPool(**self._pool_kwargs)
+        self._prefix_sharing = bool(prefix_sharing)
         self.prefix = PrefixCache(self.pool) if prefix_sharing else None
         bs = self.pool.block_size
         cap = min((num_blocks - 1) * bs, cfg.max_len)
@@ -143,15 +276,68 @@ class PagedDecodeEngine:
         # costs one token, the rest is chunk headroom
         self.mixed_tokens = self.max_batch_size + self.prefill_chunk
         self.chain_steps = max(1, int(chain_steps))
-        self.rounds = {"mixed": 0, "decode": 0, "chain": 0, "prefill": 0}
+        # watchdog + supervised restart: a restart re-admits every
+        # in-flight request by recompute over prompt + emitted, the
+        # preemption path, so recovered output is token-identical
+        if watchdog_timeout_s is None:
+            env_wd = os.environ.get("PW_ENGINE_WATCHDOG_S")
+            watchdog_timeout_s = float(env_wd) if env_wd else None
+        self.watchdog_timeout_s = (
+            float(watchdog_timeout_s)
+            if watchdog_timeout_s and watchdog_timeout_s > 0 else None
+        )
+        if max_restarts is None:
+            max_restarts = int(os.environ.get("PW_ENGINE_MAX_RESTARTS", "0")
+                               or 0)
+        self.max_restarts = max(0, int(max_restarts))
+        self._watchdog = (_WatchdogSync() if self.watchdog_timeout_s
+                          else None)
+        self.n_restarts = 0
+        self.rounds = {"mixed": 0, "decode": 0, "chain": 0, "prefill": 0,
+                       "verify": 0}
         self._seq_counter = 0
         self._lock = threading.RLock()
+        self._run_id: str | None = None
         # chain key -> (writer _Active, physical block) for blocks an
         # in-flight chunked prefill is still writing (per run)
         self._inflight_prefix: dict = {}
+        # the *_sampled programs, looked up on the first sampled round: a
+        # greedy-only workload never touches them
+        self._sampled: dict | None = None
+        self._spec = resolve_speculative(speculative, self)
 
     def _dev(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(a).to(self.device)
+
+    # -- sampling ----------------------------------------------------------
+    def _sampled_programs(self) -> dict:
+        """The sampled twins of the step programs, bound on first use."""
+        if self._sampled is None:
+            self._sampled = {
+                "step": paged_decode_step_sampled,
+                "mixed": paged_mixed_step_sampled,
+                "chained": paged_chained_decode_sampled,
+                "prefill": paged_prefill_sampled,
+            }
+        return self._sampled
+
+    def _sampling_arrays(self, entries, B: int):
+        """Per-row ``(temperature, top_k, top_p, seed, emit_idx)`` device
+        arrays for one dispatch, or None when every row is greedy (the
+        round then runs the greedy program).  ``entries``: (row,
+        _Request) pairs; greedy rows get temperature 0."""
+        if not any(req.sampling is not None for _i, req in entries):
+            return None
+        temp = np.zeros(B, np.float32)
+        top_k = np.zeros(B, np.int64)
+        top_p = np.ones(B, np.float32)
+        seed = np.zeros(B, np.int64)
+        emit = np.zeros(B, np.int64)
+        for i, req in entries:
+            emit[i] = len(req.emitted)
+            if req.sampling is not None:
+                temp[i], top_k[i], top_p[i], seed[i] = req.sampling
+        return tuple(self._dev(a) for a in (temp, top_k, top_p, seed, emit))
 
     # -- public API --------------------------------------------------------
     def generate(self, prompt_ids, max_new: int, *,
@@ -162,43 +348,58 @@ class PagedDecodeEngine:
 
     def serve_batch(self, reqs, scheduler=None) -> list:
         """``batch_fn`` adapter for a request scheduler: ``reqs`` are
-        ``(prompt_ids, n_new[, priority])`` payloads; a per-request
-        failure lands in that request's result slot.  With ``scheduler``
-        (anything with ``poll_inflight(n)``, ``complete_inflight(w,
-        result)`` and ``fail_inflight(w, exc)``), new arrivals are
-        admitted into the in-flight batch at step boundaries."""
+        ``(prompt_ids, n_new[, priority][, options])`` payloads; a
+        per-request failure lands in that request's result slot.  With
+        ``scheduler`` (anything with ``poll_inflight(n)``,
+        ``complete_inflight(w, result)`` and ``fail_inflight(w, exc)``),
+        new arrivals are admitted into the in-flight batch at step
+        boundaries."""
         import functools
 
         poll = None
         if scheduler is not None:
             def poll(n):
                 return [
-                    ((list(w.payload[0]), int(w.payload[1])), int(w.priority),
+                    ((list(w.payload[0]), int(w.payload[1]))
+                     + tuple(w.payload[2:4]), int(w.priority),
                      functools.partial(scheduler.complete_inflight, w),
                      functools.partial(scheduler.fail_inflight, w))
                     for w in scheduler.poll_inflight(n)
                 ]
-        return self.generate_batch(
-            [(list(r[0]), int(r[1]), _payload_extras(r)) for r in reqs],
-            poll=poll, return_exceptions=True,
-        )
+
+        def norm(r):
+            priority, opts = _payload_extras(r)
+            base = (list(r[0]), int(r[1]), int(priority))
+            return base + (opts,) if opts is not None else base
+
+        return self.generate_batch([norm(r) for r in reqs], poll=poll,
+                                   return_exceptions=True)
 
     def generate_batch(self, requests, *, poll: Callable | None = None,
                        stop_token: int | None = None,
                        return_exceptions: bool = False) -> list[list[int]]:
-        """Greedy-decode ``(prompt_ids, max_new[, priority])`` requests.
+        """Decode ``(prompt_ids, max_new[, priority][, options])``
+        requests; ``options`` may hold ``sampling=(temperature, top_k,
+        top_p, seed)`` (or the dict form), ``on_token`` (called with each
+        emitted token) and ``emitted`` (tokens already produced).
 
         ``poll(n)``, when given, is called at every step boundary and may
         return up to ``n`` newly arrived ``(payload, priority, on_done,
         on_error)`` tuples to admit; their results flow through the
         callbacks.  ``return_exceptions=True`` places a per-request
-        exception in its result slot instead of raising."""
+        exception in its result slot instead of raising.  An engine
+        failure past the restart budget reaches every request as an
+        ``EngineFailedError``."""
         stop = self.stop_token if stop_token is None else stop_token
-        pending: deque[_Request] = deque(
-            _Request(r[0], r[1], priority=_payload_extras(r),
-                     stop_token=stop, index=i)
-            for i, r in enumerate(requests)
-        )
+        pending: deque[_Request] = deque()
+        for i, r in enumerate(requests):
+            priority, opts = _payload_extras(r)
+            opts = opts or {}
+            pending.append(_Request(
+                r[0], r[1], priority=priority, stop_token=stop, index=i,
+                sampling=opts.get("sampling"), on_token=opts.get("on_token"),
+                emitted=opts.get("emitted"),
+            ))
         results: list[Any] = [None] * len(requests)
         errors: list[BaseException] = []
         outstanding = {"n": len(requests)}
@@ -225,33 +426,104 @@ class PagedDecodeEngine:
                 return inner_poll(n) if outstanding["n"] > 0 else []
 
         with self._lock:
-            running: list[_Active] = []
-            self._inflight_prefix.clear()
-            try:
-                self._loop_body(running, pending, deliver, poll, stop)
-            except BaseException as exc:
-                # fail everything still in flight: callers blocked on a
-                # callback must not hang
-                for act in running:
-                    self.pool.free_sequence(act.seq_id)
-                for req in [a.req for a in running] + list(pending):
-                    if req.on_error is not None:
-                        req.on_error(exc)
-                raise
+            self._run_loop(pending, deliver, poll, stop)
         if errors:
             raise errors[0]
         return results
 
-    # -- main loop ---------------------------------------------------------
+    # -- main loop and failure domain -------------------------------------
+    def _run_loop(self, pending, deliver, poll, stop) -> None:
+        running: list[_Active] = []
+        self._inflight_prefix.clear()
+        self._run_id = uuid.uuid4().hex[:16]
+        attempts_left = self.max_restarts
+        while True:
+            try:
+                self._loop_body(running, pending, deliver, poll, stop)
+                return
+            except BaseException as exc:
+                self._inflight_prefix.clear()
+                err = exc
+                if attempts_left > 0 and isinstance(err, Exception):
+                    attempts_left -= 1
+                    # the traceback's frames reference the dead pool:
+                    # drop them so its memory can be released
+                    err.__traceback__ = None
+                    try:
+                        self._restart(running, pending, err)
+                        continue
+                    except BaseException as rexc:  # noqa: BLE001
+                        err = rexc  # the rebuild failed: budget is moot
+                self._fail_all(running, pending, deliver, err)
+                if not isinstance(err, Exception):
+                    raise err  # KeyboardInterrupt/SystemExit propagate
+                return
+
+    def _restart(self, running, pending, exc: BaseException) -> None:
+        """Rebuild the failure domain (a fresh BlockPool and PrefixCache)
+        and requeue every in-flight request with its emitted tokens, so
+        admission recomputes prompt + emitted.  The survivors are
+        requeued BEFORE the rebuild: if it fails (a sticky device error,
+        say), the terminal path still sees every request."""
+        t0 = time.perf_counter()
+        survivors = [act.req for act in running]
+        running.clear()
+        for req in survivors:
+            self._requeue(pending, req)
+        self.prefix = None
+        old_pool, self.pool = self.pool, None
+        try:
+            self.pool = BlockPool(**self._pool_kwargs)
+        except BaseException:
+            # keep a pool attached: the terminal path frees through it
+            self.pool = old_pool
+            raise
+        del old_pool
+        self.prefix = PrefixCache(self.pool) if self._prefix_sharing else None
+        self.n_restarts += 1
+        logger.warning(
+            "engine restart #%d after %s: %s — pool rebuilt in %.3fs, "
+            "re-admitting %d in-flight request(s) by recompute",
+            self.n_restarts, type(exc).__name__, exc,
+            time.perf_counter() - t0, len(survivors),
+        )
+
+    def _fail_all(self, running, pending, deliver, exc: BaseException) -> None:
+        """Terminal failure: every request still in flight gets a typed
+        EngineFailedError (callers blocked on a callback must not hang)."""
+        for act in running:
+            try:
+                self.pool.free_sequence(act.seq_id)
+            except Exception:  # noqa: BLE001 - best-effort cleanup
+                pass
+        reqs = [act.req for act in running] + list(pending)
+        running.clear()
+        pending.clear()
+        wrapped = self._wrap_failure(exc)
+        for req in reqs:
+            deliver(req, wrapped)
+
+    def _wrap_failure(self, exc: BaseException) -> EngineFailedError:
+        budget = (f" after {self.max_restarts} restart(s)"
+                  if self.max_restarts else "")
+        return EngineFailedError(
+            f"decode engine failed{budget}: {type(exc).__name__}: {exc}",
+            retry_after_s=5.0, trace_id=self._run_id,
+        )
+
     def _admit_arrivals(self, running, pending, poll, stop) -> None:
         if poll is None or len(running) >= self.max_batch_size:
             return
         budget = self.max_batch_size - len(running) - len(pending)
-        for payload, priority, on_done, on_error in (
-                poll(budget) if budget > 0 else ()):
+        for item in (poll(budget) if budget > 0 else ()):
+            payload, priority, on_done, on_error = item[:4]
+            _p, opts = _payload_extras(payload)
+            opts = opts or {}
             self._requeue(pending, _Request(
                 payload[0], payload[1], priority=priority, stop_token=stop,
                 on_done=on_done, on_error=on_error,
+                sampling=opts.get("sampling"), on_token=opts.get("on_token"),
+                emitted=opts.get("emitted"),
             ))
 
     def _loop_body(self, running, pending, deliver, poll, stop) -> None:
@@ -282,6 +554,28 @@ class PagedDecodeEngine:
             len(pending),
         )
         pending.insert(idx, req)
+
+    def _emit(self, req: _Request, token_id: int) -> None:
+        req.emitted.append(token_id)
+        if req.on_token is not None:
+            # a broken stream consumer must not take the batch down
+            try:
+                req.on_token(token_id)
+            except Exception:  # noqa: BLE001
+                logger.warning("on_token callback failed; continuing decode",
+                               exc_info=True)
+
+    def _sync_host(self, ids: torch.Tensor) -> np.ndarray:
+        """Device->host copy of a round's ids, watchdog-bounded when
+        configured.  The ``engine.sync`` fault point is inside the pull,
+        so a ``hang`` wedges exactly where a stuck program would."""
+        def pull():
+            faults.fire("engine.sync")
+            return ids.cpu().numpy()
+
+        if self._watchdog is None:
+            return pull()
+        return self._watchdog.run(pull, self.watchdog_timeout_s)
 
     def _is_done(self, req: _Request, seq_id: int) -> bool:
         if len(req.emitted) >= req.max_new:
@@ -353,6 +647,7 @@ class PagedDecodeEngine:
                                        running, deliver)
         act = _Active(seq_id, req)
         act.tokens = tokens
+        act.admitted = tokens
         # shared leading blocks need no recompute, but the prompt's LAST
         # token always runs to produce the next-token logits
         shared_tokens = len(shared) * self.pool.block_size
@@ -372,11 +667,12 @@ class PagedDecodeEngine:
         """Whole-bucket admission (``chunked_prefill=False``): ONE dense
         prefill of the prompt padded to its bucket (the flash kernel on
         the card for buckets >= 256), its K/V scattered into the
-        sequence's blocks, and the greedy first token emitted.  The
-        prefix-shared leading blocks already hold the right K/V: their
-        scatter goes to the null block instead of rewriting them (a live
-        sequence may be reading them, and a rewrite from another bucket
-        need not be bit-identical)."""
+        sequence's blocks, and the first token emitted (sampled at emit
+        index ``len(emitted)`` for a sampled request).  The prefix-shared
+        leading blocks already hold the right K/V: their scatter goes to
+        the null block instead of rewriting them (a live sequence may be
+        reading them, and a rewrite from another bucket need not be
+        bit-identical)."""
         n = len(tokens)
         seq = self.pool.sequence(seq_id)
         try:
@@ -387,12 +683,19 @@ class PagedDecodeEngine:
                                   np.int32)
             scatter_bt[0, : len(seq.block_ids)] = seq.block_ids
             scatter_bt[0, : len(shared)] = 0
-            logits, _, _ = paged_prefill(
-                self.params, self.cfg, self._dev(buf),
-                self._dev(np.array([n], np.int64)), self.pool.k,
-                self.pool.v, self._dev(scatter_bt),
-            )
-            first = int(greedy(logits)[0])
+            args = (self.params, self.cfg, self._dev(buf),
+                    self._dev(np.array([n], np.int64)), self.pool.k,
+                    self.pool.v, self._dev(scatter_bt))
+            faults.fire("engine.dispatch.prefill")
+            if req.sampling is None:
+                logits, _, _ = paged_prefill(*args)
+                ids = greedy(logits)
+            else:
+                samp = self._sampling_arrays([(0, req)], 1)
+                ids, _, _ = self._sampled_programs()["prefill"](*args, *samp)
+            # the sync stays inside the cleanup: a failed sync must not
+            # leak the just-prefilled blocks
+            first = int(self._sync_host(ids)[0])
             self.rounds["prefill"] += 1
             if self.prefix is not None:
                 # insert() keeps only the full-block keys: the partial
@@ -403,7 +706,7 @@ class PagedDecodeEngine:
             # this sequence, so free its blocks here
             self.pool.free_sequence(seq_id)
             raise
-        req.emitted.append(first)
+        self._emit(req, first)
         if self._is_done(req, seq_id):
             self.pool.free_sequence(seq_id)
             deliver(req)
@@ -413,9 +716,13 @@ class PagedDecodeEngine:
 
     # -- stepping ----------------------------------------------------------
     def _step_round(self, running, pending, deliver, poll, stop) -> None:
-        """One engine round: the chained decode loop when the queue is
-        quiet, else ONE ragged mixed step (when any chunk is in flight)
-        or one plain decode step."""
+        """One engine round: a speculative verify round when a drafter is
+        armed and proposes, else the chained decode loop when the queue
+        is quiet, else ONE ragged mixed step (when any chunk is in
+        flight) or one plain decode step."""
+        if self._spec is not None and self._spec_round(running, pending,
+                                                       deliver):
+            return
         if self._can_chain(running, pending):
             if self._chained_rounds(running, pending, deliver, poll, stop):
                 return
@@ -432,6 +739,144 @@ class PagedDecodeEngine:
             self._mixed_round(reserved, chunks, running, deliver)
         elif reserved:
             self._decode_round(reserved, running, deliver)
+
+    def _draft_context(self, act: _Active) -> list[int]:
+        base = act.admitted if act.admitted is not None else act.req.prompt
+        return list(base) + act.req.emitted[act.emit_base:]
+
+    def _spec_round(self, running, pending, deliver) -> bool:
+        """One speculative round: the drafter proposes up to K tokens per
+        decode row, ONE ragged verify dispatch pushes every row's last
+        emitted token plus its proposals through the mixed step (C = K+1
+        query columns a row, the argmax at every packed position), and
+        the greedy accept rule emits the longest prefix where draft ==
+        target argmax plus the bonus token.  Returns False (the round
+        falls through to the chain/step/mixed paths) when chunks are in
+        flight, any row samples, or nothing was proposed."""
+        spec = self._spec
+        if any(a.tokens is not None for a in running):
+            return False  # mid-prefill chunks stream through mixed
+        if any(a.req.sampling is not None for a in running):
+            return False
+        acts = list(running)
+        if not acts:
+            return False
+        pool = self.pool
+        # a row needs k_i + 1 slots (proposals + the bonus token), never
+        # more than its remaining emit/capacity budget
+        ks = []
+        for a in acts:
+            rem = min(a.req.max_new - len(a.req.emitted),
+                      self.max_seq_tokens - pool.sequence(a.seq_id).n_tokens)
+            ks.append(max(0, min(spec.k, rem - 1)))
+        if faults.fire("engine.draft") == "drop":
+            return False  # drafting suppressed: the plain paths serve
+        proposals = spec.propose_batch(
+            [self._draft_context(a) for a in acts], ks)
+        prop_of = {id(a): [int(t) for t in p][:k]
+                   for a, p, k in zip(acts, proposals, ks)}
+        if not any(prop_of.values()):
+            return False  # nothing proposed: fall through (chain/step)
+        victims: list[_Active] = []
+        reserved = self._reserve_slots(
+            running, pending, victims,
+            k_for=lambda a: len(prop_of.get(id(a), ())) + 1,
+        )
+        if victims:
+            self._cascade_preempt(victims, running, pending)
+        if not reserved:
+            return True  # every row preempted into pending; re-admit
+        # token-packed verify arrays: row i owns packed positions
+        # [i*C, i*C + nv_i), a static T = B*C; pad rows and tokens write
+        # the null block and their ids are discarded
+        C = spec.k + 1
+        B = self.max_batch_size
+        T = B * C
+        NB = self.max_blocks_per_seq
+        tokens = np.zeros(T, np.int64)
+        positions = np.zeros(T, np.int64)
+        sb = np.zeros(T, np.int64)
+        so = np.zeros(T, np.int64)
+        row_tables = np.zeros((B, NB), np.int32)
+        row_start = np.zeros(B, np.int32)
+        row_nvalid = np.ones(B, np.int32)
+        row_token_idx = np.zeros((B, C), np.int64)
+        tok_row = np.zeros(T, np.int64)
+        tok_col = np.zeros(T, np.int64)
+        logit_idx = np.zeros(T, np.int64)
+        rows: list[tuple[_Active, int, int]] = []
+        for i, (act, slots) in enumerate(reserved):
+            nv = len(slots)
+            base = i * C
+            seq = pool.sequence(act.seq_id)
+            tokens[base:base + nv] = ([act.req.emitted[-1]]
+                                      + prop_of.get(id(act), []))
+            start = seq.n_tokens - nv  # extend_slots already advanced
+            positions[base:base + nv] = np.arange(start, start + nv)
+            for t, (blk, off) in enumerate(slots):
+                sb[base + t] = blk
+                so[base + t] = off
+            row_tables[i, : len(seq.block_ids)] = seq.block_ids
+            row_start[i] = start
+            row_nvalid[i] = nv
+            cols = np.minimum(np.arange(C), nv - 1)
+            row_token_idx[i, :] = base + cols
+            run = np.arange(base, base + nv)
+            tok_row[run] = i
+            tok_col[run] = np.arange(nv)
+            logit_idx[base:base + C] = base + cols
+            rows.append((act, i, nv))
+        faults.fire("engine.dispatch.verify")
+        t_disp = time.perf_counter()
+        d = self._dev
+        logits, _, _ = paged_mixed_step(
+            self.params, self.cfg, pool.k, pool.v, d(tokens), d(positions),
+            d(row_tables), d(row_start), d(row_nvalid), d(row_token_idx),
+            d(tok_row), d(tok_col), d(sb), d(so), d(logit_idx),
+        )
+        ids = self._sync_host(greedy(logits))
+        ms = (time.perf_counter() - t_disp) * 1e3
+        self.rounds["verify"] += 1
+        # packed position base+c holds the target's argmax after input
+        # token c (c = 0: the row's last emitted token; c >= 1: draft
+        # c-1).  Output c is the true greedy token iff every input before
+        # it matched, so emit until the input feeding the next position
+        # diverges; the first mismatch still yields one correct token
+        n_proposed = sum(nv - 1 for _a, _r, nv in rows)
+        n_accepted = n_emitted = 0
+        done: list[_Active] = []
+        for act, i, nv in rows:
+            base = i * C
+            req = act.req
+            prop = prop_of.get(id(act), [])
+            emitted_n = 0
+            finished = False
+            for c in range(nv):
+                self._emit(req, int(ids[base + c]))
+                emitted_n += 1
+                if len(req.emitted) >= req.max_new or (
+                        req.stop_token is not None
+                        and req.emitted[-1] == req.stop_token):
+                    finished = True
+                    break
+                if c < nv - 1 and prop[c] != int(ids[base + c]):
+                    break  # draft refuted: later positions are phantom
+            n_emitted += emitted_n
+            n_accepted += emitted_n - 1
+            # roll back the rejected tail NOW: the pool never holds
+            # phantom K/V past the round
+            if nv - emitted_n:
+                pool.truncate_slots(act.seq_id, nv - emitted_n)
+            # capacity is judged AFTER the rollback
+            if finished or pool.sequence(
+                    act.seq_id).n_tokens >= self.max_seq_tokens:
+                done.append(act)
+        for act in done:
+            self._finish(act, running, deliver)
+            # a finished stream is drafter training data
+            spec.note_release(self._draft_context(act))
+        spec.note_round(n_proposed, n_accepted, n_emitted, ms)
+        return True
 
     def _can_chain(self, running, pending) -> bool:
         """Chain only when the queue is QUIET: nothing pending, no
@@ -451,9 +896,10 @@ class PagedDecodeEngine:
 
     def _dispatch_chain(self, running, pending):
         """Pre-extend every decode row's table by its chain budget and
-        dispatch ONE K-step chain.  Returns ``(acts, kreal, ids)`` with
-        ``ids`` the un-synced [B, K] device tensor, or None when nothing
-        could be reserved."""
+        dispatch ONE K-step chain (the sampled twin when any row
+        samples).  Returns ``(acts, kreal, ids)`` with ``ids`` the
+        un-synced [B, K] device tensor, or None when nothing could be
+        reserved."""
         K = self.chain_steps
         pool = self.pool
 
@@ -490,11 +936,18 @@ class PagedDecodeEngine:
             bt[i, : len(seq.block_ids)] = seq.block_ids
             acts.append(act)
             kreal.append(len(slots))
-        ids, _, _ = paged_chained_decode(
-            self.params, self.cfg, pool.k, pool.v, self._dev(token),
-            self._dev(positions), self._dev(bt), self._dev(sb),
-            self._dev(so),
-        )
+        # emit index of each row's step-0 token: a chain of K tokens
+        # draws exactly what K single steps would
+        samp = self._sampling_arrays([(i, a.req) for i, a in enumerate(acts)],
+                                     B)
+        args = (self.params, self.cfg, pool.k, pool.v, self._dev(token),
+                self._dev(positions), self._dev(bt), self._dev(sb),
+                self._dev(so))
+        faults.fire("engine.dispatch.chain")
+        if samp is None:
+            ids, _, _ = paged_chained_decode(*args)
+        else:
+            ids, _, _ = self._sampled_programs()["chained"](*args, *samp)
         self.rounds["chain"] += 1
         return acts, kreal, ids
 
@@ -509,7 +962,7 @@ class PagedDecodeEngine:
             req = act.req
             finished = False
             for t in range(kreal[i]):
-                req.emitted.append(int(ids_np[i, t]))
+                self._emit(req, int(ids_np[i, t]))
                 if len(req.emitted) >= req.max_new or (
                         req.stop_token is not None
                         and req.emitted[-1] == req.stop_token):
@@ -525,20 +978,22 @@ class PagedDecodeEngine:
         input is chain N's last emitted id) BEFORE delivering chain N's
         finished requests, and returns to the per-step path as soon as an
         arrival, a preemption or a lack of headroom disturbs the quiet
-        window."""
+        window.  With a drafter armed the chain is the fallback: one
+        dispatch, then every round is offered to the drafter again."""
         inflight = self._dispatch_chain(running, pending)
         if inflight is None:
             return False
         while True:
             self._admit_arrivals(running, pending, poll, stop)
             acts, kreal, ids_dev = inflight
-            ids_np = ids_dev.cpu().numpy()  # ONE sync per K-token chain
+            ids_np = self._sync_host(ids_dev)  # ONE sync per K-token chain
             done = self._scan_chain(acts, kreal, ids_np, running)
             for act in done:
                 running.remove(act)
                 self.pool.free_sequence(act.seq_id)
             nxt = None
-            if running and not pending and self._chain_headroom(running) >= 2:
+            if (running and not pending and self._spec is None
+                    and self._chain_headroom(running) >= 2):
                 try:
                     nxt = self._dispatch_chain(running, pending)
                 except BaseException:
@@ -565,15 +1020,21 @@ class PagedDecodeEngine:
             positions[i] = seq.n_tokens - 1  # append_slot already advanced
             sb[i], so[i] = slots[0]
             bt[i, : len(seq.block_ids)] = seq.block_ids
-        logits, _, _ = paged_decode_step(
-            self.params, self.cfg, self.pool.k, self.pool.v,
-            self._dev(token), self._dev(positions), self._dev(bt),
-            self._dev(sb), self._dev(so),
-        )
-        ids = greedy(logits).cpu().numpy()
+        samp = self._sampling_arrays(
+            [(i, act.req) for i, (act, _s) in enumerate(reserved)], B)
+        args = (self.params, self.cfg, self.pool.k, self.pool.v,
+                self._dev(token), self._dev(positions), self._dev(bt),
+                self._dev(sb), self._dev(so))
+        faults.fire("engine.dispatch.step")
+        if samp is None:
+            logits, _, _ = paged_decode_step(*args)
+            ids = greedy(logits)
+        else:
+            ids, _, _ = self._sampled_programs()["step"](*args, *samp)
+        ids = self._sync_host(ids)
         self.rounds["decode"] += 1
         for i, (act, _slot) in enumerate(reserved):
-            act.req.emitted.append(int(ids[i]))
+            self._emit(act.req, int(ids[i]))
             if self._is_done(act.req, act.seq_id):
                 self._finish(act, running, deliver)
 
@@ -662,14 +1123,25 @@ class PagedDecodeEngine:
             raise RuntimeError(
                 "ragged step produced no rows (gated chunk cycle?)"
             )
+        # sampling rides per ROW, for the rows that emit this round: the
+        # decode rows and the chunk rows whose prompt completes (drawing
+        # at len(emitted)); a mid-prefill row's draw would be discarded,
+        # so a round in which only such rows sample runs the greedy program
+        samp = self._sampling_arrays(
+            [(r, act.req) for act, r, f in rows
+             if f < 0 or f == len(act.tokens)], B)
         d = self._dev
-        logits, _, _ = paged_mixed_step(
-            self.params, self.cfg, self.pool.k, self.pool.v, d(tokens),
-            d(positions), d(row_tables), d(row_start), d(row_nvalid),
-            d(row_token_idx), d(tok_row), d(tok_col), d(sb), d(so),
-            d(logit_idx),
-        )
-        ids = greedy(logits).cpu().numpy()
+        args = (self.params, self.cfg, self.pool.k, self.pool.v, d(tokens),
+                d(positions), d(row_tables), d(row_start), d(row_nvalid),
+                d(row_token_idx), d(tok_row), d(tok_col), d(sb), d(so),
+                d(logit_idx))
+        faults.fire("engine.dispatch.mixed")
+        if samp is None:
+            logits, _, _ = paged_mixed_step(*args)
+            ids = greedy(logits)
+        else:
+            ids, _, _ = self._sampled_programs()["mixed"](*args, *samp)
+        ids = self._sync_host(ids)
         self.rounds["mixed"] += 1
         for act, row, filled in rows:
             if filled >= 0:
@@ -686,7 +1158,7 @@ class PagedDecodeEngine:
                 self._drop_inflight_keys(act)
                 act.tokens = None
                 act.prefix_keys = None
-            act.req.emitted.append(int(ids[row]))
+            self._emit(act.req, int(ids[row]))
             if self._is_done(act.req, act.seq_id):
                 self._finish(act, running, deliver)
 
@@ -701,9 +1173,9 @@ class PagedDecodeEngine:
         """A preempted mid-prefill writer strands every sharer whose
         shared region it had not finished writing: requeue those for
         recompute too (transitively)."""
-        queue = list(victims)
-        while queue:
-            w = queue.pop()
+        queue_ = list(victims)
+        while queue_:
+            w = queue_.pop()
             self._drop_inflight_keys(w)
             for act in list(running):
                 if act.wait_writer is not w:
@@ -715,7 +1187,7 @@ class PagedDecodeEngine:
                     running.remove(act)
                     self.pool.free_sequence(act.seq_id)
                     self._requeue(pending, act.req)
-                    queue.append(act)
+                    queue_.append(act)
 
     def _reserve_slots(self, running, pending, victims=None, k_for=None
                        ) -> list[tuple[_Active, list[tuple[int, int]]]]:
@@ -767,3 +1239,6 @@ class PagedDecodeEngine:
             reserved.append((act, slots))
             idx += 1
         return reserved
+
+
+__all__ = ["EngineHungError", "PagedDecodeEngine"]

@@ -1,5 +1,5 @@
 """Causal decoder LM — the generation model of the RAG path (tp = 1,
-no quantization, greedy).
+no quantization; greedy, or sampled on the paged path).
 
 Plain functions on the JAX package's parameter-dict layout, so the same
 weights run in both (``models/convert.py``).  Attention on the paged
@@ -8,6 +8,12 @@ path goes through ``kvcache/paged_attention.py``, the dense prefill's
 tensors, the plain versions for CPU tensors.  The paged steps update the
 pools IN PLACE (the JAX package returns new, donated arrays) and return
 them for symmetry with the JAX signatures.
+
+The paged steps take a ``head_fn`` hook in place of the vocab head (the
+JAX package's ``head_fn=``): the ``*_sampled`` programs pass the sampling
+head (:func:`_sampling_head`), which draws each row's token on the device
+from a key that is a pure function of the request's seed and the token's
+emit index (``models/prng.py``).
 """
 
 from __future__ import annotations
@@ -20,6 +26,7 @@ import torch
 
 from .._device import resolve_device, resolve_dtype
 from ..ops.attention_cuda import flash_attention
+from . import prng
 from .encoder import (EncoderConfig, _act, _layer_norm, _proj, init_params,
                       params_to)
 
@@ -96,6 +103,84 @@ def greedy(logits: torch.Tensor) -> torch.Tensor:
     return torch.argmax(logits, dim=-1).to(torch.int32)
 
 
+def _greedy_head(head_w, x):
+    """The vocab head fused with its argmax: (B, D) -> (B,) int32 ids."""
+    return greedy(_head_out(head_w, x))
+
+
+# -- device-side sampling ---------------------------------------------------
+#
+# The sampled programs thread per-row (temperature, top_k, top_p, seed,
+# emit index) through the SAME step math as the greedy ones; only the
+# vocab head changes.  temperature <= 0 rows return the greedy argmax
+# exactly (a torch.where, not a numerical limit), and a row's n-th token
+# is drawn from fold_in(fold_in(prng_key(0), seed), n) alone, so
+# preemption-recompute, restart and speculation replay it bit for bit.
+
+
+def _seed_keys(seed: torch.Tensor) -> torch.Tensor:
+    """Per-row base keys ``fold_in(prng_key(0), seed)``: (B,) -> (B, 2)."""
+    return prng.fold_in(prng.prng_key(0, seed.device), seed)
+
+
+def _row_sample_keys(seed: torch.Tensor, emit_idx: torch.Tensor
+                     ) -> torch.Tensor:
+    """Per-row keys of the ``emit_idx``-th token of requests seeded by
+    ``seed``: (B,) ints -> (B, 2) int64 uint32 words."""
+    return prng.fold_in(_seed_keys(seed), emit_idx)
+
+
+def _nucleus(logits: torch.Tensor, temperature: torch.Tensor,
+             top_k: torch.Tensor, top_p: torch.Tensor):
+    """The sort and masks of :func:`_sample_rows`: ``(order, scaled,
+    keep)`` with ``order`` the stable descending sort of each row (ties
+    keep the smallest id first), ``scaled`` the sorted logits over the
+    temperature and ``keep`` the top-k ranks AND the top-p nucleus
+    (exclusive prefix mass < top_p), rank 0 always kept.  ``top_k <= 0``
+    disables its mask; ``top_p = 1.0`` keeps every token whose f32
+    exclusive prefix mass stays below 1 (the JAX formula: a far tail whose
+    prefix sum rounds to 1 is dropped)."""
+    V = logits.shape[-1]
+    neg_sorted, order = torch.sort(-logits, dim=-1, stable=True)
+    temp = torch.clamp(temperature.float(), min=1e-6)[:, None]
+    scaled = -neg_sorted / temp
+    probs = torch.softmax(scaled, dim=-1)
+    cum = torch.cumsum(probs, dim=-1)
+    ranks = torch.arange(V, device=logits.device)[None, :]
+    k = top_k.to(torch.int64).masked_fill(top_k <= 0, V)[:, None]
+    keep = (ranks < k) & ((cum - probs) < top_p.float()[:, None])
+    keep[:, 0].fill_(True)
+    return order, scaled, keep
+
+
+def _sample_rows(logits: torch.Tensor, greedy_ids: torch.Tensor,
+                 temperature: torch.Tensor, top_k: torch.Tensor,
+                 top_p: torch.Tensor, keys: torch.Tensor) -> torch.Tensor:
+    """Row-wise temperature/top-k/top-p sampling over (B, V) f32 logits:
+    Gumbel-argmax over the kept, temperature-scaled logits
+    (:func:`_nucleus`), with ``keys`` (B, 2) the rows' PRNG keys.
+    temperature <= 0 rows return ``greedy_ids`` exactly.  Returns (B,)
+    int32."""
+    order, scaled, keep = _nucleus(logits, temperature, top_k, top_p)
+    noisy = torch.where(keep, scaled + prng.gumbel(keys, logits.shape[-1]),
+                        torch.full_like(scaled, float("-inf")))
+    choice = order.gather(-1, torch.argmax(noisy, dim=-1)[:, None])[:, 0]
+    return torch.where(temperature <= 0.0, greedy_ids,
+                       choice.to(torch.int32))
+
+
+def _sampling_head(temperature, top_k, top_p, keys):
+    """A vocab-head override (the ``head_fn`` hook of the paged steps)
+    that samples instead of argmaxing; returns (B,) int32 ids."""
+
+    def head(head_w, x):
+        logits = _head_out(head_w, x)
+        return _sample_rows(logits, greedy(logits), temperature, top_k,
+                            top_p, keys)
+
+    return head
+
+
 def plan_decode_params(cfg: DecoderConfig, params: dict) -> dict:
     """The fused decode plan the paged engine dispatches with (tp = 1,
     no quantization): Q/K/V folded into one [D, 3D] ``wqkv`` per layer,
@@ -117,7 +202,8 @@ def plan_decode_params(cfg: DecoderConfig, params: dict) -> dict:
 
 
 def prefill(params: dict, cfg: DecoderConfig, token_ids: torch.Tensor,
-            n_valid: torch.Tensor, *, flash: bool | None = None):
+            n_valid: torch.Tensor, *, flash: bool | None = None,
+            head_fn=None):
     """Dense full-context forward over the (padded) prompt: returns the
     logits at position ``n_valid - 1`` and the per-layer K/V cache
     (``{"k", "v"}`` of shape (B, T, H, hd)).
@@ -127,7 +213,8 @@ def prefill(params: dict, cfg: DecoderConfig, token_ids: torch.Tensor,
     product's q/k/v views in place); default: on the card for T >= 256,
     as the JAX package defaults to its Pallas kernel on the TPU.
     ``flash=False`` is the plain einsum path, the in-port identity
-    oracle."""
+    oracle.  ``head_fn(head_w, x)`` replaces the vocab head (default
+    :func:`_head_out`, f32 logits)."""
     dtype = resolve_dtype(cfg.dtype, token_ids.device)
     B, T = token_ids.shape
     hd = cfg.d_model // cfg.n_heads
@@ -161,7 +248,8 @@ def prefill(params: dict, cfg: DecoderConfig, token_ids: torch.Tensor,
         x = x + _row_proj(layer, ff, "w_down", "b_down")
     x = _layer_norm(x, params["ln_f_scale"], params["ln_f_bias"], eps)
     last = x[torch.arange(B, device=x.device), n_valid.long() - 1]
-    return _head_out(_head_weight(params), last), cache
+    head = _head_out if head_fn is None else head_fn
+    return head(_head_weight(params), last), cache
 
 
 def decode_step(params: dict, cfg: DecoderConfig, cache: list[dict],
@@ -241,7 +329,7 @@ def generate_tokens_fused(params: dict, cfg: DecoderConfig,
 def paged_prefill(params: dict, cfg: DecoderConfig, token_ids: torch.Tensor,
                   n_valid: torch.Tensor, k_pool: torch.Tensor,
                   v_pool: torch.Tensor, block_tables: torch.Tensor, *,
-                  flash: bool | None = None):
+                  flash: bool | None = None, head_fn=None):
     """Prefill through the paged KV cache: the dense :func:`prefill` (so
     the prompt's logits are those of the dense path), then each layer's
     K/V scattered into the pool blocks ``block_tables`` names, IN PLACE.
@@ -250,8 +338,10 @@ def paged_prefill(params: dict, cfg: DecoderConfig, token_ids: torch.Tensor,
     (n_layers, num_blocks, block_size, H, hd); block_tables (B, T //
     block_size) int, padded with the null block 0 — padding rows write
     there, and block 0 is never read.  Returns ``(logits, k_pool,
-    v_pool)``."""
-    logits, cache = prefill(params, cfg, token_ids, n_valid, flash=flash)
+    v_pool)`` (``head_fn``'s result in place of the logits when given).
+    """
+    logits, cache = prefill(params, cfg, token_ids, n_valid, flash=flash,
+                            head_fn=head_fn)
     B, T = token_ids.shape
     BS, H, hd = k_pool.shape[2:]
     bt = block_tables.long()
@@ -263,14 +353,15 @@ def paged_prefill(params: dict, cfg: DecoderConfig, token_ids: torch.Tensor,
 
 def paged_decode_step(params: dict, cfg: DecoderConfig, k_pool, v_pool,
                       token, positions, block_tables, slot_blocks,
-                      slot_offsets):
+                      slot_offsets, *, head_fn=None):
     """One batched incremental token through the paged cache: each row's
     K/V lands at ``(slot_blocks[b], slot_offsets[b])`` and attention
     reads back through ``block_tables`` masked to ``positions + 1``
     tokens — the fused append+attend op (the kernel on the card).
 
     token/positions/slot_blocks/slot_offsets: (B,) int;
-    block_tables: (B, NB) int.  Returns ``(logits, k_pool, v_pool)``."""
+    block_tables: (B, NB) int.  Returns ``(logits, k_pool, v_pool)``
+    (``head_fn``'s result in place of the logits when given)."""
     from ..kvcache.paged_attention import append_attend_fn
 
     dtype = resolve_dtype(cfg.dtype, token.device)
@@ -293,13 +384,14 @@ def paged_decode_step(params: dict, cfg: DecoderConfig, k_pool, v_pool,
         ff = act(_proj_p(layer, h, "w_up", "b_up"))
         x = x + _row_proj(layer, ff, "w_down", "b_down")
     x = _layer_norm(x, params["ln_f_scale"], params["ln_f_bias"], eps)
-    return _head_out(_head_weight(params), x[:, 0, :]), k_pool, v_pool
+    head = _head_out if head_fn is None else head_fn
+    return head(_head_weight(params), x[:, 0, :]), k_pool, v_pool
 
 
 def paged_mixed_step(params: dict, cfg: DecoderConfig, k_pool, v_pool,
                      tokens, positions, row_tables, row_start, row_nvalid,
                      row_token_idx, tok_row, tok_col, slot_blocks,
-                     slot_offsets, logit_idx):
+                     slot_offsets, logit_idx, *, head_fn=None):
     """One RAGGED fused step over a token-PACKED mixed batch: decode rows
     contribute one token, prefill-chunk rows a consecutive run.
 
@@ -315,7 +407,9 @@ def paged_mixed_step(params: dict, cfg: DecoderConfig, k_pool, v_pool,
     use position 0 and the null block 0); row_tables: (B, NB);
     row_start/row_nvalid: (B,) (n_valid >= 1); row_token_idx: (B, C);
     tok_row/tok_col: (T,); logit_idx: (B,) — packed index of each row's
-    LAST run token.  Returns ``(logits (B, V), k_pool, v_pool)``."""
+    LAST run token (the speculative verify passes every packed position,
+    (B * C,)).  Returns ``(logits (len(logit_idx), V), k_pool, v_pool)``
+    (``head_fn``'s result in place of the logits when given)."""
     from ..kvcache.paged_attention import paged_attention_fn
 
     dtype = resolve_dtype(cfg.dtype, tokens.device)
@@ -345,7 +439,28 @@ def paged_mixed_step(params: dict, cfg: DecoderConfig, k_pool, v_pool,
         ff = act(_proj_p(layer, h, "w_up", "b_up"))
         x = x + _row_proj(layer, ff, "w_down", "b_down")
     x = _layer_norm(x, params["ln_f_scale"], params["ln_f_bias"], eps)
-    return _head_out(_head_weight(params), x[logit_idx]), k_pool, v_pool
+    head = _head_out if head_fn is None else head_fn
+    return head(_head_weight(params), x[logit_idx]), k_pool, v_pool
+
+
+def _chained(params, cfg, k_pool, v_pool, token, positions, block_tables,
+             slot_blocks, slot_offsets, head_at):
+    """K decode steps, step t's ids feeding step t+1, step t's vocab head
+    ``head_at(t)`` (which returns ids)."""
+    K = slot_blocks.shape[1]
+    maxp = cfg.max_len - 1
+    tok = token.to(torch.int32)
+    ids = []
+    for t in range(K):
+        # surplus steps of a budget-exhausted row run at a clamped
+        # position; real steps never reach the clamp
+        pos = torch.clamp(positions + t, max=maxp)
+        tok, k_pool, v_pool = paged_decode_step(
+            params, cfg, k_pool, v_pool, tok, pos, block_tables,
+            slot_blocks[:, t], slot_offsets[:, t], head_fn=head_at(t),
+        )
+        ids.append(tok)
+    return torch.stack(ids, dim=1), k_pool, v_pool
 
 
 def paged_chained_decode(params: dict, cfg: DecoderConfig, k_pool, v_pool,
@@ -358,21 +473,103 @@ def paged_chained_decode(params: dict, cfg: DecoderConfig, k_pool, v_pool,
     by the host; rows whose budget is < K point their surplus steps at
     the null block (their ids are discarded host-side).  Returns
     ``(ids (B, K) int32, k_pool, v_pool)``."""
-    K = slot_blocks.shape[1]
-    maxp = cfg.max_len - 1
-    tok = token.to(torch.int32)
+    return _chained(params, cfg, k_pool, v_pool, token, positions,
+                    block_tables, slot_blocks, slot_offsets,
+                    lambda _t: _greedy_head)
+
+
+# -- draft-model proposals (speculative decoding) ---------------------------
+
+
+def draft_propose(params: dict, cfg: DecoderConfig, token_ids: torch.Tensor,
+                  n_valid: torch.Tensor, *, k: int) -> torch.Tensor:
+    """K greedy next-token proposals from a small DRAFT model over a
+    short window: ``token_ids`` (B, W) holds each row's most recent
+    context in its first ``n_valid[b]`` entries with at least ``k`` free
+    tail slots.  Each step runs the dense :func:`prefill` with
+    ``flash=False`` (the JAX package's choice), argmaxes and appends.
+    Positions are window-relative, so proposals are a pure function of
+    the window.  Returns (B, k) int32."""
+    B, W = token_ids.shape
+    buf = token_ids.to(torch.int64).clone()
+    nv = n_valid.to(torch.int64).clone()
+    rows = torch.arange(B, device=buf.device)
     ids = []
-    for t in range(K):
-        # surplus steps of a budget-exhausted row run at a clamped
-        # position; real steps never reach the clamp
-        pos = torch.clamp(positions + t, max=maxp)
-        logits, k_pool, v_pool = paged_decode_step(
-            params, cfg, k_pool, v_pool, tok, pos, block_tables,
-            slot_blocks[:, t], slot_offsets[:, t],
-        )
-        tok = greedy(logits)
+    for _ in range(k):
+        tok, _cache = prefill(params, cfg, buf, nv, flash=False,
+                              head_fn=_greedy_head)
+        buf[rows, torch.clamp(nv, max=W - 1)] = tok.to(torch.int64)
+        nv = torch.clamp(nv + 1, max=W)
         ids.append(tok)
-    return torch.stack(ids, dim=1), k_pool, v_pool
+    return torch.stack(ids, dim=1)
+
+
+# -- sampled program variants -------------------------------------------------
+#
+# Each wraps its greedy twin with the sampling head: the step math (so
+# the logits, so the greedy rows' ids) is shared code.  Extra (B,) arrays:
+# temperature (f32), top_k (int, <= 0 disables), top_p (f32, 1.0
+# disables), seed (the request's) and emit_idx (the absolute index of the
+# token this step emits for the row).  Each returns ``(ids (B,) int32,
+# k_pool, v_pool)``.
+
+
+def paged_decode_step_sampled(params: dict, cfg: DecoderConfig, k_pool,
+                              v_pool, token, positions, block_tables,
+                              slot_blocks, slot_offsets, temperature, top_k,
+                              top_p, seed, emit_idx):
+    """:func:`paged_decode_step` with per-row sampling."""
+    head = _sampling_head(temperature, top_k, top_p,
+                          _row_sample_keys(seed, emit_idx))
+    return paged_decode_step(params, cfg, k_pool, v_pool, token, positions,
+                             block_tables, slot_blocks, slot_offsets,
+                             head_fn=head)
+
+
+def paged_mixed_step_sampled(params: dict, cfg: DecoderConfig, k_pool,
+                             v_pool, tokens, positions, row_tables,
+                             row_start, row_nvalid, row_token_idx, tok_row,
+                             tok_col, slot_blocks, slot_offsets, logit_idx,
+                             temperature, top_k, top_p, seed, emit_idx):
+    """:func:`paged_mixed_step` with per-row sampling (mid-prefill rows'
+    ids are garbage the engine ignores, like their greedy logits)."""
+    head = _sampling_head(temperature, top_k, top_p,
+                          _row_sample_keys(seed, emit_idx))
+    return paged_mixed_step(params, cfg, k_pool, v_pool, tokens, positions,
+                            row_tables, row_start, row_nvalid,
+                            row_token_idx, tok_row, tok_col, slot_blocks,
+                            slot_offsets, logit_idx, head_fn=head)
+
+
+def paged_chained_decode_sampled(params: dict, cfg: DecoderConfig, k_pool,
+                                 v_pool, token, positions, block_tables,
+                                 slot_blocks, slot_offsets, temperature,
+                                 top_k, top_p, seed, emit0):
+    """:func:`paged_chained_decode` with per-row sampling: step t folds
+    ``emit0 + t`` into each row's seed key, so the noise of a row's n-th
+    token depends only on (seed, n) however budgets, preemption or a
+    restart cut the chain.  ``emit0``: (B,) the emit index of each row's
+    step-0 token."""
+    base = _seed_keys(seed)
+    return _chained(
+        params, cfg, k_pool, v_pool, token, positions, block_tables,
+        slot_blocks, slot_offsets,
+        lambda t: _sampling_head(temperature, top_k, top_p,
+                                 prng.fold_in(base, emit0 + t)),
+    )
+
+
+def paged_prefill_sampled(params: dict, cfg: DecoderConfig, token_ids,
+                          n_valid, k_pool, v_pool, block_tables, temperature,
+                          top_k, top_p, seed, emit_idx, *,
+                          flash: bool | None = None):
+    """:func:`paged_prefill` with first-token sampling.  ``emit_idx`` is
+    0 for a fresh prompt and ``len(emitted)`` for a re-admission by
+    recompute (preemption or restart)."""
+    head = _sampling_head(temperature, top_k, top_p,
+                          _row_sample_keys(seed, emit_idx))
+    return paged_prefill(params, cfg, token_ids, n_valid, k_pool, v_pool,
+                         block_tables, flash=flash, head_fn=head)
 
 
 class TorchDecoderLM:
@@ -404,8 +601,9 @@ class TorchDecoderLM:
     def paged_engine(self, **kwargs):
         """The paged decode engine over this LM's weights, built on first
         use (keyed on the params object, so reassigning ``params``
-        rebuilds it).  ``kwargs`` are ``PagedDecodeEngine`` sizes; they
-        apply when the engine is built."""
+        rebuilds it).  ``kwargs`` are ``PagedDecodeEngine`` arguments
+        (sizes, ``max_restarts``, ``watchdog_timeout_s``,
+        ``speculative``); they apply when the engine is built."""
         if self._engine is not None and self._engine[0] is self.params:
             return self._engine[1]
         from ..kvcache.engine import PagedDecodeEngine
@@ -519,8 +717,10 @@ class TorchDecoderLM:
 
 
 __all__ = [
-    "DecoderConfig", "TorchDecoderLM", "decode_step",
+    "DecoderConfig", "TorchDecoderLM", "decode_step", "draft_propose",
     "generate_tokens_fused", "greedy", "init_decoder_params",
-    "paged_chained_decode", "paged_decode_step", "paged_mixed_step",
-    "paged_prefill", "params_to", "plan_decode_params", "prefill",
+    "paged_chained_decode", "paged_chained_decode_sampled",
+    "paged_decode_step", "paged_decode_step_sampled", "paged_mixed_step",
+    "paged_mixed_step_sampled", "paged_prefill", "paged_prefill_sampled",
+    "params_to", "plan_decode_params", "prefill",
 ]
