@@ -9,13 +9,29 @@ Phases (any failure exits non-zero; no phase catches its own failure):
 1. print the card's name and power limit, build every CUDA kernel from
    ``pathway_tpu_torch/csrc`` (one nvcc per source, started together);
 2. hold each kernel against its plain PyTorch version at the main path's
-   widths and at edge cases;
-3. retrieval: embed ``N_DOCS`` (16,384) synthetic documents with the
-   MiniLM-width encoder, load them into ``BruteForceKnn`` on the card,
-   embed ``N_QUERIES`` (64) queries and ``search_batch(k=10)`` (the
-   scores kernel's GEMM); top-k must equal the plain version's apart
-   from exact ties; then each query alone, embedded and searched (the
-   GEMV), timed for the query latency;
+   widths and at edge cases; for the KNN kernel also a matrix of
+   duplicate rows (more tied rows than k) at Q = 64 and Q = 1: copies
+   must score bit-identically and the ordered top-k must equal a stable
+   sort of the scores;
+3. retrieval: ``N_DOCS`` (16,384) synthetic documents through the
+   MiniLM-width ``SentenceTransformerEmbedder(device_resident=True)``:
+   ``embed_many`` gives ``DeviceVec`` handles, ``BruteForceKnn.add``
+   records them, and the first search consolidates them on the card
+   (docs/s indexed, timed to that search; beside it the per-row route:
+   ``embed_batch``, one ``add`` per row, first search; each route starts
+   with the tokenizer's word cache emptied and refilled by the same
+   warm-up); every handle's row must equal ``embed_batch``'s.  ``N_QUERIES`` (64) queries go
+   through ``search_batch(k=10)`` (the scores kernel's GEMM), then one at
+   a time through the CUDA-graph ``CompiledQueryEncoder`` and ``search``
+   (the GEMV through ``device_topk``), timed for the query latency, and
+   through the eager ``embed_batch`` + ``search_batch`` beside it.  On
+   both routes the keys must equal, exactly, a stable descending sort of
+   the kernel's scores over a reference matrix built apart from the
+   index (``embed_batch``'s rows, document i as key i, normalised by the
+   script), and every returned score must be within 1e-4 of the plain
+   f32 score of its key; the graph replay must equal its eager forward
+   (within ``CQ_GRAPH_TOL``) and stay above 0.995 cosine to the f32
+   encoder;
 4. generation: RAG prompts built from the retrieved documents go through
    the paged engine at GPT-2-small width — in f32 the greedy tokens must
    equal the port's dense plain path (einsum prefill + decode_step), then
@@ -45,8 +61,10 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    call taking turns; KNN at both its shapes with the matrix cold in
    L2; the paged kernels warm, on their heaviest call, and ``cold``,
    rotating over that step's calls of every layer; the ragged kernel
-   twice, at the mixed step's C = 32 and at the verify step's C = 5) and
-   lines of end-to-end numbers.
+   twice, at the mixed step's C = 32 and at the verify step's C = 5), a
+   ``{"topk": ...}`` line (the index's ordered top-10 against
+   ``torch.topk`` and a stable sort, at Q = 64 and Q = 1) and lines of
+   end-to-end numbers.
 
 Phase 2 also holds the port's PRNG (``models/prng.py``) on the card to
 ``PRNG_KNOWN``, keys and bits that ``jax.random`` gives (the CPU tests
@@ -55,7 +73,8 @@ same head on the CPU.  Every engine runs with ``max_restarts=0`` except
 phase 4c's restart and watchdog checks; an ``EngineFailedError`` exits
 non-zero.
 
-``--checks-only`` stops after phase 2 and prints no result.
+``--checks-only`` stops after phase 2 (the duplicate-row case included)
+and prints no result.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``.
 Exits non-zero, printing no result, when no CUDA device is present or
@@ -84,6 +103,9 @@ PEAK_OPS_S = {"bfloat16": 989e12, "float32": 67e12}
 # keeps them in f32, and both round the output to bf16 (2^-8 relative).
 TOL = {"float32": 1e-4, "bfloat16": 3e-2}
 KNN_TOL = 1e-4  # |score| <= 1 on L2-normalized rows; f32 FMA order only
+# the query encoder's graph replay against the same function issued
+# eagerly: the same kernels on the same inputs, so bit-identical
+CQ_GRAPH_TOL = 0.0
 
 GPT2_SMALL = dict(vocab_size=50257, d_model=768, n_layers=12, n_heads=12,
                   d_ff=3072, max_len=1024, act="gelu_tanh", ln_eps=1e-5)
@@ -515,6 +537,40 @@ def check_knn(torch, kc, g) -> list[str]:
     return lines
 
 
+def check_knn_ties(torch, kc, knn, g) -> list[str]:
+    """Duplicate rows at the main path's width: 16,384 rows that repeat
+    100 vectors, so each score is shared by 163-164 rows (more than
+    k = 10).  At Q = 64 (GEMM) and Q = 1 (GEMV) every copy of a vector
+    must score bit-identically (a dot product's summation order must not
+    depend on the row's place in a tile), and the ordered top-k must
+    equal a stable descending sort of the kernel's scores."""
+    from pathway_tpu_torch.ops.knn import _l2_normalize
+
+    N, d, k, n_base = 16384, 384, 10, 100
+    base = _l2_normalize(torch.randn((n_base, d), generator=g)).cuda()
+    copy_of = torch.arange(N, device="cuda") % n_base
+    m = base[copy_of].contiguous()
+    lines = []
+    for Q in (64, 1):
+        q = _l2_normalize(torch.randn((Q, d), generator=g)).cuda()
+        s = kc.knn_scores(q, m)
+        err = max_abs_err(s, kc.knn_scores_reference(q, m))
+        require(err <= KNN_TOL, f"knn ties Q={Q}: err {err}")
+        require(torch.equal(s, s[:, copy_of]),
+                f"knn ties Q={Q}: duplicate rows score differently")
+        vals, idx = knn.topk_lower_index_first(s, k)
+        want = torch.sort(s, dim=1, descending=True, stable=True)
+        require(torch.equal(idx, want.indices[:, :k])
+                and torch.equal(vals, want.values[:, :k]),
+                f"knn ties Q={Q}: top-k is not the stable sort's")
+        require(bool((vals == vals[:, :1]).all()), "top-k rows not all tied")
+        torch.cuda.synchronize()
+        lines.append(f"knn ties Q={Q}: {N // n_base}+ copies per score, "
+                     f"duplicates bit-identical, top-{k} = stable sort, "
+                     f"err={err:.3g}")
+    return lines
+
+
 def check_flash(torch, ac, g) -> list[str]:
     lines = []
     for dtype in (torch.float32, torch.bfloat16):
@@ -832,6 +888,9 @@ def time_kernels(torch, pa, kc, ac, cap: Capture, cap_spec: Capture,
             source="pathway_tpu_torch/csrc/knn_scores.cu",
             replaces="pathway_tpu/ops/knn_pallas.py:27",
             variant="gemv" if small else "gemm",
+            call=("BruteForceKnn.search -> device_topk, cos_prenorm" if small
+                  else "BruteForceKnn.search_batch -> batched_topk, "
+                  "cos_prenorm"),
             launches=launches[name], max_abs_err=err, bound_ms=bound,
             bound_by=by, **times,
             shape=f"Q={Q} N={N} d={d} float32, matrix cold in L2",
@@ -880,6 +939,29 @@ def time_kernels(torch, pa, kc, ac, cap: Capture, cap_spec: Capture,
             bound_ms=bound_entry(4 * q.numel() * q.element_size(),
                                  4 * hd * pairs, dt)[0],
             shape=f"q{tuple(q.shape)} {dt} causal={causal} strided views")
+    return out
+
+
+def time_topk(torch, kc, knn, cap: Capture) -> dict:
+    """The index's top-10 (``topk_lower_index_first``, ``lax.top_k``'s
+    order) against ``torch.topk`` and a full stable sort, on the scores
+    of the main path's two KNN calls: graph replays (device time) and
+    eager calls (what a Python caller pays)."""
+    out = {}
+    for name, small in (("q64", False), ("q1", True)):
+        call = cap.heaviest("knn_scores", small=small)
+        s = kc.knn_scores_cuda(call["q"], call["m"])
+        fns = {
+            "ordered": lambda: knn.topk_lower_index_first(s, 10),
+            "torch_topk": lambda: torch.topk(s, 10, dim=1),
+            "stable_sort": lambda: torch.sort(s, dim=1, descending=True,
+                                              stable=True),
+        }
+        graph, eager = cuda_times_ms(fns), cuda_times_ms(fns, graph=False)
+        out[name] = {"shape": list(s.shape),
+                     **{f"{f}_ms": graph[f][0] for f in fns},
+                     **{f"{f}_ms_min_max": list(graph[f][1:]) for f in fns},
+                     **{f"{f}_eager_ms": eager[f][0] for f in fns}}
     return out
 
 
@@ -1201,9 +1283,12 @@ def main() -> int:
     from pathway_tpu_torch.models.encoder import EncoderConfig, TorchEncoder
     from pathway_tpu_torch.ops import _cuda
     from pathway_tpu_torch.ops import attention_cuda as ac
+    from pathway_tpu_torch.ops import knn
     from pathway_tpu_torch.ops import knn_cuda as kc
     from pathway_tpu_torch.ops.knn import metric_scores
     from pathway_tpu_torch.stdlib.indexing.inner_index import BruteForceKnn
+    from pathway_tpu_torch.xpacks.llm.embedders import (
+        SentenceTransformerEmbedder)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1236,6 +1321,7 @@ def main() -> int:
     for line in (check_paged_attention(torch, pa, g, prefill_chunk)
                  + check_paged_edges(torch, pa, g)
                  + check_append(torch, pa, g) + check_knn(torch, kc, g)
+                 + check_knn_ties(torch, kc, knn, g)
                  + check_verify_shape(torch, pa, g)
                  + check_flash(torch, ac, g) + check_sampling(torch, prng, dec,
                                                               g)):
@@ -1248,24 +1334,93 @@ def main() -> int:
     # phase 3: retrieval
     rng = np.random.default_rng(args.seed)
     docs = make_docs(rng, N_DOCS)
-    enc = TorchEncoder(EncoderConfig(**MINILM), seed=args.seed,
-                       device="cuda")
-    enc.embed_batch(docs[:256])  # warm-up: cuBLAS handles, allocator
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    emb = enc.embed_batch(docs)
-    torch.cuda.synchronize()
-    t_embed = time.perf_counter() - t0
-    index = BruteForceKnn(enc.dimensions, reserved_space=N_DOCS,
-                          metric="cos", device="cuda")
-    for i in range(N_DOCS):
-        index.add(i, emb[i])
-    torch.cuda.synchronize()
-    t_index = time.perf_counter() - t0
-    require(tuple(emb.shape) == (N_DOCS, 384)
-            and bool(torch.isfinite(emb).all()), "document embeddings")
     q_docs = rng.integers(0, N_DOCS, size=N_QUERIES)
     queries = [" ".join(docs[j].split()[5:17]) for j in q_docs]
+    embedder = SentenceTransformerEmbedder(
+        config=EncoderConfig(**MINILM), seed=args.seed, device="cuda",
+        device_resident=True)
+    enc = embedder.encoder
+    probe = enc.embed_batch(queries[:1])[0]  # the first search's query
+
+    def ingest_start():
+        """Each ingest route starts from the same tokenizer state: the word
+        cache emptied, then the 256-document warm-up (cuBLAS handles,
+        allocator) that fills it with those documents' words only."""
+        enc.tokenizer._cache.clear()
+        enc.embed_batch(docs[:256])
+        torch.cuda.synchronize()
+
+    # the per-row route: embed_batch, one add (a device copy) per row,
+    # then the first search, which consolidates the index's matrix
+    ingest_start()
+    stats0 = dict(enc.stats)
+    t0 = time.perf_counter()
+    emb = enc.embed_batch(docs)
+    t_issued = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    t_embed = time.perf_counter() - t0
+    # where the embedding's wall time goes: tokenising and padding on the
+    # host, issuing the forwards (copies included), then waiting for them
+    embed_stages = {k: enc.stats[k] - stats0[k]
+                    for k in ("tokenize_s", "pad_s", "device_s")}
+    embed_stages["wait_s"] = t_embed - t_issued
+    rows_index = BruteForceKnn(enc.dimensions, reserved_space=N_DOCS,
+                               metric="cos", device="cuda")
+    for i in range(N_DOCS):
+        rows_index.add(i, emb[i])
+    rows_index.search(probe, 10)  # fetches (k,): synchronous
+    t_index_rows = time.perf_counter() - t0
+    require(tuple(emb.shape) == (N_DOCS, enc.dimensions)
+            and bool(torch.isfinite(emb).all()), "document embeddings")
+    del rows_index
+    # the device-resident route: embed_many -> DeviceVec handles ->
+    # add(key, handle); the first search's gather is inside the window
+    ingest_start()
+    t0 = time.perf_counter()
+    handles = embedder.embed_many(docs)
+    index = BruteForceKnn(enc.dimensions, reserved_space=N_DOCS,
+                          metric="cos", device="cuda")
+    for i, h in enumerate(handles):
+        index.add(i, h)
+    index.search(probe, 10)
+    t_index = time.perf_counter() - t0
+    store = handles[0].store
+    require(len(handles) == N_DOCS and len(index._dev_refs) == N_DOCS
+            and all(h.store is store for h in handles), "device-resident ingest")
+    require(torch.equal(store.gather([(h.batch, h.row_idx) for h in handles]),
+                        emb), "DeviceVec rows differ from embed_batch's rows")
+
+    # the reference matrix, built apart from the index: embed_batch's rows
+    # (document i is key i), L2-normalised here
+    def normalised(rows):
+        return rows / (torch.linalg.norm(rows, dim=1, keepdim=True) + 1e-12)
+
+    ref_m = normalised(emb)
+
+    def reference_order(q_rows, m=ref_m):
+        """Per query, every key in the order of a stable sort of the
+        kernel's scores over ``m`` (copies score bit-identically, phase
+        2), and the plain f32 scores; the kernel's largest distance from
+        them."""
+        s = metric_scores(q_rows, m, "cos_prenorm", kc.knn_scores)
+        plain = metric_scores(q_rows, m, "cos_prenorm",
+                              kc.knn_scores_reference)
+        order = torch.sort(s, dim=1, descending=True, stable=True).indices
+        return order.tolist(), plain, max_abs_err(s, plain)
+
+    def reference_top10(q_rows):
+        order, plain, err = reference_order(q_rows)
+        return [row[:10] for row in order], plain, err
+
+    def require_hits(hits, want, plain, what):
+        """``hits`` has the reference's keys, in order, and each score is
+        within KNN_TOL of the plain f32 score of its key."""
+        require([[k for k, _s in row] for row in hits] == want,
+                f"{what} keys differ from the reference's stable sort")
+        err = max(abs(sc - float(plain[qi, k]))
+                  for qi, row in enumerate(hits) for k, sc in row)
+        require(err <= KNN_TOL, f"{what} scores err {err}")
+        return err
 
     cap = Capture(torch, pa, kc, ac)
     main_launches = {}
@@ -1274,37 +1429,103 @@ def main() -> int:
         q_emb = enc.embed_batch(queries)
         hits = index.search_batch(q_emb, 10)
     main_launches["knn_scores"] = _cuda.LAUNCHES["knn_scores"]
-    require(main_launches["knn_scores"] > 0, "retrieval never launched knn")
-    # top-k against the plain version, apart from exact ties
-    plain = metric_scores(q_emb, index.matrix[: index.n], "cos",
-                          kc.knn_scores_reference)
-    p_vals, p_idx = torch.topk(plain, 10, dim=1)
-    n_tie_swaps = 0
-    for qi, row in enumerate(hits):
-        got = [k for k, _s in row]
-        want = p_idx[qi].tolist()
-        for a, b in zip(got, want):
-            if a != b:
-                require(float(plain[qi, a]) == float(plain[qi, b]),
-                        f"query {qi}: top-k differs beyond ties")
-                n_tie_swaps += 1
+    require(main_launches["knn_scores"] == 1,
+            f"batched search launched knn {main_launches['knn_scores']} times")
+    want, plain, knn_err = reference_top10(q_emb)
+    require(knn_err <= KNN_TOL, f"kernel scores err {knn_err}")
+    hits_err = require_hits(hits, want, plain, "search_batch")
     recall1 = float(np.mean([row[0][0] == int(j)
                              for row, j in zip(hits, q_docs)]))
-    # one query's search (the GEMV), captured in an untimed pass
-    with cap:
-        index.search_batch(enc.embed_batch([queries[0]]), 10)
+    # single queries: the graph-replayed query encoder, then search (the
+    # GEMV through device_topk), each (k,) fetched
+    cq = enc.compiled_query_encoder()
     torch.cuda.synchronize()
-    latencies = []
+    t0 = time.perf_counter()
+    cq.warmup_all()
+    torch.cuda.synchronize()
+    capture_ms = (time.perf_counter() - t0) * 1e3
+    cq_vecs = [cq.embed(t) for t in queries]
+    graph_err = max(float(np.abs(v - cq.embed_eager(t)).max())
+                    for v, t in zip(cq_vecs, queries))
+    require(graph_err <= CQ_GRAPH_TOL, f"query graph vs eager: {graph_err}")
+    enc32 = TorchEncoder(EncoderConfig(**MINILM, dtype=torch.float32),
+                         seed=args.seed, device="cuda")
+    cq_cos = min(float(enc32.embed(t).cpu().numpy() @ v)
+                 for v, t in zip(cq_vecs, queries))
+    require(cq_cos > 0.995, f"query encoder cosine to f32 {cq_cos}")
+    del enc32
+    with cap:  # one query's search, captured in an untimed pass
+        index.search(cq_vecs[0], 10)
+    require(any(c["q"].shape[0] == 1 for c in cap.calls["knn_scores"])
+            and any(c["q"].shape[0] == N_QUERIES
+                    for c in cap.calls["knn_scores"]),
+            "knn_scores not captured on both routes")
+    torch.cuda.synchronize()
+    latencies, single = [], []
     _cuda.reset_launches()
     for text in queries:
         t0 = time.perf_counter()
-        index.search_batch(enc.embed_batch([text]), 10)
+        single.append(index.search(cq.embed(text), 10))
         latencies.append((time.perf_counter() - t0) * 1e3)
     main_launches["knn_scores_q1"] = _cuda.LAUNCHES["knn_scores"]
     require(main_launches["knn_scores_q1"] == len(queries),
             f"query loop launched knn {main_launches['knn_scores_q1']} times")
+    # each query's own GEMV launch, as search made it
+    per_query = [reference_top10(torch.from_numpy(v).cuda()[None])
+                 for v in cq_vecs]
+    knn_err1 = max(err for _want, _plain, err in per_query)
+    require(knn_err1 <= KNN_TOL, f"single-query kernel scores err {knn_err1}")
+    hits_err1 = max(require_hits([row], want, plain, "search")
+                    for row, (want, plain, _err) in zip(single, per_query))
+    # the eager route beside it: embed_batch([text]) + search_batch
+    latencies_eager = []
+    for text in queries:
+        t0 = time.perf_counter()
+        index.search_batch(enc.embed_batch([text]), 10)
+        latencies_eager.append((time.perf_counter() - t0) * 1e3)
+    # a small host-row index (1,000 rows, under the JAX index's numpy
+    # threshold) serves from the card as well: one scores launch per
+    # search, filtered or not.  Its reference normalises the same rows
+    # at the index's bucket shape (1,024), zero rows below them
+    n_small = 1000
+    small = BruteForceKnn(enc.dimensions, metric="cos", device="cuda")
+    for i in range(n_small):
+        small.add(i, emb[i], {"even": i % 2 == 0})
+    _cuda.reset_launches()
+    got_small = small.search(cq_vecs[0], 10)
+    got_filtered = small.search(cq_vecs[0], 10, "even == `true`")
+    small_launches = _cuda.LAUNCHES["knn_scores"]
+    require(small_launches == 2,
+            f"small index: {small_launches} scores launches for 2 searches")
+    bucket = torch.zeros((BruteForceKnn._bucket_rows(n_small), enc.dimensions),
+                         device="cuda")
+    bucket[:n_small] = emb[:n_small]
+    [order], plain, small_err = reference_order(
+        torch.from_numpy(cq_vecs[0]).cuda()[None], normalised(bucket))
+    order = [i for i in order if i < n_small]
+    small_err = max(small_err, require_hits([got_small], [order[:10]], plain,
+                                            "small-index search"))
+    small_err = max(small_err, require_hits(
+        [got_filtered], [[i for i in order if i % 2 == 0][:10]], plain,
+        "small-index filtered search"))
+    require(small_err <= KNN_TOL, f"small-index scores err {small_err}")
+    del small
+    retrieval = {
+        "docs_per_s_indexed": N_DOCS / t_index,
+        "docs_per_s_indexed_rows": N_DOCS / t_index_rows,
+        "docs_per_s_embedded": N_DOCS / t_embed,
+        "embed_stages_s": embed_stages,
+        "query_p50_ms": statistics.median(latencies),
+        "query_p50_ms_eager": statistics.median(latencies_eager),
+        "query_graph_capture_ms": capture_ms,
+        "query_graph_vs_eager_max_abs": graph_err,
+        "query_cos_to_f32_min": cq_cos,
+        "index_scores_err": max(knn_err, knn_err1, hits_err, hits_err1,
+                                small_err),
+    }
     log(f"phase 3 ok: {N_DOCS} docs, top-1 = source doc for "
-        f"{recall1:.3f} of queries, {n_tie_swaps} tie swaps")
+        f"{recall1:.3f} of queries; keys = the reference's stable sort "
+        f"on both routes; {retrieval}")
 
     # phase 4: generation
     cfg32 = dec.DecoderConfig(**GPT2_SMALL,
@@ -1456,15 +1677,15 @@ def main() -> int:
     kernels = time_kernels(torch, pa, kc, ac, cap, cap_spec, main_launches,
                            prefill_chunk)
     print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"topk": time_topk(torch, kc, knn, cap)}), flush=True)
     print(json.dumps({"generation_profile": profile_generation(
         torch, lm16, prompts, NEW_TOKENS, t_gen)}), flush=True)
     print(json.dumps({"sampling": sampling}), flush=True)
     print(json.dumps({
         "rag": {
             "docs": N_DOCS,
-            "docs_per_s_embedded": N_DOCS / t_embed,
-            "docs_per_s_indexed": N_DOCS / t_index,
-            "query_p50_ms": statistics.median(latencies),
+            "card": smi,
+            **retrieval,
             "query_top1_is_source": recall1,
             "generated_tokens": n_gen,
             "generated_tokens_per_s_bf16": n_gen / t_gen,

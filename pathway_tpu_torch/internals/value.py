@@ -1,6 +1,7 @@
 """Stable 128-bit value hashing — the part of ``pathway_tpu``'s value
 model the hash tokenizer needs (``hash_values`` and its canonical
-serializer ``_ser``).  Kept as a copy so the port imports nothing of the
+serializer ``_ser``), and the ``Json`` wrapper that metadata filters
+unwrap.  Kept as a copy so the port imports nothing of the
 JAX package; the serialization must stay byte-identical to it, or token
 ids would differ between the two packages."""
 
@@ -73,3 +74,18 @@ def hash_values(*values: Any) -> int:
         _ser(v, out)
     d = hashlib.blake2b(b"".join(out), digest_size=16).digest()
     return int.from_bytes(d, "little")
+
+
+class Json:
+    """A parsed JSON value: the part of ``pathway_tpu``'s ``pw.Json`` that
+    metadata filters read (``value``)."""
+
+    __slots__ = ("value",)
+
+    def __init__(self, value: Any) -> None:
+        if isinstance(value, Json):
+            value = value.value
+        self.value = value
+
+    def __repr__(self) -> str:
+        return f"pw.Json({self.value!r})"

@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import time
 from typing import Any
 
 import numpy as np
@@ -180,7 +181,11 @@ def encode(params: dict, cfg: EncoderConfig, token_ids: torch.Tensor,
 
 class TorchEncoder:
     """Host-facing embedder: tokenize -> pad to a (batch, sequence)
-    bucket -> forward on ``device``.  Counterpart of ``JaxEncoder``."""
+    bucket -> forward on ``device``.  Counterpart of ``JaxEncoder``.
+
+    ``stats`` accumulates per-stage wall time (``tokenize_s``, ``pad_s``,
+    ``device_s``: the time to issue the forward, which on the card does
+    not wait for it) and counts (``texts``, ``calls``)."""
 
     def __init__(self, cfg: EncoderConfig | None = None, seed: int = 0,
                  seq_buckets=(32, 128, 512), batch_buckets=(1, 8, 64, 256),
@@ -195,6 +200,8 @@ class TorchEncoder:
         if params is None:
             params = init_params(cfg, seed, self.device)
         self.params = params_to(params, self.device, cfg.dtype)
+        self.stats = {"tokenize_s": 0.0, "pad_s": 0.0, "device_s": 0.0,
+                      "texts": 0, "calls": 0}
         self.seq_buckets = [b for b in seq_buckets if b <= cfg.max_len] or [
             cfg.max_len
         ]
@@ -204,23 +211,29 @@ class TorchEncoder:
 
             tokenizer = HashTokenizer(cfg.vocab_size)
         self.tokenizer = tokenizer
+        self._store = None
+        self._query_encoder = None
+
+    @classmethod
+    def from_hf(cls, model_name_or_path: str, **kwargs) -> "TorchEncoder":
+        """A locally stored BERT-family model (``models/hf_import.py``;
+        needs ``transformers``)."""
+        from .hf_import import load_hf_encoder
+
+        params, cfg, hf_tok = load_hf_encoder(model_name_or_path)
+        tok = _HFTokenizerAdapter(hf_tok) if hf_tok is not None else None
+        return cls(cfg, params=params, tokenizer=tok, **kwargs)
 
     @property
     def dimensions(self) -> int:
         return self.cfg.d_model
 
-    def embed_batch(self, texts: list[str]) -> torch.Tensor:
-        """(len(texts), d_model) f32 embeddings, on the encoder's device."""
-        if not texts:
-            return torch.zeros((0, self.cfg.d_model), device=self.device)
-        max_b = self.batch_buckets[-1]
-        if len(texts) > max_b:
-            # chunk oversized batches at the largest bucket
-            return torch.cat([
-                self.embed_batch(texts[i: i + max_b])
-                for i in range(0, len(texts), max_b)
-            ])
+    def _prepare(self, texts: list[str]):
+        """Tokenize and pad one chunk: ``(ids (B, T) int64, mask (B, T)
+        bool or None for an exact-fit bucket, n_valid)``."""
+        t0 = time.perf_counter()
         toks = [self.tokenizer.encode(t)[: self.cfg.max_len] for t in texts]
+        t1 = time.perf_counter()
         T = bucket_for(max(1, max(len(t) for t in toks)), self.seq_buckets)
         B = bucket_for(len(texts), self.batch_buckets)
         ids = np.zeros((B, T), np.int64)
@@ -231,10 +244,95 @@ class TorchEncoder:
             mask[i, : len(t)] = True
         # exact-fit bucket: no padding anywhere -> no mask at all
         exact = len(texts) == B and bool(mask.all())
-        return encode(
-            self.params, self.cfg, torch.from_numpy(ids).to(self.device),
-            None if exact else torch.from_numpy(mask).to(self.device),
-        )[: len(texts)]
+        self.stats["tokenize_s"] += t1 - t0
+        self.stats["pad_s"] += time.perf_counter() - t1
+        return ids, None if exact else mask, len(texts)
+
+    def _to_device(self, a: np.ndarray) -> torch.Tensor:
+        """Host -> device; on the card from pinned memory, without waiting
+        (the pinned block is held until the copy has run)."""
+        t = torch.from_numpy(a)
+        if self.device.type == "cuda":
+            return t.pin_memory().to(self.device, non_blocking=True)
+        return t
+
+    def _forward(self, ids: np.ndarray, mask) -> torch.Tensor:
+        t0 = time.perf_counter()
+        out = encode(self.params, self.cfg, self._to_device(ids),
+                     None if mask is None else self._to_device(mask))
+        self.stats["device_s"] += time.perf_counter() - t0
+        self.stats["calls"] += 1
+        return out
+
+    def _chunks(self, texts: list[str]):
+        max_b = self.batch_buckets[-1]
+        return [texts[i: i + max_b] for i in range(0, len(texts), max_b)]
+
+    def embed_batch(self, texts: list[str]) -> torch.Tensor:
+        """(len(texts), d_model) f32 embeddings, on the encoder's device;
+        oversized batches are chunked at the largest batch bucket."""
+        if not texts:
+            return torch.zeros((0, self.cfg.d_model), device=self.device)
+        outs = []
+        for chunk in self._chunks(texts):
+            ids, mask, n = self._prepare(chunk)
+            outs.append(self._forward(ids, mask)[:n])
+            self.stats["texts"] += n
+        return outs[0] if len(outs) == 1 else torch.cat(outs)
+
+    def embed_batch_device(self, texts: list[str], store=None) -> list:
+        """Device-resident embed: the forward of each chunk (the largest
+        batch bucket) is issued without synchronising or fetching, and its
+        rows go into ``store`` (the encoder's own ``DeviceVecStore`` when
+        None); returns one ``DeviceVec`` handle per text.  The ingest path:
+        the KNN index takes the handles and consolidates rows on the
+        device (``ops/device_store.py``)."""
+        if store is None:
+            if self._store is None:
+                from ..ops.device_store import DeviceVecStore
+
+                self._store = DeviceVecStore(self.cfg.d_model,
+                                             device=self.device)
+            store = self._store
+        out = []
+        for chunk in self._chunks(texts):
+            ids, mask, n = self._prepare(chunk)
+            out.extend(store.append_batch(self._forward(ids, mask),
+                                          n_valid=n))
+            self.stats["texts"] += n
+        return out
+
+    def embed_batch_fastest(self, texts: list[str]):
+        """Bulk embedding by device: device-resident handles on the card
+        (nothing fetched), ``embed_batch`` on the CPU."""
+        if self.device.type == "cuda":
+            return self.embed_batch_device(texts)
+        return self.embed_batch(texts)
+
+    def compiled_query_encoder(self):
+        """The single-query serving tier (``models/host_encoder.py``
+        ``CompiledQueryEncoder``): one CUDA graph per query bucket on the
+        card, the same function run eagerly on the CPU.  Built once."""
+        if self._query_encoder is None:
+            from .host_encoder import CompiledQueryEncoder
+
+            self._query_encoder = CompiledQueryEncoder(
+                self.cfg, self.params, self.tokenizer, device=self.device)
+        return self._query_encoder
 
     def embed(self, text: str) -> torch.Tensor:
         return self.embed_batch([text])[0]
+
+
+class _HFTokenizerAdapter:
+    def __init__(self, hf_tok):
+        self._tok = hf_tok
+
+    def encode(self, text: str) -> list[int]:
+        return self._tok.encode(text, add_special_tokens=True)
+
+    def decode(self, ids: list[int]) -> str:
+        return self._tok.decode(ids, skip_special_tokens=True)
+
+    def count_tokens(self, text: str) -> int:
+        return len(self.encode(text))

@@ -1,23 +1,22 @@
-"""Batched exact KNN: scores from the CUDA kernel, then ``torch.topk``.
+"""Batched exact KNN: scores from the CUDA kernel, then top-k.
 
 Counterpart of ``pathway_tpu/ops/knn_pallas.py``: the Pallas
 ``_scores_kernel`` becomes ``csrc/knn_scores.cu`` in f32 FMA, as a
 register-blocked GEMM for batches of ``GEMM_MIN_Q`` queries or more and
 a streaming GEMV below (one query's latency path); both count as
-``knn_scores`` launches.  Top-k runs after it with ``torch.topk`` as the
-JAX package runs ``lax.top_k`` outside its kernel.  CPU tensors take the
+``knn_scores`` launches.  Top-k runs after it, outside the kernel, in
+``lax.top_k``'s order (``ops/knn.py`` ``topk_lower_index_first``), as
+the JAX package runs ``lax.top_k`` outside its kernel.  CPU tensors take the
 plain version (``q @ m.T`` in f32); CUDA tensors launch the kernel or
 raise.
 """
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 
 from .._device import resolve_device
 from . import _cuda
-from .knn import metric_scores
 
 _SOURCE = "knn_scores.cu"
 #: batches of at least this many queries take the GEMM, smaller ones the GEMV
@@ -57,14 +56,11 @@ def knn_topk(matrix, queries, k: int, metric: str = "cos", *,
              device="cuda") -> tuple[torch.Tensor, torch.Tensor]:
     """Batched exact KNN over ``matrix`` (N, d): returns ``(scores (Q, k),
     indices (Q, k))`` as tensors on ``device``.  Inputs may be numpy
-    arrays or tensors; they are moved to ``device`` first."""
+    arrays or tensors; they are moved to ``device`` first.  Ties rank the
+    lower index first, as ``lax.top_k`` ranks them."""
+    from .knn import metric_scores, to_device, topk_lower_index_first
+
     dev = resolve_device(device)
-
-    def on_dev(x):
-        if isinstance(x, np.ndarray):
-            x = torch.from_numpy(x)
-        return x.to(device=dev, dtype=torch.float32)
-
-    m, q = on_dev(matrix), on_dev(queries)
+    m, q = to_device(matrix, dev), to_device(queries, dev)
     scores = metric_scores(q, m, metric, knn_scores)
-    return torch.topk(scores, min(k, m.shape[0]), dim=1)
+    return topk_lower_index_first(scores, min(k, m.shape[0]))

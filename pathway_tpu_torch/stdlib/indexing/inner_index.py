@@ -1,10 +1,29 @@
 """Dense exact KNN index with its matrix held on the device.
 
 Counterpart of ``pathway_tpu/stdlib/indexing/inner_index.py``
-``BruteForceKnn``: ``add``/``remove`` keep one dense (capacity, d) f32
-matrix on the index's device, and every batched search is one scores
-launch (the CUDA kernel on the card) plus ``torch.topk``
-(``ops/knn_cuda.py``).  Only the (Q, k) results come back to the host.
+``BruteForceKnn``.  Rows come in two kinds, as in the JAX index:
+
+- host rows (a tensor or an array-like), written into one dense
+  (capacity, d) f32 matrix on the index's device;
+- device-resident rows, ``DeviceVec`` handles into a ``DeviceVecStore``
+  (``ops/device_store.py``): ``add`` records the (store, buffer, row)
+  reference and copies nothing.
+
+``_device_matrix`` consolidates every live row into one bucket-padded
+(power of two, at least 256 rows) matrix on the device, once per index
+version: one ``index_select`` when every row comes from one store,
+otherwise the host rows plus one gather-and-scatter per store.  For
+``cos`` it is L2-normalised once there, so a query is one scores launch
+against it (the CUDA kernel on the card: GEMV for one query, GEMM for a
+batch of 16 or more) plus a top-k in ``lax.top_k``'s order; only the
+(k,) or (Q, k) results come back to the host.
+
+``search(tier="cpu")`` scores a host mirror in numpy (f16 when rows are
+device-resident), as the JAX index's CPU tier does.  Every other search,
+at any index size, scores the device matrix; a metadata-filtered one
+fetches the full score vector and walks it in order until ``k`` rows
+pass the filter.  (The JAX index scores a small host-row index in
+numpy, because its rows live there; the port's rows live on the device.)
 """
 
 from __future__ import annotations
@@ -15,8 +34,23 @@ import numpy as np
 import torch
 
 from ..._device import resolve_device
-from ...ops.knn import METRICS
-from ...ops.knn_cuda import knn_topk
+from ...ops.device_store import DeviceVec
+from ...ops.knn import METRICS, batched_topk, device_topk, device_topk_scores
+
+
+def _check_metadata(metadata, metadata_filter: str | None) -> bool:
+    if metadata_filter is None:
+        return True
+    from .jmespath_filter import evaluate_filter
+
+    return evaluate_filter(metadata_filter, metadata)
+
+
+def _host_vec(x) -> np.ndarray:
+    """One vector as a flat f32 numpy array on the host."""
+    if isinstance(x, torch.Tensor):
+        x = x.detach().to("cpu", torch.float32)
+    return np.asarray(x, dtype=np.float32).reshape(-1)
 
 
 class BruteForceKnn:
@@ -29,11 +63,18 @@ class BruteForceKnn:
         self.dim = dimensions
         self.metric = metric
         self.capacity = max(reserved_space, 16)
-        self.matrix: torch.Tensor | None = None
+        self.matrix: torch.Tensor | None = None  # host rows, on the device
         self.keys: list[int] = []
         self.slot_of: dict[int, int] = {}
         self.metadata: dict[int, Any] = {}
         self.n = 0
+        # slot -> (store, batch, row) of a device-resident row
+        self._dev_refs: dict[int, tuple] = {}
+        self._version = 0
+        self._dev_matrix = None        # ((version, prenorm), (bucket, d))
+        self._dev_valid = 0            # live rows in the device matrix
+        self._host_mirror = None       # (version, np (n, d))
+        self._host_mirror_norm = None  # (version, L2-normed mirror)
 
     def _ensure(self, dim: int) -> None:
         if self.matrix is None:
@@ -49,16 +90,14 @@ class BruteForceKnn:
             new[: self.n] = self.matrix[: self.n]
             self.matrix = new
 
-    def add(self, key: int, item: Any, metadata: Any = None) -> None:
-        """Insert or replace ``key``'s vector (a tensor, on any device, or
-        an array-like)."""
-        vec = torch.as_tensor(
-            item if isinstance(item, torch.Tensor)
-            else np.asarray(item, np.float32)
-        ).reshape(-1)
-        self._ensure(vec.shape[0])
-        if vec.shape[0] != self.dim:
-            raise ValueError(f"vector dim {vec.shape[0]} != index dim {self.dim}")
+    def _invalidate(self) -> None:
+        self._dev_matrix = None
+        self._host_mirror = None
+        self._host_mirror_norm = None
+        self._version += 1
+
+    def _slot(self, key: int, metadata: Any) -> int:
+        """``key``'s slot, a new one at the end for a new key."""
         slot = self.slot_of.get(key)
         if slot is None:
             self._grow_if_full()
@@ -66,39 +105,186 @@ class BruteForceKnn:
             self.slot_of[key] = slot
             self.keys.append(key)
             self.n += 1
-        self.matrix[slot] = vec.to(device=self.device, dtype=torch.float32)
         self.metadata[key] = metadata
+        return slot
+
+    def add(self, key: int, item: Any, metadata: Any = None) -> None:
+        """Insert or replace ``key``'s vector: a ``DeviceVec`` (its
+        reference is recorded, nothing is copied), a tensor on any device,
+        or an array-like."""
+        if isinstance(item, DeviceVec):
+            if item.store.device.type != self.device.type:
+                raise ValueError(f"DeviceVec on {item.store.device}, index "
+                                 f"on {self.device}")
+            self._ensure(item.store.dim)
+            slot = self._slot(key, metadata)
+            self._dev_refs[slot] = (item.store, item.batch, item.row_idx)
+        else:
+            vec = (item.detach() if isinstance(item, torch.Tensor)
+                   else torch.from_numpy(np.asarray(item, np.float32)))
+            vec = vec.reshape(-1)
+            self._ensure(vec.shape[0])
+            if vec.shape[0] != self.dim:
+                raise ValueError(
+                    f"vector dim {vec.shape[0]} != index dim {self.dim}")
+            slot = self._slot(key, metadata)
+            self.matrix[slot] = vec.to(device=self.device, dtype=torch.float32)
+            self._dev_refs.pop(slot, None)
+        self._invalidate()
 
     def remove(self, key: int) -> None:
-        """Drop ``key``; the last row moves into its slot."""
+        """Drop ``key``; the last row (and its device reference) moves
+        into its slot."""
         slot = self.slot_of.pop(key, None)
         if slot is None:
             return
         last = self.n - 1
+        last_key = self.keys[last]
         if slot != last:
-            last_key = self.keys[last]
             self.matrix[slot] = self.matrix[last]
+            last_ref = self._dev_refs.pop(last, None)
+            if last_ref is not None:
+                self._dev_refs[slot] = last_ref
+            else:
+                self._dev_refs.pop(slot, None)
             self.keys[slot] = last_key
             self.slot_of[last_key] = slot
+        else:
+            self._dev_refs.pop(slot, None)
         self.keys.pop()
         self.metadata.pop(key, None)
         self.n = last
+        self._invalidate()
 
+    # -- consolidation -----------------------------------------------------
+    @staticmethod
+    def _bucket_rows(n: int) -> int:
+        """Next power-of-two row bucket (at least 256): the consolidated
+        matrix keeps its shape while the index grows within a bucket."""
+        b = 256
+        while b < n:
+            b *= 2
+        return b
+
+    def _device_matrix(self, prenorm: bool) -> torch.Tensor:
+        """One (bucket, d) matrix on the device over all live slots (rows
+        past ``self._dev_valid`` are padding), L2-normalised when
+        ``prenorm``.  Cached until the next mutation."""
+        token = (self._version, prenorm)
+        if self._dev_matrix is not None and self._dev_matrix[0] == token:
+            return self._dev_matrix[1]
+        self._dev_valid = n = self.n
+        bucket = self._bucket_rows(n)
+        stores = {ref[0].id for ref in self._dev_refs.values()}
+        if len(stores) == 1 and len(self._dev_refs) == n and n > 0:
+            store = next(iter(self._dev_refs.values()))[0]
+            refs = [(self._dev_refs[s][1], self._dev_refs[s][2])
+                    for s in range(n)]
+            m = store.gather(refs, pad_to=bucket)
+        else:
+            # host rows, mixed, or several stores: the host rows, then
+            # one gather-and-scatter per DeviceVecStore
+            m = torch.zeros((bucket, self.dim), dtype=torch.float32,
+                            device=self.device)
+            m[:n] = self.matrix[:n]
+            by_store: dict[int, tuple] = {}
+            for s, (store, b, r) in self._dev_refs.items():
+                by_store.setdefault(store.id, (store, []))[1].append((s, b, r))
+            for store, entries in by_store.values():
+                slots = torch.tensor([s for s, _b, _r in entries],
+                                     dtype=torch.int64)
+                m.index_copy_(0, slots.to(self.device),
+                              store.gather([(b, r) for _s, b, r in entries]))
+        if prenorm:
+            m = m / (torch.linalg.norm(m, dim=1, keepdim=True) + 1e-12)
+        self._dev_matrix = (token, m)
+        return m
+
+    def host_matrix(self) -> np.ndarray:
+        """Host copy of all live vectors for the CPU serving tier: the host
+        rows in f32, or, with device-resident rows, the consolidated
+        matrix fetched once per index version as f16 (half the bytes)."""
+        if (self._host_mirror is not None
+                and self._host_mirror[0] == self._version):
+            return self._host_mirror[1]
+        if not self._dev_refs:
+            m = self.matrix[: self.n].to("cpu", copy=True).numpy()
+        else:
+            dev = self._device_matrix(prenorm=False)[: self._dev_valid]
+            m = dev.to(torch.float16).cpu().numpy().astype(np.float32)
+        self._host_mirror = (self._version, m)
+        return m
+
+    def _scores(self, q: np.ndarray) -> np.ndarray:
+        """Every live row's score against ``q``, in numpy on the host
+        mirror (for cos, its L2-normalised copy, cached per version)."""
+        m = self.host_matrix()
+        if self.metric == "cos":
+            if (self._host_mirror_norm is None
+                    or self._host_mirror_norm[0] != self._version):
+                mn = m / (np.linalg.norm(m, axis=1, keepdims=True) + 1e-12)
+                self._host_mirror_norm = (self._version, mn)
+            qn = q / (np.linalg.norm(q) + 1e-12)
+            return self._host_mirror_norm[1] @ qn
+        if self.metric == "l2sq":
+            return -np.sum((m - q) ** 2, axis=1)
+        return m @ q  # dot
+
+    def _device_metric(self) -> tuple[bool, str]:
+        """(prenorm, metric) of a search against the device matrix."""
+        if self.metric == "cos":
+            return True, "cos_prenorm"
+        return False, self.metric
+
+    # -- search ------------------------------------------------------------
     def search_batch(self, queries, k: int) -> list[list[tuple[int, float]]]:
         """Top-``k`` ``(key, score)`` per query, higher score = better: one
-        scores launch for the whole batch."""
+        scores launch for the whole batch against the device matrix."""
         if self.n == 0:
             return [[] for _ in queries]
         if isinstance(queries, torch.Tensor):
             qs = queries.reshape(len(queries), -1)
         else:
-            qs = np.asarray(
-                [np.asarray(q, np.float32).reshape(-1) for q in queries]
-            )
-        vals, idx = knn_topk(self.matrix[: self.n], qs, k, self.metric,
-                             device=self.device)
-        vals, idx = vals.cpu().numpy(), idx.cpu().numpy()
+            qs = np.stack([_host_vec(q) for q in queries])
+        prenorm, metric = self._device_metric()
+        vals, idx = batched_topk(self._device_matrix(prenorm), qs, k, metric,
+                                 n_valid=self._dev_valid)
         return [
             [(self.keys[int(i)], float(v)) for v, i in zip(vi, ii)]
             for vi, ii in zip(vals, idx)
         ]
+
+    def search(self, query: Any, k: int, metadata_filter: str | None = None,
+               tier: str = "auto") -> list[tuple[int, float]]:
+        """Top-``k`` ``(key, score)`` of one query.  ``tier="cpu"`` serves
+        from the host mirror in numpy (no device work per query); any
+        other tier scores the device matrix, with only the (k,) results
+        fetched.  With ``metadata_filter`` the device's full score vector
+        is fetched and walked in order until ``k`` rows pass it."""
+        if self.n == 0:
+            return []
+        if tier == "cpu" and metadata_filter is None:
+            return self._top(self._scores(_host_vec(query)), k)
+        prenorm, metric = self._device_metric()
+        m = self._device_matrix(prenorm)
+        q = query if isinstance(query, torch.Tensor) else _host_vec(query)
+        if metadata_filter is None:
+            vals, idx = device_topk(m, q, k, metric, n_valid=self._dev_valid)
+            return [(self.keys[int(i)], float(v)) for v, i in zip(vals, idx)]
+        scores = device_topk_scores(m, q, metric)[: self._dev_valid]
+        out = []
+        for i in np.argsort(-scores, kind="stable"):
+            key = self.keys[i]
+            if _check_metadata(self.metadata.get(key), metadata_filter):
+                out.append((key, float(scores[i])))
+                if len(out) >= k:
+                    break
+        return out
+
+    def _top(self, scores: np.ndarray, k: int) -> list[tuple[int, float]]:
+        """The CPU tier's top-k: the JAX index's numpy selection."""
+        kk = min(k, self.n)
+        idx = (np.argpartition(-scores, kk - 1)[:kk]
+               if kk < self.n else np.arange(self.n))
+        order = idx[np.argsort(-scores[idx])]
+        return [(self.keys[i], float(scores[i])) for i in order]

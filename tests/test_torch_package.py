@@ -70,8 +70,13 @@ def _entry_points():
     from pathway_tpu_torch.kvcache.block_pool import BlockPool
     from pathway_tpu_torch.kvcache.engine import PagedDecodeEngine
     from pathway_tpu_torch.models import decoder, encoder
+    from pathway_tpu_torch.models.host_encoder import CompiledQueryEncoder
+    from pathway_tpu_torch.models.tokenizer import HashTokenizer
+    from pathway_tpu_torch.ops.device_store import DeviceVecStore
     from pathway_tpu_torch.ops.knn_cuda import knn_topk
     from pathway_tpu_torch.stdlib.indexing.inner_index import BruteForceKnn
+    from pathway_tpu_torch.xpacks.llm.embedders import (
+        SentenceTransformerEmbedder)
 
     dcfg = decoder.DecoderConfig(vocab_size=32, d_model=8, n_layers=1,
                                  n_heads=2, d_ff=16, max_len=16)
@@ -89,11 +94,17 @@ def _entry_points():
                                        n_layers=1, n_heads=2, head_dim=4),
         "BruteForceKnn": lambda: BruteForceKnn(8),
         "knn_topk": lambda: knn_topk(torch.zeros(4, 8), torch.zeros(1, 8), 2),
+        "DeviceVecStore": lambda: DeviceVecStore(8),
+        "CompiledQueryEncoder": lambda: CompiledQueryEncoder(
+            ecfg, encoder.init_params(ecfg, device="cpu"), HashTokenizer(32)),
+        "SentenceTransformerEmbedder": lambda: SentenceTransformerEmbedder(
+            config=ecfg),
     }
 
 
 @pytest.mark.parametrize("name", [
-    "BlockPool", "BruteForceKnn", "PagedDecodeEngine", "TorchDecoderLM",
+    "BlockPool", "BruteForceKnn", "CompiledQueryEncoder", "DeviceVecStore",
+    "PagedDecodeEngine", "SentenceTransformerEmbedder", "TorchDecoderLM",
     "TorchDecoderLM.generate", "TorchEncoder", "init_params", "knn_topk",
 ])
 def test_entry_point_without_a_card_raises(name, monkeypatch):
