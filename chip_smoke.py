@@ -54,6 +54,28 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    of the speculative engine (with its verify count and acceptance), the
    sampling head's device time per step, and a torch.profiler count of
    the ragged and append kernels in those runs;
+4d. the serving front (run after phase 5's measurements, so that no
+   earlier number is taken after a fleet ran): a ``ReplicaFleet`` of two
+   replicas on the one card (phase 4's engine sizes; every replica issues
+   from its scheduler's thread on the default stream).  In f32: the 8 RAG prompts submitted
+   from 8 threads give phase 4's greedy tokens (the ragged and append
+   kernels counted by their wrappers and by torch.profiler), phase 4c's
+   seeded specs its sampled tokens; 32 two-turn conversations (turn-1
+   contexts of 300-600 tokens, more than one replica's 8,176-token pool
+   holds) suspend to one shared ``SessionStore`` and resume, turn 2 equal
+   to a store-less engine's tokens with no failed suspend; the 64 queries
+   go from 64 threads through ``CompiledQueryEncoder.embed_scheduled`` ->
+   ``search`` -> a RAG prompt -> ``fleet.submit``, keys equal to phase
+   3's; a chain fault kills one replica mid-decode and every request
+   completes on the peer with phase 4's tokens, and with both replicas
+   dead ``submit`` raises ``EngineFailedError``.  In bf16, printed as one
+   ``{"serving": ...}`` line with the card: tokens/s, latency p50/p99 and
+   TTFT p50 of 32 concurrent requests (the 8 prompts × 4) on the R = 2
+   fleet and on one engine behind one ``RequestScheduler`` (R = 1),
+   alternated in the same call; turn-2 TTFT resumed against recomputed,
+   the resume and suspend times and bytes; failover recovery (failure ->
+   first token on the peer); 64 concurrent scheduled queries' p50 beside
+   phase 3's one-at-a-time p50;
 5. print one ``{"kernels": [...]}`` line (launches on the main path,
    error against the plain version, kernel / plain / bound / library
    times at the main path's shapes: the median of 5 windows of 50
@@ -91,6 +113,7 @@ import statistics
 import subprocess
 import sys
 import time
+import types
 
 # published H100 SXM peaks (dense): device memory, bf16 tensor cores,
 # f32 outside the tensor cores
@@ -1076,9 +1099,10 @@ class ColumnTally:
         self.pa.paged_attention_cuda = self.orig
 
 
-def phase4c_f32(torch, engine, faults, _cuda, reqs, greedy_toks) -> dict:
+def phase4c_f32(torch, engine, faults, _cuda, reqs, greedy_toks):
     """The six f32 identity checks; ``engine(**kw)`` builds an engine
-    over the f32 weights at the main path's sizes."""
+    over the f32 weights at the main path's sizes.  Returns the phase's
+    numbers and the seeded run's tokens (seeds 100 + i)."""
     out = {}
     # a. temperature-0 rows riding beside greedy rows equal the greedy run
     eng = engine()
@@ -1140,15 +1164,16 @@ def phase4c_f32(torch, engine, faults, _cuda, reqs, greedy_toks) -> dict:
     out["whole_bucket_equals_chunked_share"] = float(
         sum(a == b for x, y in zip(whole, first) for a, b in zip(x, y))
         / sum(len(x) for x in first))
-    return out
+    return out, first
 
 
-def kernel_profile(torch, run) -> dict:
-    """torch.profiler's count of the ragged (``paged_tc_kernel``) and
-    append (``append_kernel``) kernels in ``run()``."""
+def kernel_profile(torch, run, ragged: str = "paged_tc_kernel") -> dict:
+    """torch.profiler's count of the ragged (``paged_tc_kernel`` in bf16,
+    ``paged_f32_kernel`` in f32) and append (``append_kernel``) kernels in
+    ``run()``, whichever thread launched them."""
     events = device_events(torch, run)
     return {k: sum(k in name for name, _us in events)
-            for k in ("paged_tc_kernel", "append_kernel")}
+            for k in (ragged, "append_kernel")}
 
 
 def device_events(torch, run) -> list[tuple[str, float]]:
@@ -1255,6 +1280,339 @@ def phase4c_bf16(torch, dec, pa, _cuda, cap, engine, eng16, reqs) -> dict:
     return out
 
 
+# -- phase 4d: the serving front ---------------------------------------------
+
+# two-turn conversations: count, turn-1 context range (tokens), new tokens
+# a turn, and the words a user adds in turn 2
+N_SESSIONS, SESSION_CTX, SESSION_NEW, SESSION_MORE = 32, (300, 600), 16, 20
+# conversations timed one at a time for turn-2 TTFT, resumed vs recomputed
+N_TTFT = 8
+# the RAG flow's prompts (question + the top-2 documents), cut to a length
+RAG_FLOW_TOKENS, RAG_FLOW_NEW = 128, 8
+# the bf16 load: the 8 prompts, each submitted this many times at once
+FLEET_COPIES = 4
+
+
+def concurrently(fn, items, timeout_s: float = 300.0) -> list:
+    """``fn(item)`` on one thread per item, all started together; the
+    results in order.  The first error is raised here."""
+    import threading
+
+    results, errors = [None] * len(items), []
+
+    def run(i):
+        try:
+            results[i] = fn(items[i])
+        except BaseException as exc:  # noqa: BLE001 - raised below
+            errors.append(exc)
+
+    threads = [threading.Thread(target=run, args=(i,), daemon=True)
+               for i in range(len(items))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout_s)
+    require(not any(t.is_alive() for t in threads),
+            f"a caller thread is still running after {timeout_s}s")
+    if errors:
+        raise errors[0]
+    return results
+
+
+def timed_call(call):
+    """``call(on_token)`` -> (tokens, latency s, time to first token s)."""
+    first = []
+    t0 = time.perf_counter()
+
+    def on_token(_tok):
+        if not first:
+            first.append(time.perf_counter())
+
+    toks = call(on_token)
+    t1 = time.perf_counter()
+    require(bool(first), "no token was streamed")
+    return toks, t1 - t0, first[0] - t0
+
+
+def p99(xs) -> float:
+    xs = sorted(xs)
+    return xs[min(len(xs) - 1, int(0.99 * len(xs)))]
+
+
+def conversations(tokenizer, docs) -> list:
+    """(session id, turn-1 prompt ids, the ids a user adds in turn 2):
+    turn-1 contexts from ``SESSION_CTX[0]`` to ``SESSION_CTX[1]`` tokens
+    of consecutive documents."""
+    convs = []
+    for i, n_tok in enumerate(np_linspace(*SESSION_CTX, N_SESSIONS)):
+        text = " ".join(docs[100 + 12 * i + j] for j in range(11))
+        more = " ".join(docs[100 + 12 * i + 11].split()[:SESSION_MORE])
+        convs.append((f"conv-{i}", tokenizer.encode(text)[:n_tok],
+                      tokenizer.encode(more)))
+    return convs
+
+
+def np_linspace(lo: int, hi: int, n: int) -> list[int]:
+    return [int(lo + (hi - lo) * i / (n - 1)) for i in range(n)]
+
+
+def phase4d_f32(torch, s) -> dict:
+    """The serving front's f32 identities on an R = 2 fleet (``s``: the
+    phase's inputs; see main).  Every check fails the run."""
+    out = {}
+    store = s.SessionStore(name="smoke_sessions_f32")
+    fleet = s.make_fleet(s.cfg32, s.params32, "smoke_f32",
+                         session_store=store)
+    # a. phase 4's 8 RAG prompts from 8 threads at once: phase 4's greedy
+    # tokens, through the ragged and append kernels (counted under a
+    # lock by the wrappers, and by torch.profiler)
+    got = []
+    s.cuda.reset_launches()
+    prof = kernel_profile(torch, lambda: got.extend(concurrently(
+        lambda r: fleet.submit(r[0], r[1]), s.reqs)), "paged_f32_kernel")
+    launches = dict(s.cuda.LAUNCHES)
+    require(got == s.toks32, "4d.a: fleet tokens differ from phase 4's")
+    require(all(prof.values()), f"4d.a: profile of the fleet run {prof}")
+    require(launches.get("paged_attention", 0) > 0
+            and launches.get("paged_append_attend", 0) > 0,
+            f"4d.a: fleet run launched {launches}")
+    out["fleet_launches"] = launches
+    out["fleet_profile_kernel_counts"] = prof
+    out["fleet_per_replica_completed"] = [
+        r["completed"] for r in fleet.stats()["per_replica"]]
+    # b. phase 4c's seeded specs: its single-engine sampled tokens
+    got = concurrently(lambda r: fleet.submit(
+        r[0], r[1], sampling=r[2]["sampling"]), s.seeded_reqs)
+    require(got == s.seeded_toks, "4d.b: seeded fleet tokens differ")
+    # c. sessions beyond the pools: turn 2 resumes from the shared store
+    # and equals a store-less engine on the same full prompt
+    convs = s.convs
+    turn1 = concurrently(lambda c: fleet.submit(c[1], SESSION_NEW,
+                                                session=c[0]), convs)
+    require(store.n_suspends == N_SESSIONS
+            and store.n_suspend_failures == 0,
+            f"4d.c: turn 1 suspends {store.stats()}")
+    p2 = [c[1] + o + c[2] for c, o in zip(convs, turn1)]
+    turn2 = concurrently(lambda i: fleet.submit(p2[i], SESSION_NEW,
+                                                session=convs[i][0]),
+                         list(range(N_SESSIONS)))
+    want = s.engine32().generate_batch([(p, SESSION_NEW) for p in p2])
+    require(turn2 == want, "4d.c: resumed turn-2 tokens differ from a "
+            "store-less engine's")
+    st = store.stats()
+    require(st["resumes"] >= N_SESSIONS and st["suspend_failures"] == 0,
+            f"4d.c: sessions {st}")
+    out["sessions"] = dict(st, turn1_context_tokens=sum(
+        len(c[1]) for c in convs), pool_tokens_per_replica=(
+            fleet.replicas[0].engine.pool.num_blocks - 1)
+        * fleet.replicas[0].engine.pool.block_size)
+    # d. the RAG flow from 64 threads: scheduled query encoder -> search
+    # -> a RAG prompt -> the fleet; the keys equal phase 3's search keys
+    sched_stats0 = s.cq.serving_scheduler().stats.snapshot()
+
+    def rag(i):
+        hits = s.index.search(s.cq.embed_scheduled(s.queries[i]), 10)
+        words = [w for k, _s in hits[:2] for w in s.docs[k].split()]
+        text = f"question : {s.queries[i]} context : " + " ".join(words)
+        ids = s.tokenizer.encode(text)[:RAG_FLOW_TOKENS]
+        return hits, fleet.submit(ids, RAG_FLOW_NEW)
+
+    res = concurrently(rag, list(range(len(s.queries))))
+    require([[k for k, _s in h] for h, _t in res]
+            == [[k for k, _s in row] for row in s.single],
+            "4d.d: scheduled RAG flow keys differ from phase 3's search")
+    require(all(len(t) == RAG_FLOW_NEW for _h, t in res),
+            "4d.d: RAG flow generation")
+    sched_stats = s.cq.serving_scheduler().stats.snapshot()
+    out["rag_flow_query_batches"] = (sched_stats["batches"]
+                                     - sched_stats0["batches"])
+    fleet.shutdown()
+    # e. failover: a chain fault kills one replica mid-decode; every
+    # request completes on the peer with phase 4's tokens; then with both
+    # replicas dead, submit raises EngineFailedError
+    fl = s.make_fleet(s.cfg32, s.params32, "smoke_f32_failover")
+    s.faults.install("engine.dispatch.chain", "raise", nth=3)
+    try:
+        got = concurrently(lambda r: fl.submit(r[0], r[1]), s.reqs)
+    finally:
+        s.faults.clear()
+    st = fl.stats()
+    require(got == s.toks32, "4d.e: failover changed the tokens")
+    require(st["live"] == 1 and st["recovery_s"]
+            and sum(r["handoffs_out"] for r in st["per_replica"]) >= 1,
+            f"4d.e: failover stats {st}")
+    out["failover_f32"] = {k: st[k] for k in ("live", "recovery_s")}
+    out["failover_f32"]["handoffs_out"] = sum(
+        r["handoffs_out"] for r in st["per_replica"])
+    fl.kill(0)
+    fl.kill(1)
+    raised = None
+    try:
+        fl.submit(s.reqs[0][0], 4)
+    except s.EngineFailedError as exc:
+        raised = exc
+    require(raised is not None and raised.retry_after_s > 0,
+            "4d.e: a dead fleet's submit did not raise EngineFailedError")
+    fl.shutdown()
+    return out
+
+
+def phase4d_bf16(torch, s) -> dict:
+    """The serving front's bf16 numbers: R = 2 fleet against R = 1
+    scheduler, resume against recompute, failover recovery and scheduled
+    queries."""
+    out = {}
+    load = [r for r in s.reqs for _ in range(FLEET_COPIES)]
+    fleet = s.make_fleet(s.cfg16, s.params16, "smoke_bf16")
+    eng1 = s.engine16()
+    holder = []
+    sched1 = s.RequestScheduler(
+        lambda reqs: eng1.serve_batch(reqs, holder[0]), name="smoke_r1",
+        max_batch_size=eng1.max_batch_size, batch_linger_ms=2.0)
+    holder.append(sched1)
+    submit = {
+        "fleet": lambda r, cb: fleet.submit(r[0], r[1], on_token=cb),
+        "scheduler": lambda r, cb: sched1.submit((r[0], r[1],
+                                                  {"on_token": cb})),
+    }
+
+    def run(kind, reqs):
+        for eng in [rep.engine for rep in fleet.replicas] + [eng1]:
+            eng.prefix.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = concurrently(lambda r: timed_call(
+            lambda cb: submit[kind](r, cb)), reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        require(all(len(t) == n for (t, _l, _f), (_i, n) in zip(res, reqs)),
+                f"4d bf16 {kind} output")
+        return res, wall
+
+    for kind in submit:  # warm-up: threads, allocator, cuBLAS
+        run(kind, s.reqs)
+    runs = {"fleet": [], "scheduler": []}
+    toks = {}
+    for kind in ("scheduler", "fleet", "fleet", "scheduler"):
+        res, wall = run(kind, load)
+        n_tok = sum(len(t) for t, _l, _f in res)
+        runs[kind].append(dict(
+            tokens_per_s=n_tok / wall, wall_s=wall,
+            latency_p50_s=statistics.median(l for _t, l, _f in res),
+            latency_p99_s=p99([l for _t, l, _f in res]),
+            ttft_p50_s=statistics.median(f for _t, _l, f in res)))
+        toks[kind] = [t for t, _l, _f in res]
+    out["fleet_r2"] = runs["fleet"]
+    out["scheduler_r1"] = runs["scheduler"]
+    out["fleet_tokens_per_s_bf16"] = [r["tokens_per_s"]
+                                      for r in runs["fleet"]]
+    out["scheduler_tokens_per_s_bf16"] = [r["tokens_per_s"]
+                                          for r in runs["scheduler"]]
+    out["fleet_per_replica_submitted"] = [
+        r["submitted"] for r in fleet.stats()["per_replica"]]
+    out["r2_r1_token_agreement"] = statistics.fmean(
+        a == b for x, y in zip(toks["fleet"], toks["scheduler"])
+        for a, b in zip(x, y))
+    sched1.shutdown()
+    del eng1
+    # sessions: turn 1 of N_TTFT conversations, then each turn 2 alone,
+    # resumed from the store; the same turn-2 prompts recomputed alone
+    # on a store-less fleet
+    class TimedStore(s.SessionStore):
+        """The session store, timing each suspend: the gather, the copy
+        to pinned host memory and the one synchronise."""
+
+        def suspend(self, *args, **kwargs):
+            t0 = time.perf_counter()
+            n = super().suspend(*args, **kwargs)
+            self.suspend_ms.append((time.perf_counter() - t0) * 1e3)
+            return n
+
+    store = TimedStore(name="smoke_sessions_bf16")
+    store.suspend_ms = []
+    sfleet = s.make_fleet(s.cfg16, s.params16, "smoke_bf16_sessions",
+                          session_store=store)
+    convs = s.convs[:N_TTFT]
+    turn1 = concurrently(lambda c: sfleet.submit(c[1], SESSION_NEW,
+                                                 session=c[0]), convs)
+    p2 = [c[1] + o + c[2] for c, o in zip(convs, turn1)]
+    resumed = [timed_call(lambda cb, i=i: sfleet.submit(
+        p2[i], SESSION_NEW, session=convs[i][0], on_token=cb))
+        for i in range(N_TTFT)]
+    for rep in fleet.replicas:
+        rep.engine.prefix.clear()
+    recomputed = [timed_call(lambda cb, i=i: fleet.submit(
+        p2[i], SESSION_NEW, on_token=cb)) for i in range(N_TTFT)]
+    st = store.stats()
+    require(st["resumes"] >= N_TTFT and st["suspend_failures"] == 0,
+            f"4d bf16 sessions {st}")
+    # the resume alone, synchronised: each stored entry scattered into a
+    # fresh allocation of replica 0's pool
+    pool = sfleet.replicas[0].engine.pool
+    resume_ms = []
+    for sid, ent in list(store._sessions.items()):
+        pool.allocate(-1, len(ent.tokens))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pool.resume_host(ent.payload, pool.sequence(-1).block_ids)
+        torch.cuda.synchronize()
+        resume_ms.append((time.perf_counter() - t0) * 1e3)
+        pool.free_sequence(-1)
+    out["sessions"] = dict(
+        conversations=N_TTFT,
+        session_resume_ms_p50=statistics.median(resume_ms),
+        turn2_ttft_resumed_p50_ms=statistics.median(
+            f for _t, _l, f in resumed) * 1e3,
+        turn2_ttft_recomputed_p50_ms=statistics.median(
+            f for _t, _l, f in recomputed) * 1e3,
+        turn2_prompt_tokens=[len(p) for p in p2],
+        suspend_ms_p50=statistics.median(store.suspend_ms),
+        suspend_bytes_per_session=store.host_bytes / max(len(store), 1),
+        host_bytes=store.host_bytes, store=st,
+        resumed_equals_recomputed_share=statistics.fmean(
+            a == b for (x, _l, _f), (y, _l2, _f2) in zip(resumed, recomputed)
+            for a, b in zip(x, y)),
+    )
+    sfleet.shutdown()
+    # failover recovery: a chain fault kills one replica of the load fleet
+    s.faults.install("engine.dispatch.chain", "raise", nth=3)
+    try:
+        got = concurrently(lambda r: fleet.submit(r[0], r[1]), s.reqs)
+    finally:
+        s.faults.clear()
+    st = fleet.stats()
+    require(st["live"] == 1 and st["recovery_s"]
+            and all(len(t) == n for t, (_i, n) in zip(got, s.reqs)),
+            f"4d bf16 failover {st}")
+    out["failover_recovery_s"] = st["recovery_s"][0]
+    out["failover_recovery_s_all"] = st["recovery_s"]
+    fleet.shutdown()
+    # scheduled queries: 64 concurrent callers of embed_scheduled + search
+    # (retrieval only), beside phase 3's one-at-a-time latency
+    s.cq.serving_scheduler().shutdown()
+    sched = s.cq.serving_scheduler()  # a fresh worker, the same counters
+    snap0 = sched.stats.snapshot()
+
+    def query(i):
+        t0 = time.perf_counter()
+        hits = s.index.search(s.cq.embed_scheduled(s.queries[i]), 10)
+        return hits, (time.perf_counter() - t0) * 1e3
+
+    res = concurrently(query, list(range(len(s.queries))))
+    require([[k for k, _s in h] for h, _ms in res]
+            == [[k for k, _s in row] for row in s.single],
+            "4d: scheduled query keys differ from phase 3's search")
+    snap = sched.stats.snapshot()
+    batches = snap["batches"] - snap0["batches"]
+    out["query_scheduled_p50_ms"] = statistics.median(ms for _h, ms in res)
+    out["query_scheduled_p99_ms"] = p99([ms for _h, ms in res])
+    out["query_scheduled_batches"] = batches
+    out["query_scheduled_occupancy"] = (
+        (snap["batched_requests"] - snap0["batched_requests"]) / batches)
+    sched.shutdown()
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1278,6 +1636,7 @@ def main() -> int:
     from pathway_tpu_torch import faults
     from pathway_tpu_torch.kvcache import paged_attention as pa
     from pathway_tpu_torch.kvcache.engine import PagedDecodeEngine
+    from pathway_tpu_torch.kvcache.tiering import SessionStore
     from pathway_tpu_torch.models import decoder as dec
     from pathway_tpu_torch.models import prng
     from pathway_tpu_torch.models.encoder import EncoderConfig, TorchEncoder
@@ -1286,6 +1645,8 @@ def main() -> int:
     from pathway_tpu_torch.ops import knn
     from pathway_tpu_torch.ops import knn_cuda as kc
     from pathway_tpu_torch.ops.knn import metric_scores
+    from pathway_tpu_torch.serve import (EngineFailedError, ReplicaFleet,
+                                         RequestScheduler)
     from pathway_tpu_torch.stdlib.indexing.inner_index import BruteForceKnn
     from pathway_tpu_torch.xpacks.llm.embedders import (
         SentenceTransformerEmbedder)
@@ -1595,16 +1956,20 @@ def main() -> int:
     lm16 = dec.TorchDecoderLM(cfg16, params=lm32.params, device="cuda")
     # phase 4c, f32: sampling, restart, watchdog, speculation, sampled
     # whole-bucket admission, each token-identical where it must be
+    params32 = lm32.params
+
     def engine32(**kw):
-        return PagedDecodeEngine(cfg32, lm32.params, device="cuda",
+        return PagedDecodeEngine(cfg32, params32, device="cuda",
                                  **dict(engine_sizes, **kw))
 
     del whole32
     t0 = time.perf_counter()
-    f32_checks = phase4c_f32(torch, engine32, faults, _cuda, reqs, toks32)
+    f32_checks, seeded_toks = phase4c_f32(torch, engine32, faults, _cuda,
+                                          reqs, toks32)
     f32_checks["phase_s"] = time.perf_counter() - t0
     log(f"phase 4c f32 ok: temperature 0, seed replay, restart, watchdog, "
         f"speculation and whole-bucket sampling identical; {f32_checks}")
+
     del lm32
     eng16 = lm16.paged_engine(**engine_sizes)
     require(eng16.dtype == torch.bfloat16, "bf16 engine")
@@ -1681,6 +2046,41 @@ def main() -> int:
     print(json.dumps({"generation_profile": profile_generation(
         torch, lm16, prompts, NEW_TOKENS, t_gen)}), flush=True)
     print(json.dumps({"sampling": sampling}), flush=True)
+
+    # phase 4d, f32: the serving front's identities on an R = 2 fleet.
+    # It runs after phase 5's measurements, so that every number the
+    # earlier phases take is taken before any fleet ran in this process
+    def make_fleet(cfg, params, name, **kw):
+        return ReplicaFleet(cfg, params, replicas=2, name=name,
+                            device="cuda", **dict(engine_sizes, **kw))
+
+    serve_inputs = types.SimpleNamespace(
+        cfg32=cfg32, params32=params32, cfg16=cfg16, params16=lm16.params,
+        make_fleet=make_fleet, engine32=engine32, engine16=engine16,
+        reqs=reqs, toks32=toks32, seeded_reqs=seeded(reqs, 100),
+        seeded_toks=seeded_toks,
+        convs=conversations(lm16.tokenizer, docs),
+        tokenizer=lm16.tokenizer, docs=docs, queries=queries, single=single,
+        cq=cq, index=index, cuda=_cuda, faults=faults,
+        SessionStore=SessionStore, RequestScheduler=RequestScheduler,
+        EngineFailedError=EngineFailedError)
+    t0 = time.perf_counter()
+    serve_f32 = phase4d_f32(torch, serve_inputs)
+    serve_f32["phase_s"] = time.perf_counter() - t0
+    log(f"phase 4d f32 ok: R = 2 fleet greedy, seeded, {N_SESSIONS} "
+        f"two-turn sessions, the scheduled RAG flow and failover identical;"
+        f" {serve_f32}")
+
+    # phase 4d, bf16: the serving front's numbers
+    t0 = time.perf_counter()
+    serving = phase4d_bf16(torch, serve_inputs)
+    serving["phase_s"] = time.perf_counter() - t0
+    serving.update(card=smi, f32=serve_f32,
+                   query_p50_ms_one_at_a_time=retrieval["query_p50_ms"])
+    log(f"phase 4d bf16 ok: R = 2 "
+        f"{serving['fleet_tokens_per_s_bf16']} tokens/s, R = 1 "
+        f"{serving['scheduler_tokens_per_s_bf16']}")
+    print(json.dumps({"serving": serving}), flush=True)
     print(json.dumps({
         "rag": {
             "docs": N_DOCS,

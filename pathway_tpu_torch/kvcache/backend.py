@@ -3,9 +3,10 @@
 :class:`CacheBackend` names what a cache backend owns: the slot
 lifecycle (``allocate`` / ``extend_slots`` / ``append_slot`` /
 ``free_sequence``), the per-sequence records, and its invariants
-(``check_invariants``).  The JAX package's capability flags, byte
-accounting and suspend/resume (session tiering) serve backends and
-callers the port does not have yet.
+(``check_invariants``), and the suspend/resume pair the session tier
+(``tiering.SessionStore``) moves idle sequences to host memory with.
+The JAX package's capability flags and byte accounting serve backends
+and callers the port does not have yet.
 """
 
 from __future__ import annotations
@@ -42,6 +43,24 @@ class CacheBackend(abc.ABC):
     def sequences(self):
         """The live per-sequence records."""
 
+    # -- suspend / resume (tiering.SessionStore) ---------------------------
+    @abc.abstractmethod
+    def suspend_host(self, seq_id, context_tokens) -> tuple[dict | None, int]:
+        """Copy the sequence's decode state to host memory and free its
+        device allocation.  Returns ``(payload, nbytes)`` where
+        ``payload`` is backend-opaque (None when there was nothing to
+        copy) and ``nbytes`` is the HOST bytes the store must charge —
+        the real buffer size, padding included."""
+
+    @abc.abstractmethod
+    def resume_host(self, payload: dict, slot_ids) -> None:
+        """Scatter a suspended payload back into freshly allocated
+        ``slot_ids`` (the ``.block_ids`` of the resuming sequence)."""
+
     @abc.abstractmethod
     def check_invariants(self, external_refs=None) -> None:
         """Raise AssertionError on any backend-internal inconsistency."""
+
+    def retire(self) -> None:
+        """Release what the backend registered process-wide; the paged
+        pool registers nothing, so the default does nothing."""

@@ -33,6 +33,11 @@ from .._device import resolve_device
 from .backend import CacheBackend
 
 
+def _pad_width(nb: int) -> int:
+    """Next power of two >= nb: the JAX store's padded gather width."""
+    return 1 << max(nb - 1, 0).bit_length() if nb > 1 else 1
+
+
 class PoolExhausted(RuntimeError):
     """Not enough free blocks; caller should evict prefix blocks or preempt."""
 
@@ -248,6 +253,54 @@ class BlockPool(CacheBackend):
             seq = self._seqs.pop(seq_id)
             for b in seq.block_ids:
                 self.decref(b)
+
+    # -- suspend / resume (backend contract; tiering.SessionStore) ---------
+    def suspend_host(self, seq_id: int, context_tokens) -> tuple[dict | None,
+                                                                 int]:
+        """Gather the sequence's context blocks (those covering
+        ``context_tokens``; chain pre-extension past them is not copied)
+        into host memory, then free the sequence.  The block list is
+        padded with the null block to the next power of two, as the JAX
+        store pads it, so the byte charge — the host buffers' real size,
+        padding included — equals the JAX store's for the same suspend.
+        On the card the host buffers are pinned and the stream is
+        synchronised once, after both copies and before the free: a later
+        write into the freed blocks cannot overtake the copy."""
+        nb = self.blocks_for(len(context_tokens))
+        if nb == 0:
+            self.free_sequence(seq_id)
+            return None, 0
+        with self._lock:
+            blocks = self._seqs[seq_id].block_ids[:nb]
+        idx = torch.zeros(_pad_width(nb), dtype=torch.int64)
+        idx[:nb] = torch.tensor(blocks, dtype=torch.int64)
+        idx = idx.to(self.device)
+        cuda = self.device.type == "cuda"
+        host = []
+        for pool in (self.k, self.v):
+            rows = torch.index_select(pool, 1, idx)
+            buf = torch.empty(rows.shape, dtype=rows.dtype, pin_memory=cuda)
+            buf.copy_(rows, non_blocking=cuda)
+            host.append(buf)
+        if cuda:
+            torch.cuda.current_stream(self.device).synchronize()
+        self.free_sequence(seq_id)
+        k_host, v_host = host
+        payload = {"k": k_host, "v": v_host, "nb": nb}
+        return payload, k_host.nbytes + v_host.nbytes
+
+    def resume_host(self, payload: dict, slot_ids) -> None:
+        """Scatter a suspended payload into freshly allocated blocks.
+        Padded lanes target block 0, the null block, whose contents no
+        read uses.  The host-to-device copies are stream-ordered before
+        every later kernel that reads the pools."""
+        nb = int(payload["nb"])
+        table = torch.zeros(payload["k"].shape[1], dtype=torch.int64)
+        table[:nb] = torch.tensor(list(slot_ids)[:nb], dtype=torch.int64)
+        idx = table.to(self.device)
+        cuda = self.device.type == "cuda"
+        for pool, rows in ((self.k, payload["k"]), (self.v, payload["v"])):
+            pool.index_copy_(1, idx, rows.to(self.device, non_blocking=cuda))
 
     # -- preemption --------------------------------------------------------
     def preempt(self, *, exclude: set | frozenset = frozenset()

@@ -38,7 +38,12 @@ The port of ``pathway_tpu/kvcache/engine.py`` ``PagedDecodeEngine``:
   raises :class:`EngineHungError`; any failure with restart budget left
   (``max_restarts``) rebuilds the pool and prefix cache and re-admits
   every in-flight request by the same recompute; with the budget spent
-  every waiter gets a typed ``EngineFailedError``;
+  every request is handed to ``degrade_fn`` when one is given (the
+  fleet's failover hook), else gets a typed ``EngineFailedError``;
+- sessions (``session_store``, chunked mode): a request carrying a
+  ``session`` id resumes that session's suspended K/V from the store at
+  admission (its positions ride the divert rule, like prefix-shared
+  blocks) and suspends its context to the store at completion;
 - speculation (``speculative=``): a drafter proposes up to K tokens per
   greedy row and ONE ragged verify dispatch (``paged_mixed_step`` with
   C = K+1 query columns a row) checks them; the greedy accept rule keeps
@@ -50,12 +55,13 @@ mixed round; idle rows and columns write to the reserved null block.
 
 Sizes (``num_blocks``, ``block_size``, ``max_batch_size``,
 ``chain_steps``) are explicit arguments with plain defaults; the JAX
-package's HBM/cost-store planner, degrade hook, sessions, int8 and
-tensor parallelism are not ported yet.
+package's HBM/cost-store planner, int8 and tensor parallelism are not
+ported yet.
 """
 
 from __future__ import annotations
 
+import inspect
 import logging
 import os
 import queue
@@ -77,7 +83,7 @@ from ..models.decoder import (greedy, paged_chained_decode,
                               paged_prefill, paged_prefill_sampled,
                               plan_decode_params)
 from ..models.encoder import params_to
-from ..serve.admission import EngineFailedError
+from ..serve.admission import EngineFailedError, Priority
 from .block_pool import BlockPool, PoolExhausted
 from .prefix_cache import PrefixCache
 from .speculative import resolve_speculative
@@ -160,8 +166,8 @@ def _norm_sampling(s) -> tuple | None:
 def _payload_extras(r) -> tuple[Any, dict | None]:
     """The optional tail of a request tuple: after ``(prompt, max_new)``
     may come a priority and/or an options dict (``sampling``,
-    ``on_token``, ``emitted``), in either slot.  Returns ``(priority,
-    options)``, priority 1 by default."""
+    ``session``, ``on_token``, ``emitted``), in either slot.  Returns
+    ``(priority, options)``, priority 1 by default."""
     priority: Any = 1
     opts = None
     for el in r[2:4]:
@@ -172,15 +178,25 @@ def _payload_extras(r) -> tuple[Any, dict | None]:
     return priority, opts
 
 
+def _prio(v) -> int:
+    """A priority as its int class: an int, or a ``Priority`` name."""
+    try:
+        return int(v)
+    except (TypeError, ValueError):
+        return int(Priority.parse(v))
+
+
 class _Request:
     __slots__ = ("prompt", "max_new", "priority", "stop_token", "emitted",
-                 "index", "on_done", "on_error", "sampling", "on_token")
+                 "index", "on_done", "on_error", "sampling", "session",
+                 "on_token")
 
     def __init__(self, prompt, max_new: int, *, priority: int = 1,
                  stop_token: int | None = None, index: int | None = None,
                  on_done: Callable | None = None,
                  on_error: Callable | None = None, sampling=None,
-                 on_token: Callable | None = None, emitted=None):
+                 session=None, on_token: Callable | None = None,
+                 emitted=None):
         self.prompt = [int(t) for t in prompt]
         self.max_new = int(max_new)
         self.priority = int(priority)
@@ -193,6 +209,8 @@ class _Request:
         self.on_done = on_done
         self.on_error = on_error
         self.sampling = _norm_sampling(sampling)
+        # names a KV tiering session (kvcache/tiering.py)
+        self.session = session
         # streams each emitted token as it lands (best-effort)
         self.on_token = on_token
 
@@ -207,8 +225,9 @@ class _Active:
         # the (trimmed) prompt still streaming in; None once prefilled
         self.tokens: list[int] | None = None
         # the token list a chunked admission started from (kept past
-        # prefill), and len(emitted) when this _Active was made: the
-        # drafter's context is admitted + emitted[emit_base:]
+        # prefill), and len(emitted) when this _Active was made: the K/V
+        # of this allocation covers admitted + emitted[emit_base:] (the
+        # drafter's context, and what a session suspend stores)
         self.admitted: list[int] | None = None
         self.emit_base = len(req.emitted)
         self.n_filled = 0
@@ -224,9 +243,16 @@ class PagedDecodeEngine:
 
     ``max_restarts`` (default ``PW_ENGINE_MAX_RESTARTS`` or 0) and
     ``watchdog_timeout_s`` (default ``PW_ENGINE_WATCHDOG_S`` or off) set
-    the failure handling; ``speculative`` (``None``/``"off"``,
-    ``"ngram"``, ``"auto"``, a ``Drafter`` or a ``SpecController``)
-    turns on speculative decoding for greedy rows."""
+    the failure handling; past the restart budget, ``degrade_fn`` (when
+    given) completes each stranded request instead of failing it:
+    ``degrade_fn(prompt, n_remaining, emitted)`` returns the remaining
+    tokens, and a ``degrade_fn`` that takes a ``req`` keyword also gets
+    the request (sampling spec, session, ``on_token``: the fleet's
+    failover form).  ``session_store`` (a ``tiering.SessionStore``)
+    suspends and resumes session-tagged requests; ``speculative``
+    (``None``/``"off"``, ``"ngram"``, ``"auto"``, a ``Drafter`` or a
+    ``SpecController``) turns on speculative decoding for greedy rows.
+    ``name`` labels the engine (a fleet names its replicas)."""
 
     def __init__(self, cfg, params, *, num_blocks: int = 512,
                  block_size: int = 16, max_blocks_per_seq: int | None = None,
@@ -236,8 +262,10 @@ class PagedDecodeEngine:
                  chunked_prefill: bool = True,
                  max_restarts: int | None = None,
                  watchdog_timeout_s: float | None = None,
-                 speculative=None, device="cuda"):
+                 degrade_fn: Callable | None = None, session_store=None,
+                 speculative=None, name: str = "engine", device="cuda"):
         self.device = resolve_device(device)
+        self.name = name
         self.cfg = cfg
         self.stop_token = stop_token
         self.dtype = resolve_dtype(cfg.dtype, self.device)
@@ -290,6 +318,11 @@ class PagedDecodeEngine:
             max_restarts = int(os.environ.get("PW_ENGINE_MAX_RESTARTS", "0")
                                or 0)
         self.max_restarts = max(0, int(max_restarts))
+        self.degrade_fn = degrade_fn
+        self._degrade_takes_req = (
+            degrade_fn is not None
+            and "req" in inspect.signature(degrade_fn).parameters)
+        self.session_store = session_store
         self._watchdog = (_WatchdogSync() if self.watchdog_timeout_s
                           else None)
         self.n_restarts = 0
@@ -361,7 +394,7 @@ class PagedDecodeEngine:
             def poll(n):
                 return [
                     ((list(w.payload[0]), int(w.payload[1]))
-                     + tuple(w.payload[2:4]), int(w.priority),
+                     + tuple(w.payload[2:4]), _prio(w.priority),
                      functools.partial(scheduler.complete_inflight, w),
                      functools.partial(scheduler.fail_inflight, w))
                     for w in scheduler.poll_inflight(n)
@@ -369,7 +402,7 @@ class PagedDecodeEngine:
 
         def norm(r):
             priority, opts = _payload_extras(r)
-            base = (list(r[0]), int(r[1]), int(priority))
+            base = (list(r[0]), int(r[1]), _prio(priority))
             return base + (opts,) if opts is not None else base
 
         return self.generate_batch([norm(r) for r in reqs], poll=poll,
@@ -380,8 +413,9 @@ class PagedDecodeEngine:
                        return_exceptions: bool = False) -> list[list[int]]:
         """Decode ``(prompt_ids, max_new[, priority][, options])``
         requests; ``options`` may hold ``sampling=(temperature, top_k,
-        top_p, seed)`` (or the dict form), ``on_token`` (called with each
-        emitted token) and ``emitted`` (tokens already produced).
+        top_p, seed)`` (or the dict form), ``session`` (a tiering session
+        id), ``on_token`` (called with each emitted token) and
+        ``emitted`` (tokens already produced).
 
         ``poll(n)``, when given, is called at every step boundary and may
         return up to ``n`` newly arrived ``(payload, priority, on_done,
@@ -396,8 +430,9 @@ class PagedDecodeEngine:
             priority, opts = _payload_extras(r)
             opts = opts or {}
             pending.append(_Request(
-                r[0], r[1], priority=priority, stop_token=stop, index=i,
-                sampling=opts.get("sampling"), on_token=opts.get("on_token"),
+                r[0], r[1], priority=_prio(priority), stop_token=stop,
+                index=i, sampling=opts.get("sampling"),
+                session=opts.get("session"), on_token=opts.get("on_token"),
                 emitted=opts.get("emitted"),
             ))
         results: list[Any] = [None] * len(requests)
@@ -489,8 +524,10 @@ class PagedDecodeEngine:
         )
 
     def _fail_all(self, running, pending, deliver, exc: BaseException) -> None:
-        """Terminal failure: every request still in flight gets a typed
-        EngineFailedError (callers blocked on a callback must not hang)."""
+        """Terminal failure: every request still in flight is handed to
+        ``degrade_fn`` (when one is given and the failure is an
+        ``Exception``), or gets a typed EngineFailedError (callers
+        blocked on a callback must not hang)."""
         for act in running:
             try:
                 self.pool.free_sequence(act.seq_id)
@@ -500,8 +537,49 @@ class PagedDecodeEngine:
         running.clear()
         pending.clear()
         wrapped = self._wrap_failure(exc)
+        # a KeyboardInterrupt / SystemExit propagates promptly instead of
+        # waiting on the degrade tier
+        degrade = self.degrade_fn is not None and isinstance(exc, Exception)
         for req in reqs:
+            if degrade and self._try_degrade(req, deliver):
+                continue
             deliver(req, wrapped)
+
+    def _try_degrade(self, req: _Request, deliver) -> bool:
+        """Complete one stranded request through ``degrade_fn`` and
+        deliver it; False (nothing delivered) when the degrade tier
+        raised.  Tokens the engine already emitted are kept: the degrade
+        tier continues the sequence.  A ``degrade_fn`` taking ``req``
+        (the fleet's handoff) streams its tokens itself, so ``on_token``
+        is fired here only for the plain ``(prompt, n_remaining,
+        emitted)`` form."""
+        takes_req = self._degrade_takes_req
+        remaining = req.max_new - len(req.emitted)
+        try:
+            if remaining > 0 and (req.stop_token is None
+                                  or req.stop_token not in req.emitted):
+                if takes_req:
+                    extra = self.degrade_fn(list(req.prompt), remaining,
+                                            list(req.emitted), req=req)
+                else:
+                    extra = self.degrade_fn(list(req.prompt), remaining,
+                                            list(req.emitted))
+                for t in list(extra)[:remaining]:
+                    if takes_req:
+                        req.emitted.append(int(t))
+                    else:
+                        self._emit(req, int(t))
+                    if req.stop_token is not None and int(t) == req.stop_token:
+                        break  # the same EOS truncation as _scan_chain
+        except Exception:  # noqa: BLE001 - the request then fails typed
+            logger.warning("degrade tier failed for a stranded request of "
+                           "engine %s; failing it typed", self.name,
+                           exc_info=True)
+            return False
+        # delivery is outside the try: a raising on_done must propagate,
+        # not turn a delivered success into a second (error) delivery
+        deliver(req)
+        return True
 
     def _wrap_failure(self, exc: BaseException) -> EngineFailedError:
         budget = (f" after {self.max_restarts} restart(s)"
@@ -522,8 +600,8 @@ class PagedDecodeEngine:
             self._requeue(pending, _Request(
                 payload[0], payload[1], priority=priority, stop_token=stop,
                 on_done=on_done, on_error=on_error,
-                sampling=opts.get("sampling"), on_token=opts.get("on_token"),
-                emitted=opts.get("emitted"),
+                sampling=opts.get("sampling"), session=opts.get("session"),
+                on_token=opts.get("on_token"), emitted=opts.get("emitted"),
             ))
 
     def _loop_body(self, running, pending, deliver, poll, stop) -> None:
@@ -587,8 +665,34 @@ class PagedDecodeEngine:
 
     def _finish(self, act: _Active, running, deliver) -> None:
         running.remove(act)
-        self.pool.free_sequence(act.seq_id)
+        self._release_seq(act)
         deliver(act.req)
+
+    def _release_seq(self, act: _Active) -> None:
+        """Completion-time release of a finished sequence's blocks.  A
+        session-tagged request (chunked mode, ``session_store`` set)
+        SUSPENDS instead: its context K/V — the admitted tokens plus
+        every emitted token fed back as input, so all but the last — is
+        copied to the store, and the session's next turn resumes by
+        scatter rather than recompute.  A suspend that raises is counted
+        in the store's ``n_suspend_failures`` and the blocks are freed,
+        so that next turn recomputes."""
+        req = act.req
+        store = self.session_store
+        if (store is not None and req.session is not None
+                and act.admitted is not None):
+            context = list(act.admitted) + req.emitted[act.emit_base:][:-1]
+            try:
+                store.suspend(req.session, self.pool, act.seq_id, context)
+                return
+            except Exception:  # noqa: BLE001 - counted, blocks freed below
+                store.record_suspend_failure()
+                logger.warning("session suspend failed for %r on engine "
+                               "%s; freeing its blocks", req.session,
+                               self.name, exc_info=True)
+                if all(s.seq_id != act.seq_id for s in self.pool.sequences()):
+                    return  # the failure came after the pool freed it
+        self.pool.free_sequence(act.seq_id)
 
     # -- admission ---------------------------------------------------------
     def _try_admit(self, req: _Request, running, deliver) -> str:
@@ -612,10 +716,19 @@ class PagedDecodeEngine:
         n = len(tokens)
         self._seq_counter += 1
         seq_id = self._seq_counter
+        # a session-tagged request (chunked mode) resumes its suspended
+        # K/V from the store instead of going through the prefix cache:
+        # a session is one conversation's private history, so the
+        # cross-request sharing (and its in-flight writer gates) is
+        # bypassed for it
+        use_session = (self.chunked_prefill and req.session is not None
+                       and self.session_store is not None)
+        sess_entry = (self.session_store.match(req.session, tokens)
+                      if use_session else None)
         state = None
         while state is None:
             shared, keys, writer = [], [], None
-            if self.prefix is not None:
+            if self.prefix is not None and not use_session:
                 shared, keys = self.prefix.match(tokens)
                 # extend the match into blocks an IN-FLIGHT chunked
                 # prefill is still writing (one writer only)
@@ -648,6 +761,22 @@ class PagedDecodeEngine:
         act = _Active(seq_id, req)
         act.tokens = tokens
         act.admitted = tokens
+        if use_session:
+            resident = 0
+            if sess_entry is not None:
+                try:
+                    resident = self.session_store.resume_into(
+                        self.pool, sess_entry, state.block_ids)
+                except BaseException:
+                    # not yet in `running`: free here or the blocks leak
+                    self.pool.free_sequence(seq_id)
+                    raise
+            # resumed positions ride the divert rule like prefix-shared
+            # blocks; the prompt's LAST token always recomputes
+            act.n_filled = min(resident, n - 1)
+            act.n_diverted = resident
+            running.append(act)
+            return "admitted"
         # shared leading blocks need no recompute, but the prompt's LAST
         # token always runs to produce the next-token logits
         shared_tokens = len(shared) * self.pool.block_size
@@ -990,7 +1119,7 @@ class PagedDecodeEngine:
             done = self._scan_chain(acts, kreal, ids_np, running)
             for act in done:
                 running.remove(act)
-                self.pool.free_sequence(act.seq_id)
+                self._release_seq(act)
             nxt = None
             if (running and not pending and self._spec is None
                     and self._chain_headroom(running) >= 2):

@@ -113,6 +113,7 @@ class CompiledQueryEncoder:
         self._graphs: dict = {}
         self._pool = None
         self._lock = threading.Lock()
+        self._serve_scheduler = None
 
     @property
     def dimensions(self) -> int:
@@ -231,6 +232,30 @@ class CompiledQueryEncoder:
 
     def __call__(self, text: str) -> np.ndarray:
         return self.embed(text)
+
+    def serving_scheduler(self, **kwargs):
+        """The single shared executor of this latency tier
+        (serve/scheduler.py): concurrent serving threads queue through
+        ONE worker — priority, deadline shedding and backpressure counters
+        included — which embeds each item of a batch in turn (on the card,
+        one graph replay under the lock per item).  ``kwargs`` configure
+        the scheduler when it is built (defaults: ``name="host_encoder"``,
+        ``max_batch_size=16``, ``batch_linger_ms=1.0``)."""
+        if self._serve_scheduler is None or self._serve_scheduler._closed:
+            from ..serve.scheduler import RequestScheduler
+
+            kwargs.setdefault("name", "host_encoder")
+            kwargs.setdefault("max_batch_size", 16)
+            kwargs.setdefault("batch_linger_ms", 1.0)
+            self._serve_scheduler = RequestScheduler(
+                lambda texts: [self.embed(t) for t in texts], **kwargs
+            )
+        return self._serve_scheduler
+
+    def embed_scheduled(self, text: str, **submit_kwargs) -> np.ndarray:
+        """:meth:`embed` through :meth:`serving_scheduler`; ``submit_kwargs``
+        are ``RequestScheduler.submit``'s (priority, deadline, timeout)."""
+        return self.serving_scheduler().submit(text, **submit_kwargs)
 
     def warmup(self, text: str = "warmup query text") -> None:
         """Capture the bucket ``text`` needs (call off the serving path)."""

@@ -9,7 +9,8 @@ flags, so an edited kernel is rebuilt and an unchanged one is reused.
 
 Every wrapper adds one to ``LAUNCHES[name]`` where it launches its
 kernel, and nowhere else, so a run can show that its main path went
-through the kernels.
+through the kernels; the count is taken under a lock, since replicas of
+a serving fleet launch from their own threads.
 """
 
 from __future__ import annotations
@@ -60,10 +61,12 @@ SOURCES = {
 LAUNCHES: collections.Counter = collections.Counter()
 _LIBS: dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
+_COUNT_LOCK = threading.Lock()
 
 
 def reset_launches() -> None:
-    LAUNCHES.clear()
+    with _COUNT_LOCK:
+        LAUNCHES.clear()
 
 
 def nvcc_path() -> str:
@@ -142,7 +145,8 @@ def launch(source: str, fn: str, name: str, *args) -> None:
     err = getattr(lib(source), fn)(*args, stream)
     if err != 0:
         raise RuntimeError(f"{fn} launch failed: cudaError {err}")
-    LAUNCHES[name] += 1
+    with _COUNT_LOCK:
+        LAUNCHES[name] += 1
 
 
 def check(t: torch.Tensor, name: str, *, dtype=None, ndim=None) -> None:

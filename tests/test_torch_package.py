@@ -74,9 +74,11 @@ def _entry_points():
     from pathway_tpu_torch.models.tokenizer import HashTokenizer
     from pathway_tpu_torch.ops.device_store import DeviceVecStore
     from pathway_tpu_torch.ops.knn_cuda import knn_topk
+    from pathway_tpu_torch.serve.fleet import ReplicaFleet
     from pathway_tpu_torch.stdlib.indexing.inner_index import BruteForceKnn
     from pathway_tpu_torch.xpacks.llm.embedders import (
         SentenceTransformerEmbedder)
+    from pathway_tpu_torch.xpacks.llm.llms import TorchChat
 
     dcfg = decoder.DecoderConfig(vocab_size=32, d_model=8, n_layers=1,
                                  n_heads=2, d_ff=16, max_len=16)
@@ -99,13 +101,16 @@ def _entry_points():
             ecfg, encoder.init_params(ecfg, device="cpu"), HashTokenizer(32)),
         "SentenceTransformerEmbedder": lambda: SentenceTransformerEmbedder(
             config=ecfg),
+        "ReplicaFleet": lambda: ReplicaFleet(dcfg, params, replicas=2),
+        "TorchChat": lambda: TorchChat(dcfg, params=params),
     }
 
 
 @pytest.mark.parametrize("name", [
     "BlockPool", "BruteForceKnn", "CompiledQueryEncoder", "DeviceVecStore",
-    "PagedDecodeEngine", "SentenceTransformerEmbedder", "TorchDecoderLM",
-    "TorchDecoderLM.generate", "TorchEncoder", "init_params", "knn_topk",
+    "PagedDecodeEngine", "ReplicaFleet", "SentenceTransformerEmbedder",
+    "TorchChat", "TorchDecoderLM", "TorchDecoderLM.generate", "TorchEncoder",
+    "init_params", "knn_topk",
 ])
 def test_entry_point_without_a_card_raises(name, monkeypatch):
     # decided inside the test: the default device is the card, and a
