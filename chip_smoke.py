@@ -76,6 +76,26 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    the resume and suspend times and bytes; failover recovery (failure ->
    first token on the peer); 64 concurrent scheduled queries' p50 beside
    phase 3's one-at-a-time p50;
+4e. int8-resident weights and the SSD state cache (bf16 numbers after
+   phase 4d's, f32 identities last): in bf16, ``PagedDecodeEngine(
+   quantize="int8")`` against the bf16 engine in turns (tokens/s, device
+   busy ms and idle share, each plan's resident bytes, int8 leaves int8
+   on the card, token agreement, the ragged and append kernels counted
+   by their wrappers and by torch.profiler), and ``StateDecodeEngine``
+   (tokens/s, bytes a session, suspend and resume ms, the sessions that
+   fit in the paged pool's bytes, the chunk form's state drift from the
+   recurrence over a 600-token prompt); both through
+   ``Int8DecoderHost.serving_executor`` (the host tier's executor, whose
+   engines on the card take no degrade target).  In
+   f32: the card's int8 quantization equals the CPU's bit for bit; the
+   int8-native engine, its stepwise rounds and a restart give the dense
+   plain path's tokens over the same plan; the SSD chunk form equals the
+   recurrence (``SSD_F32_REL_TOL``), the engine equals a stepwise
+   ``ssd_decode_step`` loop from a zero state, fixed-seed sampled tokens
+   survive suspend/resume, a restart and an R = 2 ``ReplicaFleet(cache=
+   "state")`` failover, and a resumed turn 2 equals a store-less
+   recompute.  No engine of the phase may degrade (``n_degraded``).
+   Printed as an ``{"int8": ...}`` and an ``{"ssd": ...}`` line;
 5. print one ``{"kernels": [...]}`` line (launches on the main path,
    error against the plain version, kernel / plain / bound / library
    times at the main path's shapes: the median of 5 windows of 50
@@ -83,7 +103,8 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    call taking turns; KNN at both its shapes with the matrix cold in
    L2; the paged kernels warm, on their heaviest call, and ``cold``,
    rotating over that step's calls of every layer; the ragged kernel
-   twice, at the mixed step's C = 32 and at the verify step's C = 5), a
+   twice, at the mixed step's C = 32 and at the verify step's C = 5;
+   ``launches_int8`` the int8 engine's launches of the paged kernels), a
    ``{"topk": ...}`` line (the index's ordered top-10 against
    ``torch.topk`` and a stable sort, at Q = 64 and Q = 1) and lines of
    end-to-end numbers.
@@ -1613,6 +1634,406 @@ def phase4d_bf16(torch, s) -> dict:
     return out
 
 
+# -- phase 4e: int8-resident weights and the SSD state cache -----------------
+
+# the state engine's sizes: slots, batch, chunk, chain (the paged engine's
+# batch and chain; 32-token chunks, as the paged engine's prefill chunk)
+STATE_SIZES = dict(max_slots=64, max_batch_size=8, prefill_chunk=32,
+                   chain_steps=8, max_restarts=0)
+# the chunk-vs-recurrent check's prompt length, and its f32 tolerance on
+# the state (largest difference over the largest entry): the chunk form
+# folds 32 tokens a product where the recurrence adds one at a time,
+# f32 rounding over 600 tokens of accumulation
+SSD_PROMPT, SSD_F32_REL_TOL = 600, 1e-4
+
+
+def tensors(tree):
+    """Every tensor of a parameter tree (dicts and lists of tensors)."""
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from tensors(v)
+    elif isinstance(tree, list):
+        for v in tree:
+            yield from tensors(v)
+    else:
+        yield tree
+
+
+def tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_map(fn, v) for v in tree]
+    return fn(tree)
+
+
+def plan_bytes(params) -> int:
+    """The bytes of a plan's tensors, each at its own dtype's width."""
+    return sum(t.numel() * t.element_size() for t in tensors(params))
+
+
+def int8_leaves(params) -> list:
+    return [t for t in tensors(params) if t.dtype.is_floating_point is False]
+
+
+def timed_runs(torch, engines: dict, reqs, order) -> tuple[dict, dict]:
+    """Batched runs of ``reqs`` on each engine, in ``order`` (names of
+    ``engines``), each from an empty prefix cache and synchronised:
+    tokens/s and wall seconds by name, and each name's first tokens."""
+    runs: dict = {k: [] for k in engines}
+    toks: dict = {}
+    for kind in order:
+        eng = engines[kind]
+        if getattr(eng, "prefix", None) is not None:
+            eng.prefix.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = eng.generate_batch(reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        require(all(len(t) == n for t, (_i, n) in zip(got, reqs)),
+                f"4e {kind} output")
+        runs[kind].append(dict(tokens_per_s=sum(len(t) for t in got) / wall,
+                               wall_s=wall))
+        toks.setdefault(kind, got)
+    return runs, toks
+
+
+def device_profile(torch, eng, reqs) -> dict:
+    """One batched run of ``reqs`` (empty prefix cache) under
+    torch.profiler: device busy ms (kernels and copies), the 6 names
+    that take the most of it, and the ragged (bf16) and append kernels'
+    counts."""
+    eng.prefix.clear()
+    events = device_events(torch, lambda: eng.generate_batch(reqs))
+    by_name: dict[str, list] = {}
+    for name, us in events:
+        tot = by_name.setdefault(name, [0.0, 0])
+        tot[0] += us / 1e3
+        tot[1] += 1
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]
+    return dict(
+        busy_ms=sum(v[0] for v in by_name.values()),
+        top=[{"name": n[:80], "ms": v[0], "count": v[1]} for n, v in top],
+        counts={k: sum(k in n for n, _us in events)
+                for k in ("paged_tc_kernel", "append_kernel")})
+
+
+def host_executor_run(torch, host, reqs, **executor_kw) -> dict:
+    """``reqs`` from as many threads through ``host.serving_executor``
+    (an ``Int8DecoderHost``: the int8 host tier's executor over an engine
+    on the card).  Fails unless the engine has no degrade target (the
+    serial tier runs on the CPU and is none of a card engine's defaults)
+    and every request completes on the card."""
+    sched = host.serving_executor(**executor_kw)
+    try:
+        eng = host.state_engine() if executor_kw.get("cache") == "state" \
+            else host.paged_engine()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = concurrently(lambda r: sched.submit(r), reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        sched.shutdown()
+    require(all(len(t) == n for t, (_i, n) in zip(got, reqs)),
+            f"4e host executor {executor_kw} output")
+    require(eng.degrade_fn is None,
+            f"4e host executor {executor_kw}: a card engine degrades to "
+            f"{eng.degrade_fn}")
+    require(eng.n_degraded == 0,
+            f"4e host executor {executor_kw}: {eng.n_degraded} degraded")
+    return dict(tokens_per_s=sum(len(t) for t in got) / wall,
+                degraded=eng.n_degraded, rounds=dict(eng.rounds))
+
+
+def ssd_stepwise(torch, dec, cfg, params, prompts, n_new) -> list:
+    """The SSD oracle: ``ssd_decode_step`` one token at a time from a
+    zero state, every prompt a row (its own slot; a finished row idles
+    on the null slot 0), greedy; no chunk form, no engine."""
+    B = len(prompts)
+    hd = cfg.d_model // cfg.n_heads
+    state = torch.zeros((cfg.n_layers, B + 1, cfg.n_heads, hd, hd),
+                        dtype=torch.float32, device="cuda")
+    feed = [p[0] for p in prompts]
+    out = [[] for _ in prompts]
+    t = 0
+    while any(len(o) < n_new for o in out):
+        live = [len(o) < n_new for o in out]
+        tok = torch.tensor([f if a else 0 for f, a in zip(feed, live)],
+                           device="cuda")
+        slots = torch.tensor([i + 1 if a else 0 for i, a in enumerate(live)],
+                             device="cuda")
+        logits, _ = dec.ssd_decode_step(params, cfg, state, tok, slots)
+        ids = dec.greedy(logits).tolist()
+        t += 1
+        for i, p in enumerate(prompts):
+            if not live[i]:
+                continue
+            if t < len(p):
+                feed[i] = p[t]
+            else:
+                out[i].append(ids[i])
+                feed[i] = ids[i]
+    return out
+
+
+def chunk_vs_recurrent(torch, dec, cfg, params, prompt, dtype) -> dict:
+    """One prompt through ``ssd_mixed_step`` in 32-token chunks and
+    through the one-token recurrence (``_ssd_forward_step``), both from a
+    zero state in ``dtype``: the largest state and logit differences."""
+    hd = cfg.d_model // cfg.n_heads
+    shape = (cfg.n_layers, 2, cfg.n_heads, hd, hd)
+    chunked = torch.zeros(shape, dtype=dtype, device="cuda")
+    C = STATE_SIZES["prefill_chunk"]
+    for i in range(0, len(prompt), C):
+        run = prompt[i:i + C]
+        tokens = torch.zeros((1, C), dtype=torch.long)
+        tokens[0, :len(run)] = torch.tensor(run)
+        out, _ = dec.ssd_mixed_step(params, cfg, chunked, tokens.cuda(),
+                                    torch.tensor([len(run)], device="cuda"),
+                                    torch.tensor([1], device="cuda"))
+    rec = torch.zeros((cfg.n_layers, 1) + shape[2:], dtype=dtype,
+                      device="cuda")
+    for t in prompt:
+        ref, rec = dec._ssd_forward_step(params, cfg, rec,
+                                         torch.tensor([t], device="cuda"),
+                                         None)
+    diff = float((chunked[:, 1].float() - rec[:, 0].float()).abs().max())
+    return dict(tokens=len(prompt), state_max_abs=diff,
+                state_max_rel=diff / float(rec.float().abs().max()),
+                logits_max_abs=max_abs_err(out, ref),
+                same_next_token=int(dec.greedy(out)[0])
+                == int(dec.greedy(ref)[0]))
+
+
+def phase4e_bf16(torch, dec, _cuda, s) -> tuple[dict, dict]:
+    """int8 against bf16 in turns (tokens/s, device busy and idle share,
+    resident bytes, token agreement, the kernels the int8 run launched),
+    and the SSD engine's bf16 numbers (tokens/s, bytes a session, suspend
+    and resume, sessions that fit in the paged pool's bytes, the chunk
+    form's bf16 state drift); then each through the int8 host tier's
+    serving executor.  Every engine must end with no degrade."""
+    t_phase = time.perf_counter()
+    host = s.Int8DecoderHost(s.cfg16, s.params16)
+    log(f"  4e: Int8DecoderHost built in {time.perf_counter() - t_phase:.1f}s")
+    e16 = s.engine16()
+    e8 = s.engine16(quantize="int8")
+    q8 = int8_leaves(e8.params)
+    require(q8 and all(t.dtype == torch.int8 and t.is_cuda for t in q8),
+            "4e: the int8 plan's weights are not int8 on the card")
+    require(not int8_leaves(e16.params), "4e: the bf16 plan holds ints")
+    bytes16, bytes8 = plan_bytes(e16.params), plan_bytes(e8.params)
+    require(bytes8 < bytes16,
+            f"4e: int8 plan {bytes8} bytes, bf16 plan {bytes16}")
+    engines = {"bf16": e16, "int8": e8}
+    timed_runs(torch, engines, s.reqs, ("bf16", "int8"))  # warm-up
+    _cuda.reset_launches()
+    runs, toks = timed_runs(torch, engines, s.reqs, ("int8",))
+    launches8 = dict(_cuda.LAUNCHES)
+    for name in ("paged_attention", "paged_append_attend"):
+        require(launches8.get(name, 0) > 0, f"4e int8 run: {launches8}")
+    more, toks16 = timed_runs(torch, engines, s.reqs,
+                              ("bf16", "int8", "bf16"))
+    runs["bf16"] = more["bf16"]
+    runs["int8"] += more["int8"]
+    toks.update(bf16=toks16["bf16"])
+    prof = {k: device_profile(torch, e, s.reqs) for k, e in engines.items()}
+    busy = {k: p["busy_ms"] for k, p in prof.items()}
+    counts = prof["int8"]["counts"]
+    require(all(counts.values()), f"4e: profile of the int8 run {counts}")
+    int8 = dict(
+        runs=runs,
+        tokens_per_s_bf16=[r["tokens_per_s"] for r in runs["bf16"]],
+        tokens_per_s_int8=[r["tokens_per_s"] for r in runs["int8"]],
+        device_busy_ms=busy,
+        device_top={k: p["top"] for k, p in prof.items()},
+        device_idle_share={
+            k: 1.0 - busy[k] / (1e3 * statistics.median(
+                r["wall_s"] for r in runs[k])) for k in engines},
+        plan_bytes=dict(bf16=bytes16, int8=bytes8),
+        int8_leaves=len(q8),
+        token_agreement_int8_bf16=statistics.fmean(
+            a == b for x, y in zip(toks["int8"], toks["bf16"])
+            for a, b in zip(x, y)),
+        launches_int8=launches8, profile_kernel_counts=counts,
+        host_executor=host_executor_run(torch, host, s.reqs,
+                                        quantize="int8", device="cuda"),
+        degraded=e16.n_degraded + e8.n_degraded,
+    )
+    require(int8["degraded"] == 0, f"4e int8: {int8['degraded']} degraded")
+    del e16, e8, engines
+    log(f"  4e: int8 part done at {time.perf_counter() - t_phase:.1f}s")
+
+    # the SSD engine in bf16
+    eng = s.state16()
+    bps = eng.pool.state_bytes_per_seq()
+    cfg = s.cfg16
+    hd = cfg.d_model // cfg.n_heads
+    itemsize = torch.empty((), dtype=eng.dtype).element_size()
+    require(bps == cfg.n_layers * cfg.n_heads * hd * hd * itemsize,
+            f"4e: {bps} state bytes a session")
+    sruns, _toks = timed_runs(torch, {"ssd": eng}, s.reqs, ("ssd",) * 2)
+
+    class TimedStore(s.SessionStore):
+        def suspend(self, *args, **kwargs):
+            t0 = time.perf_counter()
+            n = super().suspend(*args, **kwargs)
+            self.suspend_ms.append((time.perf_counter() - t0) * 1e3)
+            return n
+
+    store = TimedStore(name="smoke_ssd_sessions")
+    store.suspend_ms = []
+    seng = s.state16(session_store=store)
+    seng.generate_batch([(ids, n, {"session": f"ssd-{i}"})
+                         for i, (ids, n) in enumerate(s.reqs)])
+    st = store.stats()
+    require(st["suspends"] == len(s.reqs) and st["suspend_failures"] == 0,
+            f"4e ssd sessions {st}")
+    pool = seng.pool
+    resume_ms = []
+    for ent in list(store._sessions.values()):
+        pool.allocate(-1, len(ent.tokens))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pool.resume_host(ent.payload, pool.sequence(-1).block_ids)
+        torch.cuda.synchronize()
+        resume_ms.append((time.perf_counter() - t0) * 1e3)
+        pool.free_sequence(-1)
+    paged = s.eng16.pool
+    blocks = [paged.blocks_for(len(ids) + n) for ids, n in s.reqs]
+    ssd = dict(
+        runs=sruns,
+        tokens_per_s_bf16=[r["tokens_per_s"] for r in sruns["ssd"]],
+        state_bytes_per_session=bps,
+        paged_bytes_per_session_at_600_tokens=paged.state_bytes_per_seq(
+            600),
+        suspend_ms_p50=statistics.median(store.suspend_ms),
+        resume_ms_p50=statistics.median(resume_ms),
+        payload_bytes=store.host_bytes // len(store),
+        paged_pool_bytes=paged.per_shard_bytes,
+        live_sessions_in_paged_pool_bytes=paged.per_shard_bytes // bps,
+        paged_sessions_in_pool_at_these_lengths=(
+            (paged.num_blocks - 1) * len(blocks) // sum(blocks)),
+        chunk_vs_recurrent_bf16=chunk_vs_recurrent(
+            torch, dec, cfg, eng.params, s.ssd_prompt, eng.dtype),
+        host_executor=host_executor_run(torch, host, s.reqs,
+                                        cache="state", device="cuda"),
+        degraded=eng.n_degraded + seng.n_degraded,
+        rounds=dict(eng.rounds),
+    )
+    require(ssd["degraded"] == 0, f"4e ssd: {ssd['degraded']} degraded")
+    log(f"  4e: ssd part done at {time.perf_counter() - t_phase:.1f}s")
+    return int8, ssd
+
+
+def phase4e_f32(torch, dec, s) -> dict:
+    """The f32 identities of int8 and of the SSD engine; every check
+    fails the run."""
+    t_f = time.perf_counter()
+    out = {}
+    reqs = s.reqs
+    # int8 a. the card's quantization equals the CPU's, bit for bit
+    eng = s.engine32(quantize="int8")
+    cpu = dec.plan_decode_params(
+        s.cfg32, tree_map(lambda t: t.cpu(), s.params32), quantize="int8",
+        native=True)
+    pairs = [(eng.params[k], cpu[k]) for k in ("embed_t_q", "embed_t_s")]
+    for lc, ll in zip(eng.params["layers"], cpu["layers"]):
+        pairs += [(lc[k], ll[k]) for k in ll if k.endswith(("_q", "_s"))]
+    differ = [(k, int((a.cpu() != b).sum())) for k, (a, b) in
+              enumerate(pairs) if not torch.equal(a.cpu(), b)]
+    require(len(pairs) == 2 + 8 * s.cfg32.n_layers and not differ,
+            f"4e.int8 a: quantization on the card differs from the CPU's "
+            f"at (leaf, elements) {differ[:6]} of {len(pairs)} leaves")
+    log(f"  4e f32: quantization identical, {time.perf_counter() - t_f:.1f}s")
+    # int8 b. the int8-native engine equals the dense plain path over the
+    # same plan; c. stepwise rounds and a supervised restart equal it too
+    got = eng.generate_batch(reqs)
+    dense = [dense_greedy(torch, dec, s.cfg32, eng.params, ids, n)
+             for ids, n in reqs]
+    require(got == dense, "4e.int8 b: engine tokens differ from the dense "
+            "plain path over the int8 plan")
+    require(s.engine32(quantize="int8", chain_steps=1).generate_batch(reqs)
+            == dense, "4e.int8 c: stepwise rounds differ")
+    er = s.engine32(quantize="int8", max_restarts=1)
+    s.faults.install("engine.dispatch.chain", "raise", nth=2)
+    try:
+        got = er.generate_batch(reqs)
+    finally:
+        s.faults.clear()
+    require(got == dense and er.n_restarts == 1,
+            f"4e.int8 c: restart ({er.n_restarts}) changed the tokens")
+    log(f"  4e f32: int8 identities held, {time.perf_counter() - t_f:.1f}s")
+    out["int8"] = dict(quantized_leaves=len(pairs), prompts=len(reqs),
+                       degraded=eng.n_degraded + er.n_degraded)
+    require(out["int8"]["degraded"] == 0, "4e.int8: a request degraded")
+    del eng, er
+    # ssd a. the chunk form equals the recurrence on a 600-token prompt
+    eng = s.state32()
+    cvr = chunk_vs_recurrent(torch, dec, s.cfg32, eng.params, s.ssd_prompt,
+                             torch.float32)
+    require(cvr["state_max_rel"] <= SSD_F32_REL_TOL and cvr["same_next_token"],
+            f"4e.ssd a: chunk vs recurrent {cvr}")
+    log(f"  4e f32: ssd chunk = recurrent, {time.perf_counter() - t_f:.1f}s")
+    # ssd b. the engine's greedy tokens equal the stepwise oracle
+    greedy_toks = eng.generate_batch(reqs)
+    want = ssd_stepwise(torch, dec, s.cfg32, eng.params,
+                        [ids for ids, _n in reqs], NEW_TOKENS)
+    require(greedy_toks == want, "4e.ssd b: engine tokens differ from the "
+            "stepwise ssd_decode_step loop")
+    log(f"  4e f32: ssd engine = oracle, {time.perf_counter() - t_f:.1f}s")
+    # ssd c. fixed-seed sampled tokens: suspend/resume (turn 2 resumed
+    # equals the store-less recompute), restart, failover
+    spec = seeded(reqs, 100)
+    first = eng.generate_batch(spec)
+    require(first != greedy_toks, "4e.ssd c: sampled tokens equal greedy")
+    turn2 = [(ids + t + [4, 5], n, o)
+             for (ids, n, o), t in zip(spec, first)]
+    second = eng.generate_batch(turn2)
+    store = s.SessionStore(name="smoke_ssd_f32")
+    se = s.state32(session_store=store)
+    t1 = se.generate_batch([(ids, n, dict(o, session=f"c{i}"))
+                            for i, (ids, n, o) in enumerate(spec)])
+    t2 = se.generate_batch([(ids, n, dict(o, session=f"c{i}"))
+                            for i, (ids, n, o) in enumerate(turn2)])
+    st = store.stats()
+    require(t1 == first and t2 == second and st["resumes"] == len(reqs)
+            and st["suspend_failures"] == 0,
+            f"4e.ssd c: suspend/resume changed sampled tokens ({st})")
+    er = s.state32(max_restarts=1)
+    s.faults.install("engine.dispatch.chain", "raise", nth=2)
+    try:
+        got = er.generate_batch(spec)
+    finally:
+        s.faults.clear()
+    require(got == first and er.n_restarts == 1,
+            f"4e.ssd c: restart ({er.n_restarts}) changed sampled tokens")
+    fleet = s.ReplicaFleet(s.cfg32, s.params32, replicas=2, cache="state",
+                           name="smoke_ssd_fleet", device="cuda",
+                           **STATE_SIZES)
+    try:
+        s.faults.install("engine.dispatch.chain", "raise", nth=3)
+        try:
+            got = concurrently(lambda r: fleet.submit(
+                r[0], r[1], sampling=r[2]["sampling"]), spec)
+        finally:
+            s.faults.clear()
+        fst = fleet.stats()
+    finally:
+        fleet.shutdown()
+    require(got == first and fst["live"] == 1 and fst["recovery_s"],
+            f"4e.ssd c: failover changed sampled tokens ({fst})")
+    degraded = sum(e.n_degraded for e in (eng, se, er))
+    require(degraded == 0, f"4e.ssd: {degraded} degraded")
+    out["ssd"] = dict(
+        chunk_vs_recurrent_f32=cvr, prompts=len(reqs),
+        failover_handoffs=sum(r["handoffs_out"] for r in fst["per_replica"]),
+        failover_recovery_s=fst["recovery_s"], degraded=degraded,
+        resumes=st["resumes"], rounds=dict(eng.rounds))
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1636,9 +2057,11 @@ def main() -> int:
     from pathway_tpu_torch import faults
     from pathway_tpu_torch.kvcache import paged_attention as pa
     from pathway_tpu_torch.kvcache.engine import PagedDecodeEngine
+    from pathway_tpu_torch.kvcache.statecache import StateDecodeEngine
     from pathway_tpu_torch.kvcache.tiering import SessionStore
     from pathway_tpu_torch.models import decoder as dec
     from pathway_tpu_torch.models import prng
+    from pathway_tpu_torch.models.host_decoder import Int8DecoderHost
     from pathway_tpu_torch.models.encoder import EncoderConfig, TorchEncoder
     from pathway_tpu_torch.ops import _cuda
     from pathway_tpu_torch.ops import attention_cuda as ac
@@ -2038,10 +2461,10 @@ def main() -> int:
         f"{sampling['speculative_tokens_per_s_bf16']:.1f} (accept "
         f"{sampling['spec_accept_rate']:.3f}), greedy {n_gen / t_gen:.1f}")
 
-    # phase 5: numbers
+    # phase 5: numbers (the kernels' line is printed after phase 4e's
+    # bf16 part, which adds the int8 engine's launches to it)
     kernels = time_kernels(torch, pa, kc, ac, cap, cap_spec, main_launches,
                            prefill_chunk)
-    print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"topk": time_topk(torch, kc, knn, cap)}), flush=True)
     print(json.dumps({"generation_profile": profile_generation(
         torch, lm16, prompts, NEW_TOKENS, t_gen)}), flush=True)
@@ -2081,6 +2504,47 @@ def main() -> int:
         f"{serving['fleet_tokens_per_s_bf16']} tokens/s, R = 1 "
         f"{serving['scheduler_tokens_per_s_bf16']}")
     print(json.dumps({"serving": serving}), flush=True)
+
+    # phase 4e, bf16: int8-resident weights against bf16 in turns, and the
+    # SSD state engine's numbers.  It runs after phase 5's measurements
+    # and phase 4d, as the fleets do, so that no earlier number is taken
+    # after its engines, profiler sessions and scheduler threads ran
+    def state_engine(cfg, params, **kw):
+        return StateDecodeEngine(cfg, params, device="cuda",
+                                 **dict(STATE_SIZES, **kw))
+
+    e4 = types.SimpleNamespace(
+        cfg16=cfg16, params16=lm16.params, cfg32=cfg32, params32=params32,
+        reqs=reqs, eng16=eng16, engine16=engine16, engine32=engine32,
+        state16=lambda **kw: state_engine(cfg16, lm16.params, **kw),
+        state32=lambda **kw: state_engine(cfg32, params32, **kw),
+        ssd_prompt=(reqs[-1][0] * 2)[:SSD_PROMPT], faults=faults,
+        SessionStore=SessionStore, ReplicaFleet=ReplicaFleet,
+        Int8DecoderHost=Int8DecoderHost)
+    t0 = time.perf_counter()
+    int8_line, ssd_line = phase4e_bf16(torch, dec, _cuda, e4)
+    int8_line["phase_s"] = time.perf_counter() - t0
+    log(f"phase 4e bf16 ok: int8 {int8_line['tokens_per_s_int8']} against "
+        f"bf16 {int8_line['tokens_per_s_bf16']} tokens/s, plan bytes "
+        f"{int8_line['plan_bytes']}; ssd {ssd_line['tokens_per_s_bf16']} "
+        f"tokens/s, {ssd_line['state_bytes_per_session']} bytes a session")
+
+    for k in kernels:  # the int8 engine's run is a second main-path call
+        if k["name"] in ("paged_attention", "paged_append_attend"):
+            k["launches_int8"] = int8_line["launches_int8"][k["name"]]
+    print(json.dumps({"kernels": kernels}), flush=True)
+
+    # phase 4e, f32: the int8 and SSD identities, after every measurement
+    t0 = time.perf_counter()
+    ident = phase4e_f32(torch, dec, e4)
+    log(f"phase 4e f32 ok: int8 quantization, dense, stepwise and restart;"
+        f" ssd chunk = recurrent, oracle, suspend/resume (turn 2 = the "
+        f"store-less recompute), restart and failover identical; {ident}")
+    int8_line.update(card=smi, f32=ident["int8"])
+    ssd_line.update(card=smi, f32=ident["ssd"],
+                    f32_phase_s=time.perf_counter() - t0)
+    print(json.dumps({"int8": int8_line}), flush=True)
+    print(json.dumps({"ssd": ssd_line}), flush=True)
     print(json.dumps({
         "rag": {
             "docs": N_DOCS,

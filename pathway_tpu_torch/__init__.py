@@ -1,9 +1,12 @@
 """PyTorch/CUDA port of ``pathway_tpu``'s RAG serving path.
 
 The generation half (``kvcache.engine.PagedDecodeEngine`` over the paged
-KV cache, greedy or seeded sampling, with supervised restart and
-speculative decoding; ``models.decoder.TorchDecoderLM.generate`` over a
-dense one) and the retrieval half (``models.encoder.TorchEncoder`` plus
+KV cache, greedy or seeded sampling, with supervised restart,
+speculative decoding and optionally int8-resident weights;
+``kvcache.statecache.StateDecodeEngine``, the constant-memory SSD
+engine; ``models.decoder.TorchDecoderLM.generate`` over a dense cache;
+``models.host_decoder.Int8DecoderHost``, the int8 host tier on the
+CPU) and the retrieval half (``models.encoder.TorchEncoder`` plus
 ``stdlib.indexing.inner_index.BruteForceKnn``) run on one NVIDIA H100.
 The four TPU kernels on that path are hand-written CUDA kernels under
 ``csrc/``, built with ``nvcc`` at first launch (``ops/_cuda.py``).

@@ -1,19 +1,20 @@
-"""pathway_tpu_torch.kvcache — paged KV-cache management for batched
-decoding (the port of ``pathway_tpu.kvcache``): the block pool behind the
-cache-backend contract, hash-chained prefix sharing, the ragged paged
-attention kernels, the continuous-batching engine with speculation, and
-the host-memory session tier.  The JAX package's state cache
-(``StateCache``/``StateDecodeEngine``) and ``make_backend`` are not
-ported yet.  ``paged_attention`` stays a submodule here (callers import
-the module and its kernel wrappers), not a re-exported function.
+"""pathway_tpu_torch.kvcache — KV and state caches for batched decoding
+(the port of ``pathway_tpu.kvcache``): the block pool and the SSD state
+cache behind the cache-backend contract and its ``make_backend`` seam,
+hash-chained prefix sharing, the ragged paged attention kernels, the
+continuous-batching paged engine with speculation, the constant-memory
+state engine, and the host-memory session tier.  ``paged_attention``
+stays a submodule here (callers import the module and its kernel
+wrappers), not a re-exported function.
 """
 
-from .backend import CacheBackend
+from .backend import CacheBackend, UnsupportedCacheOp, make_backend
 from .block_pool import BlockPool, PoolExhausted, SequenceState
 from .engine import EngineHungError, PagedDecodeEngine
 from .prefix_cache import PrefixCache
 from .speculative import (Drafter, DraftModelDrafter, NGramDrafter,
                           SpecController)
+from .statecache import StateCache, StateDecodeEngine
 from .tiering import SessionStore
 
 __all__ = [
@@ -29,4 +30,8 @@ __all__ = [
     "SequenceState",
     "SessionStore",
     "SpecController",
+    "StateCache",
+    "StateDecodeEngine",
+    "UnsupportedCacheOp",
+    "make_backend",
 ]

@@ -1,20 +1,40 @@
-"""The engine↔cache contract, as far as the paged cache needs it.
+"""The engine↔cache contract and the seam engines build caches through.
 
 :class:`CacheBackend` names what a cache backend owns: the slot
 lifecycle (``allocate`` / ``extend_slots`` / ``append_slot`` /
-``free_sequence``), the per-sequence records, and its invariants
+``free_sequence``), the per-sequence records, its invariants
 (``check_invariants``), and the suspend/resume pair the session tier
 (``tiering.SessionStore``) moves idle sequences to host memory with.
-The JAX package's capability flags and byte accounting serve backends
-and callers the port does not have yet.
+Capability flags say which optional operations a backend implements
+(a caller's query: each engine knows the kind it builds and calls only
+what that kind supports); the others raise :class:`UnsupportedCacheOp`.
+
+``make_backend(kind, **kwargs)`` constructs a backend by kind: engines
+build their cache through it and rebuild it through it on a supervised
+restart.  ``"paged"`` is :class:`~.block_pool.BlockPool`, ``"state"``
+:class:`~.statecache.StateCache`.
 """
 
 from __future__ import annotations
 
 import abc
+from typing import Callable
+
+
+class UnsupportedCacheOp(NotImplementedError):
+    """An optional capability (fork, preemption, prefix sharing) the
+    backend does not implement (its ``supports_*`` flag is False)."""
 
 
 class CacheBackend(abc.ABC):
+    #: "paged" | "state": the factory key
+    cache_kind: str = "abstract"
+    #: optional capabilities, for callers that hold a backend of either
+    #: kind (the engines do not read them: each builds one kind)
+    supports_fork: bool = False
+    supports_prefix: bool = False
+    supports_preemption: bool = False
+
     @abc.abstractmethod
     def allocate(self, seq_id, n_tokens: int, *, shared_blocks=(),
                  priority: int = 1):
@@ -61,6 +81,53 @@ class CacheBackend(abc.ABC):
     def check_invariants(self, external_refs=None) -> None:
         """Raise AssertionError on any backend-internal inconsistency."""
 
+    # -- byte accounting ---------------------------------------------------
+    def state_bytes_per_seq(self, n_tokens: int) -> int:
+        """Device bytes one sequence of ``n_tokens`` occupies: grows with
+        the block span in the paged pool, a constant in the state
+        cache."""
+        raise UnsupportedCacheOp(
+            f"{type(self).__name__} does not account per-sequence bytes")
+
+    # -- optional capabilities ---------------------------------------------
+    def fork(self, parent_id, child_id, *, priority=None):
+        raise UnsupportedCacheOp(f"{type(self).__name__} does not support fork")
+
+    def preempt(self, *, exclude=frozenset()):
+        raise UnsupportedCacheOp(
+            f"{type(self).__name__} does not support preemption")
+
     def retire(self) -> None:
-        """Release what the backend registered process-wide; the paged
-        pool registers nothing, so the default does nothing."""
+        """Release what the backend registered process-wide; the port's
+        backends register nothing, so the default does nothing."""
+
+
+_BACKENDS: dict[str, Callable] = {}
+
+
+def register_backend(kind: str, factory: Callable) -> None:
+    """Bind ``kind`` to ``factory`` for :func:`make_backend`.  The two
+    built-in kinds register themselves on first use; the port's own
+    callers are the tests, which substitute a factory to observe or
+    fault an engine's pool construction and restart rebuild."""
+    _BACKENDS[kind] = factory
+
+
+def make_backend(kind: str, **kwargs) -> CacheBackend:
+    """Construct a cache backend by kind (``"paged"``, ``"state"``, or
+    one registered with :func:`register_backend`)."""
+    if kind not in _BACKENDS:
+        # registered lazily: block_pool and statecache import this module
+        if kind == "paged":
+            from .block_pool import BlockPool
+
+            register_backend("paged", BlockPool)
+        elif kind == "state":
+            from .statecache import StateCache
+
+            register_backend("state", StateCache)
+        else:
+            raise ValueError(
+                f"unknown cache backend {kind!r}; registered: "
+                f"{sorted(_BACKENDS)} + builtin: paged, state")
+    return _BACKENDS[kind](**kwargs)

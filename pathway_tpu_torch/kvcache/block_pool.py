@@ -65,6 +65,11 @@ class SequenceState:
 class BlockPool(CacheBackend):
     """Refcounted block allocator over stacked per-layer K/V tensors."""
 
+    cache_kind = "paged"
+    supports_fork = True
+    supports_prefix = True
+    supports_preemption = True
+
     def __init__(self, *, num_blocks: int, block_size: int, n_layers: int,
                  n_heads: int, head_dim: int, dtype=torch.float32,
                  device="cuda"):
@@ -93,6 +98,17 @@ class BlockPool(CacheBackend):
     @property
     def num_free(self) -> int:
         return len(self._free)
+
+    @property
+    def per_shard_bytes(self) -> int:
+        """K + V bytes on the device (the whole pool at tp = 1)."""
+        return (self.k.numel() + self.v.numel()) * self.k.element_size()
+
+    def state_bytes_per_seq(self, n_tokens: int) -> int:
+        """Device bytes of one ``n_tokens`` sequence: its block span
+        times one block's K + V bytes."""
+        return (self.blocks_for(max(int(n_tokens), 1))
+                * self.per_shard_bytes // self.num_blocks)
 
     def blocks_for(self, n_tokens: int) -> int:
         # 0 tokens -> 0 blocks: a token-less sequence owns nothing

@@ -53,10 +53,18 @@ Shapes per round are fixed: ``max_batch_size`` rows, ``prefill_chunk``
 query columns, ``max_batch_size + prefill_chunk`` packed tokens in a
 mixed round; idle rows and columns write to the reserved null block.
 
+The engine dispatches the fused decode PLAN (``models/decoder.
+plan_decode_params``): Q/K/V folded into one gemm a layer and the head
+pre-transposed, and with ``quantize="int8"`` every matmul weight int8
+with per-output-channel scales (resident in int8 on the card).  The plan
+is a pure function of the checkpoint, kept as ``base_params``, so a
+restart, a fleet replica or a draft model rebuilds the same one.
+
 Sizes (``num_blocks``, ``block_size``, ``max_batch_size``,
 ``chain_steps``) are explicit arguments with plain defaults; the JAX
-package's HBM/cost-store planner, int8 and tensor parallelism are not
-ported yet.
+package's HBM/cost-store planner and tensor parallelism are not ported
+yet.  The pool is built, and rebuilt on a restart, through
+``backend.make_backend("paged", ...)``.
 """
 
 from __future__ import annotations
@@ -80,11 +88,12 @@ from ..models.decoder import (greedy, paged_chained_decode,
                               paged_chained_decode_sampled,
                               paged_decode_step, paged_decode_step_sampled,
                               paged_mixed_step, paged_mixed_step_sampled,
-                              paged_prefill, paged_prefill_sampled,
-                              plan_decode_params)
+                              int8_device_native, paged_prefill,
+                              paged_prefill_sampled, plan_decode_params)
 from ..models.encoder import params_to
 from ..serve.admission import EngineFailedError, Priority
-from .block_pool import BlockPool, PoolExhausted
+from .backend import make_backend
+from .block_pool import PoolExhausted
 from .prefix_cache import PrefixCache
 from .speculative import resolve_speculative
 
@@ -252,7 +261,8 @@ class PagedDecodeEngine:
     suspends and resumes session-tagged requests; ``speculative``
     (``None``/``"off"``, ``"ngram"``, ``"auto"``, a ``Drafter`` or a
     ``SpecController``) turns on speculative decoding for greedy rows.
-    ``name`` labels the engine (a fleet names its replicas)."""
+    ``quantize`` (None or ``"int8"``) picks the plan's weights; ``name``
+    labels the engine (a fleet names its replicas)."""
 
     def __init__(self, cfg, params, *, num_blocks: int = 512,
                  block_size: int = 16, max_blocks_per_seq: int | None = None,
@@ -263,14 +273,24 @@ class PagedDecodeEngine:
                  max_restarts: int | None = None,
                  watchdog_timeout_s: float | None = None,
                  degrade_fn: Callable | None = None, session_store=None,
-                 speculative=None, name: str = "engine", device="cuda"):
+                 speculative=None, quantize: str | None = None,
+                 name: str = "engine", device="cuda"):
         self.device = resolve_device(device)
         self.name = name
         self.cfg = cfg
         self.stop_token = stop_token
         self.dtype = resolve_dtype(cfg.dtype, self.device)
-        self.params = params_to(plan_decode_params(cfg, params),
-                                self.device, self.dtype)
+        if quantize not in (None, "int8"):
+            raise ValueError(f"quantize={quantize!r} is not None or 'int8'")
+        self.quantize = quantize
+        self.base_params = params
+        # quantized where the checkpoint lies (f32), then moved: an int8
+        # plan is native (int8-resident) on the engine's device when
+        # int8_device_native says so (the card), dequantized on the CPU
+        self.params = params_to(
+            plan_decode_params(cfg, params, quantize=quantize,
+                               native=int8_device_native(None, self.device)),
+            self.device, self.dtype)
         self.max_batch_size = int(max_batch_size)
         # kept so a supervised restart can rebuild the pool from scratch
         self._pool_kwargs = dict(
@@ -279,7 +299,7 @@ class PagedDecodeEngine:
             head_dim=cfg.d_model // cfg.n_heads, dtype=self.dtype,
             device=self.device,
         )
-        self.pool = BlockPool(**self._pool_kwargs)
+        self.pool = make_backend("paged", **self._pool_kwargs)
         self._prefix_sharing = bool(prefix_sharing)
         self.prefix = PrefixCache(self.pool) if prefix_sharing else None
         bs = self.pool.block_size
@@ -326,6 +346,9 @@ class PagedDecodeEngine:
         self._watchdog = (_WatchdogSync() if self.watchdog_timeout_s
                           else None)
         self.n_restarts = 0
+        # requests completed by degrade_fn (the JAX package's
+        # record_engine_degrade counter)
+        self.n_degraded = 0
         self.rounds = {"mixed": 0, "decode": 0, "chain": 0, "prefill": 0,
                        "verify": 0}
         self._seq_counter = 0
@@ -341,6 +364,11 @@ class PagedDecodeEngine:
 
     def _dev(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(a).to(self.device)
+
+    @property
+    def _prog_suffix(self) -> str:
+        """The program family's suffix in logs: ``_i8`` on int8 plans."""
+        return "_i8" if self.quantize == "int8" else ""
 
     # -- sampling ----------------------------------------------------------
     def _sampled_programs(self) -> dict:
@@ -508,7 +536,7 @@ class PagedDecodeEngine:
         self.prefix = None
         old_pool, self.pool = self.pool, None
         try:
-            self.pool = BlockPool(**self._pool_kwargs)
+            self.pool = make_backend("paged", **self._pool_kwargs)
         except BaseException:
             # keep a pool attached: the terminal path frees through it
             self.pool = old_pool
@@ -517,9 +545,9 @@ class PagedDecodeEngine:
         self.prefix = PrefixCache(self.pool) if self._prefix_sharing else None
         self.n_restarts += 1
         logger.warning(
-            "engine restart #%d after %s: %s — pool rebuilt in %.3fs, "
+            "engine%s restart #%d after %s: %s — pool rebuilt in %.3fs, "
             "re-admitting %d in-flight request(s) by recompute",
-            self.n_restarts, type(exc).__name__, exc,
+            self._prog_suffix, self.n_restarts, type(exc).__name__, exc,
             time.perf_counter() - t0, len(survivors),
         )
 
@@ -554,7 +582,8 @@ class PagedDecodeEngine:
         is fired here only for the plain ``(prompt, n_remaining,
         emitted)`` form."""
         takes_req = self._degrade_takes_req
-        remaining = req.max_new - len(req.emitted)
+        n_engine = len(req.emitted)
+        remaining = req.max_new - n_engine
         try:
             if remaining > 0 and (req.stop_token is None
                                   or req.stop_token not in req.emitted):
@@ -578,6 +607,11 @@ class PagedDecodeEngine:
             return False
         # delivery is outside the try: a raising on_done must propagate,
         # not turn a delivered success into a second (error) delivery
+        self.n_degraded += 1
+        logger.warning("engine %s: a stranded request was completed by "
+                       "its degrade_fn (%d tokens from the engine, %d from "
+                       "the degrade tier)", self.name, n_engine,
+                       len(req.emitted) - n_engine)
         deliver(req)
         return True
 

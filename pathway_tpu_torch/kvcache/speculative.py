@@ -145,27 +145,35 @@ class DraftModelDrafter(Drafter):
     """A small draft MODEL on the engine's device: its own decode plan
     (``plan_decode_params``) and one batched :func:`draft_propose` per
     round over a ``(max_batch_size, window + k)`` buffer of each row's
-    most recent tokens."""
+    most recent tokens.  ``quantize="int8"`` plans the draft model's
+    products on int8 weights (resident in int8 on the card)."""
 
     name = "draft_model"
 
-    def __init__(self, cfg, params, *, k: int = 4, window: int = 32):
+    def __init__(self, cfg, params, *, k: int = 4, window: int = 32,
+                 quantize: str | None = None):
+        if quantize not in (None, "int8"):
+            raise ValueError(f"quantize={quantize!r} is not None or 'int8'")
         self.cfg = cfg
         self.base_params = params
         self.k = int(k)
         self.window = int(window)
+        self.quantize = quantize
         self.params = None
         self._B = 1
         self._device = None
 
     def bind(self, engine) -> None:
         from .._device import resolve_dtype
-        from ..models.decoder import params_to, plan_decode_params
+        from ..models.decoder import (int8_device_native, params_to,
+                                      plan_decode_params)
 
         self._device = engine.device
         self.params = params_to(
-            plan_decode_params(self.cfg, self.base_params), engine.device,
-            resolve_dtype(self.cfg.dtype, engine.device))
+            plan_decode_params(self.cfg, self.base_params,
+                               quantize=self.quantize,
+                               native=int8_device_native(None, engine.device)),
+            engine.device, resolve_dtype(self.cfg.dtype, engine.device))
         self._B = int(engine.max_batch_size)
 
     def propose(self, ctx_tokens, k: int) -> list[int]:

@@ -1,0 +1,576 @@
+"""Constant-memory decode: the fixed-size state backend and its engine
+(the port of ``pathway_tpu/kvcache/statecache.py``).
+
+The paged engine's cost per sequence GROWS with its context: every token
+appends K/V, so device memory caps live sessions at pool bytes over
+context bytes, and a suspend copies the whole conversation.  The SSD
+decoder family (``models/decoder.py`` ``ssd_*``) replaces attention with
+a gated linear-attention recurrence whose decode state is ONE fixed-size
+tensor a sequence, ``[n_layers, n_heads, head_dim, head_dim]``, whatever
+the context length.
+
+:class:`StateCache` is the :class:`~.backend.CacheBackend` that holds
+those states: a stacked ``[L, max_slots, H, hd, hd]`` tensor on the
+device in the compute dtype, with one SLOT a sequence for its whole life
+in place of block tables (no growth, no copy-on-write, no preemption).
+Slot 0 is the null sink, like the paged pool's block 0: padding rows of
+every dispatch write there.  A session suspends with one fixed-size
+gather to pinned host memory and resumes with one scatter, whatever its
+context length.
+
+:class:`StateDecodeEngine` serves the SSD family with the serving surface
+of :class:`~.engine.PagedDecodeEngine` (continuous batching, chunked
+prefill on the mixed-token budget, chained decode, greedy and seeded
+sampling, watchdog and supervised restart, sessions, the degrade hook)
+by BORROWING the paged engine's cache-agnostic methods unbound: their
+semantics are what the fleet and scheduler rely on.  It defines only the
+cache-specific ones: admission by slot, release (suspend at completion),
+the three dispatch shapes and the restart rebuild through
+``make_backend("state")``.  Preemption, prefix sharing and speculation
+stay off.
+
+One correction to the paged playbook: a chain cannot let a finished row
+keep stepping (the paged chain parks surplus writes in the null block; a
+recurrent state has no null to absorb updates), so the chained programs
+take per-row budgets and the EOS id and FREEZE finished rows, keeping
+every suspended state equal to ``context + emitted[:-1]``.
+"""
+
+from __future__ import annotations
+
+import inspect
+import logging
+import os
+import threading
+import time
+from typing import Callable
+
+import numpy as np
+import torch
+
+from .. import faults
+from .._device import resolve_device, resolve_dtype
+from ..models.decoder import (greedy, params_to, ssd_augment_params,
+                              ssd_chained_decode, ssd_chained_decode_sampled,
+                              ssd_decode_step, ssd_decode_step_sampled,
+                              ssd_mixed_step, ssd_mixed_step_sampled)
+from .backend import CacheBackend, UnsupportedCacheOp, make_backend
+from .block_pool import PoolExhausted, SequenceState
+from .engine import PagedDecodeEngine, _Active, _WatchdogSync
+
+logger = logging.getLogger(__name__)
+
+
+class StateCache(CacheBackend):
+    """Slot allocator over the stacked SSD state tensor: the
+    constant-memory implementation of the engine↔cache contract.
+    ``block_size`` has no meaning here but is kept: fleet routing digests
+    prompts in ``block_size`` chains for either backend."""
+
+    cache_kind = "state"
+    supports_fork = False
+    supports_prefix = False
+    supports_preemption = False
+
+    def __init__(self, *, max_slots: int, n_layers: int, n_heads: int,
+                 head_dim: int, dtype=torch.float32, block_size: int = 16,
+                 device="cuda"):
+        if max_slots < 2:
+            raise ValueError("max_slots must be >= 2 (slot 0 is reserved)")
+        self.device = resolve_device(device)
+        self.max_slots = int(max_slots)
+        self.n_layers = int(n_layers)
+        self.n_heads = int(n_heads)
+        self.head_dim = int(head_dim)
+        self.dtype = dtype
+        self.block_size = int(block_size)
+        self.state = torch.zeros(
+            (self.n_layers, self.max_slots, self.n_heads, self.head_dim,
+             self.head_dim), dtype=dtype, device=self.device)
+        # slot 0 reserved: never allocated, target of padded dispatch rows
+        self._free: list[int] = list(range(self.max_slots - 1, 0, -1))
+        self._seqs: dict[int, SequenceState] = {}
+        self._arrival = 0
+        self._lock = threading.RLock()
+        self.n_suspends = 0
+        self.n_resumes = 0
+
+    # -- capacity ----------------------------------------------------------
+    @property
+    def per_shard_bytes(self) -> int:
+        """The state tensor's bytes on the device (all of it at tp = 1)."""
+        return self.state.numel() * self.state.element_size()
+
+    def state_bytes_per_seq(self, n_tokens: int = 1) -> int:
+        """One slot's bytes, ``L * H * hd * hd * itemsize``: a constant,
+        with no context-length term."""
+        return (self.n_layers * self.n_heads * self.head_dim
+                * self.head_dim * self.state.element_size())
+
+    @property
+    def num_free(self) -> int:
+        return len(self._free)
+
+    @property
+    def slots_in_use(self) -> int:
+        return (self.max_slots - 1) - len(self._free)
+
+    def stats(self) -> dict:
+        """Slot occupancy and suspend/resume counts."""
+        with self._lock:
+            return {"slots_in_use": self.slots_in_use,
+                    "slots_total": self.max_slots - 1,
+                    "state_bytes_per_seq": self.state_bytes_per_seq(),
+                    "suspends": self.n_suspends, "resumes": self.n_resumes}
+
+    def sequence(self, seq_id: int) -> SequenceState:
+        return self._seqs[seq_id]
+
+    def sequences(self) -> list[SequenceState]:
+        return list(self._seqs.values())
+
+    # -- slot lifecycle ----------------------------------------------------
+    def allocate(self, seq_id: int, n_tokens: int, *, shared_blocks=(),
+                 priority: int = 1) -> SequenceState:
+        """Claim ONE slot for a new sequence (``block_ids`` is ``[slot]``,
+        so the session store's calls stay uniform across backends), its
+        state zeroed: the recurrence ACCUMULATES onto the slot, and a
+        reused slot would fold its last occupant into the new sequence.
+        Raises :class:`PoolExhausted` with no side effects when every
+        slot is live."""
+        if shared_blocks:
+            raise UnsupportedCacheOp(
+                "StateCache does not support shared (prefix) slots")
+        with self._lock:
+            if seq_id in self._seqs:
+                raise ValueError(f"sequence {seq_id} already allocated")
+            if not self._free:
+                raise PoolExhausted("state cache has no free slot",
+                                    needed=1, free=0)
+            slot = self._free.pop()
+            self.state[:, slot].zero_()
+            self._arrival += 1
+            seq = SequenceState(seq_id=seq_id, block_ids=[slot],
+                                n_tokens=int(n_tokens), priority=priority,
+                                arrival=self._arrival)
+            self._seqs[seq_id] = seq
+            return seq
+
+    def extend_slots(self, seq_id: int, k: int) -> list[tuple[int, int]]:
+        """Growth is free: the slot absorbs every decode step.  Advances
+        the token count and returns the slot ``k`` times (as ``(slot,
+        0)``, the paged contract's shape)."""
+        if k <= 0:
+            return []
+        with self._lock:
+            seq = self._seqs[seq_id]
+            seq.n_tokens += k
+            return [(seq.block_ids[0], 0)] * k
+
+    def free_sequence(self, seq_id: int) -> None:
+        with self._lock:
+            seq = self._seqs.pop(seq_id)
+            self._free.append(seq.block_ids[0])
+
+    # -- suspend / resume (backend contract; tiering.SessionStore) ---------
+    def suspend_host(self, seq_id: int,
+                     context_tokens) -> tuple[dict | None, int]:
+        """ONE fixed-size gather to host memory (pinned on the card, one
+        synchronise before the slot is freed, so a later write into it
+        cannot overtake the copy), then free the slot.  The charge is the
+        buffer's real bytes: the shape never varies, so nothing is
+        padded."""
+        if len(context_tokens) == 0:
+            self.free_sequence(seq_id)
+            return None, 0
+        with self._lock:
+            slot = self._seqs[seq_id].block_ids[0]
+        cuda = self.device.type == "cuda"
+        rows = self.state[:, slot]
+        host = torch.empty(rows.shape, dtype=rows.dtype, pin_memory=cuda)
+        host.copy_(rows, non_blocking=cuda)
+        if cuda:
+            torch.cuda.current_stream(self.device).synchronize()
+        self.free_sequence(seq_id)
+        with self._lock:
+            self.n_suspends += 1
+        return {"s": host}, host.nbytes
+
+    def resume_host(self, payload: dict, slot_ids) -> None:
+        """ONE scatter into the slot; the host-to-device copy is
+        stream-ordered before every later kernel that reads the state."""
+        slot = int(list(slot_ids)[0])
+        cuda = self.device.type == "cuda"
+        self.state[:, slot] = payload["s"].to(self.device, non_blocking=cuda)
+        with self._lock:
+            self.n_resumes += 1
+
+    # -- verification ------------------------------------------------------
+    def check_invariants(self, external_refs=None) -> None:
+        """The free list and the live sequences' slots partition
+        {1..max_slots-1}: one slot a sequence, no slot held twice, slot 0
+        never allocated."""
+        with self._lock:
+            free = list(self._free)
+            assert len(free) == len(set(free)), "duplicate free-list entry"
+            assert 0 not in free, "reserved slot 0 on the free list"
+            held: list[int] = []
+            for seq in self._seqs.values():
+                assert len(seq.block_ids) == 1, (
+                    f"sequence {seq.seq_id} holds {len(seq.block_ids)} "
+                    "slots (must be exactly 1)")
+                assert seq.block_ids[0] != 0, (
+                    f"sequence {seq.seq_id} holds the reserved null slot")
+                held.append(seq.block_ids[0])
+            assert len(held) == len(set(held)), (
+                "two sequences hold the same slot")
+            assert not (set(held) & set(free)), (
+                "live slot also on the free list")
+            assert len(held) + len(free) == self.max_slots - 1, (
+                "free list + live slots do not partition the cache")
+
+
+class StateDecodeEngine:
+    """Continuous-batching generation over :class:`StateCache` and the
+    SSD programs, with :class:`~.engine.PagedDecodeEngine`'s serving
+    surface (most of it the paged engine's own methods, borrowed).
+
+    ``max_slots`` (alias ``num_blocks``, one capacity unit either way)
+    sizes the cache; a parameter dict without the SSD decay projections
+    is grafted with ``ssd_augment_params`` (seed 0), so every replica and
+    restart runs the same weights.  ``max_restarts``,
+    ``watchdog_timeout_s``, ``degrade_fn``, ``session_store`` and
+    ``name`` are the paged engine's."""
+
+    # cache-agnostic, borrowed unbound: admission order, delivery and the
+    # failure domain, sampling arrays, the chained-round driver (only
+    # _dispatch_chain, the dispatch shape, differs beneath it)
+    generate = PagedDecodeEngine.generate
+    serve_batch = PagedDecodeEngine.serve_batch
+    generate_batch = PagedDecodeEngine.generate_batch
+    _run_loop = PagedDecodeEngine._run_loop
+    _loop_body = PagedDecodeEngine._loop_body
+    _admit_arrivals = PagedDecodeEngine._admit_arrivals
+    _requeue = PagedDecodeEngine._requeue
+    _fail_all = PagedDecodeEngine._fail_all
+    _wrap_failure = PagedDecodeEngine._wrap_failure
+    _try_degrade = PagedDecodeEngine._try_degrade
+    _emit = PagedDecodeEngine._emit
+    _sync_host = PagedDecodeEngine._sync_host
+    _sampling_arrays = PagedDecodeEngine._sampling_arrays
+    _is_done = PagedDecodeEngine._is_done
+    _finish = PagedDecodeEngine._finish
+    _can_chain = PagedDecodeEngine._can_chain
+    _chain_headroom = PagedDecodeEngine._chain_headroom
+    _chained_rounds = PagedDecodeEngine._chained_rounds
+    _scan_chain = PagedDecodeEngine._scan_chain
+    _dev = PagedDecodeEngine._dev
+
+    def __init__(self, cfg, params, *, max_slots: int = 64,
+                 num_blocks: int | None = None, max_batch_size: int = 8,
+                 prefill_chunk: int = 16, chain_steps: int = 8,
+                 stop_token: int | None = None, name: str = "state_decoder",
+                 block_size: int = 16,
+                 watchdog_timeout_s: float | None = None,
+                 max_restarts: int | None = None,
+                 degrade_fn: Callable | None = None, session_store=None,
+                 device="cuda"):
+        if num_blocks is not None:
+            max_slots = int(num_blocks)
+        self.device = resolve_device(device)
+        self.cfg = cfg
+        self.name = name
+        self.max_batch_size = int(max_batch_size)
+        self.stop_token = stop_token
+        self.dtype = resolve_dtype(cfg.dtype, self.device)
+        if "w_a" not in params["layers"][0]:
+            params = ssd_augment_params(params, cfg)
+        self.params = params_to(params, self.device, self.dtype)
+        head_dim = cfg.d_model // cfg.n_heads
+        self._pool_kwargs = dict(
+            max_slots=int(max_slots), n_layers=cfg.n_layers,
+            n_heads=cfg.n_heads, head_dim=head_dim, dtype=self.dtype,
+            block_size=int(block_size), device=self.device)
+        self.pool = make_backend("state", **self._pool_kwargs)
+        if watchdog_timeout_s is None:
+            env_wd = os.environ.get("PW_ENGINE_WATCHDOG_S")
+            watchdog_timeout_s = float(env_wd) if env_wd else None
+        self.watchdog_timeout_s = (
+            float(watchdog_timeout_s)
+            if watchdog_timeout_s and watchdog_timeout_s > 0 else None)
+        if max_restarts is None:
+            max_restarts = int(os.environ.get("PW_ENGINE_MAX_RESTARTS", "0")
+                               or 0)
+        self.max_restarts = max(0, int(max_restarts))
+        self.degrade_fn = degrade_fn
+        self._degrade_takes_req = (
+            degrade_fn is not None
+            and "req" in inspect.signature(degrade_fn).parameters)
+        self.session_store = session_store
+        self._watchdog = (_WatchdogSync() if self.watchdog_timeout_s
+                          else None)
+        self.n_restarts = 0
+        self.n_degraded = 0
+        self.rounds = {"mixed": 0, "decode": 0, "chain": 0}
+        # the recurrence has no positional table: only max_new and EOS
+        # close a request (the borrowed capacity checks compare to inf)
+        self.max_seq_tokens = float("inf")
+        self.prefill_chunk = max(1, int(prefill_chunk))
+        # one mixed round's token budget: a decode row costs one token,
+        # the rest is chunk headroom (the paged ragged step's rule)
+        self.mixed_tokens = self.max_batch_size + self.prefill_chunk
+        self.chain_steps = max(1, int(chain_steps))
+        self._spec = None  # speculation needs paged slots: always off
+        self._seq_counter = 0
+        self._lock = threading.RLock()
+        self._run_id: str | None = None
+        # no prefix sharing; the borrowed run loop clears the empty map
+        self._inflight_prefix: dict = {}
+        self._sampled: dict | None = None
+
+    def _sampled_programs(self) -> dict:
+        """The sampled twins of the three programs, bound on first use."""
+        if self._sampled is None:
+            self._sampled = {"step": ssd_decode_step_sampled,
+                             "mixed": ssd_mixed_step_sampled,
+                             "chained": ssd_chained_decode_sampled}
+        return self._sampled
+
+    # -- failure domain ----------------------------------------------------
+    def _restart(self, running, pending, exc: BaseException) -> None:
+        """Rebuild the failure domain, a fresh StateCache through the
+        backend seam, and requeue every in-flight request with its
+        emitted tokens: re-admission recomputes the recurrence over
+        prompt + emitted, token-identical as the paged restart is.  The
+        survivors are requeued BEFORE the rebuild, so a failed rebuild
+        still leaves every request to the terminal path."""
+        t0 = time.perf_counter()
+        survivors = [act.req for act in running]
+        running.clear()
+        for req in survivors:
+            self._requeue(pending, req)
+        old_pool, self.pool = self.pool, None
+        try:
+            self.pool = make_backend("state", **self._pool_kwargs)
+        except BaseException:
+            self.pool = old_pool  # the terminal path frees through it
+            raise
+        del old_pool
+        self.n_restarts += 1
+        logger.warning(
+            "state engine restart #%d after %s: %s — state cache rebuilt "
+            "in %.3fs, re-admitting %d in-flight request(s) by recompute",
+            self.n_restarts, type(exc).__name__, exc,
+            time.perf_counter() - t0, len(survivors))
+
+    # -- admission ---------------------------------------------------------
+    def _try_admit(self, req, running, deliver) -> str:
+        """Claim one slot and queue the (untrimmed: the recurrence has no
+        length cap) prompt for chunked streaming.  A session hit resumes
+        the suspended state into the fresh slot and prefill continues at
+        the first token it does not cover; no resident position is
+        recomputed (the recurrence would fold it twice), so a stored
+        context covering the WHOLE new prompt counts as a miss."""
+        if req.max_new - len(req.emitted) <= 0:
+            deliver(req)
+            return "done"
+        tokens = (req.prompt + req.emitted) or [4]
+        n = len(tokens)
+        self._seq_counter += 1
+        seq_id = self._seq_counter
+        sess_entry = None
+        if req.session is not None and self.session_store is not None:
+            sess_entry = self.session_store.match(req.session, tokens)
+        try:
+            seq = self.pool.allocate(seq_id, n, priority=req.priority)
+        except PoolExhausted:
+            if running:
+                return "wait"
+            deliver(req, RuntimeError(
+                f"state cache ({self.pool.max_slots - 1} slots) has no "
+                "free slot"))
+            return "failed"
+        act = _Active(seq_id, req)
+        act.tokens = tokens
+        act.admitted = tokens
+        if sess_entry is not None and len(sess_entry.tokens) < n:
+            try:
+                resident = self.session_store.resume_into(
+                    self.pool, sess_entry, seq.block_ids)
+            except BaseException:
+                # not yet in `running`: free here or the slot leaks
+                self.pool.free_sequence(seq_id)
+                raise
+            act.n_filled = resident
+            act.n_diverted = resident
+        running.append(act)
+        return "admitted"
+
+    def _release_seq(self, act: _Active) -> None:
+        """Completion-time release.  A session-tagged request SUSPENDS its
+        state instead (one gather): it covers admitted + emitted minus
+        the last token, which was output and never fed back.  A suspend
+        that raises is counted in the store's ``n_suspend_failures`` and
+        the slot is freed, so the next turn recomputes."""
+        req = act.req
+        store = self.session_store
+        if (store is not None and req.session is not None
+                and act.admitted is not None):
+            context = list(act.admitted) + req.emitted[act.emit_base:][:-1]
+            try:
+                store.suspend(req.session, self.pool, act.seq_id, context)
+                return
+            except Exception:  # noqa: BLE001 - counted, slot freed below
+                store.record_suspend_failure()
+                logger.warning("session suspend failed for %r on engine "
+                               "%s; freeing its slot", req.session,
+                               self.name, exc_info=True)
+                if all(s.seq_id != act.seq_id for s in self.pool.sequences()):
+                    return  # the failure came after the cache freed it
+        self.pool.free_sequence(act.seq_id)
+
+    def _slot(self, act: _Active) -> int:
+        return self.pool.sequence(act.seq_id).block_ids[0]
+
+    # -- stepping ----------------------------------------------------------
+    def _step_round(self, running, pending, deliver, poll, stop) -> None:
+        """One round: the chained program when the queue is quiet (the
+        borrowed driver), else the mixed chunk program while a prefill
+        streams, else the one-token decode program."""
+        if self._can_chain(running, pending):
+            if self._chained_rounds(running, pending, deliver, poll, stop):
+                return
+            if not running:
+                return
+        if any(a.tokens is not None for a in running):
+            self._mixed_round(running, deliver)
+        elif running:
+            self._decode_round(running, deliver)
+
+    def _decode_round(self, running, deliver) -> None:
+        B = self.max_batch_size
+        token = np.zeros(B, np.int64)
+        slots = np.zeros(B, np.int64)  # idle rows target the null slot
+        acts = list(running)
+        for i, act in enumerate(acts):
+            token[i] = act.req.emitted[-1]
+            slots[i] = self._slot(act)
+        samp = self._sampling_arrays([(i, a.req) for i, a in enumerate(acts)],
+                                     B)
+        args = (self.params, self.cfg, self.pool.state, self._dev(token),
+                self._dev(slots))
+        faults.fire("engine.dispatch.step")
+        if samp is None:
+            logits, _ = ssd_decode_step(*args)
+            ids = greedy(logits)
+        else:
+            ids, _ = self._sampled_programs()["step"](*args, *samp)
+        ids = self._sync_host(ids)
+        self.rounds["decode"] += 1
+        for i, act in enumerate(acts):
+            self._emit(act.req, int(ids[i]))
+            if self._is_done(act.req, act.seq_id):
+                self._finish(act, running, deliver)
+
+    def _mixed_round(self, running, deliver) -> None:
+        """Decode rows (one token each) and prefill chunk rows (runs of up
+        to ``prefill_chunk`` tokens) in one (B, C) dispatch under the
+        ``mixed_tokens`` budget: a long prompt streams in chunks beside
+        the in-flight decodes, the paged ragged step's scheduling in a
+        dense per-row layout (the chunk form wants rectangular runs)."""
+        B = self.max_batch_size
+        C = self.prefill_chunk
+        tokens = np.zeros((B, C), np.int64)
+        n_valid = np.zeros(B, np.int64)  # 0 = idle row: an exact no-op
+        slots = np.zeros(B, np.int64)
+        budget = self.mixed_tokens
+        rows: list[tuple[_Active, int, int]] = []  # (act, row, filled|-1)
+        row = 0
+        for act in running:  # decode rows ride every round
+            if act.tokens is not None:
+                continue
+            tokens[row, 0] = act.req.emitted[-1]
+            n_valid[row] = 1
+            slots[row] = self._slot(act)
+            rows.append((act, row, -1))
+            row += 1
+            budget -= 1
+        for act in running:  # chunk rows fill the remaining budget
+            if act.tokens is None:
+                continue
+            if row >= B or budget <= 0:
+                break  # later chunks wait a round (FIFO)
+            s = act.n_filled
+            e = min(s + C, len(act.tokens), s + budget)
+            if e <= s:
+                continue
+            nv = e - s
+            tokens[row, :nv] = act.tokens[s:e]
+            n_valid[row] = nv
+            slots[row] = self._slot(act)
+            rows.append((act, row, e))
+            row += 1
+            budget -= nv
+        if not rows:
+            raise RuntimeError("mixed round produced no rows")
+        # sampling rides the rows that emit this round; a mid-prefill
+        # row's draw would be discarded
+        samp = self._sampling_arrays(
+            [(r, act.req) for act, r, f in rows
+             if f < 0 or f == len(act.tokens)], B)
+        d = self._dev
+        args = (self.params, self.cfg, self.pool.state, d(tokens),
+                d(n_valid), d(slots))
+        faults.fire("engine.dispatch.mixed")
+        if samp is None:
+            logits, _ = ssd_mixed_step(*args)
+            ids = greedy(logits)
+        else:
+            ids, _ = self._sampled_programs()["mixed"](*args, *samp)
+        ids = self._sync_host(ids)
+        self.rounds["mixed"] += 1
+        for act, row, filled in rows:
+            if filled >= 0:
+                act.n_filled = filled
+                if filled < len(act.tokens):
+                    continue  # mid-prefill: this row's id is garbage
+                act.tokens = None
+            self._emit(act.req, int(ids[row]))
+            if self._is_done(act.req, act.seq_id):
+                self._finish(act, running, deliver)
+
+    def _dispatch_chain(self, running, pending):
+        """Dispatch ONE K-step chain over every decode row (the sampled
+        twin when any row samples).  There is no slot to pre-extend, so
+        nothing is preempted; each row's budget and the EOS id go INTO
+        the program, which freezes finished rows.  Returns ``(acts,
+        kreal, ids)`` with ``ids`` the un-synced (B, K) device tensor."""
+        K = self.chain_steps
+        B = self.max_batch_size
+        token = np.zeros(B, np.int64)
+        slots = np.zeros(B, np.int64)
+        rem = np.zeros(B, np.int64)  # idle rows: budget 0, fully frozen
+        acts, kreal = [], []
+        for i, act in enumerate(running):
+            token[i] = act.req.emitted[-1]
+            slots[i] = self._slot(act)
+            rem[i] = min(K, max(act.req.max_new - len(act.req.emitted), 1))
+            acts.append(act)
+            kreal.append(int(rem[i]))
+        stop = acts[0].req.stop_token  # one stop token per run
+        samp = self._sampling_arrays([(i, a.req) for i, a in enumerate(acts)],
+                                     B)
+        args = (self.params, self.cfg, self.pool.state, self._dev(token),
+                self._dev(slots), torch.arange(K), self._dev(rem),
+                torch.tensor(-1 if stop is None else int(stop),
+                             device=self.device))
+        faults.fire("engine.dispatch.chain")
+        if samp is None:
+            ids, _ = ssd_chained_decode(*args)
+        else:
+            ids, _ = self._sampled_programs()["chained"](*args, *samp)
+        self.rounds["chain"] += 1
+        return acts, kreal, ids
+
+
+__all__ = ["StateCache", "StateDecodeEngine"]

@@ -16,8 +16,11 @@ from .decoder import DecoderConfig
 from .encoder import EncoderConfig
 
 
-def _layer_shapes(d: int, f: int) -> dict:
-    return {
+def _layer_shapes(d: int, f: int, h: int | None = None) -> dict:
+    """A layer's leaves and their shapes; ``h`` (a decoder's heads) adds
+    the SSD decay projections ``ssd_augment_params`` grafts."""
+    ssd = {"w_a": (d, h), "b_a": (h,)} if h is not None else {}
+    return {**ssd,
         "wq": (d, d), "wk": (d, d), "wv": (d, d), "wo": (d, d),
         "w_up": (d, f), "w_down": (f, d),
         "ln1_scale": (d,), "ln1_bias": (d,),
@@ -28,7 +31,7 @@ def _layer_shapes(d: int, f: int) -> dict:
 
 
 def _convert(tree: dict, vocab: int, d: int, f: int, max_len: int,
-             n_layers: int, device) -> dict:
+             n_layers: int, device, n_heads: int | None = None) -> dict:
     dev = resolve_device(device)
     top = {"embed": (vocab, d), "pos_embed": (max_len, d),
            "ln_f_scale": (d,), "ln_f_bias": (d,),
@@ -56,7 +59,7 @@ def _convert(tree: dict, vocab: int, d: int, f: int, max_len: int,
     if len(layers) != n_layers:
         raise ValueError(f"params: {len(layers)} layers, expected {n_layers}")
     out["layers"] = [
-        convert(layer, _layer_shapes(d, f), layer_required,
+        convert(layer, _layer_shapes(d, f, n_heads), layer_required,
                 f"params.layers[{i}]")
         for i, layer in enumerate(layers)
     ]
@@ -72,6 +75,7 @@ def encoder_params_from_numpy(tree: dict, cfg: EncoderConfig,
 
 def decoder_params_from_numpy(tree: dict, cfg: DecoderConfig,
                               device="cuda") -> dict:
-    """A decoder pytree of numpy arrays -> the port's f32 params."""
+    """A decoder pytree of numpy arrays -> the port's f32 params (an
+    SSD-grafted pytree's ``w_a``/``b_a`` included)."""
     return _convert(tree, cfg.vocab_size, cfg.d_model, cfg.d_ff,
-                    cfg.max_len, cfg.n_layers, device)
+                    cfg.max_len, cfg.n_layers, device, cfg.n_heads)

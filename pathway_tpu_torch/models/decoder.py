@@ -1,5 +1,6 @@
-"""Causal decoder LM — the generation model of the RAG path (tp = 1,
-no quantization; greedy, or sampled on the paged path).
+"""Causal decoder LM — the generation model of the RAG path (tp = 1;
+greedy, or sampled on the paged and SSD paths; f32/bf16 or int8-resident
+weights in the decode plan).
 
 Plain functions on the JAX package's parameter-dict layout, so the same
 weights run in both (``models/convert.py``).  Attention on the paged
@@ -14,15 +15,25 @@ JAX package's ``head_fn=``): the ``*_sampled`` programs pass the sampling
 head (:func:`_sampling_head`), which draws each row's token on the device
 from a key that is a pure function of the request's seed and the token's
 emit index (``models/prng.py``).
+
+``plan_decode_params(quantize="int8")`` quantizes the plan's matmul
+weights per output channel; the products widen the int8 weight to the
+compute dtype and scale the result (plain ``torch.matmul``: in the JAX
+package too this is XLA, not a Pallas kernel).  The ``ssd_*`` programs
+are the constant-memory linear-attention family the state cache serves
+(``kvcache/statecache.py``).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+import threading
 from typing import Any
 
+import numpy as np
 import torch
+import torch.nn.functional as F
 
 from .._device import resolve_device, resolve_dtype
 from ..ops.attention_cuda import flash_attention
@@ -65,17 +76,36 @@ def _embed_rows(embed, tokens):
     return embed[tokens]
 
 
+def _mm_p(layer, x, w_name: str):
+    """``x @ layer[w_name]``, or, when the decode plan carries the int8
+    ``{w}_q``/``{w}_s`` pair instead, ``(x @ q) * s``: the int8 weight
+    widened to the compute dtype on read and the per-output-channel scale
+    applied to the product in the compute dtype (the JAX package's rule;
+    XLA fuses that convert into the gemm's operand load, here it is a
+    plain cast before ``matmul``)."""
+    q = layer.get(w_name + "_q")
+    if q is None:
+        return x @ layer[w_name].to(x.dtype)
+    y = x @ q.to(x.dtype)
+    return y * layer[w_name + "_s"].to(y.dtype)
+
+
 def _proj_p(layer, x, w_name: str, b_name: str):
-    return _proj(layer, x, w_name, b_name)
+    """encoder._proj, decode-plan-aware (the int8 ``{w}_q`` pair honoured)."""
+    out = _mm_p(layer, x, w_name)
+    b = layer.get(b_name)
+    if b is not None:
+        out = out + b.to(x.dtype)
+    return out
 
 
 _row_proj = _proj_p  # row-parallel projection: identical at tp = 1
 
 
 def _qkv_proj(layer, x):
-    """Q/K/V: ONE fused gemm against the decode plan's ``wqkv`` leaf when
-    present, else the three separate gemms."""
-    if "wqkv" in layer:
+    """Q/K/V: ONE fused gemm against the decode plan's ``wqkv`` (or int8
+    ``wqkv_q``) leaf when present, else the three separate gemms."""
+    if "wqkv" in layer or "wqkv_q" in layer:
         return _proj_p(layer, x, "wqkv", "bqkv").chunk(3, dim=-1)
     return (_proj(layer, x, "wq", "bq"), _proj(layer, x, "wk", "bk"),
             _proj(layer, x, "wv", "bv"))
@@ -83,17 +113,24 @@ def _qkv_proj(layer, x):
 
 def _head_weight(params):
     """The vocab-head operand: the plan's pre-transposed [D, V]
-    ``embed_t`` as a ``(w, None)`` tuple (orientation explicit, never
-    shape-guessed), or the raw tied [V, D] table."""
+    ``embed_t`` as a ``(w, scales | None)`` tuple (orientation explicit,
+    never shape-guessed; int8 ``embed_t_q`` with its scales), or the raw
+    tied [V, D] table."""
+    if "embed_t_q" in params:
+        return (params["embed_t_q"], params["embed_t_s"])
     if "embed_t" in params:
         return (params["embed_t"], None)
     return params["embed"]
 
 
 def _head_out(head_w, x):
-    """(B, D) -> (B, V) f32 logits for the tied-embedding head."""
+    """(B, D) -> (B, V) f32 logits for the tied-embedding head.  An int8
+    head's scales multiply the f32 logits (the layers' products take
+    theirs in the compute dtype)."""
     if isinstance(head_w, tuple):
-        return (x @ head_w[0].to(x.dtype)).float()
+        w, s = head_w
+        logits = (x @ w.to(x.dtype)).float()
+        return logits if s is None else logits * s.float()
     return (x @ head_w.to(x.dtype).T).float()
 
 
@@ -181,21 +218,85 @@ def _sampling_head(temperature, top_k, top_p, keys):
     return head
 
 
-def plan_decode_params(cfg: DecoderConfig, params: dict) -> dict:
-    """The fused decode plan the paged engine dispatches with (tp = 1,
-    no quantization): Q/K/V folded into one [D, 3D] ``wqkv`` per layer,
-    and the tied head pre-materialized as [D, V] ``embed_t``.  Both are
-    exact, so the plan is token-identical to the raw parameters."""
+def quantize_weight_int8(w: torch.Tensor):
+    """Per-output-channel symmetric int8 quantization of a [In, Out]
+    matmul weight, computed in f32: ``s[o] = amax(|w[:, o]|) / 127`` (1
+    for an all-zero column, so its round trip stays exact) and ``q =
+    clip(round(w / s), -127, 127)``.  ``torch.round`` rounds half to
+    even, as ``jnp.round`` does, so ``q`` and ``s`` equal the JAX
+    package's bit for bit.  Returns ``(q int8, s f32)``."""
+    w32 = w.float()
+    amax = w32.abs().amax(dim=0)
+    # a tensor divisor: PyTorch's CUDA division by a Python scalar
+    # multiplies by its reciprocal, which can differ from IEEE division
+    # (the JAX package's, and the CPU's) in the last bit
+    s = torch.where(amax > 0, amax / torch.full_like(amax, 127.0),
+                    torch.ones_like(amax))
+    q = torch.clamp(torch.round(w32 / s), -127, 127).to(torch.int8)
+    return q, s
+
+
+def int8_device_native(native: bool | None = None,
+                       device: torch.device | str = "cuda") -> bool:
+    """Whether an int8 plan keeps its weights RESIDENT in int8.  Auto
+    (None): on the card (the JAX package's "native on TPU"); on the CPU
+    the plan keeps int8 numerics (quantize, then scale back) but
+    pre-applies the dequant at build time and runs float products."""
+    if native is not None:
+        return bool(native)
+    return torch.device(device).type == "cuda"
+
+
+def _plan_quantize(name: str, w: torch.Tensor, out: dict, native: bool):
+    q, s = quantize_weight_int8(w)
+    if native:
+        out[name + "_q"] = q
+        out[name + "_s"] = s
+    else:
+        out[name] = (q.float() * s).to(w.dtype)
+
+
+def plan_decode_params(cfg: DecoderConfig, params: dict, *,
+                       quantize: str | None = None,
+                       native: bool | None = None) -> dict:
+    """The fused decode plan the paged engine dispatches with (tp = 1):
+    Q/K/V folded into one [D, 3D] ``wqkv`` per layer, and the tied head
+    pre-materialized as [D, V] ``embed_t`` (always: the JAX package
+    materializes it everywhere but on the TPU).  Both are exact, so the
+    f32 plan is token-identical to the raw parameters.
+
+    ``quantize="int8"`` also quantizes every matmul weight (``wqkv``,
+    ``wo``, ``w_up``, ``w_down``, ``embed_t``) per output channel
+    (:func:`quantize_weight_int8`); ``native`` (default: by the params'
+    device, :func:`int8_device_native`) keeps them as int8 ``{w}_q``
+    leaves with f32 ``{w}_s`` scales, or pre-applies ``q * s``.  The
+    embedding LOOKUP table stays as it is either way: one row per token
+    is read, so quantizing it saves nothing."""
+    if quantize not in (None, "int8"):
+        raise ValueError(f"quantize={quantize!r} is not None or 'int8'")
+    int8 = quantize == "int8"
+    native = (int8_device_native(native, params["embed"].device) if int8
+              else False)
     plan = {k: v for k, v in params.items() if k != "layers"}
-    plan["embed_t"] = params["embed"].T.contiguous()
+    et = params["embed"].T.contiguous()
+    if int8:
+        _plan_quantize("embed_t", et, plan, native)
+    else:
+        plan["embed_t"] = et
     layers = []
     for layer in params["layers"]:
         new = {k: v for k, v in layer.items()
                if k not in ("wq", "wk", "wv", "bq", "bk", "bv")}
-        new["wqkv"] = torch.cat([layer["wq"], layer["wk"], layer["wv"]],
-                                dim=-1)
+        wqkv = torch.cat([layer["wq"], layer["wk"], layer["wv"]], dim=-1)
         if layer.get("bq") is not None:
             new["bqkv"] = torch.cat([layer["bq"], layer["bk"], layer["bv"]])
+        if int8:
+            _plan_quantize("wqkv", wqkv, new, native)
+            for w_name in ("wo", "w_up", "w_down"):
+                if w_name in new:
+                    _plan_quantize(w_name, new.pop(w_name), new, native)
+        else:
+            new["wqkv"] = wqkv
         layers.append(new)
     plan["layers"] = layers
     return plan
@@ -279,10 +380,10 @@ def decode_step(params: dict, cfg: DecoderConfig, cache: list[dict],
         probs = torch.softmax(scores.float(), dim=-1).to(h.dtype)
         a = torch.einsum("bhqk,bkhd->bqhd", probs, kv["v"]).reshape(
             B, 1, cfg.d_model)
-        x = x + _proj(layer, a, "wo", "bo")
+        x = x + _row_proj(layer, a, "wo", "bo")
         h = _layer_norm(x, layer["ln2_scale"], layer["ln2_bias"], eps)
-        ff = act(_proj(layer, h, "w_up", "b_up"))
-        x = x + _proj(layer, ff, "w_down", "b_down")
+        ff = act(_proj_p(layer, h, "w_up", "b_up"))
+        x = x + _row_proj(layer, ff, "w_down", "b_down")
     x = _layer_norm(x, params["ln_f_scale"], params["ln_f_bias"], eps)
     return _head_out(_head_weight(params), x[:, 0, :]), cache
 
@@ -572,6 +673,269 @@ def paged_prefill_sampled(params: dict, cfg: DecoderConfig, token_ids,
                          block_tables, flash=flash, head_fn=head)
 
 
+# -- the SSD (gated linear-attention) decoder ---------------------------------
+#
+# The constant-memory family of the state cache (``kvcache/statecache.py``):
+# attention is replaced by a per-head decaying recurrence whose whole decode
+# state is one (H, hd, hd) matrix per layer, independent of context length.
+# It uses no positional embedding (order is encoded by the decay), so a
+# sequence is bounded by nothing but its request.  The state lives in a
+# stacked [L, max_slots, H, hd, hd] tensor; slot 0 is the null sink of
+# padding rows, like the paged pool's block 0.  Like the paged steps, the
+# programs update the state IN PLACE and return it.
+
+
+def ssd_augment_params(params: dict, cfg: DecoderConfig,
+                       seed: int = 0) -> dict:
+    """Graft the per-layer decay projections (``w_a`` (D, H), ``b_a``
+    (H,)) onto a dense decoder's parameters; every other weight is
+    reused, so one checkpoint serves the paged and the SSD engines.
+    ``b_a`` spreads the heads' decay from slow (~0.95 a token) to fast
+    (~0.27); ``w_a`` adds a small input-dependent gate.
+
+    ``w_a`` is the JAX package's ``0.02 * jax.random.normal`` draw for
+    the same seed: the keys and bits through the port's threefry
+    (``models/prng.py``, bit for bit), the normal as JAX forms it
+    (``sqrt(2) * erfinv(u)``, u uniform in (-1, 1)) within the two
+    ``erfinv`` implementations' rounding.  Drawn on the CPU, then moved
+    to the parameters' device, so every replica and restart grafts the
+    same bytes."""
+    D, H = cfg.d_model, cfg.n_heads
+    dev = params["embed"].device
+    key = prng.prng_key(seed)
+    lo = torch.nextafter(torch.tensor(-1.0), torch.tensor(0.0))
+    hi = torch.tensor(1.0)
+    out = dict(params)
+    layers = []
+    for layer in params["layers"]:
+        # jax.random.split(key): the two keys are threefry2x32(key, (0, i))
+        k0, k1 = prng.threefry2x32(key, torch.zeros(2, dtype=torch.int64),
+                                   torch.arange(2, dtype=torch.int64))
+        key, sub = (torch.stack([k0[0], k1[0]]),
+                    torch.stack([k0[1], k1[1]]))
+        bits = prng.random_bits_32(sub, D * H).reshape(D, H)
+        f = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32)
+        u = torch.maximum(lo, (f - 1.0) * (hi - lo) + lo)
+        normal = torch.tensor(math.sqrt(2.0), dtype=torch.float32) * \
+            torch.erfinv(u)
+        new = dict(layer)
+        new["w_a"] = (0.02 * normal).to(dev)
+        new["b_a"] = torch.linspace(-3.0, 1.0, H, dtype=torch.float32).to(dev)
+        layers.append(new)
+    out["layers"] = layers
+    return out
+
+
+def _ssd_decay(layer, h, valid=None):
+    """Per-head log decay ``log a = -softplus(h @ w_a + b_a) <= 0``;
+    ``valid`` sets padding tokens to log a = 0 (a = 1), so they neither
+    decay nor feed the state."""
+    la = -F.softplus(h @ layer["w_a"].to(h.dtype) + layer["b_a"].to(h.dtype))
+    if valid is not None:
+        la = la * valid[..., None].to(la.dtype)
+    return la
+
+
+def _ssd_layer_chunk(layer, h, s0, hd: int, valid):
+    """Chunk-parallel form over one C-token chunk: h (B, C, D), s0 (B, H,
+    hd, hd), valid (B, C) bool.  Returns ``(y (B, C, H, hd), s1)``.
+
+    Within the chunk, ``W[t, s] = exp(L_t - L_s)`` for s <= t (L the
+    inclusive cumulative log decay); above the diagonal L_t - L_s > 0 and
+    its exp can overflow, so it is SELECTED away (``torch.where``): a
+    mask multiply would turn ``inf * 0`` into NaN.  The carried state adds
+    ``exp(L_t) q_t . s0``, and the chunk folds into ``s1 = exp(L_C) s0 +
+    sum_s exp(L_C - L_s) k_s^T v_s``.  Padding tokens (log a = 0, k = 0)
+    are exact no-ops on both."""
+    B, C, _D = h.shape
+    q = _proj(layer, h, "wq", "bq").reshape(B, C, -1, hd) / math.sqrt(hd)
+    k = _proj(layer, h, "wk", "bk").reshape(B, C, -1, hd)
+    v = _proj(layer, h, "wv", "bv").reshape(B, C, -1, hd)
+    k = torch.where(valid[:, :, None, None], k, torch.zeros_like(k))
+    la = _ssd_decay(layer, h, valid)            # (B, C, H)
+    lc = torch.cumsum(la, dim=1)                # inclusive: L_t
+    dec = lc[:, :, None, :] - lc[:, None, :, :]  # (B, t, s, H)
+    causal = torch.tril(torch.ones((C, C), dtype=torch.bool,
+                                   device=h.device))
+    w = torch.where(causal[None, :, :, None], torch.exp(dec),
+                    torch.zeros_like(dec)).to(h.dtype)
+    att = torch.einsum("bthd,bshd->btsh", q, k)
+    y = torch.einsum("btsh,bshd->bthd", att * w, v)
+    y = y + torch.exp(lc)[..., None].to(h.dtype) * torch.einsum(
+        "bthd,bhde->bthe", q, s0)
+    w_fold = torch.exp(lc[:, -1:, :] - lc).to(h.dtype)  # (B, C, H)
+    s1 = torch.exp(lc[:, -1])[..., None, None].to(h.dtype) * s0 \
+        + torch.einsum("bsh,bshd,bshe->bhde", w_fold, k, v)
+    return y, s1
+
+
+def _ssd_layer_step(layer, h, s0, hd: int):
+    """Recurrent form, one token: h (B, D), s0 (B, H, hd, hd).  Returns
+    ``(y (B, H, hd), s1)``; the C = 1 chunk form's math."""
+    B = h.shape[0]
+    q = _proj(layer, h, "wq", "bq").reshape(B, -1, hd) / math.sqrt(hd)
+    k = _proj(layer, h, "wk", "bk").reshape(B, -1, hd)
+    v = _proj(layer, h, "wv", "bv").reshape(B, -1, hd)
+    a = torch.exp(_ssd_decay(layer, h))         # (B, H)
+    s1 = a[..., None, None].to(h.dtype) * s0 \
+        + torch.einsum("bhd,bhe->bhde", k, v)
+    y = torch.einsum("bhd,bhde->bhe", q, s1)
+    return y, s1
+
+
+def _ssd_forward_step(params: dict, cfg: DecoderConfig, s, token, head_fn):
+    """One recurrent token through every layer: ``s`` the rows' state
+    stack (L, B, H, hd, hd), ``token`` (B,).  Returns ``(out, s_new)``,
+    ``out`` the f32 logits or ``head_fn``'s result."""
+    dtype = resolve_dtype(cfg.dtype, token.device)
+    B = token.shape[0]
+    hd = cfg.d_model // cfg.n_heads
+    eps = cfg.ln_eps
+    act = _act_fn(cfg)
+    x = _embed_rows(params["embed"].to(dtype), token)  # (B, D)
+    new = []
+    for li, layer in enumerate(params["layers"]):
+        h = _layer_norm(x, layer["ln1_scale"], layer["ln1_bias"], eps)
+        y, s1 = _ssd_layer_step(layer, h, s[li], hd)
+        x = x + _row_proj(layer, y.reshape(B, -1), "wo", "bo")
+        h = _layer_norm(x, layer["ln2_scale"], layer["ln2_bias"], eps)
+        ff = act(_proj(layer, h, "w_up", "b_up"))
+        x = x + _row_proj(layer, ff, "w_down", "b_down")
+        new.append(s1)
+    x = _layer_norm(x, params["ln_f_scale"], params["ln_f_bias"], eps)
+    out = (_head_out if head_fn is None else head_fn)(params["embed"], x)
+    return out, torch.stack(new)
+
+
+def ssd_mixed_step(params: dict, cfg: DecoderConfig, state: torch.Tensor,
+                   tokens: torch.Tensor, n_valid: torch.Tensor,
+                   row_slots: torch.Tensor, *, head_fn=None):
+    """One chunk-parallel step over a batch of token RUNS, the state
+    engine's mixed prefill + decode program (a decode row is a run of
+    one token).
+
+    tokens (B, C) ints, each row's next C tokens zero-padded; n_valid
+    (B,) the valid tokens a row (0: an idle row, an exact no-op on its
+    slot); row_slots (B,) slot ids (idle rows: the null slot 0); state
+    (L, S, H, hd, hd), updated IN PLACE.  Returns ``(out, state)``,
+    ``out`` at each row's LAST valid token: (B, V) f32 logits or
+    ``head_fn``'s result."""
+    dtype = resolve_dtype(cfg.dtype, tokens.device)
+    B, C = tokens.shape
+    hd = cfg.d_model // cfg.n_heads
+    eps = cfg.ln_eps
+    act = _act_fn(cfg)
+    slots = row_slots.long()
+    valid = (torch.arange(C, device=tokens.device)[None, :]
+             < n_valid[:, None])
+    x = _embed_rows(params["embed"].to(dtype), tokens)
+    new = []
+    for li, layer in enumerate(params["layers"]):
+        s0 = state[li, slots]                    # (B, H, hd, hd)
+        h = _layer_norm(x, layer["ln1_scale"], layer["ln1_bias"], eps)
+        y, s1 = _ssd_layer_chunk(layer, h, s0, hd, valid)
+        x = x + _row_proj(layer, y.reshape(B, C, -1), "wo", "bo")
+        h = _layer_norm(x, layer["ln2_scale"], layer["ln2_bias"], eps)
+        ff = act(_proj(layer, h, "w_up", "b_up"))
+        x = x + _row_proj(layer, ff, "w_down", "b_down")
+        new.append(s1)
+    # several idle rows writing slot 0 race, and which one lands is
+    # undefined on the card: benign only because slot 0 is the null sink
+    state[:, slots] = torch.stack(new)
+    x = _layer_norm(x, params["ln_f_scale"], params["ln_f_bias"], eps)
+    last = torch.clamp(n_valid.long() - 1, min=0)
+    sel = x[torch.arange(B, device=x.device), last]
+    out = (_head_out if head_fn is None else head_fn)(params["embed"], sel)
+    return out, state
+
+
+def ssd_decode_step(params: dict, cfg: DecoderConfig, state: torch.Tensor,
+                    token: torch.Tensor, row_slots: torch.Tensor, *,
+                    head_fn=None):
+    """One batched recurrent decode token: gather each row's state,
+    update, scatter back (IN PLACE).  token/row_slots (B,) ints.  Returns
+    ``(out, state)`` as :func:`ssd_mixed_step`."""
+    slots = row_slots.long()
+    out, s = _ssd_forward_step(params, cfg, state[:, slots], token, head_fn)
+    state[:, slots] = s
+    return out, state
+
+
+def _ssd_chained(params, cfg, state, token, row_slots, steps, rem,
+                 stop_tok, head_at):
+    """K recurrent steps (``K = len(steps)``), step t's ids feeding step
+    t+1 and step t's head ``head_at(t)`` returning ids.  A row past its
+    budget ``rem`` or its EOS FREEZES: its state stops updating and its
+    id repeats, so a finished row's state stays exactly context +
+    emitted[:-1] (a recurrent state has no null block to absorb surplus
+    steps).  The rows' state stack is gathered once and scattered once."""
+    slots = row_slots.long()
+    s = state[:, slots]
+    B = token.shape[0]
+    tok = token.to(torch.int32)
+    nprod = torch.zeros(B, dtype=torch.int32, device=token.device)
+    stopped = torch.zeros(B, dtype=torch.bool, device=token.device)
+    rem = rem.to(torch.int32)
+    ids = []
+    for t in range(int(steps.shape[0])):
+        new_ids, s_new = _ssd_forward_step(params, cfg, s, tok, head_at(t))
+        active = ~stopped & (nprod < rem)
+        s = torch.where(active[None, :, None, None, None], s_new, s)
+        tok = torch.where(active, new_ids, tok)
+        nprod = nprod + active.to(torch.int32)
+        stopped = stopped | (active & (tok == stop_tok))
+        ids.append(tok)
+    state[:, slots] = s
+    return torch.stack(ids, dim=1), state
+
+
+def ssd_chained_decode(params: dict, cfg: DecoderConfig, state, token,
+                       row_slots, steps, rem, stop_tok):
+    """K greedy recurrent steps (the JAX package's ``lax.scan`` as a loop
+    over :func:`_ssd_forward_step`).  ``steps`` (K,) (its length is the
+    chain's), ``rem`` (B,) each row's step budget, ``stop_tok`` () the EOS
+    id (-1 for none).  Returns ``(ids (B, K) int32, state)``."""
+    return _ssd_chained(params, cfg, state, token, row_slots, steps, rem,
+                        stop_tok, lambda _t: _greedy_head)
+
+
+def ssd_mixed_step_sampled(params: dict, cfg: DecoderConfig, state, tokens,
+                           n_valid, row_slots, temperature, top_k, top_p,
+                           seed, emit_idx):
+    """:func:`ssd_mixed_step` with per-row sampling, on the paged
+    programs' (seed, emit index) key schedule.  Returns ``(ids,
+    state)``."""
+    head = _sampling_head(temperature, top_k, top_p,
+                          _row_sample_keys(seed, emit_idx))
+    return ssd_mixed_step(params, cfg, state, tokens, n_valid, row_slots,
+                          head_fn=head)
+
+
+def ssd_decode_step_sampled(params: dict, cfg: DecoderConfig, state, token,
+                            row_slots, temperature, top_k, top_p, seed,
+                            emit_idx):
+    """:func:`ssd_decode_step` with per-row sampling."""
+    head = _sampling_head(temperature, top_k, top_p,
+                          _row_sample_keys(seed, emit_idx))
+    return ssd_decode_step(params, cfg, state, token, row_slots,
+                           head_fn=head)
+
+
+def ssd_chained_decode_sampled(params: dict, cfg: DecoderConfig, state,
+                               token, row_slots, steps, rem, stop_tok,
+                               temperature, top_k, top_p, seed, emit0):
+    """:func:`ssd_chained_decode` with sampling: step t folds ``emit0 +
+    t`` into each row's seed key, the paged chain's schedule (a row's
+    active steps are a prefix of the chain, so K sampled single steps
+    draw the same tokens)."""
+    base = _seed_keys(seed)
+    return _ssd_chained(
+        params, cfg, state, token, row_slots, steps, rem, stop_tok,
+        lambda t: _sampling_head(temperature, top_k, top_p,
+                                 prng.fold_in(base, emit0 + t)),
+    )
+
+
 class TorchDecoderLM:
     """Host-facing text generator (counterpart of ``JaxDecoderLM``):
     :meth:`generate` for one prompt over the dense cache, and
@@ -597,13 +961,16 @@ class TorchDecoderLM:
                             if b <= self.cfg.max_len] or [self.cfg.max_len]
         self._engine = None
         self._dense = None
+        self._int8 = None
+        self._int8_lock = threading.Lock()
 
     def paged_engine(self, **kwargs):
         """The paged decode engine over this LM's weights, built on first
         use (keyed on the params object, so reassigning ``params``
         rebuilds it).  ``kwargs`` are ``PagedDecodeEngine`` arguments
         (sizes, ``max_restarts``, ``watchdog_timeout_s``,
-        ``speculative``); they apply when the engine is built."""
+        ``speculative``, ``quantize``); they apply when the engine is
+        built."""
         if self._engine is not None and self._engine[0] is self.params:
             return self._engine[1]
         from ..kvcache.engine import PagedDecodeEngine
@@ -612,6 +979,19 @@ class TorchDecoderLM:
                                 **kwargs)
         self._engine = (self.params, eng)
         return eng
+
+    def _int8_host(self):
+        """The int8 host tier over this LM's weights, built on first use
+        under the generation lock (concurrent first calls quantize one
+        copy) and keyed on the params object: reassigning ``params``
+        rebuilds it."""
+        with self._int8_lock:
+            if self._int8 is None or self._int8[0] is not self.params:
+                from .host_decoder import Int8DecoderHost
+
+                self._int8 = (self.params,
+                              Int8DecoderHost(self.cfg, self.params))
+            return self._int8[1]
 
     def dense_params(self) -> dict:
         """The decode plan :meth:`generate` runs with: fused ``wqkv`` and
@@ -652,15 +1032,35 @@ class TorchDecoderLM:
         package's choice on the accelerator) runs
         :func:`generate_tokens_fused`: prefill plus the whole decode loop
         with one host fetch at the end.  ``fused=False`` is the stepwise
-        tier, one ``decode_step`` and one id fetch per token."""
-        if fused == "int8":
-            raise NotImplementedError(
-                "fused='int8' (the int8 host tier) is not ported yet: "
-                "ROADMAP queue A item 6"
-            )
+        tier, one ``decode_step`` and one id fetch per token.
+        ``fused="int8"`` is the int8 host tier
+        (``models/host_decoder.Int8DecoderHost``, on the CPU by design),
+        built on first use; only an LM on the CPU takes it; on the card
+        it raises rather than move the work to the host (int8 weights on
+        the card: ``paged_engine(quantize="int8")``)."""
         if fused == "auto":
             fused = True
+        if fused == "int8" and self.device.type != "cpu":
+            raise ValueError(
+                f"fused='int8' is the int8 host tier, which runs on the "
+                f"CPU, and this LM is on {self.device}: build the LM with "
+                f"device='cpu' for the host tier, or use "
+                f"paged_engine(quantize='int8') for int8 weights on the "
+                f"card")
         ids = self.encode_prompts([prompt], max_new_tokens)[0]
+        if fused == "int8":
+            host = self._int8_host()
+            # the host tier's KV cache is shared mutable state:
+            # generations are serialised so callers cannot interleave it
+            with self._int8_lock:
+                out = [int(np.argmax(host.prefill(ids)))]
+                for _ in range(max_new_tokens - 1):
+                    if stop_token is not None and out[-1] == stop_token:
+                        break
+                    if host.n_past >= host.cap:
+                        break
+                    out.append(int(np.argmax(host.decode_step(out[-1]))))
+            return self._decode_out(out)
         L = self._bucket(len(ids) + max_new_tokens)
         if len(ids) + max_new_tokens > L:
             # largest bucket smaller than prompt+completion: keep the most
@@ -719,8 +1119,12 @@ class TorchDecoderLM:
 __all__ = [
     "DecoderConfig", "TorchDecoderLM", "decode_step", "draft_propose",
     "generate_tokens_fused", "greedy", "init_decoder_params",
-    "paged_chained_decode", "paged_chained_decode_sampled",
-    "paged_decode_step", "paged_decode_step_sampled", "paged_mixed_step",
+    "int8_device_native", "paged_chained_decode",
+    "paged_chained_decode_sampled", "paged_decode_step",
+    "paged_decode_step_sampled", "paged_mixed_step",
     "paged_mixed_step_sampled", "paged_prefill", "paged_prefill_sampled",
-    "params_to", "plan_decode_params", "prefill",
+    "params_to", "plan_decode_params", "prefill", "quantize_weight_int8",
+    "ssd_augment_params", "ssd_chained_decode",
+    "ssd_chained_decode_sampled", "ssd_decode_step",
+    "ssd_decode_step_sampled", "ssd_mixed_step", "ssd_mixed_step_sampled",
 ]

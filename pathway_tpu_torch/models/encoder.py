@@ -75,16 +75,18 @@ def init_params(cfg: EncoderConfig, seed: int = 0, device="cuda") -> dict:
 
 
 def params_to(params, device, dtype: torch.dtype):
-    """Every tensor on ``device``; matrices (embeddings and matmul
+    """Every tensor on ``device``; float matrices (embeddings and matmul
     weights) in the compute ``dtype``, so no per-call cast reads them
-    again.  Vectors (layer norms, biases) stay f32, as they are applied
-    in f32."""
+    again.  Vectors (layer norms, biases, an int8 plan's f32 ``{w}_s``
+    scales) stay f32, as they are applied in f32, and integer tensors
+    (an int8 plan's ``{w}_q`` weights) keep their dtype: they stay
+    resident in int8."""
     if isinstance(params, dict):
         return {k: params_to(v, device, dtype) for k, v in params.items()}
     if isinstance(params, list):
         return [params_to(v, device, dtype) for v in params]
     t = params.to(device)
-    return t.to(dtype) if t.ndim >= 2 else t
+    return t.to(dtype) if t.ndim >= 2 and t.is_floating_point() else t
 
 
 def _layer_norm(x, scale, bias, eps=1e-6):

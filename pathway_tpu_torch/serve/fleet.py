@@ -1,8 +1,10 @@
-"""Replica-parallel serving front over the paged decode engine.
+"""Replica-parallel serving front over the decode engines.
 
 The port of ``pathway_tpu/serve/fleet.py``.  :class:`ReplicaFleet` runs R
 independent :class:`~pathway_tpu_torch.kvcache.engine.PagedDecodeEngine`
-replicas, each behind its own
+replicas (or, with ``cache="state"``,
+:class:`~pathway_tpu_torch.kvcache.statecache.StateDecodeEngine`
+replicas), each behind its own
 :class:`~pathway_tpu_torch.serve.scheduler.RequestScheduler`, and adds
 what a fleet needs that an engine cannot provide:
 
@@ -25,7 +27,8 @@ no live replica remains.
 
 **Shared session tier.**  All replicas point at one
 :class:`~pathway_tpu_torch.kvcache.tiering.SessionStore`, so a session
-suspended on replica A resumes on replica B.
+suspended on replica A resumes on replica B (K/V blocks, or a state
+cache's fixed-size state).
 
 On one card every replica issues its kernels from its own scheduler
 thread on the thread's current stream, which is the device's default
@@ -68,15 +71,22 @@ class _Replica:
 
 
 class ReplicaFleet:
-    """R paged decode engines behind prefix-affine routing with
+    """R decode engines behind prefix-affine routing with
     cross-replica failover and a shared host session tier.
 
     Engine keyword arguments (``num_blocks``, ``block_size``,
     ``watchdog_timeout_s``, ``max_restarts``, ``speculative``,
     ``device``, ...) pass through to every replica; ``degrade_fn`` (if
     given) becomes the LAST-resort tier, consulted only when the whole
-    fleet is dead.  ``cache="state"`` (the JAX package's constant-memory
-    state cache) is not ported yet and raises."""
+    fleet is dead.
+
+    ``cache="state"`` builds every replica as a constant-memory
+    ``StateDecodeEngine``.  Routing, failover and the session tier are
+    unchanged: the state cache keeps a ``block_size``, so affinity
+    digests chunk prompts the same way (with no prefix cache behind them
+    a digest only says where a conversation ran; misses go to the least
+    loaded replica), and its suspended states flow through the same
+    store."""
 
     def __init__(self, cfg, params, *, replicas: int = 2,
                  name: str = "fleet", session_store=None,
@@ -86,14 +96,11 @@ class ReplicaFleet:
                  degrade_fn: Callable | None = None,
                  cache: str = "paged",
                  **engine_kwargs):
-        from ..kvcache.engine import PagedDecodeEngine
-
         if cache == "state":
-            raise NotImplementedError(
-                "cache='state' needs the SSD state cache "
-                "(StateDecodeEngine), not ported yet: ROADMAP queue A, A6"
-            )
-        if cache != "paged":
+            from ..kvcache.statecache import StateDecodeEngine as engine_cls
+        elif cache == "paged":
+            from ..kvcache.engine import PagedDecodeEngine as engine_cls
+        else:
             raise ValueError(f"cache={cache!r}: expected 'paged' or 'state'")
         if int(replicas) < 1:
             raise ValueError("a fleet needs at least one replica")
@@ -113,7 +120,7 @@ class ReplicaFleet:
         sched_kw.setdefault("max_batch_size",
                             int(engine_kwargs.get("max_batch_size", 8)))
         for i in range(int(replicas)):
-            engine = PagedDecodeEngine(
+            engine = engine_cls(
                 cfg, params, name=f"{name}_r{i}",
                 session_store=session_store,
                 degrade_fn=self._make_handoff(i), **engine_kwargs,

@@ -371,5 +371,11 @@ def test_generate_stop_token_and_unported_tier(long_lms):
     assert lm.generate(prompt, 8, stop_token=stop, fused=True) == want
     assert lm.generate(prompt, 8, stop_token=stop, fused=False) == want
     assert want.split() == full.split()[: want.split().index(f"<{stop}>") + 1]
-    with pytest.raises(NotImplementedError, match="queue A item 6"):
-        lm.generate(prompt, 8, fused="int8")
+    # the int8 host tier (ported since): the JAX LM's int8 tier's ids,
+    # the same stop-token truncation
+    want8 = jax_lm.generate(prompt, 8, fused="int8")
+    assert lm.generate(prompt, 8, fused="int8") == want8
+    assert len(want8.split()) == 8
+    stop8 = int(want8.split()[2].strip("<>"))
+    assert (lm.generate(prompt, 8, stop_token=stop8, fused="int8")
+            == jax_lm.generate(prompt, 8, stop_token=stop8, fused="int8"))

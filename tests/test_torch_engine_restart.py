@@ -169,11 +169,12 @@ def test_recurring_failure_spends_budget_and_never_loops(weights,
     faults.clear()
     faults.install("engine.dispatch.chain", "raise", nth=1)
 
-    def sticky(**_kw):
+    def sticky(_kind, **_kw):
         raise RuntimeError("CUDA error: an illegal memory access")
 
     eng = _engine(pt, max_restarts=5)
-    monkeypatch.setattr(eng_mod, "BlockPool", sticky)
+    # the engine rebuilds its pool through the backend seam
+    monkeypatch.setattr(eng_mod, "make_backend", sticky)
     with pytest.raises(EngineFailedError, match="illegal memory access"):
         eng.generate_batch([([1, 2, 3, 4], 8), ([5, 6], 8)])
     assert eng.n_restarts == 0

@@ -249,8 +249,28 @@ def test_whole_fleet_dead_fails_typed(weights):
 
 
 def test_state_cache_fleet_is_not_ported(weights):
-    with pytest.raises(NotImplementedError, match="A6"):
-        tserve.ReplicaFleet(CFG_T, weights[1], cache="state", device="cpu")
+    """``cache="state"`` (ported since): every replica is a state engine
+    and greedy submits give the JAX state engine's tokens on the same
+    (grafted) weights; an unknown cache kind raises."""
+    from pathway_tpu.kvcache import StateDecodeEngine as JaxState
+
+    from pathway_tpu_torch.kvcache import StateDecodeEngine
+
+    skw = dict(max_slots=24, max_batch_size=4, prefill_chunk=8,
+               chain_steps=4)
+    want = JaxState(CFG_J, weights[0], name="tt_state_ref",
+                    **skw).generate_batch([(p, 6) for p in PROMPTS])
+    fleet = tserve.ReplicaFleet(CFG_T, weights[1], replicas=2,
+                                cache="state", name="tt_fleet_state",
+                                max_restarts=0, device="cpu", **skw)
+    try:
+        assert all(isinstance(r.engine, StateDecodeEngine)
+                   for r in fleet.replicas)
+        assert [fleet.submit(p, 6) for p in PROMPTS] == want
+    finally:
+        fleet.shutdown(drain=False, timeout_s=5.0)
+    with pytest.raises(ValueError, match="expected 'paged' or 'state'"):
+        tserve.ReplicaFleet(CFG_T, weights[1], cache="bogus", device="cpu")
 
 
 def test_engine_degrade_handoff_matches_jax_engine(weights):
