@@ -96,6 +96,29 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    "state")`` failover, and a resumed turn 2 equals a store-less
    recompute.  No engine of the phase may degrade (``n_degraded``).
    Printed as an ``{"int8": ...}`` and an ``{"ssd": ...}`` line;
+4f. the device cost observatory (after phase 4e): the roofline probes
+   (a measured copy rate above the card's published one fails the run)
+   and the budget ``torch.cuda.mem_get_info`` resolves; the auto-config
+   with no sizes (f32 and bf16), and an f32 engine built on it gives
+   phase 4's f32 tokens; phase 4's bf16 engine's HBM ledger equals its
+   plan's and pool's bytes exactly, and so do the bytes its
+   construction requested from the allocator (the allocated bytes
+   within the allocator's rounding), the int8 plan's too; each step
+   program's measured temp watermark is printed beside the analytic
+   one; with a budget of params + half the pool,
+   ``hbm_fit="reject"`` raises naming the largest fitting pool and
+   ``"clamp"`` serves phase 4's f32 tokens; the 8 prompts through the
+   bf16 engine and through phase 4e's state engine give each program's
+   dispatches, counted work, event windows (``device_window_ms``) and,
+   under torch.profiler, the busy time inside its ranges (which must fit
+   in its windows, and the windows in the wall time), with the
+   profiler's bookkeeping cost as a share of the chained window (the
+   same prompts at 2 new tokens add a decode step);
+   ``publish_to_costdb`` writes rows under the card's fingerprint and a
+   seeded ``pw.spec_tier`` pick sets ``speculative="auto"``'s drafter;
+   an injected chain fault with no restart budget dumps the flight
+   recorder as a Chrome trace holding ``engine.run`` and ``engine.sync``.
+   Printed as an ``{"obs": ...}`` line;
 5. print one ``{"kernels": [...]}`` line (launches on the main path,
    error against the plain version, kernel / plain / bound / library
    times at the main path's shapes: the median of 5 windows of 50
@@ -117,7 +140,8 @@ phase 4c's restart and watchdog checks; an ``EngineFailedError`` exits
 non-zero.
 
 ``--checks-only`` stops after phase 2 (the duplicate-row case included)
-and prints no result.
+and prints no result; ``--obs-only`` runs phase 4f alone on synthetic
+prompts after the build and prints no result.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``.
 Exits non-zero, printing no result, when no CUDA device is present or
@@ -1022,7 +1046,7 @@ def profile_generation(torch, lm, prompts, n_new, wall_s) -> dict:
         torch.cuda.synchronize()
     by_name: dict[str, list] = {}
     for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
+        if is_device_work(torch, e):
             tot = by_name.setdefault(e.name, [0.0, 0])
             tot[0] += e.time_range.elapsed_us() / 1e3
             tot[1] += 1
@@ -1207,7 +1231,16 @@ def device_events(torch, run) -> list[tuple[str, float]]:
         run()
         torch.cuda.synchronize()
     return [(e.name, e.time_range.elapsed_us()) for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
+            if is_device_work(torch, e)]
+
+
+def is_device_work(torch, e) -> bool:
+    """A kernel, copy or fill on the card: a device event that is not a
+    program's range (the ``record_function`` range a profiled call
+    opens under torch.profiler spans its kernels; counting it too would
+    count their time twice)."""
+    return (e.device_type == torch.autograd.DeviceType.CUDA
+            and not e.is_user_annotation)
 
 
 def device_ms_per_call(torch, fn, n: int = 20) -> float:
@@ -1858,7 +1891,8 @@ def phase4e_bf16(torch, dec, _cuda, s) -> tuple[dict, dict]:
             for a, b in zip(x, y)),
         launches_int8=launches8, profile_kernel_counts=counts,
         host_executor=host_executor_run(torch, host, s.reqs,
-                                        quantize="int8", device="cuda"),
+                                        quantize="int8", device="cuda",
+                                        max_batch_size=8, chain_steps=8),
         degraded=e16.n_degraded + e8.n_degraded,
     )
     require(int8["degraded"] == 0, f"4e int8: {int8['degraded']} degraded")
@@ -2034,12 +2068,406 @@ def phase4e_f32(torch, dec, s) -> dict:
     return out
 
 
+# -- phase 4f: the device cost observatory ------------------------------------
+
+# a copy measured above the published memory rate by more than 5% did not
+# run at the memory's rate (served from L2, or a broken event pair)
+MEMBW_CEILING = HBM_BYTES_S * 1.05
+# the caching allocator hands out a free block whole when splitting it
+# would leave 1 MiB or less, and rounds every block up to 512 bytes: the
+# most its allocated bytes can exceed the requested ones, per tensor
+ALLOC_SLACK = (1 << 20) + 512
+# a program's busy kernel time may exceed its event windows by the
+# profiler's own timestamp skew only
+BUSY_SLACK = 1.05
+
+
+def registry_state(reg) -> dict:
+    """(dispatches, host s, event-window s, event windows, calls) of every
+    record, to take one run's share as a difference."""
+    return {(r.program, r.label): (r.dispatches, r.dispatch_s_total,
+                                   r.device_s_total, r.device_windows,
+                                   r.calls)
+            for r in reg.records()}
+
+
+def run_rows(reg, before: dict, prefix: str = "pw.") -> dict:
+    """This run's numbers per program (summed over its buckets): the
+    records' growth since ``before``, with their counted work."""
+    rows: dict = {}
+    for r in reg.records():
+        if not r.program.startswith(prefix):
+            continue
+        b = before.get((r.program, r.label), (0, 0.0, 0.0, 0, 0))
+        d = r.dispatches - b[0]
+        if d <= 0:
+            continue
+        row = rows.setdefault(r.program, dict(
+            dispatches=0, host_window_ms=0.0, device_window_ms=0.0,
+            device_windows=0, device_unread=r.device_unread,
+            flops=(r.analysis or {}).get("flops"),
+            bytes=(r.analysis or {}).get("bytes_accessed"),
+            buckets=0))
+        row["dispatches"] += d
+        row["host_window_ms"] += (r.dispatch_s_total - b[1]) * 1e3
+        row["device_window_ms"] += (r.device_s_total - b[2]) * 1e3
+        row["device_windows"] += r.device_windows - b[3]
+        row["buckets"] += 1
+    return rows
+
+
+def busy_by_program(torch, run) -> tuple[dict, float, dict]:
+    """One ``run()`` under torch.profiler (host and device), read from
+    its raw events: the busy ms (kernels and copies) that started inside
+    each ``pw.*`` program's range on the device (the ``record_function``
+    range a profiled call opens while the profiler records), the device
+    busy ms in all, and the count of host synchronise calls."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    ranges, work, syncs = [], [], {}
+    for e in prof.profiler.kineto_results.events():
+        name = e.name()
+        if e.device_type() == cuda:
+            if not e.is_user_annotation():
+                work.append((e.start_ns(), e.end_ns()))
+            elif name.startswith("pw."):
+                ranges.append((e.start_ns(), e.end_ns(), name))
+        elif name in SYNC_CALLS:
+            syncs[name] = syncs.get(name, 0) + 1
+    ranges.sort()
+    work.sort()
+    busy: dict = {}
+    j = 0
+    for s0, s1 in work:  # one stream: the ranges do not overlap
+        while j < len(ranges) and ranges[j][1] < s0:
+            j += 1
+        if j < len(ranges) and ranges[j][0] <= s0:
+            name = ranges[j][2]
+            busy[name] = busy.get(name, 0.0) + (s1 - s0) / 1e6
+    return busy, sum(s1 - s0 for s0, s1 in work) / 1e6, syncs
+
+
+SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
+              "cudaEventSynchronize")
+
+
+def timed_rows(torch, reg, eng, reqs) -> tuple[float, dict]:
+    """``reqs`` through ``eng`` twice, each from an empty prefix cache: a
+    warm-up (every bucket's first call, whose windows are not recorded),
+    then a timed run: its wall ms and the registry's growth."""
+    for _ in range(2):  # the warm-up, then the timed run
+        if getattr(eng, "prefix", None) is not None:
+            eng.prefix.clear()
+        torch.cuda.synchronize()
+        before = registry_state(reg)
+        t0 = time.perf_counter()
+        eng.generate_batch(reqs)
+        torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3, run_rows(reg, before)
+
+
+def program_table(torch, reg, eng, reqs) -> dict:
+    """Each program's numbers for ``reqs`` through ``eng``: the timed
+    run's (``timed_rows``), then a run under torch.profiler for the busy
+    ms inside each program's ranges.  A program's busy time must fit in
+    its event windows of that run, and the timed run's windows in its
+    wall time."""
+    wall_ms, rows = timed_rows(torch, reg, eng, reqs)
+    if getattr(eng, "prefix", None) is not None:
+        eng.prefix.clear()
+    before_p = registry_state(reg)
+    busy, busy_total, syncs = busy_by_program(
+        torch, lambda: eng.generate_batch(reqs))
+    prof_rows = run_rows(reg, before_p)
+    for name, row in rows.items():
+        row["busy_ms_profiled"] = busy.get(name, 0.0)
+        row["device_window_ms_profiled"] = prof_rows.get(
+            name, {}).get("device_window_ms", 0.0)
+        require(0 < row["busy_ms_profiled"]
+                <= row["device_window_ms_profiled"] * BUSY_SLACK,
+                f"4f: {name} busy {row['busy_ms_profiled']:.3f} ms against "
+                f"its event windows {row['device_window_ms_profiled']:.3f}")
+        require(row["device_windows"] == row["dispatches"]
+                and row["device_unread"] == 0,
+                f"4f: {name} windows {row['device_windows']} of "
+                f"{row['dispatches']} dispatches, {row['device_unread']} "
+                "unread")
+    windows = sum(r["device_window_ms"] for r in rows.values())
+    require(windows <= wall_ms,
+            f"4f: event windows {windows:.3f} ms > wall {wall_ms:.3f} ms")
+    return dict(wall_ms=wall_ms, device_window_ms=windows,
+                busy_ms_profiled=sum(busy.values()),
+                device_busy_ms_profiled=busy_total, syncs_profiled=syncs,
+                programs=rows)
+
+
+def phase4f(torch, dec, s) -> dict:
+    """The device cost observatory on the card; every check fails the
+    run.  ``s`` carries phase 4's configurations, weights, requests and
+    f32 greedy tokens."""
+    import tempfile
+
+    from pathway_tpu_torch import obs
+    from pathway_tpu_torch._device import resolve_dtype
+    from pathway_tpu_torch.obs import costdb, memory, profiler
+
+    t_f = time.perf_counter()
+    reg = profiler.registry()
+    out: dict = {}
+    # a. the roofline probes and the resolved budget
+    peaks = profiler.measured_peak_flops_by_dtype()
+    membw = profiler.measured_membw()
+    budget, source = memory.resolve_budget(device="cuda")
+    require(membw <= MEMBW_CEILING,
+            f"4f: measured memory rate {membw:.4g} B/s > {MEMBW_CEILING:.4g}")
+    require(budget is not None and source == "device:mem_get_info",
+            f"4f: budget {budget} from {source}")
+    out["probes"] = dict(peak_flops_per_s=peaks, membw_bytes_per_s=membw,
+                         budget_bytes=budget, budget_source=source)
+    # b. auto-config: the f32 and bf16 choices with no sizes; an f32
+    # engine built on the choice gives phase 4's f32 tokens
+    auto = {}
+    for name, cfg in (("f32", s.cfg32), ("bf16", s.cfg16)):
+        dtype = resolve_dtype(cfg.dtype, torch.device("cuda"))
+        plan = dec.params_to(dec.plan_decode_params(cfg, s.params32),
+                             "cuda", dtype)
+        ch = memory.choose_engine_config(
+            cfg, params=plan, dtype=dtype, reference_attn=False,
+            device="cuda")
+        auto[name] = {k: ch[k] for k in ("num_blocks", "block_size",
+                                         "max_batch_size", "chain_steps",
+                                         "chosen", "source")}
+        auto[name]["kv_bytes"] = ch["plan"].kv_bytes
+        auto[name]["per_block_bytes"] = ch["plan"].per_block_bytes
+        del plan
+    eng = dec.TorchDecoderLM(s.cfg32, params=s.params32,
+                             device="cuda").paged_engine(max_restarts=0)
+    require(eng.auto_config["chosen"] == ["num_blocks", "block_size",
+                                          "max_batch_size", "chain_steps"],
+            f"4f: auto-config chose {eng.auto_config}")
+    require(eng.generate_batch(s.reqs) == s.toks32,
+            "4f: the auto-configured f32 engine's tokens differ from "
+            "phase 4's")
+    auto["f32_engine"] = dict(eng.auto_config, tokens_equal_phase4=True)
+    out["auto_config"] = auto
+    del eng
+    # c. the ledger against the bytes on the card (bf16, phase 4's sizes)
+    torch.cuda.synchronize()
+    base_ptrs = {t.data_ptr() for t in tensors(s.params16)}
+
+    def held():
+        st = torch.cuda.memory_stats()
+        return (st["requested_bytes.all.current"],
+                st["allocated_bytes.all.current"])
+
+    r0, a0 = held()
+    e16 = s.engine16()
+    r1, a1 = held()
+    hp = e16.hbm_plan
+    pool_bytes = e16.pool.k.nbytes + e16.pool.v.nbytes
+    require(hp.params_bytes == plan_bytes(e16.params)
+            and hp.kv_bytes == pool_bytes,
+            f"4f: ledger params {hp.params_bytes} / kv {hp.kv_bytes} != "
+            f"plan {plan_bytes(e16.params)} / pool {pool_bytes}")
+    new = [t for t in tensors(e16.params)
+           if t.data_ptr() not in base_ptrs] + [e16.pool.k, e16.pool.v]
+    want = sum(t.nbytes for t in new)
+    slack = (a1 - a0) - want
+    require(r1 - r0 == want,
+            f"4f: construction requested {r1 - r0} bytes, the ledger's "
+            f"new tensors hold {want}")
+    require(0 <= slack <= ALLOC_SLACK * len(new),
+            f"4f: construction allocated {a1 - a0} bytes for {want} "
+            f"(slack {slack}, at most {ALLOC_SLACK * len(new)})")
+    e8 = s.engine16(quantize="int8")
+    i8_bytes = plan_bytes(e8.params)
+    require(e8.hbm_plan.params_bytes == i8_bytes,
+            f"4f: int8 ledger {e8.hbm_plan.params_bytes} != plan {i8_bytes}")
+    del e8
+    # the measured temp watermark of each step program: armed, then one run
+    e16.generate_batch(s.reqs)  # every bucket called once
+    recs = [r for r in reg.records() if r._wrapper_ref is not None
+            and r._wrapper_ref() in (e16._step, e16._mixed, e16._chained)]
+    for r in recs:
+        r.try_memory()
+    e16.prefix.clear()
+    e16.generate_batch(s.reqs)
+    replan = memory.hbm_plan(
+        s.cfg16, num_blocks=hp.num_blocks, block_size=hp.block_size,
+        max_batch_size=hp.max_batch_size, chain_steps=hp.chain_steps,
+        prefill_chunk=hp.prefill_chunk, dtype=e16.dtype, params=e16.params,
+        reference_attn=False, device="cuda")
+    out["ledger"] = dict(
+        params_bytes=hp.params_bytes, kv_bytes=hp.kv_bytes,
+        int8_params_bytes=i8_bytes,
+        construction_requested=r1 - r0, construction_allocated=a1 - a0,
+        construction_expected=want, allocator_slack_bytes=slack,
+        allocator_slack_bound=ALLOC_SLACK * len(new),
+        temp_bytes_analytic=hp.temp_bytes,
+        temp_bytes_measured={r.program: (r.mem or {}).get("temp_bytes")
+                             for r in recs},
+        replan_with_measured_temps=replan.as_dict())
+    # d. hbm_fit against params + half the pool (f32)
+    e32 = s.engine32()
+    half = e32.hbm_plan.params_bytes + e32.hbm_plan.kv_bytes // 2
+    del e32
+    try:
+        s.engine32(hbm_budget_bytes=half)
+        require(False, "4f: hbm_fit='reject' built an unfittable engine")
+    except ValueError as exc:
+        msg = str(exc)
+    require("largest fitting alternative: num_blocks=" in msg,
+            f"4f: the rejection names no fitting pool: {msg}")
+    clamped = s.engine32(hbm_budget_bytes=half, hbm_fit="clamp")
+    require(clamped.generate_batch(s.reqs) == s.toks32,
+            "4f: the clamped f32 engine's tokens differ from phase 4's")
+    out["hbm_fit"] = dict(budget_bytes=half, reject=msg,
+                          clamped_num_blocks=clamped.pool.num_blocks,
+                          clamped_tokens_equal_phase4=True)
+    del clamped
+    # e. the per-program profile: bf16 paged (phase 4's sizes) and the SSD
+    # engine of phase 4e
+    paged = program_table(torch, reg, e16, s.reqs)
+    # the same prompts at 2 new tokens: the last prompt to finish its
+    # prefill has 1 token left and no chain to ride, so its engine runs
+    # a decode step (the 32-token run need not)
+    _wall, short = timed_rows(torch, reg, e16, [(p, 2) for p, _n in s.reqs])
+    for name in ("pw.mixed_step", "pw.decode_step", "pw.chained_decode"):
+        row = paged["programs"].get(name) or short.get(name)
+        require(row is not None and row["dispatches"] > 0
+                and row["flops"] and row["bytes"]
+                and row["device_window_ms"] > 0,
+                f"4f: {name} row {row}")
+    n_calls = sum(p.calls for p in (e16._step, e16._mixed, e16._chained))
+    per_call = e16._chained.probe_overhead(2000)
+    chained_ms = paged["programs"]["pw.chained_decode"]["host_window_ms"]
+    calls_run = sum(r["dispatches"] for r in paged["programs"].values())
+    paged.update(probe_overhead_us=per_call * 1e6,
+                 probe_overhead_share_of_chained_window=(
+                     per_call * 1e3 * calls_run / chained_ms),
+                 profiled_calls_lifetime=n_calls)
+    out["paged_bf16"] = paged
+    out["paged_bf16_2_tokens"] = short
+    ssd_eng = s.state16()
+    out["ssd_bf16"] = program_table(torch, reg, ssd_eng, s.reqs)
+    del ssd_eng
+    # f. the cost store under the card's fingerprint, and the auto pick
+    tmp = tempfile.mkdtemp(prefix="pw_obs_")
+    prev = os.environ.get("PW_COSTDB_PATH")
+    os.environ["PW_COSTDB_PATH"] = os.path.join(tmp, "costdb.json")
+    costdb.shutdown()
+    try:
+        n_rows = profiler.publish_to_costdb()
+        db = costdb.default_db()
+        fp = costdb.backend_fingerprint()
+        rows = [e for e in db.entries() if e["fingerprint"] == fp]
+        require(fp.startswith("cuda:") and len(rows) == n_rows > 0,
+                f"4f: {len(rows)} rows of {n_rows} under {fp}")
+        db.observe("pw.spec_tier", "pick", ms=1.0,
+                   extra={"drafter": "ngram", "k": 3})
+        ctrl = s.engine16(speculative="auto")._spec
+        require(ctrl.k == 3 and ctrl.drafter.name == "ngram",
+                f"4f: speculative='auto' built {ctrl.drafter.name} "
+                f"k={ctrl.k}")
+        db.flush()
+        with open(db.path, encoding="utf-8") as fh:
+            on_disk = json.load(fh)["entries"]
+    finally:
+        costdb.shutdown()
+        if prev is None:
+            os.environ.pop("PW_COSTDB_PATH", None)
+        else:
+            os.environ["PW_COSTDB_PATH"] = prev
+    out["costdb"] = dict(fingerprint=fp, rows_published=n_rows,
+                         rows_on_disk=len(on_disk), auto_pick_k=3)
+    # g. an injected chain fault with no restart budget dumps the flight
+    # recorder: a Chrome trace holding the failed run's spans
+    rec = obs.recorder()
+    rec.failure_dumps = 0  # earlier phases' failures used the cap
+    dump_dir = tempfile.mkdtemp(prefix="pw_trace_")
+    prev_dir = os.environ.get("PATHWAY_TRACE_DUMP_DIR")
+    os.environ["PATHWAY_TRACE_DUMP_DIR"] = dump_dir
+    s.faults.install("engine.dispatch.chain", "raise", nth=2)
+    try:
+        s.engine16().generate_batch(s.reqs)
+        require(False, "4f: the injected chain fault did not fail the run")
+    except s.EngineFailedError as exc:
+        path = exc.dump_path
+    finally:
+        s.faults.clear()
+        if prev_dir is None:
+            os.environ.pop("PATHWAY_TRACE_DUMP_DIR", None)
+        else:
+            os.environ["PATHWAY_TRACE_DUMP_DIR"] = prev_dir
+    require(path is not None and os.path.dirname(path) == dump_dir,
+            f"4f: flight-recorder dump at {path}")
+    with open(path, encoding="utf-8") as fh:
+        trace = json.load(fh)
+    names = {e["name"] for e in trace["traceEvents"]}
+    require({"engine.run", "engine.sync"} <= names,
+            f"4f: the dump holds {sorted(names)[:20]}")
+    out["flight_recorder"] = dict(
+        dump=os.path.basename(path), events=len(trace["traceEvents"]),
+        failed_runs=sum(1 for e in trace["traceEvents"]
+                        if e["name"] == "engine.run"
+                        and "error" in e.get("args", {})))
+    del e16
+    out["phase_s"] = time.perf_counter() - t_f
+    return out
+
+
+def obs_only(torch, np, dec, seed, engine_sizes, smi, PagedDecodeEngine,
+             StateDecodeEngine, faults, EngineFailedError) -> int:
+    """``--obs-only``: phase 4f on 8 synthetic prompts of phase 4's
+    lengths, after checking its f32 tokens against the dense plain path
+    (the short first call after a change to the observatory)."""
+    rng = np.random.default_rng(seed)
+    cfg32 = dec.DecoderConfig(**GPT2_SMALL, dtype=torch.float32)
+    cfg16 = dec.DecoderConfig(**GPT2_SMALL)
+    params32 = dec.TorchDecoderLM(cfg32, seed=seed, device="cuda").params
+    reqs = [([int(t) for t in rng.integers(4, cfg32.vocab_size, n)],
+             NEW_TOKENS) for n in np.linspace(100, 600, N_PROMPTS).astype(int)]
+
+    def engine32(**kw):
+        return PagedDecodeEngine(cfg32, params32, device="cuda",
+                                 **dict(engine_sizes, **kw))
+
+    def engine16(**kw):
+        return PagedDecodeEngine(cfg16, params32, device="cuda",
+                                 **dict(engine_sizes, **kw))
+
+    eng = engine32()
+    toks32 = eng.generate_batch(reqs)
+    for i, (ids, n) in enumerate(reqs):
+        require(toks32[i] == dense_greedy(torch, dec, cfg32, eng.params,
+                                          ids, n),
+                f"obs-only: prompt {i} f32 tokens differ from the dense path")
+    del eng
+    line = phase4f(torch, dec, types.SimpleNamespace(
+        cfg32=cfg32, params32=params32, cfg16=cfg16, params16=params32,
+        reqs=reqs, toks32=toks32, engine16=engine16, engine32=engine32,
+        state16=lambda **kw: StateDecodeEngine(
+            cfg16, params32, device="cuda", **dict(STATE_SIZES, **kw)),
+        faults=faults, EngineFailedError=EngineFailedError))
+    print(json.dumps({"obs": dict(line, card=smi)}), flush=True)
+    log("--obs-only: stopping after phase 4f")
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--checks-only", action="store_true",
                     help="stop after phase 2 (build + kernel checks); "
                          "prints no result")
+    ap.add_argument("--obs-only", action="store_true",
+                    help="build the kernels, then run phase 4f alone on "
+                         "synthetic prompts; prints no result")
     args = ap.parse_args()
 
     import numpy as np
@@ -2097,10 +2525,15 @@ def main() -> int:
             elif "registers" in line or "spill" in line:
                 log(f"  {src}:   {line.strip()}")
 
-    # phase 2: kernels against their plain versions
-    g = torch.Generator().manual_seed(args.seed)
     engine_sizes = dict(num_blocks=512, block_size=16, max_batch_size=8,
                         chain_steps=8, max_restarts=0)
+    if args.obs_only:
+        return obs_only(torch, np, dec, args.seed, engine_sizes, smi,
+                        PagedDecodeEngine, StateDecodeEngine, faults,
+                        EngineFailedError)
+
+    # phase 2: kernels against their plain versions
+    g = torch.Generator().manual_seed(args.seed)
     prefill_chunk = 2 * engine_sizes["block_size"]
     for line in (check_paged_attention(torch, pa, g, prefill_chunk)
                  + check_paged_edges(torch, pa, g)
@@ -2545,6 +2978,17 @@ def main() -> int:
                     f32_phase_s=time.perf_counter() - t0)
     print(json.dumps({"int8": int8_line}), flush=True)
     print(json.dumps({"ssd": ssd_line}), flush=True)
+
+    # phase 4f: the device cost observatory, after every measurement of
+    # the earlier phases
+    obs_line = phase4f(torch, dec, types.SimpleNamespace(
+        cfg32=cfg32, params32=params32, cfg16=cfg16, params16=lm16.params,
+        reqs=reqs, toks32=toks32, engine16=engine16, engine32=engine32,
+        state16=e4.state16, faults=faults,
+        EngineFailedError=EngineFailedError))
+    log(f"phase 4f ok: auto-config, ledger, hbm_fit, per-program profile, "
+        f"cost store and flight recorder in {obs_line['phase_s']:.1f}s")
+    print(json.dumps({"obs": dict(obs_line, card=smi)}), flush=True)
     print(json.dumps({
         "rag": {
             "docs": N_DOCS,

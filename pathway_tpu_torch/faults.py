@@ -22,19 +22,27 @@ Fault points of ``kvcache/engine.py`` (the JAX package's names):
 
 Actions: ``raise`` raises :class:`InjectedFault`; ``delay`` and ``hang``
 sleep ``arg_ms`` milliseconds; ``drop`` is returned to the caller, which
-interprets it.  ``nth`` is the 1-based hit at which a fault fires (0:
-every hit).
+interprets it; ``kill`` dumps the flight recorder (a dying process leaves
+its evidence, as a crash handler would) and ends the process with
+:data:`KILL_EXIT_CODE`.  ``nth`` is the 1-based hit at which a fault
+fires (0: every hit).  Every fired fault lands on the flight recorder as
+a ``fault.injected`` event.
 """
 
 from __future__ import annotations
 
 import logging
+import os
+import sys
 import threading
 import time
 
 logger = logging.getLogger(__name__)
 
-_ACTIONS = ("raise", "hang", "delay", "drop")
+_ACTIONS = ("raise", "hang", "delay", "drop", "kill")
+
+#: exit code of the ``kill`` action (a SIGKILL'd process's)
+KILL_EXIT_CODE = 137
 
 
 class InjectedFault(RuntimeError):
@@ -90,8 +98,12 @@ class FaultRegistry:
             # at one point both fire at their own hit
             triggered = [s for s in self._specs
                          if s.point == point and s.should_fire()]
+        from . import obs
+
         result = None
         for spec in triggered:
+            obs.event("fault.injected", point=point, action=spec.action,
+                      nth=spec.nth)
             logger.warning("fault injected: %s -> %s (hit %d)", point,
                            spec.action, spec.hits)
             if spec.action == "raise":
@@ -100,6 +112,12 @@ class FaultRegistry:
                 )
             if spec.action in ("delay", "hang"):
                 time.sleep(max(spec.arg_ms, 0.0) / 1000.0)
+            if spec.action == "kill":
+                print(f"fault.injected kill at {point} (hit {spec.hits})",
+                      file=sys.stderr, flush=True)
+                obs.recorder().dump_on_failure(
+                    "fault_kill", InjectedFault(point))
+                os._exit(KILL_EXIT_CODE)
             if result != "drop":
                 result = spec.action
         return result
@@ -111,5 +129,5 @@ install = _REGISTRY.install
 clear = _REGISTRY.clear
 fire = _REGISTRY.fire
 
-__all__ = ["FaultRegistry", "FaultSpec", "InjectedFault", "clear", "fire",
-           "install"]
+__all__ = ["FaultRegistry", "FaultSpec", "InjectedFault", "KILL_EXIT_CODE",
+           "clear", "fire", "install"]

@@ -25,12 +25,55 @@ from __future__ import annotations
 import dataclasses
 import itertools
 import threading
+import weakref
 
 import numpy as np
 import torch
 
 from .._device import resolve_device
+from ..obs.profiler import profiled
 from .backend import CacheBackend
+
+# live pools by metrics name: a second concurrent pool must not share (and
+# corrupt) an existing pool's stats block, so it gets a "#n" suffix; a
+# discarded or retired pool frees its name, so a REBUILT pool of the same
+# name keeps the monotonic counters
+_LIVE_POOLS: "weakref.WeakValueDictionary[str, BlockPool]" = (
+    weakref.WeakValueDictionary()
+)
+_LIVE_POOLS_LOCK = threading.Lock()
+
+
+def _cow_copy_fn(pool, src, dst):
+    """pool[:, dst] = pool[:, src], in place: one block, every layer."""
+    pool[:, dst].copy_(pool[:, src])
+    return pool
+
+
+def _tier_gather_fn(pool, idx):
+    return torch.index_select(pool, 1, idx)
+
+
+def _tier_scatter_fn(pool, idx, vals):
+    return pool.index_copy_(1, idx.long(), vals)
+
+
+# registered in the device cost observatory like every serving-path
+# program, under the reference's names
+_cow_copy = profiled("pw.cow_copy", _cow_copy_fn)
+_tier_gather = profiled("pw.kv_tier_suspend", _tier_gather_fn)
+_tier_scatter = profiled("pw.kv_tier_resume", _tier_scatter_fn)
+
+
+def unique_name(name: str, obj, live) -> str:
+    """``name``, or ``name#n`` when a live object already holds it;
+    registers ``obj`` under the result (caller holds ``live``'s lock)."""
+    unique, n = name, 1
+    while unique in live:
+        unique = f"{name}#{n}"
+        n += 1
+    live[unique] = obj
+    return unique
 
 
 def _pad_width(nb: int) -> int:
@@ -72,7 +115,7 @@ class BlockPool(CacheBackend):
 
     def __init__(self, *, num_blocks: int, block_size: int, n_layers: int,
                  n_heads: int, head_dim: int, dtype=torch.float32,
-                 device="cuda"):
+                 name: str = "kvcache", device="cuda"):
         if num_blocks < 2:
             raise ValueError("num_blocks must be >= 2 (block 0 is reserved)")
         self.device = resolve_device(device)
@@ -93,6 +136,36 @@ class BlockPool(CacheBackend):
         self._lock = threading.RLock()
         self.n_cow = 0
         self.n_preemptions = 0
+        from ..serve.metrics import kv_stats  # serve imports kvcache
+
+        with _LIVE_POOLS_LOCK:
+            self.name = unique_name(name, self, _LIVE_POOLS)
+        # the stats registry is process-global and never pruned: its gauge
+        # holds a weakref, so a discarded pool's tensors can be released
+        wref = weakref.ref(self)
+
+        def _in_use() -> int:
+            pool = wref()
+            return 0 if pool is None else pool.blocks_in_use
+
+        self.kv_stats = kv_stats(
+            self.name, blocks_in_use_fn=_in_use,
+            blocks_total=self.num_blocks - 1, shards=1,
+            shard_hbm_bytes=self.per_shard_bytes,
+        )
+
+    def retire(self) -> None:
+        """Release this pool's registry name now: a supervised restart
+        builds a same-name pool while the old one may still be pinned by
+        the failure's traceback, and the replacement must re-attach to
+        the monotonic counters rather than take a "#1" name."""
+        with _LIVE_POOLS_LOCK:
+            if _LIVE_POOLS.get(self.name) is self:
+                del _LIVE_POOLS[self.name]
+
+    @property
+    def blocks_in_use(self) -> int:
+        return (self.num_blocks - 1) - len(self._free)
 
     # -- capacity ----------------------------------------------------------
     @property
@@ -183,10 +256,11 @@ class BlockPool(CacheBackend):
         """Copy-on-write: a private copy of a shared block, every layer,
         copied in place into a fresh block of the same tensors."""
         new = self._pop_free()
-        self.k[:, new].copy_(self.k[:, block_id])
-        self.v[:, new].copy_(self.v[:, block_id])
+        self.k = _cow_copy(self.k, block_id, new)
+        self.v = _cow_copy(self.v, block_id, new)
         self.decref(block_id)
         self.n_cow += 1
+        self.kv_stats.record_cow()
         return new
 
     def extend_slots(self, seq_id: int, k: int) -> list[tuple[int, int]]:
@@ -288,13 +362,13 @@ class BlockPool(CacheBackend):
             return None, 0
         with self._lock:
             blocks = self._seqs[seq_id].block_ids[:nb]
-        idx = torch.zeros(_pad_width(nb), dtype=torch.int64)
-        idx[:nb] = torch.tensor(blocks, dtype=torch.int64)
+        idx = torch.zeros(_pad_width(nb), dtype=torch.int32)
+        idx[:nb] = torch.tensor(blocks, dtype=torch.int32)
         idx = idx.to(self.device)
         cuda = self.device.type == "cuda"
         host = []
         for pool in (self.k, self.v):
-            rows = torch.index_select(pool, 1, idx)
+            rows = _tier_gather(pool, idx)
             buf = torch.empty(rows.shape, dtype=rows.dtype, pin_memory=cuda)
             buf.copy_(rows, non_blocking=cuda)
             host.append(buf)
@@ -311,12 +385,12 @@ class BlockPool(CacheBackend):
         read uses.  The host-to-device copies are stream-ordered before
         every later kernel that reads the pools."""
         nb = int(payload["nb"])
-        table = torch.zeros(payload["k"].shape[1], dtype=torch.int64)
-        table[:nb] = torch.tensor(list(slot_ids)[:nb], dtype=torch.int64)
+        table = torch.zeros(payload["k"].shape[1], dtype=torch.int32)
+        table[:nb] = torch.tensor(list(slot_ids)[:nb], dtype=torch.int32)
         idx = table.to(self.device)
         cuda = self.device.type == "cuda"
         for pool, rows in ((self.k, payload["k"]), (self.v, payload["v"])):
-            pool.index_copy_(1, idx, rows.to(self.device, non_blocking=cuda))
+            _tier_scatter(pool, idx, rows.to(self.device, non_blocking=cuda))
 
     # -- preemption --------------------------------------------------------
     def preempt(self, *, exclude: set | frozenset = frozenset()
@@ -334,6 +408,7 @@ class BlockPool(CacheBackend):
             victim = max(candidates, key=lambda s: (s.priority, s.arrival))
             self.free_sequence(victim.seq_id)
             self.n_preemptions += 1
+            self.kv_stats.record_preemption()
             return victim
 
     # -- verification ------------------------------------------------------

@@ -61,10 +61,29 @@ is a pure function of the checkpoint, kept as ``base_params``, so a
 restart, a fleet replica or a draft model rebuilds the same one.
 
 Sizes (``num_blocks``, ``block_size``, ``max_batch_size``,
-``chain_steps``) are explicit arguments with plain defaults; the JAX
-package's HBM/cost-store planner and tensor parallelism are not ported
-yet.  The pool is built, and rebuilt on a restart, through
+``chain_steps``) left as None are chosen from the HBM ledger
+(``obs/memory.choose_engine_config``: on the card against what this
+process can hold, from ``torch.cuda.mem_get_info``; on the CPU, with no
+budget, the documented ``ENGINE_DEFAULTS``), and a configuration that
+cannot fit is rejected at construction (``hbm_fit="reject"``), or its
+pool shrunk (``"clamp"``).  ``auto_config`` records what was chosen and
+why, ``hbm_plan`` the ledger.  Tensor parallelism is not ported yet.
+The pool is built, and rebuilt on a restart, through
 ``backend.make_backend("paged", ...)``.
+
+Every step program is a ``obs.profiler.profiled`` function under the
+reference's name (``pw.decode_step``, ``pw.mixed_step``,
+``pw.chained_decode``, ``pw.prefill``, their ``_sampled`` twins,
+``pw.verify_step``; ``_i8`` on an int8 plan), called with the reference's
+int32 index arrays, so its buckets carry the reference's labels; each
+dispatch->sync window is recorded against its program after the sync.
+The engine records its spans on the flight recorder (``engine.run``,
+``engine.request``, ``engine.admission``, ``engine.sync``,
+``engine.host_gap``, ``engine.device.<kind>``, ``engine.decode_step``,
+``engine.prefill_chunk``, ``engine.chain``, ``engine.verify``,
+``engine.draft``; the events ``engine.restart`` and ``engine.degraded``),
+its counters on the pool's ``KVCacheStats``, and dumps the recorder when
+it fails.
 """
 
 from __future__ import annotations
@@ -75,14 +94,13 @@ import os
 import queue
 import threading
 import time
-import uuid
 from collections import deque
 from typing import Any, Callable
 
 import numpy as np
 import torch
 
-from .. import faults
+from .. import faults, obs
 from .._device import resolve_device, resolve_dtype
 from ..models.decoder import (greedy, paged_chained_decode,
                               paged_chained_decode_sampled,
@@ -91,6 +109,8 @@ from ..models.decoder import (greedy, paged_chained_decode,
                               int8_device_native, paged_prefill,
                               paged_prefill_sampled, plan_decode_params)
 from ..models.encoder import params_to
+from ..obs import memory as obs_memory
+from ..obs.profiler import ProfiledFunction, profiled
 from ..serve.admission import EngineFailedError, Priority
 from .backend import make_backend
 from .block_pool import PoolExhausted
@@ -159,6 +179,24 @@ class _WatchdogSync:
         return box["result"]
 
 
+def _mixed_args(a) -> tuple:
+    """The ragged step's index arrays, widened where the port gathers
+    with them: ``(tokens, positions, row_tables, row_start, row_nvalid,
+    row_token_idx, tok_row, tok_col, sb, so, logit_idx)``."""
+    (tokens, positions, row_tables, row_start, row_nvalid, row_token_idx,
+     tok_row, tok_col, sb, so, logit_idx) = a
+    return (tokens.long(), positions.long(), row_tables, row_start,
+            row_nvalid, row_token_idx.long(), tok_row.long(), tok_col.long(),
+            sb.long(), so.long(), logit_idx.long())
+
+
+def _samp_args(a) -> tuple:
+    """``(temperature, top_k, top_p, seed, emit)`` with the integer
+    fields widened for the sampling head."""
+    temp, top_k, top_p, seed, emit = a
+    return temp, top_k.long(), top_p, seed.long(), emit.long()
+
+
 def _norm_sampling(s) -> tuple | None:
     """A sampling spec (dict or 4-tuple) as ``(temperature, top_k, top_p,
     seed)``, or None for greedy.  A temperature-0 spec is KEPT: it rides
@@ -198,14 +236,14 @@ def _prio(v) -> int:
 class _Request:
     __slots__ = ("prompt", "max_new", "priority", "stop_token", "emitted",
                  "index", "on_done", "on_error", "sampling", "session",
-                 "on_token")
+                 "on_token", "t_arrival", "span", "ctx")
 
     def __init__(self, prompt, max_new: int, *, priority: int = 1,
                  stop_token: int | None = None, index: int | None = None,
                  on_done: Callable | None = None,
                  on_error: Callable | None = None, sampling=None,
                  session=None, on_token: Callable | None = None,
-                 emitted=None):
+                 emitted=None, trace: tuple | None = None):
         self.prompt = [int(t) for t in prompt]
         self.max_new = int(max_new)
         self.priority = int(priority)
@@ -222,6 +260,16 @@ class _Request:
         self.session = session
         # streams each emitted token as it lands (best-effort)
         self.on_token = on_token
+        self.t_arrival = time.perf_counter()
+        # the request's root span, opened when the engine learns of it
+        # (continuing the trace its scheduler submit minted, when given)
+        # and finished at delivery; admission/prefill/chain spans parent
+        # under it
+        self.span = obs.start_span(
+            "engine.request", ctx=trace,
+            prompt_tokens=len(self.prompt), max_new=self.max_new,
+        )
+        self.ctx = self.span.ctx
 
 
 class _Active:
@@ -262,18 +310,27 @@ class PagedDecodeEngine:
     (``None``/``"off"``, ``"ngram"``, ``"auto"``, a ``Drafter`` or a
     ``SpecController``) turns on speculative decoding for greedy rows.
     ``quantize`` (None or ``"int8"``) picks the plan's weights; ``name``
-    labels the engine (a fleet names its replicas)."""
+    labels the engine (a fleet names its replicas) and its pool's
+    counters.  Sizes left None are chosen from the HBM ledger, held to
+    ``hbm_budget_bytes`` (or what the card can hold) as ``hbm_fit``
+    says: ``"reject"`` raises, ``"clamp"`` shrinks the pool, ``"off"``
+    only reports."""
 
-    def __init__(self, cfg, params, *, num_blocks: int = 512,
-                 block_size: int = 16, max_blocks_per_seq: int | None = None,
-                 max_batch_size: int = 8, seq_buckets=(64, 256, 1024),
+    def __init__(self, cfg, params, *, num_blocks: int | None = None,
+                 block_size: int | None = None,
+                 max_blocks_per_seq: int | None = None,
+                 max_batch_size: int | None = None,
+                 seq_buckets=(64, 256, 1024),
                  prefix_sharing: bool = True, stop_token: int | None = None,
-                 prefill_chunk: int | None = None, chain_steps: int = 8,
+                 prefill_chunk: int | None = None,
+                 chain_steps: int | None = None,
                  chunked_prefill: bool = True,
                  max_restarts: int | None = None,
                  watchdog_timeout_s: float | None = None,
                  degrade_fn: Callable | None = None, session_store=None,
                  speculative=None, quantize: str | None = None,
+                 hbm_budget_bytes: int | None = None,
+                 hbm_fit: str = "reject",
                  name: str = "engine", device="cuda"):
         self.device = resolve_device(device)
         self.name = name
@@ -282,6 +339,10 @@ class PagedDecodeEngine:
         self.dtype = resolve_dtype(cfg.dtype, self.device)
         if quantize not in (None, "int8"):
             raise ValueError(f"quantize={quantize!r} is not None or 'int8'")
+        if hbm_fit not in ("reject", "clamp", "off"):
+            raise ValueError(
+                f"hbm_fit={hbm_fit!r} is not one of 'reject', 'clamp', "
+                "'off'")
         self.quantize = quantize
         self.base_params = params
         # quantized where the checkpoint lies (f32), then moved: an int8
@@ -291,13 +352,65 @@ class PagedDecodeEngine:
             plan_decode_params(cfg, params, quantize=quantize,
                                native=int8_device_native(None, self.device)),
             self.device, self.dtype)
-        self.max_batch_size = int(max_batch_size)
+        # the plain attention path (gathered K/V temps) runs exactly on
+        # the CPU; on the card the paged kernels keep them on chip
+        self.reference_attn = self.device.type != "cuda"
+        # pre-flight HBM fit: params + KV pool + step temps must fit the
+        # budget BEFORE any allocation; unset shapes are chosen from the
+        # same ledger's what-ifs, over the decode plan's own tensors (an
+        # int8 plan billed at its byte width)
+        auto = obs_memory.choose_engine_config(
+            cfg, params=self.params, dtype=self.dtype,
+            budget_bytes=hbm_budget_bytes,
+            reference_attn=self.reference_attn,
+            prefill_chunk=prefill_chunk, num_blocks=num_blocks,
+            block_size=block_size, max_batch_size=max_batch_size,
+            chain_steps=chain_steps, device=self.device,
+        )
+        num_blocks = auto["num_blocks"]
+        block_size = auto["block_size"]
+        chain_steps = auto["chain_steps"]
+        self.max_batch_size = int(auto["max_batch_size"])
+        self.auto_config = {
+            "chosen": auto["chosen"], "source": auto["source"],
+            "num_blocks": num_blocks, "block_size": block_size,
+            "max_batch_size": self.max_batch_size,
+            "chain_steps": chain_steps, "quantize": quantize,
+        }
+        # built FRESH from the resolved shapes: the verdict enforced is
+        # exactly what re-running hbm_plan with these numbers gives
+        self.hbm_plan = obs_memory.hbm_plan(
+            cfg, num_blocks=int(num_blocks), block_size=int(block_size),
+            max_batch_size=self.max_batch_size,
+            chain_steps=max(1, int(chain_steps)),
+            prefill_chunk=prefill_chunk, dtype=self.dtype,
+            params=self.params, budget_bytes=hbm_budget_bytes,
+            reference_attn=self.reference_attn, device=self.device,
+        )
+        if auto["chosen"] and self.hbm_plan.budget_bytes is not None \
+                and not self.hbm_plan.fits:
+            raise AssertionError(
+                "auto-chosen engine config must re-construct as fitting: "
+                + self.hbm_plan.reject_message())
+        if self.hbm_plan.budget_bytes is not None \
+                and not self.hbm_plan.fits and hbm_fit != "off":
+            clamped = (self.hbm_plan.max_fitting_num_blocks()
+                       if hbm_fit == "clamp" else None)
+            if clamped is None or clamped < 2:
+                raise ValueError(self.hbm_plan.reject_message())
+            logger.warning(
+                "engine %s does not fit HBM at num_blocks=%d; clamping to "
+                "%d (budget %.1fMB, %s)", name, int(num_blocks), clamped,
+                self.hbm_plan.budget_bytes / 1048576,
+                self.hbm_plan.budget_source)
+            num_blocks = clamped
+            self.hbm_plan = self.hbm_plan.with_(num_blocks=clamped)
         # kept so a supervised restart can rebuild the pool from scratch
         self._pool_kwargs = dict(
             num_blocks=num_blocks, block_size=block_size,
             n_layers=cfg.n_layers, n_heads=cfg.n_heads,
             head_dim=cfg.d_model // cfg.n_heads, dtype=self.dtype,
-            device=self.device,
+            name=name, device=self.device,
         )
         self.pool = make_backend("paged", **self._pool_kwargs)
         self._prefix_sharing = bool(prefix_sharing)
@@ -346,7 +459,7 @@ class PagedDecodeEngine:
         self._watchdog = (_WatchdogSync() if self.watchdog_timeout_s
                           else None)
         self.n_restarts = 0
-        # requests completed by degrade_fn (the JAX package's
+        # requests completed by degrade_fn (also the pool's
         # record_engine_degrade counter)
         self.n_degraded = 0
         self.rounds = {"mixed": 0, "decode": 0, "chain": 0, "prefill": 0,
@@ -354,13 +467,56 @@ class PagedDecodeEngine:
         self._seq_counter = 0
         self._lock = threading.RLock()
         self._run_id: str | None = None
+        # device-busy / host-gap accounting: _note_dispatch opens the
+        # device window (closing any host gap), _note_sync closes it
+        self._t_device_idle: float | None = None
+        self._t_dispatch: float | None = None
+        self._t_failure: float | None = None
+        self._dispatch_kind = "step"
+        self._run_ctx: tuple = (obs.new_trace_id(), 0)
         # chain key -> (writer _Active, physical block) for blocks an
         # in-flight chunked prefill is still writing (per run)
         self._inflight_prefix: dict = {}
-        # the *_sampled programs, looked up on the first sampled round: a
-        # greedy-only workload never touches them
+        self._build_programs()
+        # the *_sampled programs and the verify program, built on first
+        # use: a greedy-only, non-speculative workload never touches them
         self._sampled: dict | None = None
+        self._verify: ProfiledFunction | None = None
+        # resolution may bill a draft model against this engine's ledger,
+        # so it runs after hbm_plan
         self._spec = resolve_speculative(speculative, self)
+
+    def _build_programs(self) -> None:
+        """The greedy step programs, each registered in the device cost
+        observatory under the reference's name.  They take the
+        reference's arguments (int32 index arrays, the configuration
+        closed over) and widen the indices the port's math gathers with."""
+        cfg, sfx = self.cfg, self._prog_suffix
+
+        def _step_fn(p, k_pool, v_pool, token, positions, bt, sb, so):
+            logits, k_pool, v_pool = paged_decode_step(
+                p, cfg, k_pool, v_pool, token.long(), positions.long(), bt,
+                sb, so)
+            return greedy(logits), k_pool, v_pool
+
+        def _mixed_fn(p, k_pool, v_pool, *rest):
+            logits, k_pool, v_pool = paged_mixed_step(
+                p, cfg, k_pool, v_pool, *_mixed_args(rest))
+            return greedy(logits), k_pool, v_pool
+
+        def _chained_fn(p, k_pool, v_pool, token, positions, bt, sb, so):
+            return paged_chained_decode(p, cfg, k_pool, v_pool, token.long(),
+                                        positions.long(), bt, sb, so)
+
+        def _prefill_fn(p, token_ids, n_valid, k_pool, v_pool, bt):
+            logits, k_pool, v_pool = paged_prefill(
+                p, cfg, token_ids.long(), n_valid.long(), k_pool, v_pool, bt)
+            return greedy(logits), k_pool, v_pool
+
+        self._step = profiled(f"pw.decode_step{sfx}", _step_fn)
+        self._mixed = profiled(f"pw.mixed_step{sfx}", _mixed_fn)
+        self._chained = profiled(f"pw.chained_decode{sfx}", _chained_fn)
+        self._prefill = profiled(f"pw.prefill{sfx}", _prefill_fn)
 
     def _dev(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(a).to(self.device)
@@ -372,15 +528,58 @@ class PagedDecodeEngine:
 
     # -- sampling ----------------------------------------------------------
     def _sampled_programs(self) -> dict:
-        """The sampled twins of the step programs, bound on first use."""
+        """The sampled twins of the step programs (``pw.*_sampled``),
+        built on first use."""
         if self._sampled is None:
+            cfg, sfx = self.cfg, self._prog_suffix
+
+            def _step_fn(p, k_pool, v_pool, token, positions, bt, sb, so,
+                         *samp):
+                return paged_decode_step_sampled(
+                    p, cfg, k_pool, v_pool, token.long(), positions.long(),
+                    bt, sb, so, *_samp_args(samp))
+
+            def _mixed_fn(p, k_pool, v_pool, *rest):
+                return paged_mixed_step_sampled(
+                    p, cfg, k_pool, v_pool, *_mixed_args(rest[:11]),
+                    *_samp_args(rest[11:]))
+
+            def _chained_fn(p, k_pool, v_pool, token, positions, bt, sb, so,
+                            *samp):
+                return paged_chained_decode_sampled(
+                    p, cfg, k_pool, v_pool, token.long(), positions.long(),
+                    bt, sb, so, *_samp_args(samp))
+
+            def _prefill_fn(p, token_ids, n_valid, k_pool, v_pool, bt,
+                            *samp):
+                return paged_prefill_sampled(
+                    p, cfg, token_ids.long(), n_valid.long(), k_pool, v_pool,
+                    bt, *_samp_args(samp))
+
             self._sampled = {
-                "step": paged_decode_step_sampled,
-                "mixed": paged_mixed_step_sampled,
-                "chained": paged_chained_decode_sampled,
-                "prefill": paged_prefill_sampled,
+                "step": profiled(f"pw.decode_step_sampled{sfx}", _step_fn),
+                "mixed": profiled(f"pw.mixed_step_sampled{sfx}", _mixed_fn),
+                "chained": profiled(f"pw.chained_decode_sampled{sfx}",
+                                    _chained_fn),
+                "prefill": profiled(f"pw.prefill_sampled{sfx}", _prefill_fn),
             }
         return self._sampled
+
+    def _verify_program(self):
+        """The verify program (``pw.verify_step``), built on the first
+        speculative round: the ragged mixed step with one argmax per
+        packed query position."""
+        if self._verify is None:
+            cfg = self.cfg
+
+            def _verify_fn(p, k_pool, v_pool, *rest):
+                logits, k_pool, v_pool = paged_mixed_step(
+                    p, cfg, k_pool, v_pool, *_mixed_args(rest))
+                return greedy(logits), k_pool, v_pool
+
+            self._verify = profiled(f"pw.verify_step{self._prog_suffix}",
+                                    _verify_fn)
+        return self._verify
 
     def _sampling_arrays(self, entries, B: int):
         """Per-row ``(temperature, top_k, top_p, seed, emit_idx)`` device
@@ -390,10 +589,10 @@ class PagedDecodeEngine:
         if not any(req.sampling is not None for _i, req in entries):
             return None
         temp = np.zeros(B, np.float32)
-        top_k = np.zeros(B, np.int64)
+        top_k = np.zeros(B, np.int32)
         top_p = np.ones(B, np.float32)
-        seed = np.zeros(B, np.int64)
-        emit = np.zeros(B, np.int64)
+        seed = np.zeros(B, np.int32)
+        emit = np.zeros(B, np.int32)
         for i, req in entries:
             emit[i] = len(req.emitted)
             if req.sampling is not None:
@@ -418,15 +617,24 @@ class PagedDecodeEngine:
         import functools
 
         poll = None
+        traces = []
         if scheduler is not None:
             def poll(n):
+                # the request's trace context rides along, so the engine's
+                # spans parent under the scheduler's submit root
                 return [
                     ((list(w.payload[0]), int(w.payload[1]))
                      + tuple(w.payload[2:4]), _prio(w.priority),
                      functools.partial(scheduler.complete_inflight, w),
-                     functools.partial(scheduler.fail_inflight, w))
+                     functools.partial(scheduler.fail_inflight, w),
+                     getattr(w, "trace", None))
                     for w in scheduler.poll_inflight(n)
                 ]
+
+            # the batch's own waiters (size-bucket padding repeats the last
+            # payload past them: those get fresh traces)
+            traces = [getattr(w, "trace", None)
+                      for w in getattr(scheduler, "_inflight_waiters", ())]
 
         def norm(r):
             priority, opts = _payload_extras(r)
@@ -434,11 +642,12 @@ class PagedDecodeEngine:
             return base + (opts,) if opts is not None else base
 
         return self.generate_batch([norm(r) for r in reqs], poll=poll,
-                                   return_exceptions=True)
+                                   return_exceptions=True, traces=traces)
 
     def generate_batch(self, requests, *, poll: Callable | None = None,
                        stop_token: int | None = None,
-                       return_exceptions: bool = False) -> list[list[int]]:
+                       return_exceptions: bool = False,
+                       traces=None) -> list[list[int]]:
         """Decode ``(prompt_ids, max_new[, priority][, options])``
         requests; ``options`` may hold ``sampling=(temperature, top_k,
         top_p, seed)`` (or the dict form), ``session`` (a tiering session
@@ -451,7 +660,8 @@ class PagedDecodeEngine:
         callbacks.  ``return_exceptions=True`` places a per-request
         exception in its result slot instead of raising.  An engine
         failure past the restart budget reaches every request as an
-        ``EngineFailedError``."""
+        ``EngineFailedError``.  ``traces`` gives each request's trace
+        context (a scheduler's ``serve_batch`` passes its waiters')."""
         stop = self.stop_token if stop_token is None else stop_token
         pending: deque[_Request] = deque()
         for i, r in enumerate(requests):
@@ -462,12 +672,17 @@ class PagedDecodeEngine:
                 index=i, sampling=opts.get("sampling"),
                 session=opts.get("session"), on_token=opts.get("on_token"),
                 emitted=opts.get("emitted"),
+                trace=traces[i] if traces and i < len(traces) else None,
             ))
         results: list[Any] = [None] * len(requests)
         errors: list[BaseException] = []
         outstanding = {"n": len(requests)}
 
         def deliver(req: _Request, err: BaseException | None = None) -> None:
+            # delivery closes the request's root span (finish() is
+            # idempotent)
+            req.span.finish(outcome="error" if err is not None else "done",
+                            emitted=len(req.emitted))
             if req.on_done is None and req.on_error is None:
                 outstanding["n"] -= 1
             if err is not None:
@@ -490,6 +705,10 @@ class PagedDecodeEngine:
 
         with self._lock:
             self._run_loop(pending, deliver, poll, stop)
+        if self._spec is not None:
+            # batch end: the controller's measured (drafter, K) aggregate
+            # lands in the cost store, the prior speculative="auto" reads
+            self._spec.flush()
         if errors:
             raise errors[0]
         return results
@@ -498,43 +717,66 @@ class PagedDecodeEngine:
     def _run_loop(self, pending, deliver, poll, stop) -> None:
         running: list[_Active] = []
         self._inflight_prefix.clear()
-        self._run_id = uuid.uuid4().hex[:16]
+        # a dangling idle mark from the previous batch's last sync would
+        # bill the inter-batch wait to this batch's first dispatch
+        self._t_device_idle = None
+        self._t_dispatch = None
+        self._t_failure = None
+        # the engine-run trace: device-busy / host-gap / sync spans of
+        # this run under one root (requests keep their own traces)
+        run_span = obs.start_span("engine.run", ctx=(obs.new_trace_id(), 0),
+                                  pool=self.pool.name)
+        self._run_ctx = run_span.ctx
+        self._run_id = run_span.trace_id
         attempts_left = self.max_restarts
         while True:
             try:
                 self._loop_body(running, pending, deliver, poll, stop)
-                return
+                break
             except BaseException as exc:
                 self._inflight_prefix.clear()
                 err = exc
                 if attempts_left > 0 and isinstance(err, Exception):
                     attempts_left -= 1
+                    obs.recorder().dump_on_failure("engine_failure", err)
                     # the traceback's frames reference the dead pool:
                     # drop them so its memory can be released
                     err.__traceback__ = None
                     try:
-                        self._restart(running, pending, err)
+                        self._restart(running, pending, err,
+                                      self.max_restarts - attempts_left)
                         continue
                     except BaseException as rexc:  # noqa: BLE001
                         err = rexc  # the rebuild failed: budget is moot
+                # the run span closes with its error FIRST and the dump is
+                # written BEFORE the deliveries, so every typed error
+                # carries THIS failure's dump path
+                run_span.finish(error=type(err).__name__)
+                obs.recorder().dump_on_failure("engine_failure", err)
                 self._fail_all(running, pending, deliver, err)
                 if not isinstance(err, Exception):
                     raise err  # KeyboardInterrupt/SystemExit propagate
-                return
+                break
+        run_span.finish()
 
-    def _restart(self, running, pending, exc: BaseException) -> None:
+    def _restart(self, running, pending, exc: BaseException,
+                 attempt: int) -> None:
         """Rebuild the failure domain (a fresh BlockPool and PrefixCache)
         and requeue every in-flight request with its emitted tokens, so
         admission recomputes prompt + emitted.  The survivors are
         requeued BEFORE the rebuild: if it fails (a sticky device error,
         say), the terminal path still sees every request."""
-        t0 = time.perf_counter()
+        self._t_failure = time.perf_counter()
+        t0 = self._t_failure
         survivors = [act.req for act in running]
         running.clear()
         for req in survivors:
             self._requeue(pending, req)
         self.prefix = None
+        # release the dead pool's name first, so its replacement
+        # re-attaches to the same monotonic counters
         old_pool, self.pool = self.pool, None
+        old_pool.retire()
         try:
             self.pool = make_backend("paged", **self._pool_kwargs)
         except BaseException:
@@ -543,12 +785,24 @@ class PagedDecodeEngine:
             raise
         del old_pool
         self.prefix = PrefixCache(self.pool) if self._prefix_sharing else None
+        self._t_device_idle = None
+        self._t_dispatch = None
+        self._restarted(attempt, exc, t0, len(survivors))
+
+    def _restarted(self, attempt: int, exc: BaseException, t0: float,
+                   n_survivors: int) -> None:
+        """Account one supervised restart whose rebuild began at ``t0``."""
         self.n_restarts += 1
+        rebuild_s = time.perf_counter() - t0
+        self.pool.kv_stats.record_engine_restart(rebuild_s)
+        obs.event("engine.restart", ctx=self._run_ctx, attempt=attempt,
+                  error=type(exc).__name__, rebuild_s=round(rebuild_s, 4),
+                  inflight=n_survivors)
         logger.warning(
-            "engine%s restart #%d after %s: %s — pool rebuilt in %.3fs, "
-            "re-admitting %d in-flight request(s) by recompute",
-            self._prog_suffix, self.n_restarts, type(exc).__name__, exc,
-            time.perf_counter() - t0, len(survivors),
+            "engine %s%s restart #%d after %s: %s — cache rebuilt in "
+            "%.3fs, re-admitting %d in-flight request(s) by recompute",
+            self.name, self._prog_suffix, self.n_restarts,
+            type(exc).__name__, exc, rebuild_s, n_survivors,
         )
 
     def _fail_all(self, running, pending, deliver, exc: BaseException) -> None:
@@ -556,6 +810,8 @@ class PagedDecodeEngine:
         ``degrade_fn`` (when one is given and the failure is an
         ``Exception``), or gets a typed EngineFailedError (callers
         blocked on a callback must not hang)."""
+        # terminal: no recovery window closes against this failure
+        self._t_failure = None
         for act in running:
             try:
                 self.pool.free_sequence(act.seq_id)
@@ -608,6 +864,8 @@ class PagedDecodeEngine:
         # delivery is outside the try: a raising on_done must propagate,
         # not turn a delivered success into a second (error) delivery
         self.n_degraded += 1
+        obs.event("engine.degraded", ctx=req.ctx, emitted=len(req.emitted))
+        self.pool.kv_stats.record_engine_degrade()
         logger.warning("engine %s: a stranded request was completed by "
                        "its degrade_fn (%d tokens from the engine, %d from "
                        "the degrade tier)", self.name, n_engine,
@@ -621,6 +879,7 @@ class PagedDecodeEngine:
         return EngineFailedError(
             f"decode engine failed{budget}: {type(exc).__name__}: {exc}",
             retry_after_s=5.0, trace_id=self._run_id,
+            dump_path=obs.recorder().last_dump_path,
         )
 
     def _admit_arrivals(self, running, pending, poll, stop) -> None:
@@ -629,6 +888,8 @@ class PagedDecodeEngine:
         budget = self.max_batch_size - len(running) - len(pending)
         for item in (poll(budget) if budget > 0 else ()):
             payload, priority, on_done, on_error = item[:4]
+            # an optional 5th element is the request's trace context
+            trace = item[4] if len(item) > 4 else None
             _p, opts = _payload_extras(payload)
             opts = opts or {}
             self._requeue(pending, _Request(
@@ -636,15 +897,23 @@ class PagedDecodeEngine:
                 on_done=on_done, on_error=on_error,
                 sampling=opts.get("sampling"), session=opts.get("session"),
                 on_token=opts.get("on_token"), emitted=opts.get("emitted"),
+                trace=trace,
             ))
 
     def _loop_body(self, running, pending, deliver, poll, stop) -> None:
         while pending or running:
             self._admit_arrivals(running, pending, poll, stop)
             while pending and len(running) < self.max_batch_size:
-                status = self._try_admit(pending[0], running, deliver)
+                req = pending[0]
+                t0a = time.perf_counter()
+                status = self._try_admit(req, running, deliver)
                 if status == "wait":
+                    # recurs every round while the pool is full: the
+                    # blocked time shows as the request-start -> admission
+                    # gap instead of a flood of spans
                     break
+                obs.record_span("engine.admission", t0a, time.perf_counter(),
+                                ctx=req.ctx, outcome=status)
                 pending.popleft()
             if not running:
                 break
@@ -668,6 +937,9 @@ class PagedDecodeEngine:
         pending.insert(idx, req)
 
     def _emit(self, req: _Request, token_id: int) -> None:
+        """Record one emitted token; the FIRST token of a request closes
+        its time-to-first-token window, and the first token after a
+        supervised restart closes the recovery window."""
         req.emitted.append(token_id)
         if req.on_token is not None:
             # a broken stream consumer must not take the batch down
@@ -676,6 +948,48 @@ class PagedDecodeEngine:
             except Exception:  # noqa: BLE001
                 logger.warning("on_token callback failed; continuing decode",
                                exc_info=True)
+        if len(req.emitted) == 1:
+            self.pool.kv_stats.record_ttft(time.perf_counter() - req.t_arrival)
+        if self._t_failure is not None:
+            self.pool.kv_stats.record_engine_recovery(
+                time.perf_counter() - self._t_failure)
+            self._t_failure = None
+
+    def _note_sync(self) -> None:
+        """A device->host sync just returned with nothing queued behind
+        it: the dispatch->sync window lands as an ``engine.device.<kind>``
+        span (device busy) and the device is idle until the next
+        dispatch."""
+        now = time.perf_counter()
+        if self._t_dispatch is not None:
+            obs.record_span("engine.device." + self._dispatch_kind,
+                            self._t_dispatch, now, ctx=self._run_ctx)
+            self._t_dispatch = None
+        self._t_device_idle = now
+
+    def _note_dispatch(self, kind: str) -> float:
+        """Open a dispatch window (closing the host gap since the last
+        sync: an ``engine.host_gap`` span and the pool's host-gap
+        counter); returns its start."""
+        now = time.perf_counter()
+        if self._t_device_idle is not None:
+            self.pool.kv_stats.record_host_gap(now - self._t_device_idle)
+            obs.record_span("engine.host_gap", self._t_device_idle, now,
+                            ctx=self._run_ctx)
+            self._t_device_idle = None
+        self._t_dispatch = now
+        self._dispatch_kind = kind
+        return now
+
+    def _synced(self, ids) -> tuple[np.ndarray, float]:
+        """The round's ids on the host, the ``engine.sync`` span recorded
+        and the device window closed; returns ``(ids, t_sync_end)``."""
+        t_sync0 = time.perf_counter()
+        ids = self._sync_host(ids)
+        t_sync1 = time.perf_counter()
+        obs.record_span("engine.sync", t_sync0, t_sync1, ctx=self._run_ctx)
+        self._note_sync()
+        return ids, t_sync1
 
     def _sync_host(self, ids: torch.Tensor) -> np.ndarray:
         """Device->host copy of a round's ids, watchdog-bounded when
@@ -760,6 +1074,7 @@ class PagedDecodeEngine:
         sess_entry = (self.session_store.match(req.session, tokens)
                       if use_session else None)
         state = None
+        attempt = 0
         while state is None:
             shared, keys, writer = [], [], None
             if self.prefix is not None and not use_session:
@@ -773,6 +1088,13 @@ class PagedDecodeEngine:
                         break
                     writer = ent[0]
                     shared.append(ent[1])
+                if attempt == 0:  # an eviction retry is the same admission
+                    hits = len(shared)
+                    if hits:
+                        self.pool.kv_stats.record_prefix_hit(hits)
+                    if len(keys) - hits:
+                        self.pool.kv_stats.record_prefix_miss(len(keys) - hits)
+            attempt += 1
             try:
                 state = self.pool.allocate(seq_id, n, shared_blocks=shared,
                                            priority=req.priority)
@@ -840,25 +1162,29 @@ class PagedDecodeEngine:
         seq = self.pool.sequence(seq_id)
         try:
             bucket = next(b for b in self.seq_buckets if b >= n)
-            buf = np.zeros((1, bucket), np.int64)
+            buf = np.zeros((1, bucket), np.int32)
             buf[0, :n] = tokens
             scatter_bt = np.zeros((1, bucket // self.pool.block_size),
                                   np.int32)
             scatter_bt[0, : len(seq.block_ids)] = seq.block_ids
             scatter_bt[0, : len(shared)] = 0
-            args = (self.params, self.cfg, self._dev(buf),
-                    self._dev(np.array([n], np.int64)), self.pool.k,
+            args = (self.params, self._dev(buf),
+                    self._dev(np.array([n], np.int32)), self.pool.k,
                     self.pool.v, self._dev(scatter_bt))
             faults.fire("engine.dispatch.prefill")
+            t_disp = self._note_dispatch("prefill")
             if req.sampling is None:
-                logits, _, _ = paged_prefill(*args)
-                ids = greedy(logits)
+                prog = self._prefill
+                ids, _, _ = prog(*args)
             else:
                 samp = self._sampling_arrays([(0, req)], 1)
-                ids, _, _ = self._sampled_programs()["prefill"](*args, *samp)
+                prog = self._sampled_programs()["prefill"]
+                ids, _, _ = prog(*args, *samp)
             # the sync stays inside the cleanup: a failed sync must not
             # leak the just-prefilled blocks
-            first = int(self._sync_host(ids)[0])
+            ids, t_end = self._synced(ids)
+            first = int(ids[0])
+            prog.record_dispatch(t_end - t_disp, t_end=t_end, items=n)
             self.rounds["prefill"] += 1
             if self.prefix is not None:
                 # insert() keeps only the full-block keys: the partial
@@ -934,8 +1260,11 @@ class PagedDecodeEngine:
             ks.append(max(0, min(spec.k, rem - 1)))
         if faults.fire("engine.draft") == "drop":
             return False  # drafting suppressed: the plain paths serve
+        t_d0 = time.perf_counter()
         proposals = spec.propose_batch(
             [self._draft_context(a) for a in acts], ks)
+        obs.record_span("engine.draft", t_d0, time.perf_counter(),
+                        ctx=self._run_ctx)
         prop_of = {id(a): [int(t) for t in p][:k]
                    for a, p, k in zip(acts, proposals, ks)}
         if not any(prop_of.values()):
@@ -956,17 +1285,17 @@ class PagedDecodeEngine:
         B = self.max_batch_size
         T = B * C
         NB = self.max_blocks_per_seq
-        tokens = np.zeros(T, np.int64)
-        positions = np.zeros(T, np.int64)
-        sb = np.zeros(T, np.int64)
-        so = np.zeros(T, np.int64)
+        tokens = np.zeros(T, np.int32)
+        positions = np.zeros(T, np.int32)
+        sb = np.zeros(T, np.int32)
+        so = np.zeros(T, np.int32)
         row_tables = np.zeros((B, NB), np.int32)
         row_start = np.zeros(B, np.int32)
         row_nvalid = np.ones(B, np.int32)
-        row_token_idx = np.zeros((B, C), np.int64)
-        tok_row = np.zeros(T, np.int64)
-        tok_col = np.zeros(T, np.int64)
-        logit_idx = np.zeros(T, np.int64)
+        row_token_idx = np.zeros((B, C), np.int32)
+        tok_row = np.zeros(T, np.int32)
+        tok_col = np.zeros(T, np.int32)
+        logit_idx = np.zeros(T, np.int32)
         rows: list[tuple[_Active, int, int]] = []
         for i, (act, slots) in enumerate(reserved):
             nv = len(slots)
@@ -990,15 +1319,16 @@ class PagedDecodeEngine:
             logit_idx[base:base + C] = base + cols
             rows.append((act, i, nv))
         faults.fire("engine.dispatch.verify")
-        t_disp = time.perf_counter()
+        t_disp = self._note_dispatch("verify")
         d = self._dev
-        logits, _, _ = paged_mixed_step(
-            self.params, self.cfg, pool.k, pool.v, d(tokens), d(positions),
+        prog = self._verify_program()
+        ids, _, _ = prog(
+            self.params, pool.k, pool.v, d(tokens), d(positions),
             d(row_tables), d(row_start), d(row_nvalid), d(row_token_idx),
             d(tok_row), d(tok_col), d(sb), d(so), d(logit_idx),
         )
-        ids = self._sync_host(greedy(logits))
-        ms = (time.perf_counter() - t_disp) * 1e3
+        ids, t_sync1 = self._synced(ids)
+        ms = (t_sync1 - t_disp) * 1e3
         self.rounds["verify"] += 1
         # packed position base+c holds the target's argmax after input
         # token c (c = 0: the row's last emitted token; c >= 1: draft
@@ -1030,10 +1360,16 @@ class PagedDecodeEngine:
             # phantom K/V past the round
             if nv - emitted_n:
                 pool.truncate_slots(act.seq_id, nv - emitted_n)
+            obs.record_span("engine.verify", t_disp, t_sync1, ctx=req.ctx,
+                            k=nv - 1, accepted=emitted_n - 1)
             # capacity is judged AFTER the rollback
             if finished or pool.sequence(
                     act.seq_id).n_tokens >= self.max_seq_tokens:
                 done.append(act)
+        prog.record_dispatch(t_sync1 - t_disp, t_end=t_sync1,
+                             items=n_emitted)
+        pool.kv_stats.record_spec(proposed=n_proposed, accepted=n_accepted,
+                               emitted=n_emitted)
         for act in done:
             self._finish(act, running, deliver)
             # a finished stream is drafter training data
@@ -1082,8 +1418,8 @@ class PagedDecodeEngine:
             return None
         B = self.max_batch_size
         NB = self.max_blocks_per_seq
-        token = np.zeros(B, np.int64)
-        positions = np.zeros(B, np.int64)
+        token = np.zeros(B, np.int32)
+        positions = np.zeros(B, np.int32)
         sb = np.zeros((B, K), np.int32)
         so = np.zeros((B, K), np.int32)
         bt = np.zeros((B, NB), np.int32)
@@ -1103,22 +1439,28 @@ class PagedDecodeEngine:
         # draws exactly what K single steps would
         samp = self._sampling_arrays([(i, a.req) for i, a in enumerate(acts)],
                                      B)
-        args = (self.params, self.cfg, pool.k, pool.v, self._dev(token),
+        args = (self.params, pool.k, pool.v, self._dev(token),
                 self._dev(positions), self._dev(bt), self._dev(sb),
                 self._dev(so))
         faults.fire("engine.dispatch.chain")
+        t_disp = self._note_dispatch("chain")
         if samp is None:
-            ids, _, _ = paged_chained_decode(*args)
+            prog = self._chained
+            ids, _, _ = prog(*args)
         else:
-            ids, _, _ = self._sampled_programs()["chained"](*args, *samp)
+            prog = self._sampled_programs()["chained"]
+            ids, _, _ = prog(*args, *samp)
         self.rounds["chain"] += 1
-        return acts, kreal, ids
+        return acts, kreal, ids, t_disp, prog
 
-    def _scan_chain(self, acts, kreal, ids_np, running) -> list[_Active]:
+    def _scan_chain(self, acts, kreal, ids_np, running
+                    ) -> tuple[list[_Active], int]:
         """Truncating emit of one synced chain: each row's ids in order
         until EOS / max_new / capacity closes it (the per-step done rule,
-        token by token).  Returns the finished rows."""
+        token by token).  Returns the finished rows and the number of
+        tokens emitted."""
         done = []
+        n_emitted = 0
         for i, act in enumerate(acts):
             if not any(a is act for a in running):
                 continue  # preempted after dispatch; results are void
@@ -1126,6 +1468,7 @@ class PagedDecodeEngine:
             finished = False
             for t in range(kreal[i]):
                 self._emit(req, int(ids_np[i, t]))
+                n_emitted += 1
                 if len(req.emitted) >= req.max_new or (
                         req.stop_token is not None
                         and req.emitted[-1] == req.stop_token):
@@ -1134,7 +1477,7 @@ class PagedDecodeEngine:
             if finished or self.pool.sequence(
                     act.seq_id).n_tokens >= self.max_seq_tokens:
                 done.append(act)
-        return done
+        return done, n_emitted
 
     def _chained_rounds(self, running, pending, deliver, poll, stop) -> bool:
         """Chains back to back: each iteration dispatches chain N+1 (its
@@ -1148,9 +1491,16 @@ class PagedDecodeEngine:
             return False
         while True:
             self._admit_arrivals(running, pending, poll, stop)
-            acts, kreal, ids_dev = inflight
-            ids_np = self._sync_host(ids_dev)  # ONE sync per K-token chain
-            done = self._scan_chain(acts, kreal, ids_np, running)
+            acts, kreal, ids_dev, t_disp, prog = inflight
+            # ONE sync per K-token chain; it passes chain N's events (and
+            # not chain N+1's, which is dispatched after it)
+            ids_np, t_sync1 = self._synced(ids_dev)
+            for i, act in enumerate(acts):
+                obs.record_span("engine.chain", t_disp, t_sync1,
+                                ctx=act.req.ctx, k=kreal[i])
+            done, n_emitted = self._scan_chain(acts, kreal, ids_np, running)
+            prog.record_dispatch(t_sync1 - t_disp, t_end=t_sync1,
+                                 items=n_emitted)
             for act in done:
                 running.remove(act)
                 self._release_seq(act)
@@ -1165,6 +1515,9 @@ class PagedDecodeEngine:
                     raise
             for act in done:
                 deliver(act.req)
+            self.pool.kv_stats.record_chain(
+                steps=self.chain_steps, slots=len(acts) * self.chain_steps,
+                emitted=n_emitted)
             if nxt is None:
                 return True
             inflight = nxt
@@ -1172,8 +1525,8 @@ class PagedDecodeEngine:
     def _decode_round(self, reserved, running, deliver) -> None:
         B = self.max_batch_size
         NB = self.max_blocks_per_seq
-        token = np.zeros(B, np.int64)
-        positions = np.zeros(B, np.int64)
+        token = np.zeros(B, np.int32)
+        positions = np.zeros(B, np.int32)
         sb = np.zeros(B, np.int32)
         so = np.zeros(B, np.int32)
         bt = np.zeros((B, NB), np.int32)
@@ -1185,17 +1538,27 @@ class PagedDecodeEngine:
             bt[i, : len(seq.block_ids)] = seq.block_ids
         samp = self._sampling_arrays(
             [(i, act.req) for i, (act, _s) in enumerate(reserved)], B)
-        args = (self.params, self.cfg, self.pool.k, self.pool.v,
+        args = (self.params, self.pool.k, self.pool.v,
                 self._dev(token), self._dev(positions), self._dev(bt),
                 self._dev(sb), self._dev(so))
         faults.fire("engine.dispatch.step")
+        t_disp = self._note_dispatch("step")
         if samp is None:
-            logits, _, _ = paged_decode_step(*args)
-            ids = greedy(logits)
+            prog = self._step
+            ids, _, _ = prog(*args)
         else:
-            ids, _, _ = self._sampled_programs()["step"](*args, *samp)
-        ids = self._sync_host(ids)
+            prog = self._sampled_programs()["step"]
+            ids, _, _ = prog(*args, *samp)
+        ids, t_sync1 = self._synced(ids)
+        prog.record_dispatch(t_sync1 - t_disp, t_end=t_sync1,
+                             items=len(reserved))
         self.rounds["decode"] += 1
+        for act, _slot in reserved:
+            obs.record_span("engine.decode_step", t_disp, t_sync1,
+                            ctx=act.req.ctx)
+        # a per-step round is a K=1 chain in the chain histogram
+        self.pool.kv_stats.record_chain(steps=1, slots=len(reserved),
+                                     emitted=len(reserved))
         for i, (act, _slot) in enumerate(reserved):
             self._emit(act.req, int(ids[i]))
             if self._is_done(act.req, act.seq_id):
@@ -1210,17 +1573,17 @@ class PagedDecodeEngine:
         T = self.mixed_tokens
         NB = self.max_blocks_per_seq
         bs = self.pool.block_size
-        tokens = np.zeros(T, np.int64)
-        positions = np.zeros(T, np.int64)
-        sb = np.zeros(T, np.int64)
-        so = np.zeros(T, np.int64)
+        tokens = np.zeros(T, np.int32)
+        positions = np.zeros(T, np.int32)
+        sb = np.zeros(T, np.int32)
+        so = np.zeros(T, np.int32)
         row_tables = np.zeros((B, NB), np.int32)
         row_start = np.zeros(B, np.int32)
         row_nvalid = np.ones(B, np.int32)
-        row_token_idx = np.zeros((B, C), np.int64)
-        tok_row = np.zeros(T, np.int64)
-        tok_col = np.zeros(T, np.int64)
-        logit_idx = np.zeros(B, np.int64)
+        row_token_idx = np.zeros((B, C), np.int32)
+        tok_row = np.zeros(T, np.int32)
+        tok_col = np.zeros(T, np.int32)
+        logit_idx = np.zeros(B, np.int32)
         rows: list[tuple[_Active, int, int]] = []  # (act, row, filled|-1)
         t = 0
         row = 0
@@ -1262,7 +1625,7 @@ class PagedDecodeEngine:
             pos = np.arange(s, e)
             tokens[t:t + nv] = act.tokens[s:e]
             positions[t:t + nv] = pos
-            blocks = np.asarray(seq.block_ids, np.int64)
+            blocks = np.asarray(seq.block_ids, np.int32)
             # prefix-shared blocks already hold the right K/V: divert
             # their writes to the null block (a live sequence may be
             # reading them); the gather still reads them via the table
@@ -1294,18 +1657,22 @@ class PagedDecodeEngine:
             [(r, act.req) for act, r, f in rows
              if f < 0 or f == len(act.tokens)], B)
         d = self._dev
-        args = (self.params, self.cfg, self.pool.k, self.pool.v, d(tokens),
+        args = (self.params, self.pool.k, self.pool.v, d(tokens),
                 d(positions), d(row_tables), d(row_start), d(row_nvalid),
                 d(row_token_idx), d(tok_row), d(tok_col), d(sb), d(so),
                 d(logit_idx))
         faults.fire("engine.dispatch.mixed")
+        t_disp = self._note_dispatch("mixed")
         if samp is None:
-            logits, _, _ = paged_mixed_step(*args)
-            ids = greedy(logits)
+            prog = self._mixed
+            ids, _, _ = prog(*args)
         else:
-            ids, _, _ = self._sampled_programs()["mixed"](*args, *samp)
-        ids = self._sync_host(ids)
+            prog = self._sampled_programs()["mixed"]
+            ids, _, _ = prog(*args, *samp)
+        ids, t_sync1 = self._synced(ids)
+        prog.record_dispatch(t_sync1 - t_disp, t_end=t_sync1, items=t)
         self.rounds["mixed"] += 1
+        self._note_mixed(rows, t_disp, t_sync1)
         for act, row, filled in rows:
             if filled >= 0:
                 act.n_filled = filled
@@ -1324,6 +1691,26 @@ class PagedDecodeEngine:
             self._emit(act.req, int(ids[row]))
             if self._is_done(act.req, act.seq_id):
                 self._finish(act, running, deliver)
+
+    def _note_mixed(self, rows, t_disp: float, t_sync1: float) -> None:
+        """A mixed round's counters and spans: decode rows are a K=1
+        entry in the chain histogram; each row rides the dispatch as an
+        ``engine.decode_step`` or an ``engine.prefill_chunk`` span (the
+        chunk's [start, end) prompt positions) on its request's trace."""
+        self.pool.kv_stats.record_mixed_step(len(rows))
+        n_decode = sum(1 for _a, _r, f in rows if f < 0)
+        if n_decode:
+            self.pool.kv_stats.record_chain(steps=1, slots=n_decode,
+                                         emitted=n_decode)
+        self.pool.kv_stats.record_prefill_chunks(len(rows) - n_decode)
+        for act, _row, filled in rows:
+            if filled < 0:
+                obs.record_span("engine.decode_step", t_disp, t_sync1,
+                                ctx=act.req.ctx)
+            else:
+                obs.record_span("engine.prefill_chunk", t_disp, t_sync1,
+                                ctx=act.req.ctx, start=act.n_filled,
+                                end=filled)
 
     def _drop_inflight_keys(self, act: _Active) -> None:
         if self._inflight_prefix:

@@ -30,6 +30,7 @@ import math
 
 import torch
 
+from ..obs.profiler import add_kernel_cost, counting_cost
 from ..ops import _cuda
 
 _NEG = -1e9
@@ -180,6 +181,29 @@ def _require_aligned(*tensors):
                              "boundary")
 
 
+def attention_work(q, block_tables, c0, cl, append: bool
+                   ) -> tuple[float, float]:
+    """(operations, bytes) one launch's data needs, the roofline bound's
+    count: each row reads K and V of the tokens its last valid column
+    attends to, each valid column does 4 * hd operations per attended
+    token per head; an append also writes one K/V row a sequence.
+    Reads the contexts to the host: only a bucket's costed first call
+    asks (``obs.profiler.counting_cost``)."""
+    B, C, H, hd = q.shape
+    es = q.element_size()
+    cl_h = [int(x) for x in cl.tolist()]
+    c0_h = cl_h if c0 is None else [int(x) for x in c0.tolist()]
+    ctx_sum = 0
+    for b in range(B):
+        for c in range(min(max(cl_h[b] - c0_h[b] + 1, 0), C)):
+            ctx_sum += min(c0_h[b] + c, cl_h[b])
+    nbytes = (2 * q.numel() * es + 2 * sum(cl_h) * H * hd * es
+              + block_tables.numel() * 4 + 2 * B * 4)
+    if append:
+        nbytes += 2 * B * H * hd * es
+    return 4.0 * hd * H * ctx_sum, float(nbytes)
+
+
 def paged_attention_cuda(q, k_pool, v_pool, block_tables, c0, cl):
     """Launch the ragged kernel: q (B, C, H, hd) CUDA, contiguous;
     c0/cl (B,) int32 per-row column-0 / last-column contexts."""
@@ -200,6 +224,8 @@ def paged_attention_cuda(q, k_pool, v_pool, block_tables, c0, cl):
         B, C, H, hd, BS, block_tables.shape[1], RAGGED_SPLIT, n_split,
         _DTYPE_CODE[q.dtype], 1.0 / math.sqrt(hd),
     )
+    if counting_cost():
+        add_kernel_cost(*attention_work(q, block_tables, c0, cl, False))
     return out
 
 
@@ -231,6 +257,8 @@ def paged_append_attend_cuda(q, k_new, v_new, k_pool, v_pool, block_tables,
         B, H, hd, BS, block_tables.shape[1], APPEND_SPLIT, n_split,
         _DTYPE_CODE[q.dtype], 1.0 / math.sqrt(hd),
     )
+    if counting_cost():
+        add_kernel_cost(*attention_work(q, block_tables, None, cl, True))
     return out
 
 

@@ -98,6 +98,7 @@ class PrefixCache:
                 del self._entries[key]
                 del self._owned[block]
                 self.pool.decref(block)
+                self.pool.kv_stats.record_prefix_eviction()
                 return True
         return False
 

@@ -21,14 +21,14 @@ Drafters:
 
 :class:`SpecController` wraps a drafter with an EWMA accept rate: a
 drafter that keeps being refuted cools off (empty proposals, so the
-engine falls back to the chained decode) and re-probes later.
-
-Not ported yet: the JAX controller's cost-store write at batch end
-(``flush``, with the obs slice), the HBM-budget gate of the draft model's
-``bind`` (the port has no HBM ledger; the JAX package skips the gate too
-when no budget is set) and the cost-store pick of ``speculative="auto"``,
-which resolves to the n-gram drafter at its default K (the JAX answer
-when the store has no row).
+engine falls back to the chained decode) and re-probes later.  At each
+batch's end the controller records its measured (drafter, K) row in the
+cost store (``pw.spec_tier``), and ``speculative="auto"`` builds the
+drafter of the store's recorded ``pick`` row on this backend
+(:func:`_auto_drafter`).  A draft model is billed against its engine's
+HBM ledger at bind time (:class:`SpecResourceError` when it does not
+fit; the engine then falls back, logged, to the zero-HBM n-gram
+drafter).
 """
 
 from __future__ import annotations
@@ -43,6 +43,11 @@ import torch
 from .prefix_cache import chain_hashes
 
 logger = logging.getLogger(__name__)
+
+
+class SpecResourceError(RuntimeError):
+    """A drafter cannot be bound: its draft model does not fit the HBM
+    budget beside the engine."""
 
 
 class Drafter:
@@ -162,41 +167,65 @@ class DraftModelDrafter(Drafter):
         self.params = None
         self._B = 1
         self._device = None
+        self._prog = None
 
     def bind(self, engine) -> None:
+        """Plan the draft model onto the engine's device, billed against
+        the engine's HBM ledger first: its bytes, as pool-block
+        equivalents, must fit beside the engine's own pool."""
         from .._device import resolve_dtype
-        from ..models.decoder import (int8_device_native, params_to,
-                                      plan_decode_params)
+        from ..models.decoder import (draft_propose, int8_device_native,
+                                      params_to, plan_decode_params)
+        from ..obs.memory import tensors
+        from ..obs.profiler import profiled
 
+        plan = plan_decode_params(
+            self.cfg, self.base_params, quantize=self.quantize,
+            native=int8_device_native(None, engine.device))
+        dtype = resolve_dtype(self.cfg.dtype, engine.device)
+        # billed at the width each tensor will be resident at
+        width = torch.empty((), dtype=dtype).element_size()
+        draft_bytes = sum(
+            t.numel() * (width if t.is_floating_point() else t.element_size())
+            for t in tensors(plan))
+        hp = engine.hbm_plan
+        if hp.budget_bytes is not None:
+            extra = -(-int(draft_bytes) // max(hp.per_block_bytes, 1))
+            if not hp.fits_with(num_blocks=hp.num_blocks + extra):
+                raise SpecResourceError(
+                    f"draft model ({draft_bytes / 1048576:.1f}MB ~ {extra} "
+                    f"pool blocks) does not fit the HBM budget next to the "
+                    f"engine")
         self._device = engine.device
-        self.params = params_to(
-            plan_decode_params(self.cfg, self.base_params,
-                               quantize=self.quantize,
-                               native=int8_device_native(None, engine.device)),
-            engine.device, resolve_dtype(self.cfg.dtype, engine.device))
+        self.params = params_to(plan, engine.device, dtype)
         self._B = int(engine.max_batch_size)
+        cfg, k = self.cfg, self.k
+
+        def _fn(p, buf, nv):
+            return draft_propose(p, cfg, buf.long(), nv.long(), k=k)
+
+        sfx = "_i8" if self.quantize == "int8" else ""
+        self._prog = profiled(f"pw.prefill_draft{sfx}", _fn)
 
     def propose(self, ctx_tokens, k: int) -> list[int]:
         return self.propose_batch([ctx_tokens], [k])[0]
 
     def propose_batch(self, ctxs, ks) -> list[list[int]]:
-        if self.params is None:
-            raise RuntimeError("draft model drafter is not bound")
+        if self._prog is None:
+            raise SpecResourceError("draft model drafter is not bound")
         if not any(k > 0 for k in ks):
             return [[] for _ in ctxs]
-        from ..models.decoder import draft_propose
-
         W = self.window + self.k  # context window + proposal headroom
         B = max(self._B, len(ctxs))
-        buf = np.zeros((B, W), np.int64)
-        nv = np.ones(B, np.int64)
+        buf = np.zeros((B, W), np.int32)
+        nv = np.ones(B, np.int32)
         for i, ctx in enumerate(ctxs):
             tail = [int(t) for t in ctx[-self.window:]] or [0]
             buf[i, :len(tail)] = tail
             nv[i] = len(tail)
-        ids = draft_propose(
-            self.params, self.cfg, torch.from_numpy(buf).to(self._device),
-            torch.from_numpy(nv).to(self._device), k=self.k,
+        ids = self._prog(
+            self.params, torch.from_numpy(buf).to(self._device),
+            torch.from_numpy(nv).to(self._device),
         ).cpu().numpy()
         return [[int(t) for t in ids[i, :k]] if k > 0 else []
                 for i, k in enumerate(ks)]
@@ -210,7 +239,9 @@ class SpecController:
     proposals for ``cooloff_rounds`` rounds) when it falls under
     ``accept_floor``, then re-probes with an optimistic slate.  The
     running totals (``proposed``, ``accepted``, ``emitted``,
-    ``dispatches``, ``ms_total``) are the port's speculation counters."""
+    ``dispatches``, ``ms_total``) are the port's speculation counters;
+    :meth:`flush` records the rounds since the last flush in the cost
+    store as a ``pw.spec_tier`` row."""
 
     def __init__(self, drafter: Drafter, *, accept_floor: float = 0.15,
                  cooloff_rounds: int = 32, ewma_alpha: float = 0.2):
@@ -226,6 +257,8 @@ class SpecController:
         self.emitted = 0
         self.dispatches = 0
         self.ms_total = 0.0
+        # the totals at the last flush (flush records the difference)
+        self._flushed = (0, 0, 0, 0, 0.0)
         self._lock = threading.Lock()
 
     @property
@@ -265,29 +298,89 @@ class SpecController:
         except Exception:  # noqa: BLE001 - learning is best-effort
             logger.warning("drafter note_release failed", exc_info=True)
 
+    def flush(self, db=None) -> None:
+        """Record the rounds since the last flush as this backend's
+        measured (drafter, K) row in the cost store (``db``, default the
+        process store): the substrate ``speculative="auto"`` reads."""
+        with self._lock:
+            now = (self.proposed, self.accepted, self.emitted,
+                   self.dispatches, self.ms_total)
+            proposed, accepted, emitted, dispatches, ms_total = (
+                a - b for a, b in zip(now, self._flushed))
+            self._flushed = now
+        if dispatches == 0:
+            return
+        if db is None:
+            from ..obs.costdb import default_db
+
+            db = default_db()
+        db.observe(
+            "pw.spec_tier", f"{self.drafter.name}|k{self.k}",
+            ms=ms_total / dispatches,
+            extra={
+                "drafter": self.drafter.name, "k": self.k,
+                "accept_rate": round(accepted / max(proposed, 1), 4),
+                "accepted_per_dispatch": round(emitted / dispatches, 3),
+            },
+        )
+
+
+def _auto_drafter(db=None) -> Drafter:
+    """The ``speculative="auto"`` pick: the cost store's recorded
+    ``pw.spec_tier`` ``pick`` row under THIS backend's fingerprint (its
+    recorded K when the pick is the n-gram drafter), else the zero-HBM
+    n-gram drafter at its default K.  A recorded draft-model pick needs a
+    draft model, which the store does not hold, so it too resolves to
+    the default n-gram drafter, as the reference's does."""
+    if db is None:
+        from ..obs.costdb import default_db
+
+        db = default_db()
+    entry = db.get("pw.spec_tier", "pick")
+    if entry is not None:
+        extra = entry.get("extra") or {}
+        if extra.get("drafter", "ngram") == "ngram":
+            return NGramDrafter(k=int(extra.get("k") or 4))
+    return NGramDrafter()
+
 
 def resolve_speculative(value, engine) -> SpecController | None:
-    """Resolve ``PagedDecodeEngine(speculative=...)``: ``None`` /
-    ``False`` / ``"off"`` disable it; ``"ngram"`` / ``True`` / ``"auto"``
-    give the n-gram drafter at its default K; a :class:`Drafter` is
-    wrapped in a :class:`SpecController`; a :class:`SpecController` is
-    used as given.  The controller is bound to ``engine``."""
+    """Resolve ``PagedDecodeEngine(speculative=...)``:
+
+    - ``None`` / ``False`` / ``"off"`` — disabled;
+    - ``"ngram"`` / ``True`` — the n-gram drafter at its default K;
+    - ``"auto"`` — the cost store's measured pick (:func:`_auto_drafter`);
+    - a :class:`Drafter` — wrapped in a :class:`SpecController`;
+    - a :class:`SpecController` — used as given.
+
+    The controller is bound to ``engine``; a draft model that does not
+    fit the engine's HBM budget falls back, with a warning, to the
+    n-gram drafter at the same K."""
     if value is None or value is False or value == "off":
         return None
     if isinstance(value, SpecController):
         ctrl = value
     elif isinstance(value, Drafter):
         ctrl = SpecController(value)
-    elif value is True or value in ("ngram", "auto"):
+    elif value is True or value == "ngram":
         ctrl = SpecController(NGramDrafter())
+    elif value == "auto":
+        ctrl = SpecController(_auto_drafter())
     else:
         raise ValueError(
             f"speculative={value!r} is not one of None/'off'/'ngram'/"
             "'auto'/Drafter/SpecController"
         )
-    ctrl.bind(engine)
+    try:
+        ctrl.bind(engine)
+    except SpecResourceError as exc:
+        logger.warning(
+            "speculative drafter %r disabled (%s); falling back to the "
+            "zero-HBM n-gram drafter", ctrl.drafter.name, exc)
+        ctrl = SpecController(NGramDrafter(k=ctrl.k))
+        ctrl.bind(engine)
     return ctrl
 
 
 __all__ = ["DraftModelDrafter", "Drafter", "NGramDrafter", "SpecController",
-           "resolve_speculative"]
+           "SpecResourceError", "resolve_speculative"]

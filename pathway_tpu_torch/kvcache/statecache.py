@@ -29,6 +29,18 @@ the three dispatch shapes and the restart rebuild through
 ``make_backend("state")``.  Preemption, prefix sharing and speculation
 stay off.
 
+The engine is held to the same HBM ledger as the paged engine
+(``obs/memory.hbm_plan``) with the constant-memory cache term:
+``max_slots`` slots of ``state_bytes_per_seq`` bytes, context length
+absent (``hbm_budget_bytes``, ``hbm_fit``; as in the reference, the
+state engine's sizes are explicit).  Its programs are registered in the
+device cost observatory (``pw.ssd_decode_step``, ``pw.ssd_mixed_step``,
+``pw.ssd_chained_decode``, their ``_sampled`` twins; the cache's
+``pw.state_suspend`` / ``pw.state_resume`` / ``pw.state_clear``), and it
+records the paged engine's spans and counters: engine-generic ones on
+the cache's ``KVCacheStats``, the slot and suspend/resume ones on its
+``StateCacheStats``.
+
 One correction to the paged playbook: a chain cannot let a finished row
 keep stepping (the paged chain parks surplus writes in the null block; a
 recurrent state has no null to absorb updates), so the chained programs
@@ -43,22 +55,52 @@ import logging
 import os
 import threading
 import time
+import weakref
 from typing import Callable
 
 import numpy as np
 import torch
 
-from .. import faults
+from .. import faults, obs
 from .._device import resolve_device, resolve_dtype
 from ..models.decoder import (greedy, params_to, ssd_augment_params,
                               ssd_chained_decode, ssd_chained_decode_sampled,
                               ssd_decode_step, ssd_decode_step_sampled,
                               ssd_mixed_step, ssd_mixed_step_sampled)
+from ..obs import memory as obs_memory
+from ..obs.profiler import profiled
 from .backend import CacheBackend, UnsupportedCacheOp, make_backend
-from .block_pool import PoolExhausted, SequenceState
-from .engine import PagedDecodeEngine, _Active, _WatchdogSync
+from .block_pool import PoolExhausted, SequenceState, unique_name
+from .engine import (PagedDecodeEngine, _Active, _WatchdogSync, _samp_args)
 
 logger = logging.getLogger(__name__)
+
+
+def _state_gather_fn(state, slot):
+    return state[:, slot]
+
+
+def _state_clear_fn(state, slot):
+    state[:, slot].zero_()
+    return state
+
+
+def _state_scatter_fn(state, slot, vals):
+    state[:, slot] = vals
+    return state
+
+
+# the fixed-shape suspend / resume / clear of one slot, registered in the
+# device cost observatory under the reference's names
+_state_gather = profiled("pw.state_suspend", _state_gather_fn)
+_state_scatter = profiled("pw.state_resume", _state_scatter_fn)
+_state_clear = profiled("pw.state_clear", _state_clear_fn)
+
+# live caches by metrics name (the paged pools' naming rule)
+_LIVE_CACHES: "weakref.WeakValueDictionary[str, StateCache]" = (
+    weakref.WeakValueDictionary()
+)
+_LIVE_CACHES_LOCK = threading.Lock()
 
 
 class StateCache(CacheBackend):
@@ -74,7 +116,7 @@ class StateCache(CacheBackend):
 
     def __init__(self, *, max_slots: int, n_layers: int, n_heads: int,
                  head_dim: int, dtype=torch.float32, block_size: int = 16,
-                 device="cuda"):
+                 name: str = "state_cache", device="cuda"):
         if max_slots < 2:
             raise ValueError("max_slots must be >= 2 (slot 0 is reserved)")
         self.device = resolve_device(device)
@@ -94,6 +136,36 @@ class StateCache(CacheBackend):
         self._lock = threading.RLock()
         self.n_suspends = 0
         self.n_resumes = 0
+        from ..serve.metrics import kv_stats, state_stats
+
+        with _LIVE_CACHES_LOCK:
+            self.name = unique_name(name, self, _LIVE_CACHES)
+        wref = weakref.ref(self)
+
+        def _in_use() -> int:
+            cache = wref()
+            return 0 if cache is None else cache.slots_in_use
+
+        # engine-generic counters (TTFT, chains, restarts, host gap) live
+        # on the shared KV stats block, slot occupancy as its blocks gauge
+        self.kv_stats = kv_stats(
+            self.name, blocks_in_use_fn=_in_use,
+            blocks_total=self.max_slots - 1, shards=1,
+            shard_hbm_bytes=self.per_shard_bytes,
+        )
+        # the pathway_state_* family: slots and suspend/resume traffic
+        self.state_stats = state_stats(
+            self.name, slots_in_use_fn=_in_use,
+            slots_total=self.max_slots - 1,
+            state_bytes_per_seq=self.state_bytes_per_seq(1),
+        )
+
+    def retire(self) -> None:
+        """Release the registry name now, so a restart's same-name cache
+        re-attaches to the monotonic counters."""
+        with _LIVE_CACHES_LOCK:
+            if _LIVE_CACHES.get(self.name) is self:
+                del _LIVE_CACHES[self.name]
 
     # -- capacity ----------------------------------------------------------
     @property
@@ -148,7 +220,7 @@ class StateCache(CacheBackend):
                 raise PoolExhausted("state cache has no free slot",
                                     needed=1, free=0)
             slot = self._free.pop()
-            self.state[:, slot].zero_()
+            self.state = _state_clear(self.state, slot)
             self._arrival += 1
             seq = SequenceState(seq_id=seq_id, block_ids=[slot],
                                 n_tokens=int(n_tokens), priority=priority,
@@ -186,7 +258,7 @@ class StateCache(CacheBackend):
         with self._lock:
             slot = self._seqs[seq_id].block_ids[0]
         cuda = self.device.type == "cuda"
-        rows = self.state[:, slot]
+        rows = _state_gather(self.state, slot)
         host = torch.empty(rows.shape, dtype=rows.dtype, pin_memory=cuda)
         host.copy_(rows, non_blocking=cuda)
         if cuda:
@@ -194,6 +266,7 @@ class StateCache(CacheBackend):
         self.free_sequence(seq_id)
         with self._lock:
             self.n_suspends += 1
+        self.state_stats.record_suspend()
         return {"s": host}, host.nbytes
 
     def resume_host(self, payload: dict, slot_ids) -> None:
@@ -201,9 +274,11 @@ class StateCache(CacheBackend):
         stream-ordered before every later kernel that reads the state."""
         slot = int(list(slot_ids)[0])
         cuda = self.device.type == "cuda"
-        self.state[:, slot] = payload["s"].to(self.device, non_blocking=cuda)
+        self.state = _state_scatter(
+            self.state, slot, payload["s"].to(self.device, non_blocking=cuda))
         with self._lock:
             self.n_resumes += 1
+        self.state_stats.record_resume()
 
     # -- verification ------------------------------------------------------
     def check_invariants(self, external_refs=None) -> None:
@@ -239,8 +314,9 @@ class StateDecodeEngine:
     sizes the cache; a parameter dict without the SSD decay projections
     is grafted with ``ssd_augment_params`` (seed 0), so every replica and
     restart runs the same weights.  ``max_restarts``,
-    ``watchdog_timeout_s``, ``degrade_fn``, ``session_store`` and
-    ``name`` are the paged engine's."""
+    ``watchdog_timeout_s``, ``degrade_fn``, ``session_store``,
+    ``hbm_budget_bytes``, ``hbm_fit`` and ``name`` are the paged
+    engine's."""
 
     # cache-agnostic, borrowed unbound: admission order, delivery and the
     # failure domain, sampling arrays, the chained-round driver (only
@@ -265,6 +341,12 @@ class StateDecodeEngine:
     _chained_rounds = PagedDecodeEngine._chained_rounds
     _scan_chain = PagedDecodeEngine._scan_chain
     _dev = PagedDecodeEngine._dev
+    _note_sync = PagedDecodeEngine._note_sync
+    _note_dispatch = PagedDecodeEngine._note_dispatch
+    _synced = PagedDecodeEngine._synced
+    _note_mixed = PagedDecodeEngine._note_mixed
+    _restarted = PagedDecodeEngine._restarted
+    _prog_suffix = ""
 
     def __init__(self, cfg, params, *, max_slots: int = 64,
                  num_blocks: int | None = None, max_batch_size: int = 8,
@@ -274,7 +356,8 @@ class StateDecodeEngine:
                  watchdog_timeout_s: float | None = None,
                  max_restarts: int | None = None,
                  degrade_fn: Callable | None = None, session_store=None,
-                 device="cuda"):
+                 hbm_budget_bytes: int | None = None,
+                 hbm_fit: str = "reject", device="cuda"):
         if num_blocks is not None:
             max_slots = int(num_blocks)
         self.device = resolve_device(device)
@@ -283,14 +366,44 @@ class StateDecodeEngine:
         self.max_batch_size = int(max_batch_size)
         self.stop_token = stop_token
         self.dtype = resolve_dtype(cfg.dtype, self.device)
+        if hbm_fit not in ("reject", "clamp", "off"):
+            raise ValueError(
+                f"hbm_fit={hbm_fit!r} is not one of 'reject', 'clamp', "
+                "'off'")
         if "w_a" not in params["layers"][0]:
             params = ssd_augment_params(params, cfg)
         self.params = params_to(params, self.device, self.dtype)
         head_dim = cfg.d_model // cfg.n_heads
+        per_seq = (cfg.n_layers * cfg.n_heads * head_dim * head_dim
+                   * torch.empty((), dtype=self.dtype).element_size())
+        # the paged engine's pre-flight ledger with the constant-memory
+        # cache term: num_blocks is the SLOT count, context length absent
+        self.hbm_plan = obs_memory.hbm_plan(
+            cfg, num_blocks=int(max_slots), block_size=int(block_size),
+            max_batch_size=self.max_batch_size,
+            chain_steps=max(1, int(chain_steps)),
+            prefill_chunk=int(prefill_chunk), dtype=self.dtype,
+            params=self.params, budget_bytes=hbm_budget_bytes,
+            reference_attn=False, state_bytes_per_seq=per_seq,
+            device=self.device,
+        )
+        if self.hbm_plan.budget_bytes is not None \
+                and not self.hbm_plan.fits and hbm_fit != "off":
+            clamped = (self.hbm_plan.max_fitting_num_blocks()
+                       if hbm_fit == "clamp" else None)
+            if clamped is None or clamped < 2:
+                raise ValueError(self.hbm_plan.reject_message())
+            logger.warning(
+                "engine %s does not fit HBM at max_slots=%d; clamping to %d "
+                "(budget %.1fMB, %s)", name, int(max_slots), clamped,
+                self.hbm_plan.budget_bytes / 1048576,
+                self.hbm_plan.budget_source)
+            max_slots = clamped
+            self.hbm_plan = self.hbm_plan.with_(num_blocks=clamped)
         self._pool_kwargs = dict(
             max_slots=int(max_slots), n_layers=cfg.n_layers,
             n_heads=cfg.n_heads, head_dim=head_dim, dtype=self.dtype,
-            block_size=int(block_size), device=self.device)
+            block_size=int(block_size), name=name, device=self.device)
         self.pool = make_backend("state", **self._pool_kwargs)
         if watchdog_timeout_s is None:
             env_wd = os.environ.get("PW_ENGINE_WATCHDOG_S")
@@ -324,44 +437,93 @@ class StateDecodeEngine:
         self._seq_counter = 0
         self._lock = threading.RLock()
         self._run_id: str | None = None
+        self._t_device_idle: float | None = None
+        self._t_dispatch: float | None = None
+        self._t_failure: float | None = None
+        self._dispatch_kind = "step"
+        self._run_ctx: tuple = (obs.new_trace_id(), 0)
         # no prefix sharing; the borrowed run loop clears the empty map
         self._inflight_prefix: dict = {}
         self._sampled: dict | None = None
+        cfg = self.cfg
+
+        def _step_fn(p, state, token, slots):
+            logits, state = ssd_decode_step(p, cfg, state, token.long(),
+                                            slots.long())
+            return greedy(logits), state
+
+        def _mixed_fn(p, state, tokens, n_valid, slots):
+            logits, state = ssd_mixed_step(p, cfg, state, tokens.long(),
+                                           n_valid.long(), slots.long())
+            return greedy(logits), state
+
+        def _chained_fn(p, state, token, slots, steps, rem, stop_tok):
+            return ssd_chained_decode(p, cfg, state, token.long(),
+                                      slots.long(), steps, rem.long(),
+                                      stop_tok.long())
+
+        # three static shapes cover a greedy workload: (B,) decode,
+        # (B, C) mixed, (B, K) chained
+        self._step = profiled("pw.ssd_decode_step", _step_fn)
+        self._mixed = profiled("pw.ssd_mixed_step", _mixed_fn)
+        self._chained = profiled("pw.ssd_chained_decode", _chained_fn)
 
     def _sampled_programs(self) -> dict:
-        """The sampled twins of the three programs, bound on first use."""
+        """The sampled twins of the three programs (``pw.ssd_*_sampled``),
+        built on first use."""
         if self._sampled is None:
-            self._sampled = {"step": ssd_decode_step_sampled,
-                             "mixed": ssd_mixed_step_sampled,
-                             "chained": ssd_chained_decode_sampled}
+            cfg = self.cfg
+
+            def _step_fn(p, state, token, slots, *samp):
+                return ssd_decode_step_sampled(
+                    p, cfg, state, token.long(), slots.long(),
+                    *_samp_args(samp))
+
+            def _mixed_fn(p, state, tokens, n_valid, slots, *samp):
+                return ssd_mixed_step_sampled(
+                    p, cfg, state, tokens.long(), n_valid.long(),
+                    slots.long(), *_samp_args(samp))
+
+            def _chained_fn(p, state, token, slots, steps, rem, stop_tok,
+                            *samp):
+                return ssd_chained_decode_sampled(
+                    p, cfg, state, token.long(), slots.long(), steps,
+                    rem.long(), stop_tok.long(), *_samp_args(samp))
+
+            self._sampled = {
+                "step": profiled("pw.ssd_decode_step_sampled", _step_fn),
+                "mixed": profiled("pw.ssd_mixed_step_sampled", _mixed_fn),
+                "chained": profiled("pw.ssd_chained_decode_sampled",
+                                    _chained_fn),
+            }
         return self._sampled
 
     # -- failure domain ----------------------------------------------------
-    def _restart(self, running, pending, exc: BaseException) -> None:
+    def _restart(self, running, pending, exc: BaseException,
+                 attempt: int) -> None:
         """Rebuild the failure domain, a fresh StateCache through the
         backend seam, and requeue every in-flight request with its
         emitted tokens: re-admission recomputes the recurrence over
         prompt + emitted, token-identical as the paged restart is.  The
         survivors are requeued BEFORE the rebuild, so a failed rebuild
         still leaves every request to the terminal path."""
-        t0 = time.perf_counter()
+        self._t_failure = time.perf_counter()
+        t0 = self._t_failure
         survivors = [act.req for act in running]
         running.clear()
         for req in survivors:
             self._requeue(pending, req)
         old_pool, self.pool = self.pool, None
+        old_pool.retire()
         try:
             self.pool = make_backend("state", **self._pool_kwargs)
         except BaseException:
             self.pool = old_pool  # the terminal path frees through it
             raise
         del old_pool
-        self.n_restarts += 1
-        logger.warning(
-            "state engine restart #%d after %s: %s — state cache rebuilt "
-            "in %.3fs, re-admitting %d in-flight request(s) by recompute",
-            self.n_restarts, type(exc).__name__, exc,
-            time.perf_counter() - t0, len(survivors))
+        self._t_device_idle = None
+        self._t_dispatch = None
+        self._restarted(attempt, exc, t0, len(survivors))
 
     # -- admission ---------------------------------------------------------
     def _try_admit(self, req, running, deliver) -> str:
@@ -449,24 +611,33 @@ class StateDecodeEngine:
 
     def _decode_round(self, running, deliver) -> None:
         B = self.max_batch_size
-        token = np.zeros(B, np.int64)
-        slots = np.zeros(B, np.int64)  # idle rows target the null slot
+        token = np.zeros(B, np.int32)
+        slots = np.zeros(B, np.int32)  # idle rows target the null slot
         acts = list(running)
         for i, act in enumerate(acts):
             token[i] = act.req.emitted[-1]
             slots[i] = self._slot(act)
         samp = self._sampling_arrays([(i, a.req) for i, a in enumerate(acts)],
                                      B)
-        args = (self.params, self.cfg, self.pool.state, self._dev(token),
+        args = (self.params, self.pool.state, self._dev(token),
                 self._dev(slots))
         faults.fire("engine.dispatch.step")
+        t_disp = self._note_dispatch("step")
         if samp is None:
-            logits, _ = ssd_decode_step(*args)
-            ids = greedy(logits)
+            prog = self._step
+            ids, _ = prog(*args)
         else:
-            ids, _ = self._sampled_programs()["step"](*args, *samp)
-        ids = self._sync_host(ids)
+            prog = self._sampled_programs()["step"]
+            ids, _ = prog(*args, *samp)
+        ids, t_sync1 = self._synced(ids)
+        prog.record_dispatch(t_sync1 - t_disp, t_end=t_sync1,
+                             items=len(acts))
         self.rounds["decode"] += 1
+        for act in acts:
+            obs.record_span("engine.decode_step", t_disp, t_sync1,
+                            ctx=act.req.ctx)
+        self.pool.kv_stats.record_chain(steps=1, slots=len(acts),
+                                     emitted=len(acts))
         for i, act in enumerate(acts):
             self._emit(act.req, int(ids[i]))
             if self._is_done(act.req, act.seq_id):
@@ -480,9 +651,9 @@ class StateDecodeEngine:
         dense per-row layout (the chunk form wants rectangular runs)."""
         B = self.max_batch_size
         C = self.prefill_chunk
-        tokens = np.zeros((B, C), np.int64)
-        n_valid = np.zeros(B, np.int64)  # 0 = idle row: an exact no-op
-        slots = np.zeros(B, np.int64)
+        tokens = np.zeros((B, C), np.int32)
+        n_valid = np.zeros(B, np.int32)  # 0 = idle row: an exact no-op
+        slots = np.zeros(B, np.int32)
         budget = self.mixed_tokens
         rows: list[tuple[_Active, int, int]] = []  # (act, row, filled|-1)
         row = 0
@@ -519,16 +690,21 @@ class StateDecodeEngine:
             [(r, act.req) for act, r, f in rows
              if f < 0 or f == len(act.tokens)], B)
         d = self._dev
-        args = (self.params, self.cfg, self.pool.state, d(tokens),
-                d(n_valid), d(slots))
+        args = (self.params, self.pool.state, d(tokens), d(n_valid),
+                d(slots))
         faults.fire("engine.dispatch.mixed")
+        t_disp = self._note_dispatch("mixed")
         if samp is None:
-            logits, _ = ssd_mixed_step(*args)
-            ids = greedy(logits)
+            prog = self._mixed
+            ids, _ = prog(*args)
         else:
-            ids, _ = self._sampled_programs()["mixed"](*args, *samp)
-        ids = self._sync_host(ids)
+            prog = self._sampled_programs()["mixed"]
+            ids, _ = prog(*args, *samp)
+        ids, t_sync1 = self._synced(ids)
+        prog.record_dispatch(t_sync1 - t_disp, t_end=t_sync1,
+                             items=int(n_valid.sum()))
         self.rounds["mixed"] += 1
+        self._note_mixed(rows, t_disp, t_sync1)
         for act, row, filled in rows:
             if filled >= 0:
                 act.n_filled = filled
@@ -547,9 +723,9 @@ class StateDecodeEngine:
         kreal, ids)`` with ``ids`` the un-synced (B, K) device tensor."""
         K = self.chain_steps
         B = self.max_batch_size
-        token = np.zeros(B, np.int64)
-        slots = np.zeros(B, np.int64)
-        rem = np.zeros(B, np.int64)  # idle rows: budget 0, fully frozen
+        token = np.zeros(B, np.int32)
+        slots = np.zeros(B, np.int32)
+        rem = np.zeros(B, np.int32)  # idle rows: budget 0, fully frozen
         acts, kreal = [], []
         for i, act in enumerate(running):
             token[i] = act.req.emitted[-1]
@@ -560,17 +736,21 @@ class StateDecodeEngine:
         stop = acts[0].req.stop_token  # one stop token per run
         samp = self._sampling_arrays([(i, a.req) for i, a in enumerate(acts)],
                                      B)
-        args = (self.params, self.cfg, self.pool.state, self._dev(token),
-                self._dev(slots), torch.arange(K), self._dev(rem),
-                torch.tensor(-1 if stop is None else int(stop),
-                             device=self.device))
+        args = (self.params, self.pool.state, self._dev(token),
+                self._dev(slots), self._dev(np.arange(K, dtype=np.int32)),
+                self._dev(rem),
+                self._dev(np.array(-1 if stop is None else int(stop),
+                                   np.int32)))
         faults.fire("engine.dispatch.chain")
+        t_disp = self._note_dispatch("chain")
         if samp is None:
-            ids, _ = ssd_chained_decode(*args)
+            prog = self._chained
+            ids, _ = prog(*args)
         else:
-            ids, _ = self._sampled_programs()["chained"](*args, *samp)
+            prog = self._sampled_programs()["chained"]
+            ids, _ = prog(*args, *samp)
         self.rounds["chain"] += 1
-        return acts, kreal, ids
+        return acts, kreal, ids, t_disp, prog
 
 
 __all__ = ["StateCache", "StateDecodeEngine"]

@@ -17,8 +17,9 @@ the scattered bytes through the table.  A resume gives back the
 suspend-time K/V bit for bit, and a store miss falls back to the normal
 recompute prefill.
 
-The JAX store's ``residency_ledger`` (sessions resident at a fixed HBM
-budget) needs the memory planner, which the port does not have yet.
+:meth:`SessionStore.residency_ledger` computes, from an engine's
+``hbm_plan`` ledger, how many sessions stay resumable at that fixed HBM
+budget with and without the host tier.
 """
 
 from __future__ import annotations
@@ -178,6 +179,42 @@ class SessionStore:
         with self._lock:
             self._sessions.clear()
             self._bytes = 0
+
+    # -- residency accounting ----------------------------------------------
+    def residency_ledger(self, plan, *, session_tokens: int,
+                         host_budget_bytes: int | None = None) -> dict:
+        """How many sessions stay RESIDENT (resumable without recompute)
+        at the plan's fixed HBM budget, paged-only vs tiered — computed
+        from the ``hbm_plan`` ledger, not sampled.  Paged-only residency
+        is bounded by pool blocks; the tier adds host-budget/bytes-per-
+        session on top, at zero extra HBM."""
+        bs = int(plan.block_size)
+        nb_sess = max(-(-int(session_tokens) // bs), 1)
+        usable_blocks = max(int(plan.num_blocks) - 1, 0)
+        paged_only = usable_blocks // nb_sess
+        # host bytes per suspended session: the per-block K/V bytes the
+        # plan charges the device, for the session's block span
+        per_block = int(plan.per_block_bytes) * max(int(plan.tp), 1)
+        per_session_host = nb_sess * per_block
+        budget = (host_budget_bytes if host_budget_bytes is not None
+                  else self.host_budget_bytes)
+        if budget is None:
+            # unbounded store: report what the CURRENT contents prove
+            host_sessions = len(self._sessions)
+        else:
+            host_sessions = int(budget) // max(per_session_host, 1)
+        tiered = paged_only + host_sessions
+        return {
+            "hbm_budget_bytes": plan.budget_bytes,
+            "hbm_total_bytes": plan.total_bytes,
+            "session_tokens": int(session_tokens),
+            "blocks_per_session": nb_sess,
+            "bytes_per_session_host": per_session_host,
+            "paged_only_sessions": paged_only,
+            "host_tier_sessions": host_sessions,
+            "sessions_resident": tiered,
+            "residency_gain": tiered / max(paged_only, 1),
+        }
 
     def _evict_over_budget(self) -> None:
         # caller holds the lock; LRU whole-session eviction (an evicted

@@ -27,6 +27,7 @@ are the constant-memory linear-attention family the state cache serves
 from __future__ import annotations
 
 import dataclasses
+import logging
 import math
 import threading
 from typing import Any
@@ -36,10 +37,13 @@ import torch
 import torch.nn.functional as F
 
 from .._device import resolve_device, resolve_dtype
+from ..obs.profiler import profiled
 from ..ops.attention_cuda import flash_attention
 from . import prng
 from .encoder import (EncoderConfig, _act, _layer_norm, _proj, init_params,
                       params_to)
+
+logger = logging.getLogger(__name__)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -936,10 +940,30 @@ def ssd_chained_decode_sampled(params: dict, cfg: DecoderConfig, state,
     )
 
 
+def measured_tier_prior(db=None) -> str | None:
+    """The single-stream tier race's recorded verdict in the cost store
+    (``pw.decode_tier`` / ``single_stream_pick``, scoped to this
+    backend's fingerprint): ``"int8_host"``, ``"f32_device"`` or
+    ``"int8_device"``, or None when no race was recorded here.  A store
+    that cannot be read raises (the reference treats that as no
+    prior)."""
+    if db is None:
+        from ..obs.costdb import default_db
+
+        db = default_db()
+    entry = db.get("pw.decode_tier", "single_stream_pick")
+    if entry is None:
+        return None
+    tier = (entry.get("extra") or {}).get("tier")
+    return tier if isinstance(tier, str) else None
+
+
 class TorchDecoderLM:
     """Host-facing text generator (counterpart of ``JaxDecoderLM``):
     :meth:`generate` for one prompt over the dense cache, and
-    :meth:`generate_batch` over the paged engine."""
+    :meth:`generate_batch` over the paged engine.  Its dense programs are
+    registered in the device cost observatory as ``pw.lm_prefill``,
+    ``pw.lm_decode_step`` and ``pw.lm_fused_k<max_new>[_s<stop>]``."""
 
     # max_new bucketing of the fused tier (the JAX package compiles one
     # program per (seq bucket, new bucket, stop); here it bounds the loop)
@@ -963,6 +987,35 @@ class TorchDecoderLM:
         self._dense = None
         self._int8 = None
         self._int8_lock = threading.Lock()
+        cfg = self.cfg
+
+        def _prefill_fn(params, token_ids, n_valid):
+            return prefill(params, cfg, token_ids.long(), n_valid.long())
+
+        def _step_fn(params, cache, token, pos):
+            return decode_step(params, cfg, cache, token.long(), pos)
+
+        self._prefill = profiled("pw.lm_prefill", _prefill_fn)
+        self._step = profiled("pw.lm_decode_step", _step_fn)
+        # one fused program per (max_new bucket, stop): the stop token is
+        # not in the argument shapes, so it is part of the program name
+        self._fused_progs: dict = {}
+
+    def _fused(self, max_new: int, stop_token: int | None):
+        key = (max_new, stop_token)
+        prog = self._fused_progs.get(key)
+        if prog is None:
+            cfg = self.cfg
+
+            def fn(params, token_ids, n_valid):
+                return generate_tokens_fused(params, cfg, token_ids.long(),
+                                             n_valid.long(), max_new,
+                                             stop_token)
+
+            suffix = "" if stop_token is None else f"_s{stop_token}"
+            prog = self._fused_progs[key] = profiled(
+                f"pw.lm_fused_k{max_new}{suffix}", fn)
+        return prog
 
     def paged_engine(self, **kwargs):
         """The paged decode engine over this LM's weights, built on first
@@ -1037,9 +1090,37 @@ class TorchDecoderLM:
         (``models/host_decoder.Int8DecoderHost``, on the CPU by design),
         built on first use; only an LM on the CPU takes it; on the card
         it raises rather than move the work to the host (int8 weights on
-        the card: ``paged_engine(quantize="int8")``)."""
+        the card: ``paged_engine(quantize="int8")``).
+
+        ``fused="auto"`` consults :func:`measured_tier_prior`: a recorded
+        ``"f32_device"`` / ``"int8_device"`` verdict routes to the paged
+        engine (int8 plan for the latter), ``"int8_host"`` to the int8
+        host tier on an LM on the CPU; an LM on the card does not take
+        ``"int8_host"`` (the port does not serve the host tier from the
+        card) and says so in the log.  Anything else runs the fused
+        tier."""
         if fused == "auto":
-            fused = True
+            tier = measured_tier_prior()
+            if tier in ("f32_device", "int8_device"):
+                eng = self.paged_engine(
+                    quantize="int8" if tier == "int8_device" else None)
+                ids = self.encode_prompts([prompt], max_new_tokens)[0]
+                out = []
+                for t in eng.generate(ids, max_new_tokens):
+                    out.append(int(t))
+                    if stop_token is not None and t == stop_token:
+                        break
+                return self._decode_out(out)
+            if tier == "int8_host" and self.device.type == "cpu":
+                fused = "int8"
+            else:
+                if tier == "int8_host":
+                    logger.info(
+                        "generate(fused='auto'): the recorded tier "
+                        "'int8_host' is not taken by an LM on %s (the host "
+                        "tier is served on the CPU only); running the "
+                        "fused tier", self.device)
+                fused = True
         if fused == "int8" and self.device.type != "cpu":
             raise ValueError(
                 f"fused='int8' is the int8 host tier, which runs on the "
@@ -1067,10 +1148,10 @@ class TorchDecoderLM:
             # recent context that still leaves room for every new token
             ids = ids[-max(L - max_new_tokens, 1):]
         n = len(ids)
-        buf = torch.zeros((1, L), dtype=torch.long)
+        buf = torch.zeros((1, L), dtype=torch.int32)
         buf[0, :n] = torch.tensor(ids)
         buf = buf.to(self.device)
-        n_valid = torch.tensor([n], device=self.device)
+        n_valid = torch.tensor([n], dtype=torch.int32, device=self.device)
         params = self.dense_params()
         if fused:
             new_b = next(
@@ -1079,8 +1160,8 @@ class TorchDecoderLM:
                 -(-max_new_tokens // 64) * 64,
             )
             new_b = min(new_b, L - n) or 1
-            tokens, n_steps = generate_tokens_fused(
-                params, self.cfg, buf, n_valid, new_b, stop_token)
+            tokens, n_steps = self._fused(new_b, stop_token)(
+                params, buf, n_valid)
             # the one host fetch: the ids and the step count together
             got = torch.cat([tokens[0], n_steps.reshape(1)]).tolist()
             toks = got[:-1][: got[-1]][:max_new_tokens]
@@ -1090,7 +1171,7 @@ class TorchDecoderLM:
                 if stop_token is not None and t == stop_token:
                     break
             return self._decode_out(out)
-        logits, kv = prefill(params, self.cfg, buf, n_valid)
+        logits, kv = self._prefill(params, buf, n_valid)
         out = [int(greedy(logits)[0])]
         for _ in range(max_new_tokens - 1):
             nxt = out[-1]
@@ -1098,9 +1179,10 @@ class TorchDecoderLM:
                 break
             if n >= L:
                 break
-            logits, kv = decode_step(
-                params, self.cfg, kv,
-                torch.tensor([nxt], device=self.device), n)
+            logits, kv = self._step(
+                params, kv,
+                torch.tensor([nxt], dtype=torch.int32, device=self.device),
+                n)
             n += 1
             out.append(int(greedy(logits)[0]))
         return self._decode_out(out)
@@ -1119,6 +1201,7 @@ class TorchDecoderLM:
 __all__ = [
     "DecoderConfig", "TorchDecoderLM", "decode_step", "draft_propose",
     "generate_tokens_fused", "greedy", "init_decoder_params",
+    "measured_tier_prior",
     "int8_device_native", "paged_chained_decode",
     "paged_chained_decode_sampled", "paged_decode_step",
     "paged_decode_step_sampled", "paged_mixed_step",

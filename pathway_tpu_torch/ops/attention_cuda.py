@@ -20,6 +20,7 @@ import math
 
 import torch
 
+from ..obs.profiler import add_kernel_cost
 from . import _cuda
 
 _SOURCE = "flash_attention.cu"
@@ -90,6 +91,10 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         B, T, H, hd, *strides, int(causal), _DTYPE_CODE[q.dtype],
         1.0 / math.sqrt(hd),
     )
+    # the roofline bound's count: 4 * hd operations per (query, key)
+    # pair, q/k/v read and out written once
+    pairs = B * H * (T * (T + 1) // 2 if causal else T * T)
+    add_kernel_cost(4.0 * hd * pairs, 4.0 * q.numel() * q.element_size())
     return out
 
 

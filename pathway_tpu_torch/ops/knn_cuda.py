@@ -16,6 +16,7 @@ from __future__ import annotations
 import torch
 
 from .._device import resolve_device
+from ..obs.profiler import add_kernel_cost
 from . import _cuda
 
 _SOURCE = "knn_scores.cu"
@@ -42,6 +43,7 @@ def knn_scores_cuda(queries: torch.Tensor, matrix: torch.Tensor) -> torch.Tensor
         fn = "pw_knn_scores_gemm" if Q >= GEMM_MIN_Q else "pw_knn_scores_gemv"
         _cuda.launch(_SOURCE, fn, "knn_scores", queries.data_ptr(),
                      matrix.data_ptr(), out.data_ptr(), Q, N, d)
+        add_kernel_cost(2.0 * Q * N * d, 4.0 * (Q * d + N * d + Q * N))
     return out
 
 

@@ -18,8 +18,12 @@ block/shed/degrade overflow policy and optional per-priority token-bucket
 rate limits (serve/admission.py).  Per-request deadlines are honored
 twice — an expired request is shed *before* execution rather than wasting
 a batch slot, and a caller whose wait times out detaches so the worker
-skips its slot.  The JAX scheduler's request spans (``obs``) are not
-ported: this one records counters only (serve/metrics.py).
+skips its slot.  Counters go to serve/metrics.py; each request's spans
+go to the flight recorder (``obs``): a ``serve.request`` root minted at
+submit (or continuing the ambient trace), ``serve.queue`` until its batch
+forms, ``serve.execute`` for the batch call, and ``serve.batch`` on the
+scheduler's own trace.  A paged engine's ``serve_batch`` reads the
+executing waiters' traces, so its spans join the request's trace.
 """
 
 from __future__ import annotations
@@ -30,6 +34,7 @@ import threading
 import time
 from typing import Any, Callable, Sequence
 
+from .. import obs
 from ..ops._tiling import bucket_for
 from .admission import (
     AdmissionPolicy,
@@ -45,7 +50,8 @@ from .metrics import serve_stats
 
 class _Waiter:
     __slots__ = ("payload", "priority", "enqueued", "deadline", "event",
-                 "result", "error", "seq", "cancelled")
+                 "result", "error", "seq", "cancelled", "trace",
+                 "queue_span")
 
     def __init__(self, payload, priority: Priority, deadline: float | None,
                  seq: int):
@@ -58,6 +64,11 @@ class _Waiter:
         self.error: BaseException | None = None
         self.seq = seq
         self.cancelled = False
+        # the request's (trace_id, span_id) root context, captured at
+        # submit so engine-side spans parent to it across threads; the
+        # queue span closes when the request's batch forms
+        self.trace: tuple | None = None
+        self.queue_span = None
 
     def __lt__(self, other: "_Waiter") -> bool:
         return (self.priority, self.seq) < (other.priority, other.seq)
@@ -124,6 +135,12 @@ class RequestScheduler:
         self._closed = False
         self._thread: threading.Thread | None = None
         self.stats = serve_stats(name, depth_fn=lambda: len(self._heap))
+        # batch-formation spans (which cut across requests) land on the
+        # scheduler's own trace
+        self._obs_ctx = (obs.new_trace_id(), 0)
+        # the waiters of the batch executing now (serve_batch reads their
+        # traces)
+        self._inflight_waiters: Sequence = ()
         if start:
             self.start()
 
@@ -147,6 +164,8 @@ class RequestScheduler:
                     w.error = SchedulerClosedError()
                     w.event.set()
                     self.stats.record_shed("closed")
+                    if w.queue_span is not None:
+                        w.queue_span.finish(outcome="closed")
                 self._heap.clear()
             self._cond.notify_all()
         th = self._thread
@@ -176,9 +195,23 @@ class RequestScheduler:
             deadline_s = self.default_deadline_s
         if timeout_s is None:
             timeout_s = self.default_timeout_s
-        waiter = self._admit(payload, priority, deadline_s)
+        # the request's root span: minted here, or continuing the ambient
+        # trace; every queue/engine span of this request parents under it
+        root = obs.start_span(
+            "serve.request", scheduler=self.name, priority=priority.name,
+        )
+        try:
+            waiter = self._admit(payload, priority, deadline_s,
+                                 trace=root.ctx)
+        except BaseException as exc:
+            root.finish(outcome="shed", error=type(exc).__name__)
+            raise
         if waiter is None:  # degraded
-            return self.degrade_fn(payload)
+            obs.event("serve.degrade", ctx=root.ctx, scheduler=self.name)
+            try:
+                return self.degrade_fn(payload)
+            finally:
+                root.finish(outcome="degraded")
         wait_s = timeout_s
         if deadline_s is not None:
             wait_s = min(wait_s, deadline_s + 0.05)
@@ -198,16 +231,21 @@ class RequestScheduler:
                 expired = (waiter.deadline is not None
                            and time.monotonic() >= waiter.deadline)
                 self.stats.record_shed("deadline" if expired else "timeout")
+                waiter.queue_span.finish(
+                    outcome="shed_deadline" if expired else "shed_timeout")
+            root.finish(outcome="timeout")
             raise DeadlineExceededError(
                 f"request timed out after {wait_s:.2f}s in scheduler "
                 f"{self.name!r}"
             )
         if waiter.error is not None:
+            root.finish(outcome="error", error=type(waiter.error).__name__)
             raise waiter.error
+        root.finish(outcome="done")
         return waiter.result
 
-    def _admit(self, payload, priority: Priority,
-               deadline_s: float | None) -> _Waiter | None:
+    def _admit(self, payload, priority: Priority, deadline_s: float | None,
+               trace: tuple | None = None) -> _Waiter | None:
         if self._closed:
             self.stats.record_shed("closed")
             raise SchedulerClosedError()
@@ -253,6 +291,10 @@ class RequestScheduler:
                 self.stats.record_shed("closed")
                 raise SchedulerClosedError()
             waiter = _Waiter(payload, priority, deadline, next(self._seq))
+            waiter.trace = trace
+            waiter.queue_span = obs.start_span(
+                "serve.queue", ctx=trace, scheduler=self.name,
+            )
             heapq.heappush(self._heap, waiter)
             self.stats.record_admitted()
             self._cond.notify_all()
@@ -301,12 +343,19 @@ class RequestScheduler:
                 # found itself already out of the heap, so the shed is
                 # recorded here
                 self.stats.record_shed("timeout")
+                if w.queue_span is not None:
+                    w.queue_span.finish(outcome="abandoned")
                 continue
             if w.deadline is not None and now > w.deadline:
                 w.error = DeadlineExceededError()
                 w.event.set()
                 self.stats.record_shed("deadline")
+                if w.queue_span is not None:
+                    w.queue_span.finish(outcome="shed_deadline")
             else:
+                # queue wait ends here: the request is in a formed batch
+                if w.queue_span is not None:
+                    w.queue_span.finish(outcome="dispatched")
                 live.append(w)
         return live
 
@@ -354,6 +403,8 @@ class RequestScheduler:
         n = len(batch)
         payloads = self._pad([w.payload for w in batch])
         t0 = time.monotonic()
+        tp0 = time.perf_counter()
+        self._inflight_waiters = batch
         try:
             results = list(self.batch_fn(payloads))[:n]
             if len(results) < n:
@@ -362,11 +413,26 @@ class RequestScheduler:
                 )
         except Exception as exc:  # noqa: BLE001 — propagate to every caller
             self.stats.record_batch(n, sum(t0 - w.enqueued for w in batch))
+            tp1 = time.perf_counter()
+            obs.record_span("serve.batch", tp0, tp1, ctx=self._obs_ctx,
+                            scheduler=self.name, n=n,
+                            padded=len(payloads), error=type(exc).__name__)
             for w in batch:
                 w.error = exc
                 w.event.set()
+                if w.trace is not None:
+                    obs.record_span("serve.execute", tp0, tp1, ctx=w.trace,
+                                    error=type(exc).__name__)
             return
+        finally:
+            self._inflight_waiters = ()
         self.stats.record_batch(n, sum(t0 - w.enqueued for w in batch))
+        tp1 = time.perf_counter()
+        obs.record_span("serve.batch", tp0, tp1, ctx=self._obs_ctx,
+                        scheduler=self.name, n=n, padded=len(payloads))
+        for w in batch:
+            if w.trace is not None:
+                obs.record_span("serve.execute", tp0, tp1, ctx=w.trace)
         completed = 0
         for w, r in zip(batch, results):
             if isinstance(r, BaseException):

@@ -15,6 +15,7 @@ import torch
 
 from pathway_tpu.kvcache.engine import PagedDecodeEngine as JaxEngine
 from pathway_tpu.models import decoder as jdec
+from pathway_tpu.obs import profiler as jprof
 from pathway_tpu_torch.kvcache.block_pool import BlockPool, PoolExhausted
 from pathway_tpu_torch.kvcache.engine import PagedDecodeEngine
 from pathway_tpu_torch.kvcache.prefix_cache import PrefixCache
@@ -48,6 +49,20 @@ def _np_params(seed: int) -> dict:
             layer[f"{ln}_bias"] = np.zeros(d, np.float32)
         p["layers"].append(layer)
     return p
+
+
+@pytest.fixture(autouse=True)
+def _jax_registry_as_found():
+    """The JAX package's own profiler tests read its process-wide program
+    registry, and a whole-bucket JAX engine leaves a program-level
+    record there (several prefill buckets, dispatches, no counted work):
+    the records this test's JAX engines add are removed after it."""
+    reg = jprof.registry()
+    keys = set(reg._records)
+    yield
+    with reg._lock:
+        for k in set(reg._records) - keys:
+            del reg._records[k]
 
 
 @pytest.fixture(scope="module")

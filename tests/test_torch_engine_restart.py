@@ -193,7 +193,7 @@ def test_restart_budget_from_the_environment(weights, monkeypatch):
 
 def test_fault_registry_actions():
     with pytest.raises(ValueError, match="unknown fault action"):
-        faults.install("engine.sync", "kill")
+        faults.install("engine.sync", "close")
     spec = faults.install("engine.dispatch.step", "raise", nth=2)
     assert faults.fire("engine.dispatch.step") is None
     with pytest.raises(faults.InjectedFault, match="hit 2"):

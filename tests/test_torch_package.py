@@ -34,6 +34,14 @@ def _modules():
     return sorted(names)
 
 
+def test_the_guard_covers_the_observatory():
+    """The import guards below walk every module of the port, the
+    observatory's included."""
+    for name in ("obs", "obs.tracer", "obs.costdb", "obs.profiler",
+                 "obs.memory", "obs.planner"):
+        assert f"pathway_tpu_torch.{name}" in _modules()
+
+
 def test_import_loads_neither_jax_nor_the_jax_package():
     code = (
         "import importlib, sys\n"
@@ -51,7 +59,8 @@ def test_import_loads_neither_jax_nor_the_jax_package():
 
 
 @pytest.mark.parametrize("path", [*sorted(PORT.rglob("*.py")),
-                                  ROOT / "chip_smoke.py"],
+                                  ROOT / "chip_smoke.py",
+                                  ROOT / "chip_obs_ab.py"],
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_source_imports_jax_or_the_jax_package(path):
     tree = ast.parse(path.read_text())

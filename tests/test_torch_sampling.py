@@ -26,6 +26,7 @@ import torch
 
 from pathway_tpu.kvcache.engine import PagedDecodeEngine as JaxEngine
 from pathway_tpu.models import decoder as jdec
+from pathway_tpu.obs import profiler as jprof
 from pathway_tpu_torch.kvcache.engine import PagedDecodeEngine
 from pathway_tpu_torch.models import decoder as tdec
 from pathway_tpu_torch.models import prng
@@ -37,6 +38,20 @@ SEEDS = (0, 1, 7, -1, 2**31 - 1)
 EMITS = (0, 1, 31, 1000)
 GUMBEL_ATOL = 1e-6
 ROOT = pathlib.Path(__file__).resolve().parents[1]
+
+
+@pytest.fixture(autouse=True)
+def _jax_registry_as_found():
+    """The JAX package's own profiler tests read its process-wide program
+    registry, and a whole-bucket JAX engine leaves a program-level
+    record there (several prefill buckets, dispatches, no counted work):
+    the records this test's JAX engines add are removed after it."""
+    reg = jprof.registry()
+    keys = set(reg._records)
+    yield
+    with reg._lock:
+        for k in set(reg._records) - keys:
+            del reg._records[k]
 
 
 @pytest.fixture(scope="module")
