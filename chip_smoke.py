@@ -119,6 +119,31 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    an injected chain fault with no restart budget dumps the flight
    recorder as a Chrome trace holding ``engine.run`` and ``engine.sync``.
    Printed as an ``{"obs": ...}`` line;
+4g. tensor parallelism (after phase 4f, so after every measurement of
+   the earlier phases), at the package's default decoder
+   ``DecoderConfig()`` (vocab 32768, d 512, 8 layers, 8 heads, d_ff
+   2048; GPT-2 small cannot shard: its vocab is 29 x 1733) on ``tp``
+   logical shards of the card (``["cuda:0"] * tp``), phase 4's engine
+   sizes and RAG prompts (re-encoded for that vocab).  In f32, tp = 2, 4
+   and 8 give the tp = 1 tokens and the dense plain path's for the
+   chunked engine (mixed rounds, then chains) and the whole-bucket one
+   (flash prefill), in the same rounds, each of the ragged, append and
+   flash kernels launched exactly tp times as often at H/tp heads (at
+   tp <= 2 also counted by torch.profiler, whose trace gives every
+   launch's grid: the heads are read from it); a seeded batch gives the
+   tp = 1 tokens at tp = 2 and 8, and a speculative tp = 2 engine the
+   dense path's; with two (four) cards visible, tp = 2 (and 4) over
+   distinct cards too, chunked and whole-bucket.  Each shard of a bf16
+   pool holds total / tp bytes (the
+   allocator's growth printed beside it); bf16 tp = 2 and 4 token
+   agreement with tp = 1 is printed, and the three kernels are timed at
+   tp = 2's call shapes; the SSD engine at tp = 2 gives tp = 1's f32
+   tokens; ``knn_sharded`` over phase 3's 16,384 x 384 rows at 4 shards
+   gives the unsharded top-10 ids (scores within 1e-5); ring and Ulysses
+   attention at (1, 4096, 8, 64) over 4 shards are within ``SP_TOL`` of
+   ``reference_attention``; ``choose_tp`` answers 1; tp = 2 on GPT-2
+   small raises.  Printed as a ``{"tp": ...}`` line; no number in it is
+   a speed of tp (the shards share one card);
 5. print one ``{"kernels": [...]}`` line (launches on the main path,
    error against the plain version, kernel / plain / bound / library
    times at the main path's shapes: the median of 5 windows of 50
@@ -130,7 +155,9 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    ``launches_int8`` the int8 engine's launches of the paged kernels), a
    ``{"topk": ...}`` line (the index's ordered top-10 against
    ``torch.topk`` and a stable sort, at Q = 64 and Q = 1) and lines of
-   end-to-end numbers.
+   end-to-end numbers.  The kernels line is printed after phase 4g:
+   ``launches_tp`` on the ragged, append and flash entries counts each
+   one's launches in phase 4g's f32 runs, by tp.
 
 Phase 2 also holds the port's PRNG (``models/prng.py``) on the card to
 ``PRNG_KNOWN``, keys and bits that ``jax.random`` gives (the CPU tests
@@ -141,7 +168,9 @@ non-zero.
 
 ``--checks-only`` stops after phase 2 (the duplicate-row case included)
 and prints no result; ``--obs-only`` runs phase 4f alone on synthetic
-prompts after the build and prints no result.
+prompts after the build and prints no result; ``--tp-only`` runs phase
+4g alone on synthetic prompts and a random 16,384 x 384 matrix after
+the build and prints no result.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``.
 Exits non-zero, printing no result, when no CUDA device is present or
@@ -871,15 +900,9 @@ def ragged_entry(torch, pa, cap: Capture, name: str, cols: int,
     )
 
 
-def time_kernels(torch, pa, kc, ac, cap: Capture, cap_spec: Capture,
-                 launches: dict, prefill_chunk: int) -> list[dict]:
-    # 1. ragged paged attention: the mixed step (chunked prefill beside
-    # decode rows), and the speculative verify step
-    out = [ragged_entry(torch, pa, cap, "paged_attention", prefill_chunk,
-                        launches["paged_attention"]),
-           ragged_entry(torch, pa, cap_spec, "paged_attention_verify",
-                        SPEC_K + 1, launches["paged_attention_verify"])]
-    # 2. append + attend (decode steps); replays write the same slot
+def append_entry(torch, pa, cap: Capture, name: str, launches: int) -> dict:
+    """The kernels-line entry of the append+attend kernel at its heaviest
+    captured call, warm and cold; replays write the same slot."""
     call = cap.heaviest("paged_append_attend")
     kp0, vp0 = call["pools"]
     kk, vk = kp0.clone(), vp0.clone()
@@ -922,16 +945,60 @@ def time_kernels(torch, pa, kc, ac, cap: Capture, cap_spec: Capture,
             c["q"], c["k_new"], c["v_new"], *c["pools"], c["bt"], c["cl"],
             c["sb"], c["so"]),
         "plain": plain_cold}, step)
-    out.append(dict(
-        name="paged_append_attend", route="cuda",
+    return dict(
+        name=name, route="cuda",
         source="pathway_tpu_torch/csrc/paged_attention.cu",
         replaces="pathway_tpu/kvcache/paged_attention.py:284",
-        launches=launches["paged_append_attend"], max_abs_err=err,
+        launches=launches, max_abs_err=err,
         bound_ms=bound, bound_by=by, **warm,
         cold=dict(cold, layers=len(step)),
         shape=f"q{tuple(a['q'].shape)} {dt} ctx_sum={int(a['cl'].sum())} "
               f"longest_ctx={int(a['cl'].max())}",
-    ))
+    )
+
+
+def flash_entry(torch, ac, cap: Capture, name: str, launches: int) -> dict:
+    """The kernels-line entry of the flash kernel at its heaviest captured
+    call (the captured strided views), with SDPA as the library call."""
+    import torch.nn.functional as F
+
+    call = cap.heaviest("flash_attention")
+    q, k, v, causal = call["q"], call["k"], call["v"], call["causal"]
+    kern = lambda: ac.flash_attention_cuda(q, k, v, causal)  # noqa: E731
+    plain = lambda: ac.flash_attention_reference(q, k, v, causal)  # noqa: E731
+    err = max_abs_err(kern(), plain())
+    dt = str(q.dtype).split(".")[1]
+    require(err <= TOL[dt], f"flash main-path err {err}")
+    B, T, H, hd = q.shape
+    pairs = B * H * (T * (T + 1) // 2 if causal else T * T)
+    bound, by = bound_entry(4 * q.numel() * q.element_size(), 4 * hd * pairs,
+                            dt)
+    # the library call takes (B, H, T, hd): transposed before timing
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        qt, kt, vt, is_causal=causal)
+    return dict(
+        name=name, route="cuda",
+        source="pathway_tpu_torch/csrc/flash_attention.cu",
+        replaces="pathway_tpu/ops/attention_pallas.py:29",
+        launches=launches, max_abs_err=err,
+        bound_ms=bound, bound_by=by,
+        **timed_entry({"kernel": kern, "library": lib, "plain": plain}),
+        shape=f"q{tuple(q.shape)} {dt} causal={causal} strided views",
+    )
+
+
+def time_kernels(torch, pa, kc, ac, cap: Capture, cap_spec: Capture,
+                 launches: dict, prefill_chunk: int) -> list[dict]:
+    # 1. ragged paged attention: the mixed step (chunked prefill beside
+    # decode rows), and the speculative verify step
+    out = [ragged_entry(torch, pa, cap, "paged_attention", prefill_chunk,
+                        launches["paged_attention"]),
+           ragged_entry(torch, pa, cap_spec, "paged_attention_verify",
+                        SPEC_K + 1, launches["paged_attention_verify"])]
+    # 2. append + attend (decode steps)
+    out.append(append_entry(torch, pa, cap, "paged_append_attend",
+                            launches["paged_append_attend"]))
     # 3. KNN scores: the batched search (GEMM) and one query's search
     # (GEMV), each with its matrix cold in L2 (rotating over 4 copies)
     for name, small in (("knn_scores", False), ("knn_scores_q1", True)):
@@ -967,30 +1034,12 @@ def time_kernels(torch, pa, kc, ac, cap: Capture, cap_spec: Capture,
     # 4. flash attention (dense prefill), on the captured strided views
     import torch.nn.functional as F
 
+    out.append(flash_entry(torch, ac, cap, "flash_attention",
+                           launches["flash_attention"]))
     call = cap.heaviest("flash_attention")
-    q, k, v, causal = call["q"], call["k"], call["v"], call["causal"]
-    kern = lambda: ac.flash_attention_cuda(q, k, v, causal)  # noqa: E731
-    plain = lambda: ac.flash_attention_reference(q, k, v, causal)  # noqa: E731
-    err = max_abs_err(kern(), plain())
-    dt = str(q.dtype).split(".")[1]
-    require(err <= TOL[dt], f"flash main-path err {err}")
-    B, T, H, hd = q.shape
-    pairs = B * H * (T * (T + 1) // 2 if causal else T * T)
-    bound, by = bound_entry(4 * q.numel() * q.element_size(), 4 * hd * pairs,
-                            dt)
-    # the library call takes (B, H, T, hd): transposed before timing
-    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-    lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
-        qt, kt, vt, is_causal=causal)
-    out.append(dict(
-        name="flash_attention", route="cuda",
-        source="pathway_tpu_torch/csrc/flash_attention.cu",
-        replaces="pathway_tpu/ops/attention_pallas.py:29",
-        launches=launches["flash_attention"], max_abs_err=err,
-        bound_ms=bound, bound_by=by,
-        **timed_entry({"kernel": kern, "library": lib, "plain": plain}),
-        shape=f"q{tuple(q.shape)} {dt} causal={causal} strided views",
-    ))
+    causal = call["causal"]
+    T, H, hd = call["q"].shape[1:]
+    dt = str(call["q"].dtype).split(".")[1]
     # the T = 256 bucket's flash call too (32-row blocks: 96 of them)
     small = cap.heaviest("flash_attention", max_t=256)
     if small["q"].shape[1] < T:
@@ -2269,13 +2318,13 @@ def phase4f(torch, dec, s) -> dict:
     e16 = s.engine16()
     r1, a1 = held()
     hp = e16.hbm_plan
-    pool_bytes = e16.pool.k.nbytes + e16.pool.v.nbytes
+    pool_bytes = sum(t.nbytes for t in e16.pool.k + e16.pool.v)
     require(hp.params_bytes == plan_bytes(e16.params)
             and hp.kv_bytes == pool_bytes,
             f"4f: ledger params {hp.params_bytes} / kv {hp.kv_bytes} != "
             f"plan {plan_bytes(e16.params)} / pool {pool_bytes}")
     new = [t for t in tensors(e16.params)
-           if t.data_ptr() not in base_ptrs] + [e16.pool.k, e16.pool.v]
+           if t.data_ptr() not in base_ptrs] + e16.pool.k + e16.pool.v
     want = sum(t.nbytes for t in new)
     slack = (a1 - a0) - want
     require(r1 - r0 == want,
@@ -2459,6 +2508,467 @@ def obs_only(torch, np, dec, seed, engine_sizes, smi, PagedDecodeEngine,
     return 0
 
 
+# -- phase 4g: tensor parallelism on logical shards ---------------------------
+
+TP_DEGREES = (2, 4, 8)
+# ring and Ulysses attention: (B, T, H, D) over 4 sequence shards
+SP_SHAPE, SP_SHARDS = (1, 4096, 8, 64), 4
+SP_TOL = 1e-4  # f32: the block merge and the all-to-alls reorder sums
+
+
+class HeadsSeen:
+    """Records the head count of every call of the ragged, append and
+    flash wrappers while active; the calls go through unchanged."""
+
+    NAMES = ("paged_attention", "paged_append_attend", "flash_attention")
+
+    def __init__(self, pa, ac):
+        self.pa, self.ac = pa, ac
+        self.heads = {n: set() for n in self.NAMES}
+
+    def __enter__(self):
+        pa, ac, heads = self.pa, self.ac, self.heads
+        self.orig = (pa.paged_attention_cuda, pa.paged_append_attend_cuda,
+                     ac.flash_attention_cuda)
+
+        def seen(name, fn):
+            def call(q, *a, **kw):
+                heads[name].add(q.shape[2])
+                return fn(q, *a, **kw)
+            return call
+
+        (pa.paged_attention_cuda, pa.paged_append_attend_cuda,
+         ac.flash_attention_cuda) = (seen(n, f)
+                                     for n, f in zip(self.NAMES, self.orig))
+        return self
+
+    def __exit__(self, *exc):
+        (self.pa.paged_attention_cuda, self.pa.paged_append_attend_cuda,
+         self.ac.flash_attention_cuda) = self.orig
+
+
+# the share of a kernel's wrapper-counted launches torch.profiler must
+# see in a run's device trace
+PROFILED_SHARE = 0.95
+# the kernels torch.profiler counts, by a substring of their names
+PROFILED_KERNELS = {"paged_attention": ("paged_f32_kernel",
+                                        "paged_tc_kernel"),
+                    "paged_append_attend": ("append_kernel",),
+                    "flash_attention": ("flash_kernel", "flash_tc_kernel")}
+
+
+def device_kernels(torch, run) -> list[tuple[str, tuple]]:
+    """(name, grid) of every kernel of ``run()``, by torch.profiler
+    tracing the device: the grid is in the exported trace's kernel
+    records, not in ``events()``."""
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory(prefix="pw_tp_trace_") as d:
+        path = os.path.join(d, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            trace = json.load(f)
+    return [(e["name"], tuple(e["args"]["grid"]))
+            for e in trace["traceEvents"] if e.get("cat") == "kernel"]
+
+
+def grids_at_heads(n: str, grids: list, base: list, tp: int, H: int
+                   ) -> bool:
+    """Whether every profiled grid of kernel ``n`` at degree ``tp`` is
+    launched over H/tp heads.  The f32 ragged kernel's grid is (B, H,
+    column groups) and f32 flash's (query tiles, H, B): their y is the
+    head count.  Append's is (B * H, splits): each of its grids must be
+    one of the tp = 1 run's (``base``, the same rounds) with x cut by
+    tp."""
+    if n == "paged_append_attend":
+        want = {(x // tp, y, z) for x, y, z in base if x % H == 0}
+        return bool(grids) and all(g in want for g in grids)
+    return bool(grids) and all(g[1] == H // tp for g in grids)
+
+
+def tp_run(torch, _cuda, pa, ac, eng, reqs, profile: bool) -> dict:
+    """One generation run: tokens, the wrappers' launch counts, the head
+    counts the wrappers got and, with ``profile``, the grids of the
+    kernels torch.profiler saw, by wrapper (None without)."""
+    box = {}
+    _cuda.reset_launches()
+    with HeadsSeen(pa, ac) as seen:
+        def run():
+            box["toks"] = eng.generate_batch(reqs)
+
+        if profile:
+            kernels = device_kernels(torch, run)
+        else:
+            run()
+            torch.cuda.synchronize()
+    launches = {n: _cuda.LAUNCHES[n] for n in HeadsSeen.NAMES}
+    grids = ({n: [g for name, g in kernels if any(k in name for k in keys)]
+              for n, keys in PROFILED_KERNELS.items()} if profile
+             else None)
+    return dict(toks=box["toks"], launches=launches, grids=grids,
+                heads=seen.heads, rounds=dict(eng.rounds))
+
+
+def require_profiled(got: dict, base: dict, n: str, tp: int, H: int,
+                     what: str) -> int:
+    """torch.profiler saw kernel ``n`` nearly every time its wrapper
+    counted a launch (a long run's trace may drop device records: 1,016
+    of 1,024 in one run), every launch at H/tp heads by its grid;
+    returns the profiled count."""
+    seen = len(got["grids"][n])
+    require(seen >= PROFILED_SHARE * got["launches"][n],
+            f"4g: {what} {n}: torch.profiler saw {seen}, the wrapper "
+            f"counted {got['launches'][n]}")
+    require(grids_at_heads(n, got["grids"][n], base["grids"][n], tp, H),
+            f"4g: {what} {n}: profiled grids "
+            f"{sorted(set(got['grids'][n]))[:8]} are not at {H // tp} heads")
+    return seen
+
+
+def phase4g(torch, dec, s) -> tuple[dict, dict]:
+    """Tensor parallelism at the package's default decoder,
+    ``DecoderConfig()`` (vocab 32768, d 512, 8 layers, 8 heads), on
+    ``tp`` logical shards of the one card (``["cuda:0"] * tp``), with
+    phase 4's engine sizes and the 8 RAG prompts.  Returns the ``{"tp":
+    ...}`` line and ``launches_tp`` for the kernels line.  Every check
+    fails the run; no number here is a speed of tp (the shards share one
+    card)."""
+    import gc
+    import tempfile
+
+    import numpy as np
+
+    from pathway_tpu_torch.kvcache import paged_attention as pa
+    from pathway_tpu_torch.kvcache.block_pool import BlockPool
+    from pathway_tpu_torch.kvcache.engine import (PagedDecodeEngine,
+                                                  resolve_tp)
+    from pathway_tpu_torch.kvcache.statecache import StateDecodeEngine
+    from pathway_tpu_torch.models import attention as attn
+    from pathway_tpu_torch.obs import costdb, memory, planner
+    from pathway_tpu_torch.ops import _cuda
+    from pathway_tpu_torch.ops import attention_cuda as ac
+    from pathway_tpu_torch.ops import knn
+    from pathway_tpu_torch.ops import knn_cuda as kc
+    from pathway_tpu_torch.ops import knn_sharded as ks
+    from pathway_tpu_torch.parallel.mesh import TPMesh, tp_mesh
+
+    t_g = time.perf_counter()
+    out: dict = {"card": s.smi, "devices": torch.cuda.device_count()}
+    cfg32 = dec.DecoderConfig(dtype=torch.float32)
+    cfg16 = dec.DecoderConfig()
+    lm = dec.TorchDecoderLM(cfg32, seed=s.seed, device="cuda")
+    params = lm.params
+    reqs = [(ids, NEW_TOKENS)
+            for ids in lm.encode_prompts(s.prompts, NEW_TOKENS)]
+    H = cfg32.n_heads
+    out["config"] = dict(vocab_size=cfg32.vocab_size, d_model=cfg32.d_model,
+                         n_layers=cfg32.n_layers, n_heads=H,
+                         d_ff=cfg32.d_ff,
+                         prompt_tokens=[len(r[0]) for r in reqs])
+
+    def engine(cfg, tp, devices=None, **kw):
+        if devices is None and tp > 1:
+            devices = ["cuda:0"] * tp
+        return PagedDecodeEngine(cfg, params, device="cuda", tp=tp,
+                                 devices=devices,
+                                 **dict(s.engine_sizes, **kw))
+
+    def release():
+        # engines hold reference cycles: collected here, not at a random
+        # later allocation (which would skew the allocator's figures)
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+
+    # a. f32, chunked (mixed rounds, then chains) and whole-bucket (flash
+    # prefill at bucket >= 256): tp in {2, 4, 8} give the tp = 1 tokens
+    # and the dense plain path's, in the same rounds, with every kernel
+    # launched tp times as often at H/tp heads
+    launches_tp: dict = {n: {} for n in HeadsSeen.NAMES}
+    f32: dict = {}
+    dense = None
+    for mode, kw in (("chunked", {}), ("whole_bucket",
+                                        {"chunked_prefill": False})):
+        e1 = engine(cfg32, 1, **kw)
+        base = tp_run(torch, _cuda, pa, ac, e1, reqs, profile=True)
+        if dense is None:
+            dense = [dense_greedy(torch, dec, cfg32, e1.params, ids, n)
+                     for ids, n in reqs]
+        require(base["toks"] == dense,
+                f"4g: {mode} tp=1 f32 tokens differ from the dense path")
+        del e1
+        release()
+        used = [n for n, c in base["launches"].items() if c > 0]
+        want_used = (["paged_attention", "paged_append_attend"]
+                     if mode == "chunked"
+                     else ["flash_attention", "paged_append_attend"])
+        require(all(n in used for n in want_used),
+                f"4g: {mode} tp=1 launched {base['launches']}")
+        require(base["rounds"]["chain" if mode == "chunked" else "prefill"]
+                > 0, f"4g: {mode} rounds {base['rounds']}")
+        f32[mode] = {"tp1": dict(
+            launches=base["launches"], rounds=base["rounds"],
+            profiled={n: require_profiled(base, base, n, 1, H,
+                                          f"{mode} tp=1")
+                      for n in used})}
+        for tp in TP_DEGREES:
+            t0 = time.perf_counter()
+            e = engine(cfg32, tp, **kw)
+            shards = e.pool.shards
+            require(len(shards) == tp and all(
+                k.shape[3] == H // tp and v.shape[3] == H // tp
+                for k, v in shards), f"4g: tp={tp} pool shards")
+            # torch.profiler at tp = 2: tracing slows a run's issue
+            # several-fold, and tp = 4 and 8 issue 2 and 4 times as much
+            got = tp_run(torch, _cuda, pa, ac, e, reqs, profile=tp == 2)
+            require(got["toks"] == base["toks"],
+                    f"4g: {mode} tp={tp} f32 tokens differ from tp=1")
+            require(got["rounds"] == base["rounds"],
+                    f"4g: {mode} tp={tp} rounds {got['rounds']} != "
+                    f"{base['rounds']}")
+            for n in used:
+                require(got["launches"][n] == tp * base["launches"][n],
+                        f"4g: {mode} tp={tp} {n} launches "
+                        f"{got['launches'][n]} != {tp} x "
+                        f"{base['launches'][n]}")
+                require(got["heads"][n] == {H // tp},
+                        f"4g: {mode} tp={tp} {n} at heads {got['heads'][n]}")
+            for n in used:
+                if (mode == "chunked") == (n != "flash_attention"):
+                    launches_tp[n][str(tp)] = got["launches"][n]
+            f32[mode][f"tp{tp}"] = dict(
+                launches=got["launches"], heads_per_call=H // tp,
+                profiled=None if got["grids"] is None else {
+                    n: require_profiled(got, base, n, tp, H,
+                                        f"{mode} tp={tp}")
+                    for n in used},
+                wall_s=time.perf_counter() - t0)
+            log(f"  4g: f32 {mode} tp={tp} = tp=1 at "
+                f"{time.perf_counter() - t_g:.1f}s")
+            del e, shards
+            release()
+    out["f32"] = f32
+    log(f"  4g: f32 chunked and whole-bucket tp {TP_DEGREES} = tp=1 = dense "
+        f"at {time.perf_counter() - t_g:.1f}s")
+
+    # b. f32 sampled at a fixed seed at the smallest and the largest
+    # degree (tp = 4 sampled is left to the CPU tests, to keep the phase
+    # near a minute: tp = 8 alone takes ~10 s), and the speculative
+    # verify at tp=2
+    sreqs = seeded(reqs, 100)
+    e1 = engine(cfg32, 1)
+    sampled1 = e1.generate_batch(sreqs)
+    del e1
+    for tp in (TP_DEGREES[0], TP_DEGREES[-1]):
+        e = engine(cfg32, tp)
+        require(e.generate_batch(sreqs) == sampled1,
+                f"4g: sampled tp={tp} tokens differ from tp=1")
+        del e
+        log(f"  4g: sampled tp={tp} = tp=1 at "
+            f"{time.perf_counter() - t_g:.1f}s")
+    release()
+    e = engine(cfg32, 2, speculative="ngram")
+    require(e.generate_batch(reqs) == dense,
+            "4g: speculative tp=2 tokens differ from the dense path")
+    out["speculative_tp2"] = dict(verify_rounds=e.rounds["verify"],
+                                  accept_rate=e._spec.accept_rate)
+    del e
+    release()
+    # distinct cards, where the process sees them (tp = 2, and 4 with
+    # four): chunked and whole-bucket f32 give the dense path's tokens,
+    # each kernel launched tp times as often at H/tp heads on every card
+    n_cards = torch.cuda.device_count()
+    distinct = []
+    for tp in (t for t in (2, 4) if t <= n_cards):
+        devices = [f"cuda:{i}" for i in range(tp)]
+        for mode, kw in (("chunked", {}), ("whole_bucket",
+                                            {"chunked_prefill": False})):
+            e = engine(cfg32, tp, devices=devices, **kw)
+            require([k.device.index for k, _v in e.pool.shards]
+                    == list(range(tp)), f"4g: {devices} pool shards")
+            got = tp_run(torch, _cuda, pa, ac, e, reqs, profile=False)
+            require(got["toks"] == dense,
+                    f"4g: {mode} tp={tp} over {devices} differs from the "
+                    "dense path")
+            base = f32[mode]["tp1"]["launches"]
+            for n, c in base.items():
+                require(got["launches"][n] == tp * c
+                        and (c == 0 or got["heads"][n] == {H // tp}),
+                        f"4g: {mode} tp={tp} over {devices}: {n} launched "
+                        f"{got['launches'][n]} at heads {got['heads'][n]}")
+            del e
+            release()
+            distinct.append(f"{mode} tp={tp} over {','.join(devices)}")
+    out["distinct_devices"] = (
+        "tokens equal the dense path: " + "; ".join(distinct) if distinct
+        else "not run: one card; only logical shards (cuda:0 x tp) ran")
+    log(f"  4g: {out['distinct_devices']}")
+    log(f"  4g: sampled and speculative done at "
+        f"{time.perf_counter() - t_g:.1f}s")
+
+    # c. each shard's pool holds total / tp bytes (bf16, phase 4's sizes);
+    # the allocator's growth beside it
+    pool_bytes = {}
+    hd = cfg16.d_model // H
+    for tp in TP_DEGREES:
+        release()
+        before = torch.cuda.memory_allocated()
+        pool = BlockPool(num_blocks=s.engine_sizes["num_blocks"],
+                         block_size=s.engine_sizes["block_size"],
+                         n_layers=cfg16.n_layers, n_heads=H, head_dim=hd,
+                         dtype=torch.bfloat16, name=f"tp_pool{tp}",
+                         mesh=tp_mesh(tp, ["cuda:0"] * tp))
+        grown = torch.cuda.memory_allocated() - before
+        total = sum(k.nbytes + v.nbytes for k, v in pool.shards)
+        whole = (2 * cfg16.n_layers * s.engine_sizes["num_blocks"]
+                 * s.engine_sizes["block_size"] * H * hd * 2)
+        require(pool.per_shard_bytes * tp == total == whole,
+                f"4g: tp={tp} pool {pool.per_shard_bytes} x {tp} != {whole}")
+        pool_bytes[str(tp)] = dict(per_shard_bytes=pool.per_shard_bytes,
+                                   total_bytes=total,
+                                   allocator_bytes=grown)
+        pool.retire()
+        del pool
+    out["pool_bytes_bf16"] = pool_bytes
+
+    # d. bf16: token agreement of tp = 2 and 4 with tp = 1, and the tp = 2
+    # runs captured for the kernels' times at H/2 heads
+    e1 = engine(cfg16, 1)
+    toks16 = e1.generate_batch(reqs)
+    del e1
+    agree = {}
+    cap = Capture(torch, pa, kc, ac)
+    for tp in (2, 4):
+        e = engine(cfg16, tp)
+        if tp == 2:
+            with cap:
+                got = e.generate_batch(reqs)
+                whole = engine(cfg16, 2, chunked_prefill=False)
+                whole.generate_batch(reqs)
+        else:
+            got = e.generate_batch(reqs)
+        agree[str(tp)] = float(np.mean([a == b for x, y in zip(got, toks16)
+                                        for a, b in zip(x, y)]))
+        del e
+    out["bf16_token_agreement_with_tp1"] = agree
+    log(f"  4g: bf16 agreement with tp=1 {agree}")
+    kernels_tp2 = [
+        ragged_entry(torch, pa, cap, "paged_attention_tp2",
+                     2 * s.engine_sizes["block_size"],
+                     launches_tp["paged_attention"]["2"]),
+        append_entry(torch, pa, cap, "paged_append_attend_tp2",
+                     launches_tp["paged_append_attend"]["2"]),
+        flash_entry(torch, ac, cap, "flash_attention_tp2",
+                    launches_tp["flash_attention"]["2"]),
+    ]
+    for k in kernels_tp2:
+        require(f", {H // 2}, " in k["shape"],
+                f"4g: {k['name']} timed at {k['shape']}")
+    out["kernels_tp2_bf16"] = kernels_tp2
+    del cap, whole
+    release()
+    log(f"  4g: tp=2 kernel times done at {time.perf_counter() - t_g:.1f}s")
+
+    # e. the SSD state engine at tp = 2 gives the tp = 1 tokens (f32)
+    ssd = {}
+    for tp in (1, 2):
+        eng = StateDecodeEngine(cfg32, params, device="cuda", tp=tp,
+                                devices=["cuda:0"] * tp if tp > 1 else None,
+                                **STATE_SIZES)
+        ssd[tp] = eng.generate_batch(reqs)
+        if tp > 1:
+            require(all(st.shape[2] == H // tp for st in eng.pool.shards),
+                    "4g: ssd state shards")
+        del eng
+    require(ssd[2] == ssd[1], "4g: ssd tp=2 f32 tokens differ from tp=1")
+    release()
+
+    # f. row-sharded KNN over the phase-3 matrix at 4 shards: the
+    # unsharded top-10 ids exactly, scores within 1e-5
+    m = s.matrix.float().contiguous()
+    qs = s.query_rows.float().contiguous()
+    mesh4 = tp_mesh(4, ["cuda:0"] * 4)
+    tv, ti = ks.sharded_topk(mesh4, "tp", m, qs, 10, "cos")
+    uv, ui = knn.topk_lower_index_first(
+        knn.metric_scores(qs, m, "cos", lambda a, b: a @ b.T), 10)
+    knn_err = float(np.abs(tv - uv.cpu().numpy()).max())
+    require(np.array_equal(ti, ui.cpu().numpy()),
+            "4g: sharded top-10 ids differ from the unsharded search")
+    require(knn_err <= 1e-5, f"4g: sharded top-10 scores err {knn_err}")
+    out["knn_sharded"] = dict(rows=int(m.shape[0]), dim=int(m.shape[1]),
+                              queries=int(qs.shape[0]), shards=4,
+                              max_abs_err=knn_err)
+
+    # g. ring and Ulysses attention over 4 sequence shards
+    g = torch.Generator(device="cuda").manual_seed(s.seed)
+    q, k, v = (torch.randn(SP_SHAPE, generator=g, device="cuda")
+               for _ in range(3))
+    mesh_sp = TPMesh(["cuda:0"] * SP_SHARDS, ("sp",))
+    sp = {}
+    for causal in (False, True):
+        ref = attn.reference_attention(q, k, v, causal=causal)
+        for make in (attn.make_ring_attention, attn.make_ulysses_attention):
+            fn = make(mesh_sp, "sp", causal=causal)
+            got = torch.cat(fn(*(attn.shard_sequence(x, mesh_sp)
+                                 for x in (q, k, v))), dim=1)
+            err = max_abs_err(got, ref)
+            require(err <= SP_TOL, f"4g: {fn.strategy} causal={causal} "
+                                   f"err {err}")
+            sp[f"{fn.strategy}_causal{int(causal)}"] = err
+        del ref
+    out["sequence_parallel"] = dict(shape=list(SP_SHAPE), shards=SP_SHARDS,
+                                    max_abs_err=sp)
+    del q, k, v
+    release()
+
+    # h. the planner's choice on this card, and GPT-2 small refused
+    budget, source = memory.resolve_budget(None, "cuda")
+    db = costdb.CostDB(path=os.path.join(tempfile.mkdtemp(prefix="pw_tp_"),
+                                         "costdb.json"))
+    d = planner.choose_tp(cfg=cfg16, db=db, budget_bytes=budget,
+                          device="cuda")
+    require(d.value == 1, f"4g: choose_tp gave {d.value}: {d.why}")
+    out["choose_tp"] = dict(value=d.value, source=d.source, why=d.why,
+                            budget_source=source)
+    log(f"  4g: choose_tp -> {d.value} ({d.source}): {d.why}")
+    gpt2 = dec.DecoderConfig(**GPT2_SMALL)
+    try:
+        resolve_tp(gpt2, 2, 8)
+    except ValueError as exc:
+        require("[1]" in str(exc), f"4g: GPT-2 small tp=2: {exc}")
+        out["gpt2_small_tp2"] = str(exc)
+    else:
+        raise AssertionError("4g: tp=2 on GPT-2 small did not raise")
+    out["phase_s"] = time.perf_counter() - t_g
+    return out, launches_tp
+
+
+def tp_only(torch, np, dec, seed, engine_sizes, smi) -> int:
+    """``--tp-only``: phase 4g on 8 synthetic prompts of phase 4's
+    lengths and a random 16,384 x 384 matrix in place of phase 3's (the
+    short first call after a change to the tensor-parallel path)."""
+    rng = np.random.default_rng(seed)
+    docs = make_docs(rng, 64)
+    words = " ".join(docs).split()
+    prompts = [" ".join(words[i:i + n]) for i, n in enumerate(
+        np.linspace(100, 600, N_PROMPTS).astype(int))]
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    matrix = torch.randn((N_DOCS, 384), generator=g, device="cuda")
+    line, launches_tp = phase4g(torch, dec, types.SimpleNamespace(
+        smi=smi, seed=seed, prompts=prompts, engine_sizes=engine_sizes,
+        matrix=matrix, query_rows=matrix[:N_QUERIES] + 0.1 * torch.randn(
+            (N_QUERIES, 384), generator=g, device="cuda")))
+    print(json.dumps({"tp": dict(line, launches_tp=launches_tp)}),
+          flush=True)
+    log("--tp-only: stopping after phase 4g")
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2468,6 +2978,9 @@ def main() -> int:
     ap.add_argument("--obs-only", action="store_true",
                     help="build the kernels, then run phase 4f alone on "
                          "synthetic prompts; prints no result")
+    ap.add_argument("--tp-only", action="store_true",
+                    help="build the kernels, then run phase 4g alone on "
+                         "synthetic prompts and rows; prints no result")
     args = ap.parse_args()
 
     import numpy as np
@@ -2531,6 +3044,8 @@ def main() -> int:
         return obs_only(torch, np, dec, args.seed, engine_sizes, smi,
                         PagedDecodeEngine, StateDecodeEngine, faults,
                         EngineFailedError)
+    if args.tp_only:
+        return tp_only(torch, np, dec, args.seed, engine_sizes, smi)
 
     # phase 2: kernels against their plain versions
     g = torch.Generator().manual_seed(args.seed)
@@ -2965,7 +3480,6 @@ def main() -> int:
     for k in kernels:  # the int8 engine's run is a second main-path call
         if k["name"] in ("paged_attention", "paged_append_attend"):
             k["launches_int8"] = int8_line["launches_int8"][k["name"]]
-    print(json.dumps({"kernels": kernels}), flush=True)
 
     # phase 4e, f32: the int8 and SSD identities, after every measurement
     t0 = time.perf_counter()
@@ -2989,6 +3503,21 @@ def main() -> int:
     log(f"phase 4f ok: auto-config, ledger, hbm_fit, per-program profile, "
         f"cost store and flight recorder in {obs_line['phase_s']:.1f}s")
     print(json.dumps({"obs": dict(obs_line, card=smi)}), flush=True)
+
+    # phase 4g: tensor parallelism on logical shards of the card, after
+    # every measurement of the earlier phases; its launches go on the
+    # kernels line (printed here, after it)
+    tp_line, launches_tp = phase4g(torch, dec, types.SimpleNamespace(
+        smi=smi, seed=args.seed, prompts=prompts, engine_sizes=engine_sizes,
+        matrix=emb, query_rows=q_emb))
+    log(f"phase 4g ok: tp {TP_DEGREES} token-identical to tp=1 in f32, "
+        f"kernels at H/tp heads, SSD, sharded KNN, ring and Ulysses in "
+        f"{tp_line['phase_s']:.1f}s")
+    print(json.dumps({"tp": tp_line}), flush=True)
+    for k in kernels:
+        if k["name"] in launches_tp:
+            k["launches_tp"] = launches_tp[k["name"]]
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({
         "rag": {
             "docs": N_DOCS,

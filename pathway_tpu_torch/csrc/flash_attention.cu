@@ -86,6 +86,9 @@
 
 namespace {
 
+// devices a process may launch on: the per-device attribute opt-ins
+constexpr int kMaxDevices = 64;
+
 constexpr int BQ = 64;       // query rows per block
 constexpr int BK = 64;       // keys per tile
 constexpr int NT = 128;      // threads: 16 row groups x 8 key/dim groups
@@ -283,13 +286,17 @@ int launch_hd(const void* q, const void* k, const void* v, void* out, int B,
               cudaStream_t stream) {
   constexpr size_t smem = (size_t)(HD * BQ + HD * BK + BK * HD + BK * BQ) *
                           sizeof(float);
-  static bool attr_set = false;  // once per instantiation
-  if (!attr_set) {
+  // cudaFuncSetAttribute applies to the current device (the launch makes
+  // the tensors' device current): opted in once per device
+  static bool attr_set[kMaxDevices] = {};
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev >= kMaxDevices || !attr_set[dev]) {
     const cudaError_t err = cudaFuncSetAttribute(
         flash_kernel<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (err != cudaSuccess) return static_cast<int>(err);
-    attr_set = true;
+    if (dev < kMaxDevices) attr_set[dev] = true;
   }
   const dim3 grid((T_len + BQ - 1) / BQ, H, B);
   flash_kernel<T, HD><<<grid, NT, smem, stream>>>(
@@ -687,13 +694,17 @@ int launch_nw(const void* q, const void* k, const void* v, void* out, int B,
   constexpr int BQ = 16 * NW, LD = HD + 8;
   constexpr size_t smem =
       (size_t)(BQ + KG * 4 * BK) * LD * sizeof(__nv_bfloat16);
-  static bool attr_set = false;  // once per instantiation
-  if (!attr_set) {
+  // cudaFuncSetAttribute applies to the current device (the launch makes
+  // the tensors' device current): opted in once per device
+  static bool attr_set[kMaxDevices] = {};
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev >= kMaxDevices || !attr_set[dev]) {
     const cudaError_t err = cudaFuncSetAttribute(
         flash_tc_kernel<HD, NW, KG>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return static_cast<int>(err);
-    attr_set = true;
+    if (dev < kMaxDevices) attr_set[dev] = true;
   }
   const long long blocks = (long long)((T_len + BQ - 1) / BQ) * H * B;
   flash_tc_kernel<HD, NW, KG><<<(unsigned)blocks, 32 * NW * KG, smem,

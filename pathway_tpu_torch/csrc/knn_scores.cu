@@ -59,6 +59,9 @@
 
 namespace {
 
+// devices a process may launch on: the per-device attribute opt-ins
+constexpr int kMaxDevices = 64;
+
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
@@ -218,13 +221,17 @@ knn_gemm_kernel(const float* __restrict__ q, const float* __restrict__ m,
 template <bool VEC>
 int launch(const float* q, const float* m, float* out, int Q, int N, int d,
            cudaStream_t stream) {
-  static bool attr_set = false;  // once per instantiation
-  if (!attr_set) {
+  // cudaFuncSetAttribute applies to the current device (the launch makes
+  // the tensors' device current): opted in once per device
+  static bool attr_set[kMaxDevices] = {};
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev >= kMaxDevices || !attr_set[dev]) {
     const cudaError_t err = cudaFuncSetAttribute(
         knn_gemm_kernel<VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)SMEM);
     if (err != cudaSuccess) return static_cast<int>(err);
-    attr_set = true;
+    if (dev < kMaxDevices) attr_set[dev] = true;
   }
   const dim3 grid((N + BN - 1) / BN, (Q + BM - 1) / BM);
   knn_gemm_kernel<VEC><<<grid, NT, SMEM, stream>>>(q, m, out, Q, N, d);

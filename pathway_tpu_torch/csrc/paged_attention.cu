@@ -95,6 +95,9 @@
 
 namespace {
 
+// devices a process may launch on: the per-device attribute opt-ins
+constexpr int kMaxDevices = 64;
+
 using bf16 = __nv_bfloat16;
 
 // ---- tensor-core building blocks (the bf16 path) -------------------------
@@ -616,13 +619,17 @@ int launch_tc(const void* q, const void* k_pool, const void* v_pool,
   constexpr int LD = HD + 8;
   const size_t smem = (size_t)(16 * NW + KG * 4 * KT) * LD * sizeof(bf16) +
                       (size_t)((split - 1) / BS + 2) * sizeof(int);
-  static size_t attr_bytes = 0;  // per instantiation
-  if (smem > attr_bytes) {
+  // cudaFuncSetAttribute applies to the current device (the launch makes
+  // the tensors' device current): the bytes opted in, per device
+  static size_t attr_bytes[kMaxDevices] = {};
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev >= kMaxDevices || smem > attr_bytes[dev]) {
     const cudaError_t err = cudaFuncSetAttribute(
         paged_tc_kernel<HD, NW>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (err != cudaSuccess) return static_cast<int>(err);
-    attr_bytes = smem;
+    if (dev < kMaxDevices) attr_bytes[dev] = smem;
   }
   const dim3 grid(B * H, n_split, (C + ROWS_TC - 1) / ROWS_TC);
   paged_tc_kernel<HD, NW><<<grid, 32 * NW * KG, smem, stream>>>(

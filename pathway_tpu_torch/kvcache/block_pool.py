@@ -1,10 +1,11 @@
 """Fixed-size device block pool for paged KV caching.
 
-One K and one V tensor hold the entire cache for every live sequence:
-``(n_layers, num_blocks, block_size, n_kv_heads, head_dim)`` on the
-pool's device.  Sequences address the pool through per-sequence block
-tables (ordered lists of physical block ids); attention reads blocks
-through the table (paged_attention.py) and writes land at
+One K and one V tensor a shard hold the entire cache for every live
+sequence: ``(n_layers, num_blocks, block_size, n_kv_heads / tp,
+head_dim)`` on the shard's device (``k`` and ``v`` are the lists of
+them, one tensor each at tp = 1).  Sequences address the pool through
+per-sequence block tables (ordered lists of physical block ids);
+attention reads blocks through the table (paged_attention.py) and writes land at
 ``(block, offset)`` slots.
 
 Allocation is a free-list pop; blocks are refcounted so full prompt
@@ -18,6 +19,13 @@ first, most recent arrival within a class).
 Physical block 0 is reserved as the null block: padded block-table
 entries and padded batch rows write/read there, so scatter/gather never
 needs a branch for invalid rows (the results are masked out).
+
+With a ``mesh`` (``parallel/mesh.TPMesh``) the pool is sharded on the
+head axis, a shard on each of its devices, under ONE block table: a
+block id means the same head-split block on every shard, so the
+allocator's bookkeeping is untouched by sharding, and every tensor
+operation (copy-on-write, the tier's gather/scatter) acts on every
+shard.
 """
 
 from __future__ import annotations
@@ -32,6 +40,7 @@ import torch
 
 from .._device import resolve_device
 from ..obs.profiler import profiled
+from ..parallel.mesh import KV_POOL_SPEC, shard_shape
 from .backend import CacheBackend
 
 # live pools by metrics name: a second concurrent pool must not share (and
@@ -115,19 +124,32 @@ class BlockPool(CacheBackend):
 
     def __init__(self, *, num_blocks: int, block_size: int, n_layers: int,
                  n_heads: int, head_dim: int, dtype=torch.float32,
-                 name: str = "kvcache", device="cuda"):
+                 name: str = "kvcache", device="cuda", mesh=None):
         if num_blocks < 2:
             raise ValueError("num_blocks must be >= 2 (block 0 is reserved)")
-        self.device = resolve_device(device)
         self.num_blocks = int(num_blocks)
         self.block_size = int(block_size)
         self.n_layers = int(n_layers)
         self.n_heads = int(n_heads)
         self.head_dim = int(head_dim)
         self.dtype = dtype
-        shape = (n_layers, num_blocks, block_size, n_heads, head_dim)
-        self.k = torch.zeros(shape, dtype=dtype, device=self.device)
-        self.v = torch.zeros(shape, dtype=dtype, device=self.device)
+        self.mesh = mesh
+        self.tp = 1 if mesh is None else mesh.size
+        if self.n_heads % self.tp:
+            legal = [t for t in range(1, self.n_heads + 1)
+                     if self.n_heads % t == 0]
+            raise ValueError(
+                f"cannot shard the KV pool: n_kv_heads={self.n_heads} "
+                f"% tp={self.tp} != 0. Legal tp values: {legal}")
+        shape = shard_shape(
+            (n_layers, num_blocks, block_size, n_heads, head_dim),
+            KV_POOL_SPEC, self.tp)
+        devices = ([resolve_device(device)] if mesh is None
+                   else mesh.devices)
+        self.device = devices[0]
+        # one K and one V tensor a shard (one of each at tp = 1)
+        self.k = [torch.zeros(shape, dtype=dtype, device=d) for d in devices]
+        self.v = [torch.zeros(shape, dtype=dtype, device=d) for d in devices]
         # block 0 reserved: never allocated, target of padded writes
         self._free: list[int] = list(range(num_blocks - 1, 0, -1))
         self._ref = np.zeros(num_blocks, np.int32)
@@ -150,7 +172,7 @@ class BlockPool(CacheBackend):
 
         self.kv_stats = kv_stats(
             self.name, blocks_in_use_fn=_in_use,
-            blocks_total=self.num_blocks - 1, shards=1,
+            blocks_total=self.num_blocks - 1, shards=self.tp,
             shard_hbm_bytes=self.per_shard_bytes,
         )
 
@@ -173,15 +195,22 @@ class BlockPool(CacheBackend):
         return len(self._free)
 
     @property
+    def shards(self) -> list[tuple[torch.Tensor, torch.Tensor]]:
+        """The ``(k, v)`` tensors of each shard (one pair at tp = 1)."""
+        return list(zip(self.k, self.v))
+
+    @property
     def per_shard_bytes(self) -> int:
-        """K + V bytes on the device (the whole pool at tp = 1)."""
-        return (self.k.numel() + self.v.numel()) * self.k.element_size()
+        """K + V bytes held by EACH shard (the whole pool at tp = 1)."""
+        k, v = self.shards[0]
+        return (k.numel() + v.numel()) * k.element_size()
 
     def state_bytes_per_seq(self, n_tokens: int) -> int:
-        """Device bytes of one ``n_tokens`` sequence: its block span
-        times one block's K + V bytes."""
+        """Device bytes of one ``n_tokens`` sequence, summed over the
+        shards: its block span times one block's K + V bytes (a block id
+        means the same head-split block on every shard)."""
         return (self.blocks_for(max(int(n_tokens), 1))
-                * self.per_shard_bytes // self.num_blocks)
+                * self.per_shard_bytes * self.tp // self.num_blocks)
 
     def blocks_for(self, n_tokens: int) -> int:
         # 0 tokens -> 0 blocks: a token-less sequence owns nothing
@@ -256,8 +285,9 @@ class BlockPool(CacheBackend):
         """Copy-on-write: a private copy of a shared block, every layer,
         copied in place into a fresh block of the same tensors."""
         new = self._pop_free()
-        self.k = _cow_copy(self.k, block_id, new)
-        self.v = _cow_copy(self.v, block_id, new)
+        for k, v in self.shards:
+            _cow_copy(k, block_id, new)
+            _cow_copy(v, block_id, new)
         self.decref(block_id)
         self.n_cow += 1
         self.kv_stats.record_cow()
@@ -353,9 +383,10 @@ class BlockPool(CacheBackend):
         padded with the null block to the next power of two, as the JAX
         store pads it, so the byte charge — the host buffers' real size,
         padding included — equals the JAX store's for the same suspend.
-        On the card the host buffers are pinned and the stream is
-        synchronised once, after both copies and before the free: a later
-        write into the freed blocks cannot overtake the copy."""
+        On the card the host buffers are pinned and each shard's stream is
+        synchronised once, after its copies and before the free: a later
+        write into the freed blocks cannot overtake the copy.  The payload
+        holds one K and one V buffer a shard."""
         nb = self.blocks_for(len(context_tokens))
         if nb == 0:
             self.free_sequence(seq_id)
@@ -364,20 +395,20 @@ class BlockPool(CacheBackend):
             blocks = self._seqs[seq_id].block_ids[:nb]
         idx = torch.zeros(_pad_width(nb), dtype=torch.int32)
         idx[:nb] = torch.tensor(blocks, dtype=torch.int32)
-        idx = idx.to(self.device)
-        cuda = self.device.type == "cuda"
-        host = []
-        for pool in (self.k, self.v):
-            rows = _tier_gather(pool, idx)
-            buf = torch.empty(rows.shape, dtype=rows.dtype, pin_memory=cuda)
-            buf.copy_(rows, non_blocking=cuda)
-            host.append(buf)
-        if cuda:
-            torch.cuda.current_stream(self.device).synchronize()
+        ks, vs = [], []
+        for k, v in self.shards:
+            dev = k.device
+            cuda = dev.type == "cuda"
+            for pool, out in ((k, ks), (v, vs)):
+                rows = _tier_gather(pool, idx.to(dev))
+                buf = torch.empty(rows.shape, dtype=rows.dtype,
+                                  pin_memory=cuda)
+                buf.copy_(rows, non_blocking=cuda)
+                out.append(buf)
+            if cuda:
+                torch.cuda.current_stream(dev).synchronize()
         self.free_sequence(seq_id)
-        k_host, v_host = host
-        payload = {"k": k_host, "v": v_host, "nb": nb}
-        return payload, k_host.nbytes + v_host.nbytes
+        return {"k": ks, "v": vs, "nb": nb}, sum(b.nbytes for b in ks + vs)
 
     def resume_host(self, payload: dict, slot_ids) -> None:
         """Scatter a suspended payload into freshly allocated blocks.
@@ -385,12 +416,15 @@ class BlockPool(CacheBackend):
         read uses.  The host-to-device copies are stream-ordered before
         every later kernel that reads the pools."""
         nb = int(payload["nb"])
-        table = torch.zeros(payload["k"].shape[1], dtype=torch.int32)
+        ks, vs = payload["k"], payload["v"]
+        table = torch.zeros(ks[0].shape[1], dtype=torch.int32)
         table[:nb] = torch.tensor(list(slot_ids)[:nb], dtype=torch.int32)
-        idx = table.to(self.device)
-        cuda = self.device.type == "cuda"
-        for pool, rows in ((self.k, payload["k"]), (self.v, payload["v"])):
-            _tier_scatter(pool, idx, rows.to(self.device, non_blocking=cuda))
+        for (k, v), k_rows, v_rows in zip(self.shards, ks, vs):
+            dev = k.device
+            cuda = dev.type == "cuda"
+            idx = table.to(dev)
+            _tier_scatter(k, idx, k_rows.to(dev, non_blocking=cuda))
+            _tier_scatter(v, idx, v_rows.to(dev, non_blocking=cuda))
 
     # -- preemption --------------------------------------------------------
     def preempt(self, *, exclude: set | frozenset = frozenset()

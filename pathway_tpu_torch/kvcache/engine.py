@@ -67,9 +67,20 @@ process can hold, from ``torch.cuda.mem_get_info``; on the CPU, with no
 budget, the documented ``ENGINE_DEFAULTS``), and a configuration that
 cannot fit is rejected at construction (``hbm_fit="reject"``), or its
 pool shrunk (``"clamp"``).  ``auto_config`` records what was chosen and
-why, ``hbm_plan`` the ledger.  Tensor parallelism is not ported yet.
-The pool is built, and rebuilt on a restart, through
-``backend.make_backend("paged", ...)``.
+why, ``hbm_plan`` the ledger.  The pool is built, and rebuilt on a
+restart, through ``backend.make_backend("paged", ...)``.
+
+Tensor parallelism (``tp > 1``): the plan is built with its QKV columns
+laid out per shard and sharded once, at construction
+(``parallel/mesh.shard_decoder_params``, one dict a shard); the pool
+holds one [L, NB, BS, H/tp, hd] K and V tensor a shard under one block
+table; and every program dispatches through its ``*_tp`` form
+(``models/decoder.py``), which runs the per-shard body on each shard in
+lockstep and returns replicated ids.  Shards sit on the first ``tp``
+CUDA devices, or on an explicit ``devices=`` list, which may repeat a
+device (``["cpu"] * 4`` in the tests, ``["cuda:0"] * tp`` on one card).
+Admission, scheduling, preemption, the watchdog, restart and the
+degrade hook are host-side and do not change with tp.
 
 Every step program is a ``obs.profiler.profiled`` function under the
 reference's name (``pw.decode_step``, ``pw.mixed_step``,
@@ -102,15 +113,13 @@ import torch
 
 from .. import faults, obs
 from .._device import resolve_device, resolve_dtype
-from ..models.decoder import (greedy, paged_chained_decode,
-                              paged_chained_decode_sampled,
-                              paged_decode_step, paged_decode_step_sampled,
-                              paged_mixed_step, paged_mixed_step_sampled,
-                              int8_device_native, paged_prefill,
-                              paged_prefill_sampled, plan_decode_params)
+from ..models import decoder as dec
+from ..models.decoder import greedy, int8_device_native, plan_decode_params
 from ..models.encoder import params_to
 from ..obs import memory as obs_memory
 from ..obs.profiler import ProfiledFunction, profiled
+from ..parallel.mesh import (legal_tp_values, shard_decoder_params, tp_mesh,
+                             validate_decoder_tp)
 from ..serve.admission import EngineFailedError, Priority
 from .backend import make_backend
 from .block_pool import PoolExhausted
@@ -177,6 +186,56 @@ class _WatchdogSync:
         if box["error"] is not None:
             raise box["error"]
         return box["result"]
+
+
+def resolve_tp(cfg, tp: int | None, n_devices: int | None = None) -> int:
+    """The tensor-parallel degree for a decoder config.  ``n_devices``
+    (default: the CUDA devices this process sees; a machine with no card
+    counts its CPU as one) caps it.  ``tp=None`` picks the largest legal
+    degree, stepping down to one that divides the KV heads, the vocab
+    and ``d_ff``: 1 on one card or none.  An explicit ``tp`` is
+    validated and raises, naming the legal values, when the model or the
+    devices cannot shard it."""
+    if n_devices is None:
+        n_devices = torch.cuda.device_count() or 1
+    d_ff = getattr(cfg, "d_ff", None)
+    if tp is None:
+        legal = legal_tp_values(cfg.n_heads, cfg.vocab_size, n_devices, d_ff)
+        return max(legal) if legal else 1
+    tp = int(tp)
+    validate_decoder_tp(cfg.n_heads, cfg.vocab_size, tp, n_devices, d_ff)
+    return tp
+
+
+def engine_shards(cfg, tp: int | None, devices, device: torch.device):
+    """An engine's ``(tp, mesh, home device)``.  ``tp=None`` is one shard
+    a listed device, else 1: sharding is asked for, never picked (the
+    speed of tp > 1 over several cards is not measured yet; call
+    :func:`resolve_tp` with ``tp=None`` for the largest degree the cards
+    could take).  Without ``devices``, tp > 1 takes ``tp`` consecutive
+    cards from the engine's own (``cuda`` is ``cuda:0``) and raises off
+    the card, where shards are placed with ``devices=``.  With a mesh the
+    home device is shard 0's: the host-built index arrays go there, and
+    each program replicates them to the other shards."""
+    if tp is None:
+        tp = 1 if devices is None else len(devices)
+    if devices is not None:
+        n_devices = len(devices)
+    elif device.type == "cuda":
+        first = device.index or 0
+        n_devices = torch.cuda.device_count() - first
+        devices = [torch.device("cuda", first + i) for i in range(int(tp))]
+    else:
+        n_devices = 1
+    tp = resolve_tp(cfg, tp, n_devices)
+    if tp == 1:
+        return 1, None, device
+    mesh = tp_mesh(tp, devices)
+    return tp, mesh, mesh.devices[0]
+
+
+def _same(x):
+    return x
 
 
 def _mixed_args(a) -> tuple:
@@ -311,7 +370,10 @@ class PagedDecodeEngine:
     ``SpecController``) turns on speculative decoding for greedy rows.
     ``quantize`` (None or ``"int8"``) picks the plan's weights; ``name``
     labels the engine (a fleet names its replicas) and its pool's
-    counters.  Sizes left None are chosen from the HBM ledger, held to
+    counters.  ``tp`` shards it over ``devices`` (default: ``tp``
+    cards from ``device`` on; ``tp=None`` is one shard a listed device,
+    else 1; see :func:`engine_shards`).  Sizes left
+    None are chosen from the HBM ledger, held to
     ``hbm_budget_bytes`` (or what the card can hold) as ``hbm_fit``
     says: ``"reject"`` raises, ``"clamp"`` shrinks the pool, ``"off"``
     only reports."""
@@ -331,9 +393,14 @@ class PagedDecodeEngine:
                  speculative=None, quantize: str | None = None,
                  hbm_budget_bytes: int | None = None,
                  hbm_fit: str = "reject",
-                 name: str = "engine", device="cuda"):
-        self.device = resolve_device(device)
+                 name: str = "engine", device="cuda", tp: int | None = None,
+                 devices=None):
         self.name = name
+        self.tp, self.mesh, self.device = engine_shards(
+            cfg, tp, devices, resolve_device(device))
+        # a greedy program's ids: the argmax of its logits at tp = 1; the
+        # sharded head already chose them
+        self._ids = greedy if self.mesh is None else _same
         self.cfg = cfg
         self.stop_token = stop_token
         self.dtype = resolve_dtype(cfg.dtype, self.device)
@@ -349,9 +416,13 @@ class PagedDecodeEngine:
         # plan is native (int8-resident) on the engine's device when
         # int8_device_native says so (the card), dequantized on the CPU
         self.params = params_to(
-            plan_decode_params(cfg, params, quantize=quantize,
+            plan_decode_params(cfg, params, tp=self.tp, quantize=quantize,
                                native=int8_device_native(None, self.device)),
             self.device, self.dtype)
+        if self.mesh is not None:
+            # one dict a shard, each on its device; the logical plan
+            # is dropped, so each shard holds only its slice
+            self.params = shard_decoder_params(self.params, self.mesh)
         # the plain attention path (gathered K/V temps) runs exactly on
         # the CPU; on the card the paged kernels keep them on chip
         self.reference_attn = self.device.type != "cuda"
@@ -360,7 +431,7 @@ class PagedDecodeEngine:
         # same ledger's what-ifs, over the decode plan's own tensors (an
         # int8 plan billed at its byte width)
         auto = obs_memory.choose_engine_config(
-            cfg, params=self.params, dtype=self.dtype,
+            cfg, params=self.params, tp=self.tp, dtype=self.dtype,
             budget_bytes=hbm_budget_bytes,
             reference_attn=self.reference_attn,
             prefill_chunk=prefill_chunk, num_blocks=num_blocks,
@@ -383,7 +454,7 @@ class PagedDecodeEngine:
             cfg, num_blocks=int(num_blocks), block_size=int(block_size),
             max_batch_size=self.max_batch_size,
             chain_steps=max(1, int(chain_steps)),
-            prefill_chunk=prefill_chunk, dtype=self.dtype,
+            prefill_chunk=prefill_chunk, tp=self.tp, dtype=self.dtype,
             params=self.params, budget_bytes=hbm_budget_bytes,
             reference_attn=self.reference_attn, device=self.device,
         )
@@ -412,6 +483,8 @@ class PagedDecodeEngine:
             head_dim=cfg.d_model // cfg.n_heads, dtype=self.dtype,
             name=name, device=self.device,
         )
+        if self.mesh is not None:
+            self._pool_kwargs["mesh"] = self.mesh
         self.pool = make_backend("paged", **self._pool_kwargs)
         self._prefix_sharing = bool(prefix_sharing)
         self.prefix = PrefixCache(self.pool) if prefix_sharing else None
@@ -486,32 +559,54 @@ class PagedDecodeEngine:
         # so it runs after hbm_plan
         self._spec = resolve_speculative(speculative, self)
 
+    def _program(self, name: str):
+        """The step program ``name`` of ``models/decoder``: the function
+        itself at tp = 1, its ``*_tp`` form over the mesh (the mesh after
+        the config) with one."""
+        if self.mesh is None:
+            return getattr(dec, name)
+        fn, mesh = getattr(dec, name + "_tp"), self.mesh
+        return lambda p, cfg, *a: fn(p, cfg, mesh, *a)
+
+    def _on_shards(self, xs: list):
+        """A program's argument for one tensor a shard ``xs``: the one
+        tensor at tp = 1, the list with a mesh."""
+        return xs if self.mesh is not None else xs[0]
+
+    def _kv(self, pool) -> tuple:
+        """The K and V pools a program takes."""
+        return self._on_shards(pool.k), self._on_shards(pool.v)
+
     def _build_programs(self) -> None:
         """The greedy step programs, each registered in the device cost
         observatory under the reference's name.  They take the
         reference's arguments (int32 index arrays, the configuration
         closed over) and widen the indices the port's math gathers with."""
         cfg, sfx = self.cfg, self._prog_suffix
+        step, mixed = (self._program("paged_decode_step"),
+                       self._program("paged_mixed_step"))
+        chained, prefill = (self._program("paged_chained_decode"),
+                            self._program("paged_prefill"))
+        ids = self._ids
 
         def _step_fn(p, k_pool, v_pool, token, positions, bt, sb, so):
-            logits, k_pool, v_pool = paged_decode_step(
-                p, cfg, k_pool, v_pool, token.long(), positions.long(), bt,
-                sb, so)
-            return greedy(logits), k_pool, v_pool
+            out, k_pool, v_pool = step(p, cfg, k_pool, v_pool, token.long(),
+                                       positions.long(), bt, sb, so)
+            return ids(out), k_pool, v_pool
 
         def _mixed_fn(p, k_pool, v_pool, *rest):
-            logits, k_pool, v_pool = paged_mixed_step(
-                p, cfg, k_pool, v_pool, *_mixed_args(rest))
-            return greedy(logits), k_pool, v_pool
+            out, k_pool, v_pool = mixed(p, cfg, k_pool, v_pool,
+                                        *_mixed_args(rest))
+            return ids(out), k_pool, v_pool
 
         def _chained_fn(p, k_pool, v_pool, token, positions, bt, sb, so):
-            return paged_chained_decode(p, cfg, k_pool, v_pool, token.long(),
-                                        positions.long(), bt, sb, so)
+            return chained(p, cfg, k_pool, v_pool, token.long(),
+                           positions.long(), bt, sb, so)
 
         def _prefill_fn(p, token_ids, n_valid, k_pool, v_pool, bt):
-            logits, k_pool, v_pool = paged_prefill(
-                p, cfg, token_ids.long(), n_valid.long(), k_pool, v_pool, bt)
-            return greedy(logits), k_pool, v_pool
+            out, k_pool, v_pool = prefill(p, cfg, token_ids.long(),
+                                          n_valid.long(), k_pool, v_pool, bt)
+            return ids(out), k_pool, v_pool
 
         self._step = profiled(f"pw.decode_step{sfx}", _step_fn)
         self._mixed = profiled(f"pw.mixed_step{sfx}", _mixed_fn)
@@ -532,29 +627,30 @@ class PagedDecodeEngine:
         built on first use."""
         if self._sampled is None:
             cfg, sfx = self.cfg, self._prog_suffix
+            step = self._program("paged_decode_step_sampled")
+            mixed = self._program("paged_mixed_step_sampled")
+            chained = self._program("paged_chained_decode_sampled")
+            prefill = self._program("paged_prefill_sampled")
 
             def _step_fn(p, k_pool, v_pool, token, positions, bt, sb, so,
                          *samp):
-                return paged_decode_step_sampled(
-                    p, cfg, k_pool, v_pool, token.long(), positions.long(),
-                    bt, sb, so, *_samp_args(samp))
+                return step(p, cfg, k_pool, v_pool, token.long(),
+                            positions.long(), bt, sb, so, *_samp_args(samp))
 
             def _mixed_fn(p, k_pool, v_pool, *rest):
-                return paged_mixed_step_sampled(
-                    p, cfg, k_pool, v_pool, *_mixed_args(rest[:11]),
-                    *_samp_args(rest[11:]))
+                return mixed(p, cfg, k_pool, v_pool, *_mixed_args(rest[:11]),
+                             *_samp_args(rest[11:]))
 
             def _chained_fn(p, k_pool, v_pool, token, positions, bt, sb, so,
                             *samp):
-                return paged_chained_decode_sampled(
-                    p, cfg, k_pool, v_pool, token.long(), positions.long(),
-                    bt, sb, so, *_samp_args(samp))
+                return chained(p, cfg, k_pool, v_pool, token.long(),
+                               positions.long(), bt, sb, so,
+                               *_samp_args(samp))
 
             def _prefill_fn(p, token_ids, n_valid, k_pool, v_pool, bt,
                             *samp):
-                return paged_prefill_sampled(
-                    p, cfg, token_ids.long(), n_valid.long(), k_pool, v_pool,
-                    bt, *_samp_args(samp))
+                return prefill(p, cfg, token_ids.long(), n_valid.long(),
+                               k_pool, v_pool, bt, *_samp_args(samp))
 
             self._sampled = {
                 "step": profiled(f"pw.decode_step_sampled{sfx}", _step_fn),
@@ -570,12 +666,13 @@ class PagedDecodeEngine:
         speculative round: the ragged mixed step with one argmax per
         packed query position."""
         if self._verify is None:
-            cfg = self.cfg
+            cfg, mixed = self.cfg, self._program("paged_mixed_step")
+            ids = self._ids
 
             def _verify_fn(p, k_pool, v_pool, *rest):
-                logits, k_pool, v_pool = paged_mixed_step(
-                    p, cfg, k_pool, v_pool, *_mixed_args(rest))
-                return greedy(logits), k_pool, v_pool
+                out, k_pool, v_pool = mixed(p, cfg, k_pool, v_pool,
+                                            *_mixed_args(rest))
+                return ids(out), k_pool, v_pool
 
             self._verify = profiled(f"pw.verify_step{self._prog_suffix}",
                                     _verify_fn)
@@ -1169,8 +1266,8 @@ class PagedDecodeEngine:
             scatter_bt[0, : len(seq.block_ids)] = seq.block_ids
             scatter_bt[0, : len(shared)] = 0
             args = (self.params, self._dev(buf),
-                    self._dev(np.array([n], np.int32)), self.pool.k,
-                    self.pool.v, self._dev(scatter_bt))
+                    self._dev(np.array([n], np.int32)),
+                    *self._kv(self.pool), self._dev(scatter_bt))
             faults.fire("engine.dispatch.prefill")
             t_disp = self._note_dispatch("prefill")
             if req.sampling is None:
@@ -1323,7 +1420,7 @@ class PagedDecodeEngine:
         d = self._dev
         prog = self._verify_program()
         ids, _, _ = prog(
-            self.params, pool.k, pool.v, d(tokens), d(positions),
+            self.params, *self._kv(pool), d(tokens), d(positions),
             d(row_tables), d(row_start), d(row_nvalid), d(row_token_idx),
             d(tok_row), d(tok_col), d(sb), d(so), d(logit_idx),
         )
@@ -1439,7 +1536,7 @@ class PagedDecodeEngine:
         # draws exactly what K single steps would
         samp = self._sampling_arrays([(i, a.req) for i, a in enumerate(acts)],
                                      B)
-        args = (self.params, pool.k, pool.v, self._dev(token),
+        args = (self.params, *self._kv(pool), self._dev(token),
                 self._dev(positions), self._dev(bt), self._dev(sb),
                 self._dev(so))
         faults.fire("engine.dispatch.chain")
@@ -1538,7 +1635,7 @@ class PagedDecodeEngine:
             bt[i, : len(seq.block_ids)] = seq.block_ids
         samp = self._sampling_arrays(
             [(i, act.req) for i, (act, _s) in enumerate(reserved)], B)
-        args = (self.params, self.pool.k, self.pool.v,
+        args = (self.params, *self._kv(self.pool),
                 self._dev(token), self._dev(positions), self._dev(bt),
                 self._dev(sb), self._dev(so))
         faults.fire("engine.dispatch.step")
@@ -1657,7 +1754,7 @@ class PagedDecodeEngine:
             [(r, act.req) for act, r, f in rows
              if f < 0 or f == len(act.tokens)], B)
         d = self._dev
-        args = (self.params, self.pool.k, self.pool.v, d(tokens),
+        args = (self.params, *self._kv(self.pool), d(tokens),
                 d(positions), d(row_tables), d(row_start), d(row_nvalid),
                 d(row_token_idx), d(tok_row), d(tok_col), d(sb), d(so),
                 d(logit_idx))

@@ -155,8 +155,9 @@ def paged_attention_reference(q, k_pool, v_pool, block_tables,
 
 def _check_kernel_inputs(q, k_pool, v_pool, block_tables):
     for name, t in (("q", q), ("k_pool", k_pool), ("v_pool", v_pool)):
-        _cuda.check(t, name, dtype=q.dtype, ndim=4)
-    _cuda.check(block_tables, "block_tables", dtype=torch.int32, ndim=2)
+        _cuda.check(t, name, dtype=q.dtype, ndim=4, device=q.device)
+    _cuda.check(block_tables, "block_tables", dtype=torch.int32, ndim=2,
+                device=q.device)
     if q.dtype not in _DTYPE_CODE:
         raise ValueError(f"paged attention kernel takes f32/bf16, got {q.dtype}")
     H, hd = q.shape[2:]
@@ -210,14 +211,14 @@ def paged_attention_cuda(q, k_pool, v_pool, block_tables, c0, cl):
     _check_kernel_inputs(q, k_pool, v_pool, block_tables)
     B, C, H, hd = q.shape
     for name, t in (("c0", c0), ("cl", cl)):
-        _cuda.check(t, name, dtype=torch.int32, ndim=1)
+        _cuda.check(t, name, dtype=torch.int32, ndim=1, device=q.device)
     BS = k_pool.shape[1]
     n_split = _n_splits(block_tables, BS, RAGGED_SPLIT)
     part, counters = _scratch(q.device, B * H * -(-C // _COLUMN_GROUP),
                               n_split, _COLUMN_GROUP, hd)
     out = torch.empty_like(q)
     _cuda.launch(
-        _SOURCE, "pw_paged_attention", "paged_attention",
+        _SOURCE, "pw_paged_attention", "paged_attention", q.device,
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), out.data_ptr(),
         block_tables.data_ptr(), c0.data_ptr(), cl.data_ptr(),
         part.data_ptr(), counters.data_ptr(),
@@ -237,19 +238,19 @@ def paged_append_attend_cuda(q, k_new, v_new, k_pool, v_pool, block_tables,
     if C != 1:
         raise ValueError(f"append+attend takes one query column, got {C}")
     for name, t in (("k_new", k_new), ("v_new", v_new)):
-        _cuda.check(t, name, dtype=q.dtype, ndim=3)
+        _cuda.check(t, name, dtype=q.dtype, ndim=3, device=q.device)
         if tuple(t.shape) != (B, H, hd):
             raise ValueError(f"{name} must be {(B, H, hd)}, got {tuple(t.shape)}")
     _require_aligned(k_new, v_new)
     for name, t in (("cl", cl), ("slot_blocks", slot_blocks),
                     ("slot_offsets", slot_offsets)):
-        _cuda.check(t, name, dtype=torch.int32, ndim=1)
+        _cuda.check(t, name, dtype=torch.int32, ndim=1, device=q.device)
     BS = k_pool.shape[1]
     n_split = _n_splits(block_tables, BS, APPEND_SPLIT)
     part, counters = _scratch(q.device, B * H, n_split, 1, hd)
     out = torch.empty_like(q)
     _cuda.launch(
-        _SOURCE, "pw_paged_append_attend", "paged_append_attend",
+        _SOURCE, "pw_paged_append_attend", "paged_append_attend", q.device,
         q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
         k_pool.data_ptr(), v_pool.data_ptr(), out.data_ptr(),
         block_tables.data_ptr(), cl.data_ptr(), slot_blocks.data_ptr(),

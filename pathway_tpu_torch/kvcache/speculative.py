@@ -179,8 +179,10 @@ class DraftModelDrafter(Drafter):
         from ..obs.memory import tensors
         from ..obs.profiler import profiled
 
+        # the draft model stays tp = 1 on the engine's (shard 0's)
+        # device, as in the JAX package; only the verify runs sharded
         plan = plan_decode_params(
-            self.cfg, self.base_params, quantize=self.quantize,
+            self.cfg, self.base_params, tp=1, quantize=self.quantize,
             native=int8_device_native(None, engine.device))
         dtype = resolve_dtype(self.cfg.dtype, engine.device)
         # billed at the width each tensor will be resident at

@@ -63,15 +63,15 @@ import torch
 
 from .. import faults, obs
 from .._device import resolve_device, resolve_dtype
-from ..models.decoder import (greedy, params_to, ssd_augment_params,
-                              ssd_chained_decode, ssd_chained_decode_sampled,
-                              ssd_decode_step, ssd_decode_step_sampled,
-                              ssd_mixed_step, ssd_mixed_step_sampled)
+from ..models.decoder import greedy, params_to, ssd_augment_params
+from ..parallel.mesh import (SSD_STATE_SPEC, shard_decoder_params,
+                             shard_shape)
 from ..obs import memory as obs_memory
 from ..obs.profiler import profiled
 from .backend import CacheBackend, UnsupportedCacheOp, make_backend
 from .block_pool import PoolExhausted, SequenceState, unique_name
-from .engine import (PagedDecodeEngine, _Active, _WatchdogSync, _samp_args)
+from .engine import (PagedDecodeEngine, _Active, _WatchdogSync, _same,
+                     _samp_args, engine_shards)
 
 logger = logging.getLogger(__name__)
 
@@ -116,19 +116,34 @@ class StateCache(CacheBackend):
 
     def __init__(self, *, max_slots: int, n_layers: int, n_heads: int,
                  head_dim: int, dtype=torch.float32, block_size: int = 16,
-                 name: str = "state_cache", device="cuda"):
+                 name: str = "state_cache", device="cuda", mesh=None):
         if max_slots < 2:
             raise ValueError("max_slots must be >= 2 (slot 0 is reserved)")
-        self.device = resolve_device(device)
         self.max_slots = int(max_slots)
         self.n_layers = int(n_layers)
         self.n_heads = int(n_heads)
         self.head_dim = int(head_dim)
         self.dtype = dtype
         self.block_size = int(block_size)
-        self.state = torch.zeros(
+        # ``shards``: one [L, S, H/tp, hd, hd] state a shard (one at
+        # tp = 1), on its device, under one slot table (the paged pool's
+        # head split)
+        self.mesh = mesh
+        self.tp = 1 if mesh is None else mesh.size
+        if self.n_heads % self.tp:
+            legal = [t for t in range(1, self.n_heads + 1)
+                     if self.n_heads % t == 0]
+            raise ValueError(
+                f"cannot shard the state cache: n_heads={self.n_heads} "
+                f"% tp={self.tp} != 0. Legal tp values: {legal}")
+        shape = shard_shape(
             (self.n_layers, self.max_slots, self.n_heads, self.head_dim,
-             self.head_dim), dtype=dtype, device=self.device)
+             self.head_dim), SSD_STATE_SPEC, self.tp)
+        devices = ([resolve_device(device)] if mesh is None
+                   else mesh.devices)
+        self.device = devices[0]
+        self.shards = [torch.zeros(shape, dtype=dtype, device=d)
+                       for d in devices]
         # slot 0 reserved: never allocated, target of padded dispatch rows
         self._free: list[int] = list(range(self.max_slots - 1, 0, -1))
         self._seqs: dict[int, SequenceState] = {}
@@ -150,7 +165,7 @@ class StateCache(CacheBackend):
         # on the shared KV stats block, slot occupancy as its blocks gauge
         self.kv_stats = kv_stats(
             self.name, blocks_in_use_fn=_in_use,
-            blocks_total=self.max_slots - 1, shards=1,
+            blocks_total=self.max_slots - 1, shards=self.tp,
             shard_hbm_bytes=self.per_shard_bytes,
         )
         # the pathway_state_* family: slots and suspend/resume traffic
@@ -170,14 +185,15 @@ class StateCache(CacheBackend):
     # -- capacity ----------------------------------------------------------
     @property
     def per_shard_bytes(self) -> int:
-        """The state tensor's bytes on the device (all of it at tp = 1)."""
-        return self.state.numel() * self.state.element_size()
+        """The state bytes EACH shard holds (all of it at tp = 1)."""
+        s = self.shards[0]
+        return s.numel() * s.element_size()
 
     def state_bytes_per_seq(self, n_tokens: int = 1) -> int:
-        """One slot's bytes, ``L * H * hd * hd * itemsize``: a constant,
-        with no context-length term."""
+        """One slot's bytes over every shard, ``L * H * hd * hd *
+        itemsize``: a constant, with no context-length term."""
         return (self.n_layers * self.n_heads * self.head_dim
-                * self.head_dim * self.state.element_size())
+                * self.head_dim * self.shards[0].element_size())
 
     @property
     def num_free(self) -> int:
@@ -220,7 +236,8 @@ class StateCache(CacheBackend):
                 raise PoolExhausted("state cache has no free slot",
                                     needed=1, free=0)
             slot = self._free.pop()
-            self.state = _state_clear(self.state, slot)
+            for st in self.shards:
+                _state_clear(st, slot)
             self._arrival += 1
             seq = SequenceState(seq_id=seq_id, block_ids=[slot],
                                 n_tokens=int(n_tokens), priority=priority,
@@ -247,35 +264,39 @@ class StateCache(CacheBackend):
     # -- suspend / resume (backend contract; tiering.SessionStore) ---------
     def suspend_host(self, seq_id: int,
                      context_tokens) -> tuple[dict | None, int]:
-        """ONE fixed-size gather to host memory (pinned on the card, one
-        synchronise before the slot is freed, so a later write into it
-        cannot overtake the copy), then free the slot.  The charge is the
-        buffer's real bytes: the shape never varies, so nothing is
-        padded."""
+        """ONE fixed-size gather a shard to host memory (pinned on the
+        card, one synchronise a shard before the slot is freed, so a
+        later write into it cannot overtake the copy), then free the
+        slot.  The charge is the buffer's real bytes: the shape never
+        varies, so nothing is padded."""
         if len(context_tokens) == 0:
             self.free_sequence(seq_id)
             return None, 0
         with self._lock:
             slot = self._seqs[seq_id].block_ids[0]
-        cuda = self.device.type == "cuda"
-        rows = _state_gather(self.state, slot)
-        host = torch.empty(rows.shape, dtype=rows.dtype, pin_memory=cuda)
-        host.copy_(rows, non_blocking=cuda)
-        if cuda:
-            torch.cuda.current_stream(self.device).synchronize()
+        hosts = []
+        for st in self.shards:
+            cuda = st.device.type == "cuda"
+            rows = _state_gather(st, slot)
+            host = torch.empty(rows.shape, dtype=rows.dtype, pin_memory=cuda)
+            host.copy_(rows, non_blocking=cuda)
+            if cuda:
+                torch.cuda.current_stream(st.device).synchronize()
+            hosts.append(host)
         self.free_sequence(seq_id)
         with self._lock:
             self.n_suspends += 1
         self.state_stats.record_suspend()
-        return {"s": host}, host.nbytes
+        nbytes = sum(h.nbytes for h in hosts)
+        return {"s": hosts}, nbytes
 
     def resume_host(self, payload: dict, slot_ids) -> None:
-        """ONE scatter into the slot; the host-to-device copy is
+        """ONE scatter a shard into the slot; the host-to-device copy is
         stream-ordered before every later kernel that reads the state."""
         slot = int(list(slot_ids)[0])
-        cuda = self.device.type == "cuda"
-        self.state = _state_scatter(
-            self.state, slot, payload["s"].to(self.device, non_blocking=cuda))
+        for st, host in zip(self.shards, payload["s"]):
+            cuda = st.device.type == "cuda"
+            _state_scatter(st, slot, host.to(st.device, non_blocking=cuda))
         with self._lock:
             self.n_resumes += 1
         self.state_stats.record_resume()
@@ -315,8 +336,11 @@ class StateDecodeEngine:
     is grafted with ``ssd_augment_params`` (seed 0), so every replica and
     restart runs the same weights.  ``max_restarts``,
     ``watchdog_timeout_s``, ``degrade_fn``, ``session_store``,
-    ``hbm_budget_bytes``, ``hbm_fit`` and ``name`` are the paged
-    engine's."""
+    ``hbm_budget_bytes``, ``hbm_fit``, ``name``, ``tp`` and ``devices``
+    are the paged engine's: with tp > 1 the (raw, SSD-grafted) params
+    are sharded once at construction, the cache holds one [L, S, H/tp,
+    hd, hd] state a shard, and every program runs its ``ssd_*_tp``
+    form."""
 
     # cache-agnostic, borrowed unbound: admission order, delivery and the
     # failure domain, sampling arrays, the chained-round driver (only
@@ -346,6 +370,8 @@ class StateDecodeEngine:
     _synced = PagedDecodeEngine._synced
     _note_mixed = PagedDecodeEngine._note_mixed
     _restarted = PagedDecodeEngine._restarted
+    _program = PagedDecodeEngine._program
+    _on_shards = PagedDecodeEngine._on_shards
     _prog_suffix = ""
 
     def __init__(self, cfg, params, *, max_slots: int = 64,
@@ -357,10 +383,13 @@ class StateDecodeEngine:
                  max_restarts: int | None = None,
                  degrade_fn: Callable | None = None, session_store=None,
                  hbm_budget_bytes: int | None = None,
-                 hbm_fit: str = "reject", device="cuda"):
+                 hbm_fit: str = "reject", device="cuda",
+                 tp: int | None = None, devices=None):
         if num_blocks is not None:
             max_slots = int(num_blocks)
-        self.device = resolve_device(device)
+        self.tp, self.mesh, self.device = engine_shards(
+            cfg, tp, devices, resolve_device(device))
+        self._ids = greedy if self.mesh is None else _same
         self.cfg = cfg
         self.name = name
         self.max_batch_size = int(max_batch_size)
@@ -373,6 +402,8 @@ class StateDecodeEngine:
         if "w_a" not in params["layers"][0]:
             params = ssd_augment_params(params, cfg)
         self.params = params_to(params, self.device, self.dtype)
+        if self.mesh is not None:
+            self.params = shard_decoder_params(self.params, self.mesh)
         head_dim = cfg.d_model // cfg.n_heads
         per_seq = (cfg.n_layers * cfg.n_heads * head_dim * head_dim
                    * torch.empty((), dtype=self.dtype).element_size())
@@ -382,7 +413,7 @@ class StateDecodeEngine:
             cfg, num_blocks=int(max_slots), block_size=int(block_size),
             max_batch_size=self.max_batch_size,
             chain_steps=max(1, int(chain_steps)),
-            prefill_chunk=int(prefill_chunk), dtype=self.dtype,
+            prefill_chunk=int(prefill_chunk), tp=self.tp, dtype=self.dtype,
             params=self.params, budget_bytes=hbm_budget_bytes,
             reference_attn=False, state_bytes_per_seq=per_seq,
             device=self.device,
@@ -404,6 +435,8 @@ class StateDecodeEngine:
             max_slots=int(max_slots), n_layers=cfg.n_layers,
             n_heads=cfg.n_heads, head_dim=head_dim, dtype=self.dtype,
             block_size=int(block_size), name=name, device=self.device)
+        if self.mesh is not None:
+            self._pool_kwargs["mesh"] = self.mesh
         self.pool = make_backend("state", **self._pool_kwargs)
         if watchdog_timeout_s is None:
             env_wd = os.environ.get("PW_ENGINE_WATCHDOG_S")
@@ -446,21 +479,23 @@ class StateDecodeEngine:
         self._inflight_prefix: dict = {}
         self._sampled: dict | None = None
         cfg = self.cfg
+        step, mixed, chained = (self._program("ssd_decode_step"),
+                                self._program("ssd_mixed_step"),
+                                self._program("ssd_chained_decode"))
+        ids = self._ids
 
         def _step_fn(p, state, token, slots):
-            logits, state = ssd_decode_step(p, cfg, state, token.long(),
-                                            slots.long())
-            return greedy(logits), state
+            out, state = step(p, cfg, state, token.long(), slots.long())
+            return ids(out), state
 
         def _mixed_fn(p, state, tokens, n_valid, slots):
-            logits, state = ssd_mixed_step(p, cfg, state, tokens.long(),
-                                           n_valid.long(), slots.long())
-            return greedy(logits), state
+            out, state = mixed(p, cfg, state, tokens.long(), n_valid.long(),
+                               slots.long())
+            return ids(out), state
 
         def _chained_fn(p, state, token, slots, steps, rem, stop_tok):
-            return ssd_chained_decode(p, cfg, state, token.long(),
-                                      slots.long(), steps, rem.long(),
-                                      stop_tok.long())
+            return chained(p, cfg, state, token.long(), slots.long(), steps,
+                           rem.long(), stop_tok.long())
 
         # three static shapes cover a greedy workload: (B,) decode,
         # (B, C) mixed, (B, K) chained
@@ -468,27 +503,32 @@ class StateDecodeEngine:
         self._mixed = profiled("pw.ssd_mixed_step", _mixed_fn)
         self._chained = profiled("pw.ssd_chained_decode", _chained_fn)
 
+    def _state(self):
+        """The state a program takes (see ``_on_shards``)."""
+        return self._on_shards(self.pool.shards)
+
     def _sampled_programs(self) -> dict:
         """The sampled twins of the three programs (``pw.ssd_*_sampled``),
         built on first use."""
         if self._sampled is None:
             cfg = self.cfg
+            step = self._program("ssd_decode_step_sampled")
+            mixed = self._program("ssd_mixed_step_sampled")
+            chained = self._program("ssd_chained_decode_sampled")
 
             def _step_fn(p, state, token, slots, *samp):
-                return ssd_decode_step_sampled(
-                    p, cfg, state, token.long(), slots.long(),
-                    *_samp_args(samp))
+                return step(p, cfg, state, token.long(), slots.long(),
+                            *_samp_args(samp))
 
             def _mixed_fn(p, state, tokens, n_valid, slots, *samp):
-                return ssd_mixed_step_sampled(
-                    p, cfg, state, tokens.long(), n_valid.long(),
-                    slots.long(), *_samp_args(samp))
+                return mixed(p, cfg, state, tokens.long(), n_valid.long(),
+                             slots.long(), *_samp_args(samp))
 
             def _chained_fn(p, state, token, slots, steps, rem, stop_tok,
                             *samp):
-                return ssd_chained_decode_sampled(
-                    p, cfg, state, token.long(), slots.long(), steps,
-                    rem.long(), stop_tok.long(), *_samp_args(samp))
+                return chained(p, cfg, state, token.long(), slots.long(),
+                               steps, rem.long(), stop_tok.long(),
+                               *_samp_args(samp))
 
             self._sampled = {
                 "step": profiled("pw.ssd_decode_step_sampled", _step_fn),
@@ -619,7 +659,7 @@ class StateDecodeEngine:
             slots[i] = self._slot(act)
         samp = self._sampling_arrays([(i, a.req) for i, a in enumerate(acts)],
                                      B)
-        args = (self.params, self.pool.state, self._dev(token),
+        args = (self.params, self._state(), self._dev(token),
                 self._dev(slots))
         faults.fire("engine.dispatch.step")
         t_disp = self._note_dispatch("step")
@@ -690,7 +730,7 @@ class StateDecodeEngine:
             [(r, act.req) for act, r, f in rows
              if f < 0 or f == len(act.tokens)], B)
         d = self._dev
-        args = (self.params, self.pool.state, d(tokens), d(n_valid),
+        args = (self.params, self._state(), d(tokens), d(n_valid),
                 d(slots))
         faults.fire("engine.dispatch.mixed")
         t_disp = self._note_dispatch("mixed")
@@ -736,7 +776,7 @@ class StateDecodeEngine:
         stop = acts[0].req.stop_token  # one stop token per run
         samp = self._sampling_arrays([(i, a.req) for i, a in enumerate(acts)],
                                      B)
-        args = (self.params, self.pool.state, self._dev(token),
+        args = (self.params, self._state(), self._dev(token),
                 self._dev(slots), self._dev(np.arange(K, dtype=np.int32)),
                 self._dev(rem),
                 self._dev(np.array(-1 if stop is None else int(stop),

@@ -1,6 +1,6 @@
-"""Causal decoder LM — the generation model of the RAG path (tp = 1;
-greedy, or sampled on the paged and SSD paths; f32/bf16 or int8-resident
-weights in the decode plan).
+"""Causal decoder LM — the generation model of the RAG path (greedy, or
+sampled on the paged and SSD paths; f32/bf16 or int8-resident weights in
+the decode plan; tensor-parallel over a ``parallel/mesh.TPMesh``).
 
 Plain functions on the JAX package's parameter-dict layout, so the same
 weights run in both (``models/convert.py``).  Attention on the paged
@@ -22,6 +22,14 @@ compute dtype and scale the result (plain ``torch.matmul``: in the JAX
 package too this is XLA, not a Pallas kernel).  The ``ssd_*`` programs
 are the constant-memory linear-attention family the state cache serves
 (``kvcache/statecache.py``).
+
+Each step program is written once, as a per-shard body: a generator that
+``yield``s where the JAX body calls ``lax.psum``/``lax.all_gather``
+(``_embed_rows``, ``_row_proj``, the vocab heads).  With no shard a body
+issues no collective and the public function runs it to its end
+(``parallel/mesh.run_single``): the tp = 1 programs are the
+single-device math.  The ``*_tp`` programs run the same bodies once per
+shard of a mesh in lockstep (``TPMesh.spmd``).
 """
 
 from __future__ import annotations
@@ -39,6 +47,7 @@ import torch.nn.functional as F
 from .._device import resolve_device, resolve_dtype
 from ..obs.profiler import profiled
 from ..ops.attention_cuda import flash_attention
+from ..parallel.mesh import run_single, shard_all_gather, shard_psum
 from . import prng
 from .encoder import (EncoderConfig, _act, _layer_norm, _proj, init_params,
                       params_to)
@@ -75,9 +84,20 @@ def _act_fn(cfg):
     return _act(cfg.act)
 
 
-def _embed_rows(embed, tokens):
-    """Tied-embedding lookup."""
-    return embed[tokens]
+def _embed_rows(embed, tokens, shard=None):
+    """Tied-embedding lookup (a per-shard body's generator: ``x = yield
+    from _embed_rows(...)``).  Under a shard the table holds its vocab
+    slice: each token's row lives on exactly one shard, the others give
+    zeros, and the psum of one exact row plus zeros is exact, so the
+    sharded lookup is bit-identical to the replicated one."""
+    if shard is None:
+        return embed[tokens]
+    v_loc = embed.shape[0]
+    local = tokens - shard.index * v_loc
+    ok = (local >= 0) & (local < v_loc)
+    rows = embed[torch.clamp(local, 0, v_loc - 1)].masked_fill(
+        ~ok[..., None], 0)
+    return (yield from shard_psum(rows, shard))
 
 
 def _mm_p(layer, x, w_name: str):
@@ -103,12 +123,26 @@ def _proj_p(layer, x, w_name: str, b_name: str):
     return out
 
 
-_row_proj = _proj_p  # row-parallel projection: identical at tp = 1
+def _row_proj(layer, x, w_name: str, b_name: str, shard=None):
+    """Row-parallel projection (a generator): under a shard the
+    contraction is split over the shards, so the partial products are
+    psum'd BEFORE the replicated bias is added, once.  With no shard it
+    is :func:`_proj_p`.  An int8 plan's per-output-channel scale is the
+    same on every shard, so scaling the partials before the psum equals
+    scaling the sum."""
+    out = yield from shard_psum(_mm_p(layer, x, w_name), shard)
+    b = layer.get(b_name)
+    if b is not None:
+        out = out + b.to(x.dtype)
+    return out
 
 
 def _qkv_proj(layer, x):
     """Q/K/V: ONE fused gemm against the decode plan's ``wqkv`` (or int8
-    ``wqkv_q``) leaf when present, else the three separate gemms."""
+    ``wqkv_q``) leaf when present, else the three separate gemms.  A
+    sharded plan's ``wqkv`` columns are laid out per shard
+    (:func:`_fuse_cols`), so a shard's slice splits three ways into its
+    own heads' q, k and v."""
     if "wqkv" in layer or "wqkv_q" in layer:
         return _proj_p(layer, x, "wqkv", "bqkv").chunk(3, dim=-1)
     return (_proj(layer, x, "wq", "bq"), _proj(layer, x, "wk", "bk"),
@@ -127,10 +161,10 @@ def _head_weight(params):
     return params["embed"]
 
 
-def _head_out(head_w, x):
-    """(B, D) -> (B, V) f32 logits for the tied-embedding head.  An int8
-    head's scales multiply the f32 logits (the layers' products take
-    theirs in the compute dtype)."""
+def _head_logits(head_w, x):
+    """(B, D) -> (B, V) f32 logits for the tied-embedding head ((B, V/tp)
+    on a shard).  An int8 head's scales multiply the f32 logits (the
+    layers' products take theirs in the compute dtype)."""
     if isinstance(head_w, tuple):
         w, s = head_w
         logits = (x @ w.to(x.dtype)).float()
@@ -144,9 +178,34 @@ def greedy(logits: torch.Tensor) -> torch.Tensor:
     return torch.argmax(logits, dim=-1).to(torch.int32)
 
 
-def _greedy_head(head_w, x):
+def _head_out(head_w, x, shard=None):
+    """The default vocab head (a generator).  With no shard: the (B, V)
+    f32 logits, which the caller samples.  Under a shard the greedy
+    choice is fused in as an exact two-stage argmax: each shard argmaxes
+    its (B, V/tp) slice, and only the (value, global index) pairs cross
+    shards; the largest value wins and, among equal values, the smallest
+    global index, so the result is the argmax of the full row.  Returns
+    (B,) int32 ids then."""
+    logits = _head_logits(head_w, x)
+    if shard is None:
+        return logits
+    v_loc = logits.shape[-1]
+    loc = torch.argmax(logits, dim=-1)
+    val = logits.gather(-1, loc[:, None])[:, 0]
+    gidx = loc + shard.index * v_loc
+    vals = yield from shard_all_gather(val[None], shard)    # (tp, B)
+    idxs = yield from shard_all_gather(gidx[None], shard)   # (tp, B)
+    best = vals.max(dim=0).values
+    cand = torch.where(vals == best[None], idxs,
+                       torch.full_like(idxs, torch.iinfo(idxs.dtype).max))
+    return cand.min(dim=0).values.to(torch.int32)
+
+
+def _greedy_head(head_w, x, shard=None):
     """The vocab head fused with its argmax: (B, D) -> (B,) int32 ids."""
-    return greedy(_head_out(head_w, x))
+    if shard is None:
+        return greedy(_head_logits(head_w, x))
+    return (yield from _head_out(head_w, x, shard))
 
 
 # -- device-side sampling ---------------------------------------------------
@@ -212,10 +271,14 @@ def _sample_rows(logits: torch.Tensor, greedy_ids: torch.Tensor,
 
 def _sampling_head(temperature, top_k, top_p, keys):
     """A vocab-head override (the ``head_fn`` hook of the paged steps)
-    that samples instead of argmaxing; returns (B,) int32 ids."""
+    that samples instead of argmaxing; returns (B,) int32 ids.  Under a
+    shard the (B, V/tp) logits slices are gathered back to full rows
+    first (the draw must see the whole nucleus); a temperature-0 row
+    takes the argmax of the gathered row, the two-stage argmax's id."""
 
-    def head(head_w, x):
-        logits = _head_out(head_w, x)
+    def head(head_w, x, shard=None):
+        logits = _head_logits(head_w, x)
+        logits = yield from shard_all_gather(logits, shard, 1)
         return _sample_rows(logits, greedy(logits), temperature, top_k,
                             top_p, keys)
 
@@ -260,14 +323,26 @@ def _plan_quantize(name: str, w: torch.Tensor, out: dict, native: bool):
         out[name] = (q.float() * s).to(w.dtype)
 
 
-def plan_decode_params(cfg: DecoderConfig, params: dict, *,
+def _fuse_cols(ws, tp: int):
+    """Concatenate column-parallel leaves along their output axis, laid
+    out per tp shard: shard s's contiguous slice is ``[ws[0]_s | ws[1]_s
+    | ...]``, so splitting the fused axis over tp hands each shard the
+    fusion of its own unfused slices (tp = 1: a plain concatenation)."""
+    if tp <= 1:
+        return torch.cat(ws, dim=-1)
+    parts = [w.chunk(tp, dim=-1) for w in ws]
+    return torch.cat([p[s] for s in range(tp) for p in parts], dim=-1)
+
+
+def plan_decode_params(cfg: DecoderConfig, params: dict, *, tp: int = 1,
                        quantize: str | None = None,
                        native: bool | None = None) -> dict:
-    """The fused decode plan the paged engine dispatches with (tp = 1):
-    Q/K/V folded into one [D, 3D] ``wqkv`` per layer, and the tied head
-    pre-materialized as [D, V] ``embed_t`` (always: the JAX package
-    materializes it everywhere but on the TPU).  Both are exact, so the
-    f32 plan is token-identical to the raw parameters.
+    """The fused decode plan the paged engine dispatches with: Q/K/V
+    folded into one [D, 3D] ``wqkv`` per layer (columns laid out per tp
+    shard, :func:`_fuse_cols`, so the leaf shards column-parallel), and
+    the tied head pre-materialized as [D, V] ``embed_t`` (always: the JAX
+    package materializes it everywhere but on the TPU).  Both are exact,
+    so the f32 plan is token-identical to the raw parameters.
 
     ``quantize="int8"`` also quantizes every matmul weight (``wqkv``,
     ``wo``, ``w_up``, ``w_down``, ``embed_t``) per output channel
@@ -291,9 +366,10 @@ def plan_decode_params(cfg: DecoderConfig, params: dict, *,
     for layer in params["layers"]:
         new = {k: v for k, v in layer.items()
                if k not in ("wq", "wk", "wv", "bq", "bk", "bv")}
-        wqkv = torch.cat([layer["wq"], layer["wk"], layer["wv"]], dim=-1)
+        wqkv = _fuse_cols([layer["wq"], layer["wk"], layer["wv"]], tp)
         if layer.get("bq") is not None:
-            new["bqkv"] = torch.cat([layer["bq"], layer["bk"], layer["bv"]])
+            new["bqkv"] = _fuse_cols([layer["bq"], layer["bk"], layer["bv"]],
+                                     tp)
         if int8:
             _plan_quantize("wqkv", wqkv, new, native)
             for w_name in ("wo", "w_up", "w_down"):
@@ -306,26 +382,17 @@ def plan_decode_params(cfg: DecoderConfig, params: dict, *,
     return plan
 
 
-def prefill(params: dict, cfg: DecoderConfig, token_ids: torch.Tensor,
-            n_valid: torch.Tensor, *, flash: bool | None = None,
-            head_fn=None):
-    """Dense full-context forward over the (padded) prompt: returns the
-    logits at position ``n_valid - 1`` and the per-layer K/V cache
-    (``{"k", "v"}`` of shape (B, T, H, hd)).
-
-    ``flash`` routes attention through ``ops/attention_cuda.
-    flash_attention`` (the CUDA kernel on the card, reading the fused QKV
-    product's q/k/v views in place); default: on the card for T >= 256,
-    as the JAX package defaults to its Pallas kernel on the TPU.
-    ``flash=False`` is the plain einsum path, the in-port identity
-    oracle.  ``head_fn(head_w, x)`` replaces the vocab head (default
-    :func:`_head_out`, f32 logits)."""
+def _prefill_body(params: dict, cfg: DecoderConfig, token_ids: torch.Tensor,
+                  n_valid: torch.Tensor, flash, head_fn, shard):
+    """:func:`prefill`'s per-shard body (a generator; see
+    ``parallel/mesh.py``): under a shard it runs the shard's H/tp heads
+    and vocab slice, with one psum per row-parallel projection."""
     dtype = resolve_dtype(cfg.dtype, token_ids.device)
     B, T = token_ids.shape
     hd = cfg.d_model // cfg.n_heads
     if flash is None:
         flash = token_ids.device.type == "cuda" and T >= 256
-    x = _embed_rows(params["embed"].to(dtype), token_ids)
+    x = yield from _embed_rows(params["embed"].to(dtype), token_ids, shard)
     x = x + params["pos_embed"].to(dtype)[:T][None, :, :]
     eps = cfg.ln_eps
     act = _act_fn(cfg)
@@ -347,14 +414,33 @@ def prefill(params: dict, cfg: DecoderConfig, token_ids: torch.Tensor,
             scores = scores.masked_fill(~causal[None, None], -1e9)
             probs = torch.softmax(scores.float(), dim=-1).to(h.dtype)
             a = torch.einsum("bhqk,bkhd->bqhd", probs, v).reshape(B, T, -1)
-        x = x + _row_proj(layer, a, "wo", "bo")
+        x = x + (yield from _row_proj(layer, a, "wo", "bo", shard))
         h = _layer_norm(x, layer["ln2_scale"], layer["ln2_bias"], eps)
         ff = act(_proj_p(layer, h, "w_up", "b_up"))
-        x = x + _row_proj(layer, ff, "w_down", "b_down")
+        x = x + (yield from _row_proj(layer, ff, "w_down", "b_down", shard))
     x = _layer_norm(x, params["ln_f_scale"], params["ln_f_bias"], eps)
     last = x[torch.arange(B, device=x.device), n_valid.long() - 1]
     head = _head_out if head_fn is None else head_fn
-    return head(_head_weight(params), last), cache
+    out = yield from head(_head_weight(params), last, shard)
+    return out, cache
+
+
+def prefill(params: dict, cfg: DecoderConfig, token_ids: torch.Tensor,
+            n_valid: torch.Tensor, *, flash: bool | None = None,
+            head_fn=None):
+    """Dense full-context forward over the (padded) prompt: returns the
+    logits at position ``n_valid - 1`` and the per-layer K/V cache
+    (``{"k", "v"}`` of shape (B, T, H, hd)).
+
+    ``flash`` routes attention through ``ops/attention_cuda.
+    flash_attention`` (the CUDA kernel on the card, reading the fused QKV
+    product's q/k/v views in place); default: on the card for T >= 256,
+    as the JAX package defaults to its Pallas kernel on the TPU.
+    ``flash=False`` is the plain einsum path, the in-port identity
+    oracle.  ``head_fn(head_w, x, shard)`` replaces the vocab head
+    (default :func:`_head_out`, f32 logits)."""
+    return run_single(_prefill_body(params, cfg, token_ids, n_valid, flash,
+                                    head_fn, None))
 
 
 def decode_step(params: dict, cfg: DecoderConfig, cache: list[dict],
@@ -384,12 +470,12 @@ def decode_step(params: dict, cfg: DecoderConfig, cache: list[dict],
         probs = torch.softmax(scores.float(), dim=-1).to(h.dtype)
         a = torch.einsum("bhqk,bkhd->bqhd", probs, kv["v"]).reshape(
             B, 1, cfg.d_model)
-        x = x + _row_proj(layer, a, "wo", "bo")
+        x = x + _proj_p(layer, a, "wo", "bo")
         h = _layer_norm(x, layer["ln2_scale"], layer["ln2_bias"], eps)
         ff = act(_proj_p(layer, h, "w_up", "b_up"))
-        x = x + _row_proj(layer, ff, "w_down", "b_down")
+        x = x + _proj_p(layer, ff, "w_down", "b_down")
     x = _layer_norm(x, params["ln_f_scale"], params["ln_f_bias"], eps)
-    return _head_out(_head_weight(params), x[:, 0, :]), cache
+    return _head_logits(_head_weight(params), x[:, 0, :]), cache
 
 
 def generate_tokens_fused(params: dict, cfg: DecoderConfig,
@@ -431,6 +517,19 @@ def generate_tokens_fused(params: dict, cfg: DecoderConfig,
     return out, n_steps
 
 
+def _paged_prefill_body(params, cfg, token_ids, n_valid, k_pool, v_pool,
+                        block_tables, flash, head_fn, shard):
+    logits, cache = yield from _prefill_body(params, cfg, token_ids, n_valid,
+                                             flash, head_fn, shard)
+    B, T = token_ids.shape
+    BS, H, hd = k_pool.shape[2:]  # H: the shard's heads
+    bt = block_tables.long()
+    for li, kv in enumerate(cache):
+        k_pool[li][bt] = kv["k"].reshape(B, T // BS, BS, H, hd)
+        v_pool[li][bt] = kv["v"].reshape(B, T // BS, BS, H, hd)
+    return logits, k_pool, v_pool
+
+
 def paged_prefill(params: dict, cfg: DecoderConfig, token_ids: torch.Tensor,
                   n_valid: torch.Tensor, k_pool: torch.Tensor,
                   v_pool: torch.Tensor, block_tables: torch.Tensor, *,
@@ -445,15 +544,40 @@ def paged_prefill(params: dict, cfg: DecoderConfig, token_ids: torch.Tensor,
     there, and block 0 is never read.  Returns ``(logits, k_pool,
     v_pool)`` (``head_fn``'s result in place of the logits when given).
     """
-    logits, cache = prefill(params, cfg, token_ids, n_valid, flash=flash,
-                            head_fn=head_fn)
-    B, T = token_ids.shape
-    BS, H, hd = k_pool.shape[2:]
-    bt = block_tables.long()
-    for li, kv in enumerate(cache):
-        k_pool[li][bt] = kv["k"].reshape(B, T // BS, BS, H, hd)
-        v_pool[li][bt] = kv["v"].reshape(B, T // BS, BS, H, hd)
-    return logits, k_pool, v_pool
+    return run_single(_paged_prefill_body(
+        params, cfg, token_ids, n_valid, k_pool, v_pool, block_tables, flash,
+        head_fn, None))
+
+
+def _paged_decode_body(params, cfg, k_pool, v_pool, token, positions,
+                       block_tables, slot_blocks, slot_offsets, head_fn,
+                       shard):
+    from ..kvcache.paged_attention import append_attend_fn
+
+    dtype = resolve_dtype(cfg.dtype, token.device)
+    B = token.shape[0]
+    hd = cfg.d_model // cfg.n_heads
+    x = yield from _embed_rows(params["embed"].to(dtype), token, shard)
+    x = x[:, None, :] + params["pos_embed"].to(dtype)[positions][:, None, :]
+    eps = cfg.ln_eps
+    act = _act_fn(cfg)
+    attend = append_attend_fn(block_tables, positions + 1, slot_blocks,
+                              slot_offsets, token.device)
+    for li, layer in enumerate(params["layers"]):
+        h = _layer_norm(x, layer["ln1_scale"], layer["ln1_bias"], eps)
+        q, k1, v1 = _qkv_proj(layer, h)
+        q = q.reshape(B, 1, -1, hd)
+        a = attend(q, k1.reshape(B, -1, hd), v1.reshape(B, -1, hd),
+                   k_pool[li], v_pool[li])
+        x = x + (yield from _row_proj(layer, a.reshape(B, 1, -1), "wo", "bo",
+                                      shard))
+        h = _layer_norm(x, layer["ln2_scale"], layer["ln2_bias"], eps)
+        ff = act(_proj_p(layer, h, "w_up", "b_up"))
+        x = x + (yield from _row_proj(layer, ff, "w_down", "b_down", shard))
+    x = _layer_norm(x, params["ln_f_scale"], params["ln_f_bias"], eps)
+    head = _head_out if head_fn is None else head_fn
+    out = yield from head(_head_weight(params), x[:, 0, :], shard)
+    return out, k_pool, v_pool
 
 
 def paged_decode_step(params: dict, cfg: DecoderConfig, k_pool, v_pool,
@@ -467,30 +591,48 @@ def paged_decode_step(params: dict, cfg: DecoderConfig, k_pool, v_pool,
     token/positions/slot_blocks/slot_offsets: (B,) int;
     block_tables: (B, NB) int.  Returns ``(logits, k_pool, v_pool)``
     (``head_fn``'s result in place of the logits when given)."""
-    from ..kvcache.paged_attention import append_attend_fn
+    return run_single(_paged_decode_body(
+        params, cfg, k_pool, v_pool, token, positions, block_tables,
+        slot_blocks, slot_offsets, head_fn, None))
 
-    dtype = resolve_dtype(cfg.dtype, token.device)
-    B = token.shape[0]
+
+def _paged_mixed_body(params, cfg, k_pool, v_pool, tokens, positions,
+                      row_tables, row_start, row_nvalid, row_token_idx,
+                      tok_row, tok_col, slot_blocks, slot_offsets, logit_idx,
+                      head_fn, shard):
+    from ..kvcache.paged_attention import paged_attention_fn
+
+    dtype = resolve_dtype(cfg.dtype, tokens.device)
+    T = tokens.shape[0]
     hd = cfg.d_model // cfg.n_heads
-    x = _embed_rows(params["embed"].to(dtype), token)[:, None, :]
-    x = x + params["pos_embed"].to(dtype)[positions][:, None, :]
+    # clamp so a caller bug cannot index past the position table
+    pos = torch.clamp(positions, max=cfg.max_len - 1)
+    x = yield from _embed_rows(params["embed"].to(dtype), tokens, shard)
+    x = x + params["pos_embed"].to(dtype)[pos]
     eps = cfg.ln_eps
     act = _act_fn(cfg)
-    attend = append_attend_fn(block_tables, positions + 1, slot_blocks,
-                              slot_offsets, token.device)
+    sb = slot_blocks.long()
+    so = slot_offsets.long()
+    attend = paged_attention_fn(row_token_idx.shape[1], row_tables,
+                                start_pos=row_start, n_valid=row_nvalid,
+                                device=tokens.device)
     for li, layer in enumerate(params["layers"]):
         h = _layer_norm(x, layer["ln1_scale"], layer["ln1_bias"], eps)
         q, k1, v1 = _qkv_proj(layer, h)
-        q = q.reshape(B, 1, -1, hd)
-        a = attend(q, k1.reshape(B, -1, hd), v1.reshape(B, -1, hd),
-                   k_pool[li], v_pool[li])
-        x = x + _row_proj(layer, a.reshape(B, 1, -1), "wo", "bo")
+        q = q.reshape(T, -1, hd)
+        k_pool[li][sb, so] = k1.reshape(T, -1, hd)
+        v_pool[li][sb, so] = v1.reshape(T, -1, hd)
+        a_rows = attend(q[row_token_idx], k_pool[li], v_pool[li])
+        a = a_rows[tok_row, tok_col]  # back to the packed (T, H, hd)
+        x = x + (yield from _row_proj(layer, a.reshape(T, -1), "wo", "bo",
+                                      shard))
         h = _layer_norm(x, layer["ln2_scale"], layer["ln2_bias"], eps)
         ff = act(_proj_p(layer, h, "w_up", "b_up"))
-        x = x + _row_proj(layer, ff, "w_down", "b_down")
+        x = x + (yield from _row_proj(layer, ff, "w_down", "b_down", shard))
     x = _layer_norm(x, params["ln_f_scale"], params["ln_f_bias"], eps)
     head = _head_out if head_fn is None else head_fn
-    return head(_head_weight(params), x[:, 0, :]), k_pool, v_pool
+    out = yield from head(_head_weight(params), x[logit_idx], shard)
+    return out, k_pool, v_pool
 
 
 def paged_mixed_step(params: dict, cfg: DecoderConfig, k_pool, v_pool,
@@ -515,43 +657,18 @@ def paged_mixed_step(params: dict, cfg: DecoderConfig, k_pool, v_pool,
     LAST run token (the speculative verify passes every packed position,
     (B * C,)).  Returns ``(logits (len(logit_idx), V), k_pool, v_pool)``
     (``head_fn``'s result in place of the logits when given)."""
-    from ..kvcache.paged_attention import paged_attention_fn
-
-    dtype = resolve_dtype(cfg.dtype, tokens.device)
-    T = tokens.shape[0]
-    hd = cfg.d_model // cfg.n_heads
-    # clamp so a caller bug cannot index past the position table
-    pos = torch.clamp(positions, max=cfg.max_len - 1)
-    x = _embed_rows(params["embed"].to(dtype), tokens)
-    x = x + params["pos_embed"].to(dtype)[pos]
-    eps = cfg.ln_eps
-    act = _act_fn(cfg)
-    sb = slot_blocks.long()
-    so = slot_offsets.long()
-    attend = paged_attention_fn(row_token_idx.shape[1], row_tables,
-                                start_pos=row_start, n_valid=row_nvalid,
-                                device=tokens.device)
-    for li, layer in enumerate(params["layers"]):
-        h = _layer_norm(x, layer["ln1_scale"], layer["ln1_bias"], eps)
-        q, k1, v1 = _qkv_proj(layer, h)
-        q = q.reshape(T, -1, hd)
-        k_pool[li][sb, so] = k1.reshape(T, -1, hd)
-        v_pool[li][sb, so] = v1.reshape(T, -1, hd)
-        a_rows = attend(q[row_token_idx], k_pool[li], v_pool[li])
-        a = a_rows[tok_row, tok_col]  # back to the packed (T, H, hd)
-        x = x + _row_proj(layer, a.reshape(T, -1), "wo", "bo")
-        h = _layer_norm(x, layer["ln2_scale"], layer["ln2_bias"], eps)
-        ff = act(_proj_p(layer, h, "w_up", "b_up"))
-        x = x + _row_proj(layer, ff, "w_down", "b_down")
-    x = _layer_norm(x, params["ln_f_scale"], params["ln_f_bias"], eps)
-    head = _head_out if head_fn is None else head_fn
-    return head(_head_weight(params), x[logit_idx]), k_pool, v_pool
+    return run_single(_paged_mixed_body(
+        params, cfg, k_pool, v_pool, tokens, positions, row_tables,
+        row_start, row_nvalid, row_token_idx, tok_row, tok_col, slot_blocks,
+        slot_offsets, logit_idx, head_fn, None))
 
 
-def _chained(params, cfg, k_pool, v_pool, token, positions, block_tables,
-             slot_blocks, slot_offsets, head_at):
+def _chained_body(params, cfg, k_pool, v_pool, token, positions,
+                  block_tables, slot_blocks, slot_offsets, head_at, shard):
     """K decode steps, step t's ids feeding step t+1, step t's vocab head
-    ``head_at(t)`` (which returns ids)."""
+    ``head_at(t)`` (which returns ids).  Under a shard the replicated ids
+    of the two-stage argmax are the carry every shard feeds its next
+    step: the chain adds no collective to the per-step set."""
     K = slot_blocks.shape[1]
     maxp = cfg.max_len - 1
     tok = token.to(torch.int32)
@@ -560,10 +677,9 @@ def _chained(params, cfg, k_pool, v_pool, token, positions, block_tables,
         # surplus steps of a budget-exhausted row run at a clamped
         # position; real steps never reach the clamp
         pos = torch.clamp(positions + t, max=maxp)
-        tok, k_pool, v_pool = paged_decode_step(
+        tok, k_pool, v_pool = yield from _paged_decode_body(
             params, cfg, k_pool, v_pool, tok, pos, block_tables,
-            slot_blocks[:, t], slot_offsets[:, t], head_fn=head_at(t),
-        )
+            slot_blocks[:, t], slot_offsets[:, t], head_at(t), shard)
         ids.append(tok)
     return torch.stack(ids, dim=1), k_pool, v_pool
 
@@ -578,9 +694,9 @@ def paged_chained_decode(params: dict, cfg: DecoderConfig, k_pool, v_pool,
     by the host; rows whose budget is < K point their surplus steps at
     the null block (their ids are discarded host-side).  Returns
     ``(ids (B, K) int32, k_pool, v_pool)``."""
-    return _chained(params, cfg, k_pool, v_pool, token, positions,
-                    block_tables, slot_blocks, slot_offsets,
-                    lambda _t: _greedy_head)
+    return run_single(_chained_body(
+        params, cfg, k_pool, v_pool, token, positions, block_tables,
+        slot_blocks, slot_offsets, lambda _t: _greedy_head, None))
 
 
 # -- draft-model proposals (speculative decoding) ---------------------------
@@ -619,16 +735,28 @@ def draft_propose(params: dict, cfg: DecoderConfig, token_ids: torch.Tensor,
 # k_pool, v_pool)``.
 
 
+def _row_head(temperature, top_k, top_p, seed, emit_idx):
+    return _sampling_head(temperature, top_k, top_p,
+                          _row_sample_keys(seed, emit_idx))
+
+
+def _chain_heads(temperature, top_k, top_p, seed, emit0):
+    """Step t of a sampled chain folds ``emit0 + t`` into each row's seed
+    key, so a row's n-th token depends only on (seed, n)."""
+    base = _seed_keys(seed)
+    return lambda t: _sampling_head(temperature, top_k, top_p,
+                                    prng.fold_in(base, emit0 + t))
+
+
 def paged_decode_step_sampled(params: dict, cfg: DecoderConfig, k_pool,
                               v_pool, token, positions, block_tables,
                               slot_blocks, slot_offsets, temperature, top_k,
                               top_p, seed, emit_idx):
     """:func:`paged_decode_step` with per-row sampling."""
-    head = _sampling_head(temperature, top_k, top_p,
-                          _row_sample_keys(seed, emit_idx))
-    return paged_decode_step(params, cfg, k_pool, v_pool, token, positions,
-                             block_tables, slot_blocks, slot_offsets,
-                             head_fn=head)
+    return paged_decode_step(
+        params, cfg, k_pool, v_pool, token, positions, block_tables,
+        slot_blocks, slot_offsets,
+        head_fn=_row_head(temperature, top_k, top_p, seed, emit_idx))
 
 
 def paged_mixed_step_sampled(params: dict, cfg: DecoderConfig, k_pool,
@@ -638,12 +766,11 @@ def paged_mixed_step_sampled(params: dict, cfg: DecoderConfig, k_pool,
                              temperature, top_k, top_p, seed, emit_idx):
     """:func:`paged_mixed_step` with per-row sampling (mid-prefill rows'
     ids are garbage the engine ignores, like their greedy logits)."""
-    head = _sampling_head(temperature, top_k, top_p,
-                          _row_sample_keys(seed, emit_idx))
-    return paged_mixed_step(params, cfg, k_pool, v_pool, tokens, positions,
-                            row_tables, row_start, row_nvalid,
-                            row_token_idx, tok_row, tok_col, slot_blocks,
-                            slot_offsets, logit_idx, head_fn=head)
+    return paged_mixed_step(
+        params, cfg, k_pool, v_pool, tokens, positions, row_tables,
+        row_start, row_nvalid, row_token_idx, tok_row, tok_col, slot_blocks,
+        slot_offsets, logit_idx,
+        head_fn=_row_head(temperature, top_k, top_p, seed, emit_idx))
 
 
 def paged_chained_decode_sampled(params: dict, cfg: DecoderConfig, k_pool,
@@ -655,13 +782,10 @@ def paged_chained_decode_sampled(params: dict, cfg: DecoderConfig, k_pool,
     token depends only on (seed, n) however budgets, preemption or a
     restart cut the chain.  ``emit0``: (B,) the emit index of each row's
     step-0 token."""
-    base = _seed_keys(seed)
-    return _chained(
+    return run_single(_chained_body(
         params, cfg, k_pool, v_pool, token, positions, block_tables,
         slot_blocks, slot_offsets,
-        lambda t: _sampling_head(temperature, top_k, top_p,
-                                 prng.fold_in(base, emit0 + t)),
-    )
+        _chain_heads(temperature, top_k, top_p, seed, emit0), None))
 
 
 def paged_prefill_sampled(params: dict, cfg: DecoderConfig, token_ids,
@@ -671,10 +795,144 @@ def paged_prefill_sampled(params: dict, cfg: DecoderConfig, token_ids,
     """:func:`paged_prefill` with first-token sampling.  ``emit_idx`` is
     0 for a fresh prompt and ``len(emitted)`` for a re-admission by
     recompute (preemption or restart)."""
-    head = _sampling_head(temperature, top_k, top_p,
-                          _row_sample_keys(seed, emit_idx))
-    return paged_prefill(params, cfg, token_ids, n_valid, k_pool, v_pool,
-                         block_tables, flash=flash, head_fn=head)
+    return paged_prefill(
+        params, cfg, token_ids, n_valid, k_pool, v_pool, block_tables,
+        flash=flash,
+        head_fn=_row_head(temperature, top_k, top_p, seed, emit_idx))
+
+
+# -- the tensor-parallel programs ---------------------------------------------
+#
+# Each ``*_tp`` program runs its per-shard body once per shard of
+# ``mesh`` (``parallel/mesh.TPMesh.spmd``): ``params`` is the list of
+# shard param dicts (``parallel/mesh.shard_decoder_params`` of a plan
+# built with ``tp=``), the pools (or the SSD state) are lists of shard
+# tensors ([L, NB, BS, H/tp, hd] each), and the host-built index arrays
+# are replicated to every shard's device.  QKV is column-parallel, the
+# output and down projections row-parallel with one psum each, and the
+# greedy choice is fused into the sharded head (an exact two-stage
+# argmax), so each returns ``(ids, *shard pools)``: replicated ids from
+# shard 0, never full-vocab logits.
+
+
+def _tp_program(mesh, params, pools, args, body):
+    """Run ``body(shard params, *shard pools, *shard args, shard)`` on
+    every shard; returns shard 0's ids and each pool's shard list."""
+    n = mesh.size
+    reps = [mesh.replicate(a) if isinstance(a, torch.Tensor) else [a] * n
+            for a in args]
+
+    def per_shard(shard):
+        i = shard.index
+        return body(params[i], *(pl[i] for pl in pools),
+                    *(r[i] for r in reps), shard=shard)
+
+    outs = mesh.spmd(per_shard)
+    return (outs[0][0],) + tuple([o[j + 1] for o in outs]
+                                 for j in range(len(pools)))
+
+
+def paged_prefill_tp(params, cfg: DecoderConfig, mesh, token_ids, n_valid,
+                     k_pool, v_pool, block_tables, *,
+                     flash: bool | None = None):
+    """:func:`paged_prefill` over ``mesh``: the dense prefill at H/tp
+    heads a shard (the flash kernel at H/tp heads on the card), each
+    shard scattering its K/V slice into its pool shard."""
+    return _tp_program(
+        mesh, params, (k_pool, v_pool), (token_ids, n_valid, block_tables),
+        lambda p, kp, vp, ids, nv, bt, shard: _paged_prefill_body(
+            p, cfg, ids, nv, kp, vp, bt, flash, None, shard))
+
+
+def paged_decode_step_tp(params, cfg: DecoderConfig, mesh, k_pool, v_pool,
+                         token, positions, block_tables, slot_blocks,
+                         slot_offsets):
+    """:func:`paged_decode_step` over ``mesh``: each shard appends and
+    attends its H/tp heads of the pool (the append+attend kernel)."""
+    return _tp_program(
+        mesh, params, (k_pool, v_pool),
+        (token, positions, block_tables, slot_blocks, slot_offsets),
+        lambda p, kp, vp, *a, shard: _paged_decode_body(
+            p, cfg, kp, vp, *a, None, shard))
+
+
+def paged_mixed_step_tp(params, cfg: DecoderConfig, mesh, k_pool, v_pool,
+                        tokens, positions, row_tables, row_start, row_nvalid,
+                        row_token_idx, tok_row, tok_col, slot_blocks,
+                        slot_offsets, logit_idx):
+    """:func:`paged_mixed_step` over ``mesh`` (the ragged kernel at H/tp
+    heads a shard)."""
+    return _tp_program(
+        mesh, params, (k_pool, v_pool),
+        (tokens, positions, row_tables, row_start, row_nvalid, row_token_idx,
+         tok_row, tok_col, slot_blocks, slot_offsets, logit_idx),
+        lambda p, kp, vp, *a, shard: _paged_mixed_body(
+            p, cfg, kp, vp, *a, None, shard))
+
+
+def paged_chained_decode_tp(params, cfg: DecoderConfig, mesh, k_pool, v_pool,
+                            token, positions, block_tables, slot_blocks,
+                            slot_offsets):
+    """:func:`paged_chained_decode` over ``mesh``."""
+    return _tp_program(
+        mesh, params, (k_pool, v_pool),
+        (token, positions, block_tables, slot_blocks, slot_offsets),
+        lambda p, kp, vp, *a, shard: _chained_body(
+            p, cfg, kp, vp, *a, lambda _t: _greedy_head, shard))
+
+
+def paged_prefill_sampled_tp(params, cfg: DecoderConfig, mesh, token_ids,
+                             n_valid, k_pool, v_pool, block_tables,
+                             temperature, top_k, top_p, seed, emit_idx, *,
+                             flash: bool | None = None):
+    """:func:`paged_prefill_sampled` over ``mesh``."""
+    return _tp_program(
+        mesh, params, (k_pool, v_pool),
+        (token_ids, n_valid, block_tables, temperature, top_k, top_p, seed,
+         emit_idx),
+        lambda p, kp, vp, ids, nv, bt, *samp, shard: _paged_prefill_body(
+            p, cfg, ids, nv, kp, vp, bt, flash, _row_head(*samp), shard))
+
+
+def paged_decode_step_sampled_tp(params, cfg: DecoderConfig, mesh, k_pool,
+                                 v_pool, token, positions, block_tables,
+                                 slot_blocks, slot_offsets, temperature,
+                                 top_k, top_p, seed, emit_idx):
+    """:func:`paged_decode_step_sampled` over ``mesh``."""
+    return _tp_program(
+        mesh, params, (k_pool, v_pool),
+        (token, positions, block_tables, slot_blocks, slot_offsets,
+         temperature, top_k, top_p, seed, emit_idx),
+        lambda p, kp, vp, *a, shard: _paged_decode_body(
+            p, cfg, kp, vp, *a[:5], _row_head(*a[5:]), shard))
+
+
+def paged_mixed_step_sampled_tp(params, cfg: DecoderConfig, mesh, k_pool,
+                                v_pool, tokens, positions, row_tables,
+                                row_start, row_nvalid, row_token_idx, tok_row,
+                                tok_col, slot_blocks, slot_offsets, logit_idx,
+                                temperature, top_k, top_p, seed, emit_idx):
+    """:func:`paged_mixed_step_sampled` over ``mesh``."""
+    return _tp_program(
+        mesh, params, (k_pool, v_pool),
+        (tokens, positions, row_tables, row_start, row_nvalid, row_token_idx,
+         tok_row, tok_col, slot_blocks, slot_offsets, logit_idx, temperature,
+         top_k, top_p, seed, emit_idx),
+        lambda p, kp, vp, *a, shard: _paged_mixed_body(
+            p, cfg, kp, vp, *a[:11], _row_head(*a[11:]), shard))
+
+
+def paged_chained_decode_sampled_tp(params, cfg: DecoderConfig, mesh, k_pool,
+                                    v_pool, token, positions, block_tables,
+                                    slot_blocks, slot_offsets, temperature,
+                                    top_k, top_p, seed, emit0):
+    """:func:`paged_chained_decode_sampled` over ``mesh``."""
+    return _tp_program(
+        mesh, params, (k_pool, v_pool),
+        (token, positions, block_tables, slot_blocks, slot_offsets,
+         temperature, top_k, top_p, seed, emit0),
+        lambda p, kp, vp, *a, shard: _chained_body(
+            p, cfg, kp, vp, *a[:5], _chain_heads(*a[5:]), shard))
 
 
 # -- the SSD (gated linear-attention) decoder ---------------------------------
@@ -787,28 +1045,68 @@ def _ssd_layer_step(layer, h, s0, hd: int):
     return y, s1
 
 
-def _ssd_forward_step(params: dict, cfg: DecoderConfig, s, token, head_fn):
-    """One recurrent token through every layer: ``s`` the rows' state
-    stack (L, B, H, hd, hd), ``token`` (B,).  Returns ``(out, s_new)``,
-    ``out`` the f32 logits or ``head_fn``'s result."""
+def _ssd_forward_body(params, cfg, s, token, head_fn, shard):
     dtype = resolve_dtype(cfg.dtype, token.device)
     B = token.shape[0]
     hd = cfg.d_model // cfg.n_heads
     eps = cfg.ln_eps
     act = _act_fn(cfg)
-    x = _embed_rows(params["embed"].to(dtype), token)  # (B, D)
+    x = yield from _embed_rows(params["embed"].to(dtype), token, shard)
     new = []
     for li, layer in enumerate(params["layers"]):
         h = _layer_norm(x, layer["ln1_scale"], layer["ln1_bias"], eps)
         y, s1 = _ssd_layer_step(layer, h, s[li], hd)
-        x = x + _row_proj(layer, y.reshape(B, -1), "wo", "bo")
+        x = x + (yield from _row_proj(layer, y.reshape(B, -1), "wo", "bo",
+                                      shard))
         h = _layer_norm(x, layer["ln2_scale"], layer["ln2_bias"], eps)
         ff = act(_proj(layer, h, "w_up", "b_up"))
-        x = x + _row_proj(layer, ff, "w_down", "b_down")
+        x = x + (yield from _row_proj(layer, ff, "w_down", "b_down", shard))
         new.append(s1)
     x = _layer_norm(x, params["ln_f_scale"], params["ln_f_bias"], eps)
-    out = (_head_out if head_fn is None else head_fn)(params["embed"], x)
+    head = _head_out if head_fn is None else head_fn
+    out = yield from head(params["embed"], x, shard)
     return out, torch.stack(new)
+
+
+def _ssd_forward_step(params: dict, cfg: DecoderConfig, s, token, head_fn):
+    """One recurrent token through every layer: ``s`` the rows' state
+    stack (L, B, H, hd, hd), ``token`` (B,).  Returns ``(out, s_new)``,
+    ``out`` the f32 logits or ``head_fn``'s result."""
+    return run_single(_ssd_forward_body(params, cfg, s, token, head_fn,
+                                        None))
+
+
+def _ssd_mixed_body(params, cfg, state, tokens, n_valid, row_slots, head_fn,
+                    shard):
+    dtype = resolve_dtype(cfg.dtype, tokens.device)
+    B, C = tokens.shape
+    hd = cfg.d_model // cfg.n_heads
+    eps = cfg.ln_eps
+    act = _act_fn(cfg)
+    slots = row_slots.long()
+    valid = (torch.arange(C, device=tokens.device)[None, :]
+             < n_valid[:, None])
+    x = yield from _embed_rows(params["embed"].to(dtype), tokens, shard)
+    new = []
+    for li, layer in enumerate(params["layers"]):
+        s0 = state[li, slots]                    # (B, H, hd, hd)
+        h = _layer_norm(x, layer["ln1_scale"], layer["ln1_bias"], eps)
+        y, s1 = _ssd_layer_chunk(layer, h, s0, hd, valid)
+        x = x + (yield from _row_proj(layer, y.reshape(B, C, -1), "wo", "bo",
+                                      shard))
+        h = _layer_norm(x, layer["ln2_scale"], layer["ln2_bias"], eps)
+        ff = act(_proj(layer, h, "w_up", "b_up"))
+        x = x + (yield from _row_proj(layer, ff, "w_down", "b_down", shard))
+        new.append(s1)
+    # several idle rows writing slot 0 race, and which one lands is
+    # undefined on the card: benign only because slot 0 is the null sink
+    state[:, slots] = torch.stack(new)
+    x = _layer_norm(x, params["ln_f_scale"], params["ln_f_bias"], eps)
+    last = torch.clamp(n_valid.long() - 1, min=0)
+    sel = x[torch.arange(B, device=x.device), last]
+    head = _head_out if head_fn is None else head_fn
+    out = yield from head(params["embed"], sel, shard)
+    return out, state
 
 
 def ssd_mixed_step(params: dict, cfg: DecoderConfig, state: torch.Tensor,
@@ -824,32 +1122,15 @@ def ssd_mixed_step(params: dict, cfg: DecoderConfig, state: torch.Tensor,
     (L, S, H, hd, hd), updated IN PLACE.  Returns ``(out, state)``,
     ``out`` at each row's LAST valid token: (B, V) f32 logits or
     ``head_fn``'s result."""
-    dtype = resolve_dtype(cfg.dtype, tokens.device)
-    B, C = tokens.shape
-    hd = cfg.d_model // cfg.n_heads
-    eps = cfg.ln_eps
-    act = _act_fn(cfg)
+    return run_single(_ssd_mixed_body(params, cfg, state, tokens, n_valid,
+                                      row_slots, head_fn, None))
+
+
+def _ssd_decode_body(params, cfg, state, token, row_slots, head_fn, shard):
     slots = row_slots.long()
-    valid = (torch.arange(C, device=tokens.device)[None, :]
-             < n_valid[:, None])
-    x = _embed_rows(params["embed"].to(dtype), tokens)
-    new = []
-    for li, layer in enumerate(params["layers"]):
-        s0 = state[li, slots]                    # (B, H, hd, hd)
-        h = _layer_norm(x, layer["ln1_scale"], layer["ln1_bias"], eps)
-        y, s1 = _ssd_layer_chunk(layer, h, s0, hd, valid)
-        x = x + _row_proj(layer, y.reshape(B, C, -1), "wo", "bo")
-        h = _layer_norm(x, layer["ln2_scale"], layer["ln2_bias"], eps)
-        ff = act(_proj(layer, h, "w_up", "b_up"))
-        x = x + _row_proj(layer, ff, "w_down", "b_down")
-        new.append(s1)
-    # several idle rows writing slot 0 race, and which one lands is
-    # undefined on the card: benign only because slot 0 is the null sink
-    state[:, slots] = torch.stack(new)
-    x = _layer_norm(x, params["ln_f_scale"], params["ln_f_bias"], eps)
-    last = torch.clamp(n_valid.long() - 1, min=0)
-    sel = x[torch.arange(B, device=x.device), last]
-    out = (_head_out if head_fn is None else head_fn)(params["embed"], sel)
+    out, s = yield from _ssd_forward_body(params, cfg, state[:, slots], token,
+                                          head_fn, shard)
+    state[:, slots] = s
     return out, state
 
 
@@ -859,14 +1140,12 @@ def ssd_decode_step(params: dict, cfg: DecoderConfig, state: torch.Tensor,
     """One batched recurrent decode token: gather each row's state,
     update, scatter back (IN PLACE).  token/row_slots (B,) ints.  Returns
     ``(out, state)`` as :func:`ssd_mixed_step`."""
-    slots = row_slots.long()
-    out, s = _ssd_forward_step(params, cfg, state[:, slots], token, head_fn)
-    state[:, slots] = s
-    return out, state
+    return run_single(_ssd_decode_body(params, cfg, state, token, row_slots,
+                                       head_fn, None))
 
 
-def _ssd_chained(params, cfg, state, token, row_slots, steps, rem,
-                 stop_tok, head_at):
+def _ssd_chained_body(params, cfg, state, token, row_slots, steps, rem,
+                      stop_tok, head_at, shard):
     """K recurrent steps (``K = len(steps)``), step t's ids feeding step
     t+1 and step t's head ``head_at(t)`` returning ids.  A row past its
     budget ``rem`` or its EOS FREEZES: its state stops updating and its
@@ -882,7 +1161,8 @@ def _ssd_chained(params, cfg, state, token, row_slots, steps, rem,
     rem = rem.to(torch.int32)
     ids = []
     for t in range(int(steps.shape[0])):
-        new_ids, s_new = _ssd_forward_step(params, cfg, s, tok, head_at(t))
+        new_ids, s_new = yield from _ssd_forward_body(params, cfg, s, tok,
+                                                      head_at(t), shard)
         active = ~stopped & (nprod < rem)
         s = torch.where(active[None, :, None, None, None], s_new, s)
         tok = torch.where(active, new_ids, tok)
@@ -899,8 +1179,9 @@ def ssd_chained_decode(params: dict, cfg: DecoderConfig, state, token,
     over :func:`_ssd_forward_step`).  ``steps`` (K,) (its length is the
     chain's), ``rem`` (B,) each row's step budget, ``stop_tok`` () the EOS
     id (-1 for none).  Returns ``(ids (B, K) int32, state)``."""
-    return _ssd_chained(params, cfg, state, token, row_slots, steps, rem,
-                        stop_tok, lambda _t: _greedy_head)
+    return run_single(_ssd_chained_body(
+        params, cfg, state, token, row_slots, steps, rem, stop_tok,
+        lambda _t: _greedy_head, None))
 
 
 def ssd_mixed_step_sampled(params: dict, cfg: DecoderConfig, state, tokens,
@@ -909,20 +1190,18 @@ def ssd_mixed_step_sampled(params: dict, cfg: DecoderConfig, state, tokens,
     """:func:`ssd_mixed_step` with per-row sampling, on the paged
     programs' (seed, emit index) key schedule.  Returns ``(ids,
     state)``."""
-    head = _sampling_head(temperature, top_k, top_p,
-                          _row_sample_keys(seed, emit_idx))
-    return ssd_mixed_step(params, cfg, state, tokens, n_valid, row_slots,
-                          head_fn=head)
+    return ssd_mixed_step(
+        params, cfg, state, tokens, n_valid, row_slots,
+        head_fn=_row_head(temperature, top_k, top_p, seed, emit_idx))
 
 
 def ssd_decode_step_sampled(params: dict, cfg: DecoderConfig, state, token,
                             row_slots, temperature, top_k, top_p, seed,
                             emit_idx):
     """:func:`ssd_decode_step` with per-row sampling."""
-    head = _sampling_head(temperature, top_k, top_p,
-                          _row_sample_keys(seed, emit_idx))
-    return ssd_decode_step(params, cfg, state, token, row_slots,
-                           head_fn=head)
+    return ssd_decode_step(
+        params, cfg, state, token, row_slots,
+        head_fn=_row_head(temperature, top_k, top_p, seed, emit_idx))
 
 
 def ssd_chained_decode_sampled(params: dict, cfg: DecoderConfig, state,
@@ -932,12 +1211,79 @@ def ssd_chained_decode_sampled(params: dict, cfg: DecoderConfig, state,
     t`` into each row's seed key, the paged chain's schedule (a row's
     active steps are a prefix of the chain, so K sampled single steps
     draw the same tokens)."""
-    base = _seed_keys(seed)
-    return _ssd_chained(
+    return run_single(_ssd_chained_body(
         params, cfg, state, token, row_slots, steps, rem, stop_tok,
-        lambda t: _sampling_head(temperature, top_k, top_p,
-                                 prng.fold_in(base, emit0 + t)),
-    )
+        _chain_heads(temperature, top_k, top_p, seed, emit0), None))
+
+
+# The SSD programs over a mesh: each shard runs its H/tp heads'
+# recurrence on its slice of the state ([L, S, H/tp, hd, hd]); the
+# collectives per layer are the paged path's (one psum per row-parallel
+# projection, the two-stage argmax head).  ``state`` is the list of
+# shard states; each returns ``(ids, shard states)``.
+
+
+def ssd_mixed_step_tp(params, cfg: DecoderConfig, mesh, state, tokens,
+                      n_valid, row_slots):
+    """:func:`ssd_mixed_step` over ``mesh``."""
+    return _tp_program(
+        mesh, params, (state,), (tokens, n_valid, row_slots),
+        lambda p, st, *a, shard: _ssd_mixed_body(p, cfg, st, *a, None,
+                                                 shard))
+
+
+def ssd_decode_step_tp(params, cfg: DecoderConfig, mesh, state, token,
+                       row_slots):
+    """:func:`ssd_decode_step` over ``mesh``."""
+    return _tp_program(
+        mesh, params, (state,), (token, row_slots),
+        lambda p, st, *a, shard: _ssd_decode_body(p, cfg, st, *a, None,
+                                                  shard))
+
+
+def ssd_chained_decode_tp(params, cfg: DecoderConfig, mesh, state, token,
+                          row_slots, steps, rem, stop_tok):
+    """:func:`ssd_chained_decode` over ``mesh``: the replicated ids are
+    the carry every shard feeds its next step."""
+    return _tp_program(
+        mesh, params, (state,), (token, row_slots, steps, rem, stop_tok),
+        lambda p, st, *a, shard: _ssd_chained_body(
+            p, cfg, st, *a, lambda _t: _greedy_head, shard))
+
+
+def ssd_mixed_step_sampled_tp(params, cfg: DecoderConfig, mesh, state,
+                              tokens, n_valid, row_slots, temperature, top_k,
+                              top_p, seed, emit_idx):
+    """:func:`ssd_mixed_step_sampled` over ``mesh``."""
+    return _tp_program(
+        mesh, params, (state,),
+        (tokens, n_valid, row_slots, temperature, top_k, top_p, seed,
+         emit_idx),
+        lambda p, st, *a, shard: _ssd_mixed_body(
+            p, cfg, st, *a[:3], _row_head(*a[3:]), shard))
+
+
+def ssd_decode_step_sampled_tp(params, cfg: DecoderConfig, mesh, state,
+                               token, row_slots, temperature, top_k, top_p,
+                               seed, emit_idx):
+    """:func:`ssd_decode_step_sampled` over ``mesh``."""
+    return _tp_program(
+        mesh, params, (state,),
+        (token, row_slots, temperature, top_k, top_p, seed, emit_idx),
+        lambda p, st, *a, shard: _ssd_decode_body(
+            p, cfg, st, *a[:2], _row_head(*a[2:]), shard))
+
+
+def ssd_chained_decode_sampled_tp(params, cfg: DecoderConfig, mesh, state,
+                                  token, row_slots, steps, rem, stop_tok,
+                                  temperature, top_k, top_p, seed, emit0):
+    """:func:`ssd_chained_decode_sampled` over ``mesh``."""
+    return _tp_program(
+        mesh, params, (state,),
+        (token, row_slots, steps, rem, stop_tok, temperature, top_k, top_p,
+         seed, emit0),
+        lambda p, st, *a, shard: _ssd_chained_body(
+            p, cfg, st, *a[:5], _chain_heads(*a[5:]), shard))
 
 
 def measured_tier_prior(db=None) -> str | None:
@@ -1203,11 +1549,17 @@ __all__ = [
     "generate_tokens_fused", "greedy", "init_decoder_params",
     "measured_tier_prior",
     "int8_device_native", "paged_chained_decode",
-    "paged_chained_decode_sampled", "paged_decode_step",
-    "paged_decode_step_sampled", "paged_mixed_step",
-    "paged_mixed_step_sampled", "paged_prefill", "paged_prefill_sampled",
+    "paged_chained_decode_sampled", "paged_chained_decode_sampled_tp",
+    "paged_chained_decode_tp", "paged_decode_step",
+    "paged_decode_step_sampled", "paged_decode_step_sampled_tp",
+    "paged_decode_step_tp", "paged_mixed_step", "paged_mixed_step_sampled",
+    "paged_mixed_step_sampled_tp", "paged_mixed_step_tp", "paged_prefill",
+    "paged_prefill_sampled", "paged_prefill_sampled_tp", "paged_prefill_tp",
     "params_to", "plan_decode_params", "prefill", "quantize_weight_int8",
     "ssd_augment_params", "ssd_chained_decode",
-    "ssd_chained_decode_sampled", "ssd_decode_step",
-    "ssd_decode_step_sampled", "ssd_mixed_step", "ssd_mixed_step_sampled",
+    "ssd_chained_decode_sampled", "ssd_chained_decode_sampled_tp",
+    "ssd_chained_decode_tp", "ssd_decode_step", "ssd_decode_step_sampled",
+    "ssd_decode_step_sampled_tp", "ssd_decode_step_tp", "ssd_mixed_step",
+    "ssd_mixed_step_sampled", "ssd_mixed_step_sampled_tp",
+    "ssd_mixed_step_tp",
 ]

@@ -234,7 +234,8 @@ class Int8DecoderHost:
                          max_batch_size: int | None = None,
                          chain_steps: int | None = None,
                          quantize: str | None = None,
-                         speculative=None, device=None, **kwargs):
+                         speculative=None, device=None,
+                         tp: int | None = None, devices=None, **kwargs):
         """The one shared :class:`RequestScheduler` of this tier.
 
         ``cache="paged"`` (default) serves through :meth:`paged_engine`:
@@ -246,14 +247,16 @@ class Int8DecoderHost:
         ``paged=False`` keeps the serialized int8 host tier (batch 1:
         the host cache is per-instance state) and releases the f32
         weights the engines would need.  ``device`` is the engines'
-        (default ``"cuda"``).  Other keywords go to the scheduler."""
+        (default ``"cuda"``); ``tp`` and ``devices`` shard them (the
+        engines' own arguments).  Other keywords go to the scheduler."""
         if cache not in ("paged", "state"):
             raise ValueError(f"cache={cache!r}: expected 'paged' or 'state'")
         sched = self._serve_executor
         if sched is not None and not sched._closed:
             if (paged is not None or max_batch_size is not None
                     or chain_steps is not None or quantize is not None
-                    or speculative is not None or cache != "paged"):
+                    or speculative is not None or cache != "paged"
+                    or tp is not None or devices is not None):
                 logger.warning(
                     "serving_executor(cache=%r, paged=%r, ...) ignored: the "
                     "shared executor already exists; shut it down first to "
@@ -275,6 +278,10 @@ class Int8DecoderHost:
                 engine_kwargs["max_batch_size"] = max_batch_size
             if chain_steps is not None:
                 engine_kwargs["chain_steps"] = chain_steps
+            if tp is not None:
+                engine_kwargs["tp"] = tp
+            if devices is not None:
+                engine_kwargs["devices"] = devices
             if cache == "state":
                 engine = self.state_engine(**engine_kwargs)
             else:

@@ -73,7 +73,9 @@ def _params_bytes(cfg, params, tp: int, itemsize: int) -> int:
     """Per-shard parameter bytes: exact when the live plan is given,
     each tensor at its OWN element size (an int8 plan's weights count one
     byte each, so the ledger the engine builds from its dispatch plan is
-    the true resident footprint), analytic from the config otherwise."""
+    the true resident footprint; a sharded plan, one dict a shard, is
+    every shard's bytes over ``tp``), analytic from the config
+    otherwise."""
     if params is not None:
         total = sum(t.numel() * t.element_size() for t in tensors(params))
         return int(total // max(tp, 1))

@@ -38,6 +38,8 @@ import os
 from dataclasses import dataclass, field
 from typing import Any
 
+from ..parallel.mesh import legal_tp_values
+
 # sentinel crossover meaning "the jit path never wins on this backend"
 NEVER = 1 << 62
 
@@ -248,20 +250,6 @@ def choose_process_count(current: int, *, db=None,
 
 # -- tp/dp degree over the shared mesh --------------------------------------
 
-def legal_tp_values(n_kv_heads: int, vocab_size: int,
-                    n_devices: int | None = None,
-                    d_ff: int | None = None) -> list[int]:
-    """Tensor-parallel degrees that shard the decoder evenly: each must
-    divide the KV heads, the vocab and d_ff, up to ``n_devices`` (a copy
-    of ``pathway_tpu/parallel/mesh.py``'s pure function)."""
-    cap = min(n_kv_heads, n_devices) if n_devices else n_kv_heads
-    return [
-        t for t in range(1, cap + 1)
-        if n_kv_heads % t == 0 and vocab_size % t == 0
-        and (d_ff is None or d_ff % t == 0)
-    ]
-
-
 def _device_count() -> int:
     """CUDA devices visible to this process; a host without a card is
     one device (the CPU)."""
@@ -297,9 +285,14 @@ def choose_tp(*, cfg=None, n_devices: int | None = None, db=None,
         )
     legal = [1]
     if cfg is not None:
+        # the KV heads: a config's ``n_kv_heads`` where it has one, else
+        # its ``n_heads`` (the decoder's KV heads; the reference reads
+        # ``n_kv_heads`` alone, which a DecoderConfig lacks, so it never
+        # leaves tp = 1)
+        heads = getattr(cfg, "n_kv_heads", None) or getattr(cfg, "n_heads", 1)
         legal = legal_tp_values(
-            getattr(cfg, "n_kv_heads", 1), getattr(cfg, "vocab_size", 0),
-            n_devices, getattr(cfg, "d_ff", 0),
+            heads, getattr(cfg, "vocab_size", 0), n_devices,
+            getattr(cfg, "d_ff", 0),
         ) or [1]
         if budget_bytes is not None:
             from .memory import ENGINE_DEFAULTS, hbm_plan

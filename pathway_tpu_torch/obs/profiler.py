@@ -577,7 +577,14 @@ class ProfiledFunction:
     Same call signature as ``fn``.  Per call it computes the bucket
     signature (a parameter tree is re-flattened only when a different
     object is passed at its position), and on the card records one event
-    pair; the first call of a bucket is costed and registered."""
+    pair; the first call of a bucket is costed and registered.
+
+    The pair is recorded on the current stream of the first CUDA tensor
+    argument's device.  A tensor-parallel program's first argument is
+    shard 0's params, so its window is shard 0's: every psum and gather
+    ends on shard 0's device, which waits there for the other shards'
+    copies, so the window closes after every shard's work up to the
+    step's last collective (on one card all shards share the stream)."""
 
     def __init__(self, program: str, fn):
         self.program = program

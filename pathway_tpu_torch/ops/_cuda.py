@@ -10,7 +10,16 @@ flags, so an edited kernel is rebuilt and an unchanged one is reused.
 Every wrapper adds one to ``LAUNCHES[name]`` where it launches its
 kernel, and nowhere else, so a run can show that its main path went
 through the kernels; the count is taken under a lock, since replicas of
-a serving fleet launch from their own threads.
+a serving fleet launch from their own threads.  A sharded program
+launches once per shard, so at tensor-parallel degree tp a layer's
+kernel counts tp launches (each at H/tp heads).
+
+A launch runs on the device its tensors are on, on that device's current
+stream (a shard on ``cuda:1`` is launched there, not on the current
+device): each wrapper holds every operand to one device with
+:func:`check` and passes that device to :func:`launch`, which makes it
+current around the C call when it is not (the ``cudaFuncSetAttribute``
+opt-ins apply per device).
 """
 
 from __future__ import annotations
@@ -138,21 +147,33 @@ def lib(source: str) -> ctypes.CDLL:
         return handle
 
 
-def launch(source: str, fn: str, name: str, *args) -> None:
-    """Call C function ``fn`` on PyTorch's current stream, raise on a
-    non-zero ``cudaGetLastError()``, and count the launch under ``name``."""
-    stream = torch.cuda.current_stream().cuda_stream
-    err = getattr(lib(source), fn)(*args, stream)
+def launch(source: str, fn: str, name: str, device: torch.device,
+           *args) -> None:
+    """Call C function ``fn`` on the current stream of ``device``, the
+    device of the launch's tensors (the wrapper's :func:`check` holds
+    them to it), with that device current; raise on a non-zero
+    ``cudaGetLastError()``, and count the launch under ``name``."""
+    call = getattr(lib(source), fn)
+    if device.index == torch.cuda.current_device():
+        err = call(*args, torch.cuda.current_stream(device).cuda_stream)
+    else:
+        with torch.cuda.device(device):
+            err = call(*args, torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{fn} launch failed: cudaError {err}")
     with _COUNT_LOCK:
         LAUNCHES[name] += 1
 
 
-def check(t: torch.Tensor, name: str, *, dtype=None, ndim=None) -> None:
-    """Device/dtype/shape/contiguity checks a kernel's inputs must pass."""
+def check(t: torch.Tensor, name: str, *, dtype=None, ndim=None,
+          device=None) -> None:
+    """Device/dtype/shape/contiguity checks a kernel's inputs must pass;
+    ``device``: the device every input of the launch must share."""
     if t.device.type != "cuda":
         raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
+    if device is not None and t.device != torch.device(device):
+        raise ValueError(f"{name} is on {t.device}, the launch's other "
+                         f"operands on {device}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
     if dtype is not None and t.dtype != dtype:

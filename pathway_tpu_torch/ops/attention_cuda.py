@@ -54,6 +54,8 @@ def flash_attention_reference(q: torch.Tensor, k: torch.Tensor,
 def _check_operand(t: torch.Tensor, name: str, like: torch.Tensor) -> None:
     if t.device.type != "cuda":
         raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
+    if t.device != like.device:
+        raise ValueError(f"{name} is on {t.device}, q on {like.device}")
     if t.dtype != like.dtype:
         raise ValueError(f"{name} must be {like.dtype}, got {t.dtype}")
     if tuple(t.shape) != tuple(like.shape):
@@ -86,7 +88,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return out
     strides = [s for t in (q, k, v) for s in t.stride()[:3]]
     _cuda.launch(
-        _SOURCE, "pw_flash_attention", "flash_attention",
+        _SOURCE, "pw_flash_attention", "flash_attention", q.device,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         B, T, H, hd, *strides, int(causal), _DTYPE_CODE[q.dtype],
         1.0 / math.sqrt(hd),

@@ -33,7 +33,8 @@ def knn_scores_reference(queries: torch.Tensor,
 def knn_scores_cuda(queries: torch.Tensor, matrix: torch.Tensor) -> torch.Tensor:
     """Launch the scores kernel on f32, contiguous CUDA tensors."""
     _cuda.check(queries, "queries", dtype=torch.float32, ndim=2)
-    _cuda.check(matrix, "matrix", dtype=torch.float32, ndim=2)
+    _cuda.check(matrix, "matrix", dtype=torch.float32, ndim=2,
+                device=queries.device)
     Q, d = queries.shape
     N = matrix.shape[0]
     if matrix.shape[1] != d:
@@ -41,8 +42,9 @@ def knn_scores_cuda(queries: torch.Tensor, matrix: torch.Tensor) -> torch.Tensor
     out = torch.empty((Q, N), dtype=torch.float32, device=queries.device)
     if Q and N:
         fn = "pw_knn_scores_gemm" if Q >= GEMM_MIN_Q else "pw_knn_scores_gemv"
-        _cuda.launch(_SOURCE, fn, "knn_scores", queries.data_ptr(),
-                     matrix.data_ptr(), out.data_ptr(), Q, N, d)
+        _cuda.launch(_SOURCE, fn, "knn_scores", queries.device,
+                     queries.data_ptr(), matrix.data_ptr(), out.data_ptr(),
+                     Q, N, d)
         add_kernel_cost(2.0 * Q * N * d, 4.0 * (Q * d + N * d + Q * N))
     return out
 

@@ -76,9 +76,10 @@ class ReplicaFleet:
 
     Engine keyword arguments (``num_blocks``, ``block_size``,
     ``watchdog_timeout_s``, ``max_restarts``, ``speculative``,
-    ``device``, ...) pass through to every replica; ``degrade_fn`` (if
-    given) becomes the LAST-resort tier, consulted only when the whole
-    fleet is dead.
+    ``device``, ``tp``, ``devices``, ...) pass through to every replica,
+    so ``tp=`` builds each replica's engine sharded at that degree (over
+    the same ``devices``); ``degrade_fn`` (if given) becomes the
+    LAST-resort tier, consulted only when the whole fleet is dead.
 
     ``cache="state"`` builds every replica as a constant-memory
     ``StateDecodeEngine``.  Routing, failover and the session tier are

@@ -22,7 +22,12 @@ batch of 16 or more) plus a top-k in ``lax.top_k``'s order; only the
 device-resident), as the JAX index's CPU tier does.  Every other search,
 at any index size, scores the device matrix; a metadata-filtered one
 fetches the full score vector and walks it in order until ``k`` rows
-pass the filter.  (The JAX index scores a small host-row index in
+pass the filter.
+
+With a ``mesh`` (``parallel/mesh.TPMesh``), an unfiltered search over
+host rows (``n >= k``) scores the matrix split by rows over the mesh's
+shards (``ops/knn_sharded.py``: per-shard top-k, then one merge), the
+shards cached until the next mutation.  (The JAX index scores a small host-row index in
 numpy, because its rows live there; the port's rows live on the device.)
 """
 
@@ -56,7 +61,7 @@ def _host_vec(x) -> np.ndarray:
 class BruteForceKnn:
     def __init__(self, dimensions: int | None = None, *,
                  reserved_space: int = 1024, metric: str = "cos",
-                 device="cuda"):
+                 device="cuda", mesh=None, mesh_axis: str | None = None):
         if metric not in METRICS:
             raise ValueError(f"unknown metric {metric!r}; expected {METRICS}")
         self.device = resolve_device(device)
@@ -75,6 +80,12 @@ class BruteForceKnn:
         self._dev_valid = 0            # live rows in the device matrix
         self._host_mirror = None       # (version, np (n, d))
         self._host_mirror_norm = None  # (version, L2-normed mirror)
+        # row-sharded search (ops/knn_sharded.py): the mesh, its axis
+        # (default: the mesh's one axis) and ((version, bucket), shards)
+        self.mesh = mesh
+        self.mesh_axis = (mesh_axis if mesh_axis is not None or mesh is None
+                          else mesh.axis_name)
+        self._mesh_matrix = None
 
     def _ensure(self, dim: int) -> None:
         if self.matrix is None:
@@ -92,6 +103,7 @@ class BruteForceKnn:
 
     def _invalidate(self) -> None:
         self._dev_matrix = None
+        self._mesh_matrix = None
         self._host_mirror = None
         self._host_mirror_norm = None
         self._version += 1
@@ -265,6 +277,9 @@ class BruteForceKnn:
             return []
         if tier == "cpu" and metadata_filter is None:
             return self._top(self._scores(_host_vec(query)), k)
+        if (self.mesh is not None and metadata_filter is None
+                and not self._dev_refs and self.n >= k):
+            return self._search_sharded(query, k)
         prenorm, metric = self._device_metric()
         m = self._device_matrix(prenorm)
         q = query if isinstance(query, torch.Tensor) else _host_vec(query)
@@ -280,6 +295,23 @@ class BruteForceKnn:
                 if len(out) >= k:
                     break
         return out
+
+    def _search_sharded(self, query, k: int) -> list[tuple[int, float]]:
+        """Top-``k`` over the host rows split by rows over the mesh."""
+        from ...ops import knn_sharded as ks
+
+        bucket = ks.row_bucket(self.n, self.mesh.shape[self.mesh_axis])
+        token = (self._version, bucket)
+        if self._mesh_matrix is None or self._mesh_matrix[0] != token:
+            self._mesh_matrix = (token, ks.shard_matrix(
+                self.mesh, self.mesh_axis, self.matrix[: self.n], bucket))
+        q = (query.detach().to("cpu", torch.float32).reshape(1, -1)
+             if isinstance(query, torch.Tensor) else _host_vec(query)[None])
+        vals, idx = ks.sharded_topk_device(
+            self.mesh, self.mesh_axis, self._mesh_matrix[1], q, k,
+            self.metric, self.n)
+        return [(self.keys[int(i)], float(v))
+                for v, i in zip(vals[0], idx[0]) if v != -np.inf]
 
     def _top(self, scores: np.ndarray, k: int) -> list[tuple[int, float]]:
         """The CPU tier's top-k: the JAX index's numpy selection."""

@@ -166,15 +166,15 @@ def test_block_pool_fork_copy_on_write_keeps_parent_bytes():
     pool = _pool()
     parent = pool.allocate(1, 6)
     tail = parent.block_ids[-1]
-    pool.k[:, tail] = 3.0
-    pool.v[:, tail] = -3.0
+    pool.k[0][:, tail] = 3.0
+    pool.v[0][:, tail] = -3.0
     pool.fork(1, 2)
     assert pool.refcount(tail) == 2
     blk, off = pool.append_slot(2)  # diverging append copies the tail
     assert blk != tail and off == 2 and pool.n_cow == 1
-    assert torch.equal(pool.k[:, blk], pool.k[:, tail])
-    pool.k[:, blk, off] = 9.0  # the child's write
-    assert bool((pool.k[:, tail] == 3.0).all())  # the parent is untouched
+    assert torch.equal(pool.k[0][:, blk], pool.k[0][:, tail])
+    pool.k[0][:, blk, off] = 9.0  # the child's write
+    assert bool((pool.k[0][:, tail] == 3.0).all())  # the parent is untouched
     assert pool.refcount(tail) == 1
     pool.check_invariants()
     victim = pool.preempt()
@@ -224,8 +224,6 @@ def test_whole_bucket_prefill_matches_jax_and_chunked(weights, sizes):
 
 
 def test_whole_bucket_prefill_keeps_shared_blocks(weights, monkeypatch):
-    from pathway_tpu_torch.kvcache import engine as eng_mod
-
     pj, pt = weights
     kw = dict(num_blocks=64, block_size=8, max_batch_size=4)
     first, second = _prompts()[1], _prompts()[2]  # 20 shared tokens
@@ -236,22 +234,24 @@ def test_whole_bucket_prefill_keeps_shared_blocks(weights, monkeypatch):
         name="t_torch_whole_shared", **kw).generate_batch([(first, 6)])
     shared, _ = eng.prefix.match(second)
     assert len(shared) == 2  # the two full blocks of the shared prefix
-    before_k = eng.pool.k[:, shared].clone()
-    before_v = eng.pool.v[:, shared].clone()
+    before_k = eng.pool.k[0][:, shared].clone()
+    before_v = eng.pool.v[0][:, shared].clone()
     tables = []
-    orig = eng_mod.paged_prefill
+    orig = tdec.paged_prefill
 
     def spy(params, cfg, ids, n_valid, k_pool, v_pool, bt, **kwargs):
         tables.append(bt.clone())
         return orig(params, cfg, ids, n_valid, k_pool, v_pool, bt, **kwargs)
 
-    monkeypatch.setattr(eng_mod, "paged_prefill", spy)
+    # the engine binds its step programs when it builds them
+    monkeypatch.setattr(tdec, "paged_prefill", spy)
+    eng._build_programs()
     got = eng.generate_batch([(second, 9)])
     # the prefix-shared leading entries scatter to the null block
     assert tables and tables[0][0, :2].tolist() == [0, 0]
     assert bool((tables[0][0, 2:3] != 0).all())
-    assert torch.equal(eng.pool.k[:, shared], before_k)
-    assert torch.equal(eng.pool.v[:, shared], before_v)
+    assert torch.equal(eng.pool.k[0][:, shared], before_k)
+    assert torch.equal(eng.pool.v[0][:, shared], before_v)
     # and the sharer's tokens are those of a fresh engine
     fresh = PagedDecodeEngine(CFG_T, pt, device="cpu", chunked_prefill=False,
                               **kw)
@@ -259,8 +259,6 @@ def test_whole_bucket_prefill_keeps_shared_blocks(weights, monkeypatch):
 
 
 def test_whole_bucket_prefill_failure_frees_blocks(weights, monkeypatch):
-    from pathway_tpu_torch.kvcache import engine as eng_mod
-
     _pj, pt = weights
     eng = PagedDecodeEngine(CFG_T, pt, device="cpu", chunked_prefill=False,
                             num_blocks=64, block_size=8, max_batch_size=4)
@@ -268,7 +266,8 @@ def test_whole_bucket_prefill_failure_frees_blocks(weights, monkeypatch):
     def boom(*a, **k):
         raise RuntimeError("prefill failed")
 
-    monkeypatch.setattr(eng_mod, "paged_prefill", boom)
+    monkeypatch.setattr(tdec, "paged_prefill", boom)
+    eng._build_programs()
     with pytest.raises(RuntimeError, match="prefill failed"):
         eng.generate_batch([(_prompts()[0], 4)])
     assert not eng.pool.sequences()

@@ -9,9 +9,12 @@ on the card.  Here each prototype is parsed from its source and held
 against its binding: the same number of parameters, a ``c_void_p`` for
 every pointer, and the matching ctypes type for every scalar.  The
 wrappers are then run on CPU tensors up to their launch, which is
-recorded: each passes one Python value of the bound kind per parameter
-(the stream aside), and the KNN wrapper picks the GEMV below 16 queries
-and the GEMM from 16.
+recorded: each passes its tensors' device and one Python value of the
+bound kind per parameter (the stream aside), and the KNN wrapper picks
+the GEMV below 16 queries and the GEMM from 16.  ``_cuda.launch``
+itself runs over a stub library: it launches on the stream of the
+device it is given, with that device current; the wrappers refuse
+operands on two devices before any launch.
 """
 
 import ctypes
@@ -92,25 +95,27 @@ def recorded_launches(monkeypatch):
 
     check = _cuda.check
 
-    def check_any_device(t, name, **kw):
-        assert t.device.type == "cpu"
+    def check_any_device(t, name, *, device=None, **kw):
+        assert t.device.type == "cpu" and device in (None, t.device)
         check(_OnCuda(t), name, **kw)
 
     calls = []
     monkeypatch.setattr(_cuda, "check", check_any_device)
     monkeypatch.setattr(attention_cuda, "_check_operand", lambda *a: None)
-    monkeypatch.setattr(_cuda, "launch",
-                        lambda source, fn, name, *args:
-                        calls.append((source, fn, name, args)))
+    def launch(source, fn, name, device, *args):
+        assert device == torch.device("cpu")  # the tensors' own device
+        calls.append((source, fn, name, args))
+
+    monkeypatch.setattr(_cuda, "launch", launch)
     return calls
 
 
 class _OnCuda:
     """A CPU tensor that reports a CUDA device to ``_cuda.check``."""
 
-    def __init__(self, t):
+    def __init__(self, t, device="cuda"):
         self._t = t
-        self.device = torch.device("cuda")
+        self.device = torch.device(device)
 
     def __getattr__(self, attr):
         return getattr(self._t, attr)
@@ -197,3 +202,91 @@ def test_paged_wrappers_split_the_table_span(recorded_launches):
     assert ragged[9:18] == (B, C, H, hd, BS, NBT, pa.RAGGED_SPLIT, 3, 1)
     # ... B, H, hd, BS, NBT, split, n_split, dtype, scale
     assert append[12:20] == (B, H, hd, BS, NBT, pa.APPEND_SPLIT, 5, 1)
+
+
+# -- the launch itself, over a stub library ----------------------------------
+
+
+@pytest.fixture
+def stub_cuda(monkeypatch):
+    """``_cuda.lib`` returns a stub whose functions record their
+    arguments, the current device and return 0; the streams and the
+    device context are PyTorch's API surface, faked per device."""
+    calls = []
+    current = ["cuda:0"]
+    switches = []
+
+    class _Stream:
+        def __init__(self, device):
+            self.cuda_stream = 1000 + torch.device(device).index
+
+    class _DeviceCtx:
+        def __init__(self, device):
+            self.device = str(device)
+
+        def __enter__(self):
+            switches.append(self.device)
+            self.prev, current[0] = current[0], self.device
+
+        def __exit__(self, *exc):
+            current[0] = self.prev
+
+    class _Lib:
+        def __getattr__(self, fn):
+            def call(*args):
+                calls.append((fn, args, current[0]))
+                return 0
+            return call
+
+    monkeypatch.setattr(_cuda, "lib", lambda source: _Lib())
+    monkeypatch.setattr(torch.cuda, "current_device",
+                        lambda: torch.device(current[0]).index)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: _Stream(device or current[0]))
+    monkeypatch.setattr(torch.cuda, "device", _DeviceCtx)
+    return calls, switches
+
+
+def test_launch_takes_the_stream_of_the_tensors_device(stub_cuda):
+    """A shard on cuda:1 launches on cuda:1's stream with cuda:1 current
+    (its cudaFuncSetAttribute opt-ins apply there), whatever device is
+    current: the pointers go in as they are, the stream last.  On the
+    current device no device switch is made."""
+    calls, switches = stub_cuda
+    before = _cuda.LAUNCHES["stub"]
+    _cuda.launch("paged_attention.cu", "pw_fn", "stub",
+                 torch.device("cuda", 1), 4096, 8192, 7, 0.5)
+    [(fn, args, current)] = calls
+    assert fn == "pw_fn" and current == "cuda:1"
+    assert args == (4096, 8192, 7, 0.5, 1001)
+    assert switches == ["cuda:1"]
+    _cuda.launch("paged_attention.cu", "pw_fn", "stub",
+                 torch.device("cuda", 0), 16)
+    assert calls[1] == ("pw_fn", (16, 1000), "cuda:0")
+    assert switches == ["cuda:1"]
+    assert _cuda.LAUNCHES["stub"] == before + 2
+
+
+def test_launch_refuses_tensors_on_two_devices(stub_cuda, monkeypatch):
+    """The wrappers hold every operand to the first one's device, so a
+    launch never mixes devices: operands on two cards raise before it."""
+    from pathway_tpu_torch.kvcache import paged_attention as pa
+    from pathway_tpu_torch.ops.knn_cuda import knn_scores_cuda
+
+    calls, _switches = stub_cuda
+    with pytest.raises(ValueError, match="matrix is on cuda:1"):
+        knn_scores_cuda(_OnCuda(torch.zeros((2, 32)), "cuda:0"),
+                        _OnCuda(torch.zeros((8, 32)), "cuda:1"))
+    q = _OnCuda(torch.zeros((1, 1, 2, 32)), "cuda:0")
+    pool = torch.zeros((4, 4, 2, 32))
+    with pytest.raises(ValueError, match="v_pool is on cuda:1"):
+        pa.paged_attention_cuda(q, _OnCuda(pool, "cuda:0"),
+                                _OnCuda(pool, "cuda:1"), None, None, None)
+    assert not calls
+
+
+def test_check_names_the_operand_on_another_device():
+    t = _OnCuda(torch.zeros(4))
+    _cuda.check(t, "x", device="cuda")
+    with pytest.raises(ValueError, match="x is on cuda"):
+        _cuda.check(t, "x", device="cuda:1")

@@ -42,6 +42,14 @@ def test_the_guard_covers_the_observatory():
         assert f"pathway_tpu_torch.{name}" in _modules()
 
 
+def test_the_guard_covers_the_parallel_modules():
+    """... and the tensor-parallel ones: the mesh, the sharded KNN and the
+    sequence-parallel attention."""
+    for name in ("parallel", "parallel.mesh", "ops.knn_sharded",
+                 "models.attention"):
+        assert f"pathway_tpu_torch.{name}" in _modules()
+
+
 def test_import_loads_neither_jax_nor_the_jax_package():
     code = (
         "import importlib, sys\n"
@@ -139,3 +147,28 @@ def test_chip_smoke_fails_without_a_card_or_the_package(tmp_path):
                              text=True, timeout=120)
         assert out.returncode != 0
         assert '"ok"' not in out.stdout
+
+
+@pytest.mark.parametrize("call", ["tp_mesh()", "tp_mesh(2)",
+                                  "resolve_tp(cfg, 2)", "engine(tp=2)"])
+def test_tensor_parallelism_without_a_card_raises(call, monkeypatch):
+    """Shards default to CUDA devices: with none, asking for a mesh or
+    for tp > 1 raises instead of placing shards on the CPU."""
+    from pathway_tpu_torch.kvcache.engine import PagedDecodeEngine, resolve_tp
+    from pathway_tpu_torch.models import decoder
+    from pathway_tpu_torch.parallel.mesh import tp_mesh
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 0)
+    cfg = decoder.DecoderConfig(vocab_size=32, d_model=8, n_layers=1,
+                                n_heads=2, d_ff=16, max_len=16)
+    calls = {
+        "tp_mesh()": lambda: tp_mesh(),
+        "tp_mesh(2)": lambda: tp_mesh(2),
+        "resolve_tp(cfg, 2)": lambda: resolve_tp(cfg, 2),
+        "engine(tp=2)": lambda: PagedDecodeEngine(
+            cfg, decoder.init_decoder_params(cfg, 0, device="cpu"), tp=2),
+    }
+    with pytest.raises((ValueError, RuntimeError),
+                       match="CUDA device|local devices|device='cpu'"):
+        calls[call]()

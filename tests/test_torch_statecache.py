@@ -594,9 +594,9 @@ def test_slot_lifecycle_fuzz_invariants():
                 st = cache.allocate(next_id, int(rng.integers(1, 40)))
                 live[next_id] = [int(t) for t in rng.integers(0, 64, 4)]
                 assert st.block_ids[0] != 0
-                assert not cache.state[:, st.block_ids[0]].any()
+                assert not cache.shards[0][:, st.block_ids[0]].any()
                 value[next_id] = float(next_id + 1)
-                cache.state[:, st.block_ids[0]] = value[next_id]
+                cache.shards[0][:, st.block_ids[0]] = value[next_id]
                 next_id += 1
             except PoolExhausted:
                 assert cache.num_free == 0
@@ -607,7 +607,7 @@ def test_slot_lifecycle_fuzz_invariants():
         elif op == 2 and live:
             sid = int(rng.choice(list(live)))
             payload, nbytes = cache.suspend_host(sid, live.pop(sid))
-            assert nbytes == 2 * 4 * 8 * 8 * 4 == payload["s"].nbytes
+            assert nbytes == 2 * 4 * 8 * 8 * 4 == payload["s"][0].nbytes
             suspended.append((value.pop(sid), payload))
         elif op == 3 and suspended:
             val, payload = suspended.pop()
@@ -617,7 +617,7 @@ def test_slot_lifecycle_fuzz_invariants():
                 suspended.append((val, payload))
                 continue
             cache.resume_host(payload, st.block_ids)
-            assert bool((cache.state[:, st.block_ids[0]] == val).all())
+            assert bool((cache.shards[0][:, st.block_ids[0]] == val).all())
             value[next_id] = val
             live[next_id] = [1, 2, 3, 4]
             next_id += 1
@@ -702,13 +702,13 @@ def test_blockpool_parity_through_backend_interface():
     for pool in (direct, seamed):
         st = pool.allocate(0, 11)
         assert len(st.block_ids) == pool.blocks_for(11)
-        pool.k.normal_(generator=torch.Generator().manual_seed(1))
+        pool.k[0].normal_(generator=torch.Generator().manual_seed(1))
     assert direct.sequence(0).block_ids == seamed.sequence(0).block_ids
     assert direct.state_bytes_per_seq(11) == 3 * 2 * 2 * 4 * H * HD * 4
     p_direct, b_direct = direct.suspend_host(0, list(range(11)))
     p_seamed, b_seamed = seamed.suspend_host(0, list(range(11)))
     assert b_direct == b_seamed
-    assert torch.equal(p_direct["k"], p_seamed["k"])
+    assert torch.equal(p_direct["k"][0], p_seamed["k"][0])
     direct.check_invariants()
     seamed.check_invariants()
     with pytest.raises(ValueError, match="unknown cache backend"):
@@ -734,6 +734,6 @@ def test_session_store_charges_real_buffer_bytes():
     short = store.match("st-short", list(range(128)))
     long = store.match("st-long", list(range(2048)))
     assert short.nbytes == long.nbytes == expect
-    assert short.payload["s"].nbytes == expect
+    assert short.payload["s"][0].nbytes == expect
     assert store.host_bytes == ent.nbytes + 2 * expect
     assert cache.stats()["suspends"] == 2

@@ -39,8 +39,8 @@ def _pools(seed=0):
     jp = JaxPool(**DIMS, name=f"tt_tier_pool_{seed}")
     jp.k, jp.v = jnp.asarray(k), jnp.asarray(v)
     tp = BlockPool(**DIMS, device="cpu")
-    tp.k.copy_(torch.from_numpy(k))
-    tp.v.copy_(torch.from_numpy(v))
+    tp.k[0].copy_(torch.from_numpy(k))
+    tp.v[0].copy_(torch.from_numpy(v))
     return jp, tp
 
 
@@ -48,24 +48,24 @@ def test_suspend_then_resume_gives_back_kv_bit_for_bit():
     _jp, pool = _pools()
     pool.allocate(1, 10)  # 3 blocks, the last one partly filled
     blocks = list(pool.sequence(1).block_ids)
-    k0, v0 = pool.k[:, blocks].clone(), pool.v[:, blocks].clone()
+    k0, v0 = pool.k[0][:, blocks].clone(), pool.v[0][:, blocks].clone()
     store = SessionStore(name="tt_tier_exact")
     assert store.suspend("s", pool, 1, list(range(10))) == 10
     assert pool.sequences() == [] and pool.num_free == DIMS["num_blocks"] - 1
     # the suspended bytes live on the host: scribble over the whole pool
     pool.allocate(7, 8)
-    pool.k.fill_(-3.0)
-    pool.v.fill_(5.0)
+    pool.k[0].fill_(-3.0)
+    pool.v[0].fill_(5.0)
     pool.allocate(2, 14)
     ent = store.match("s", list(range(14)))
     assert ent is not None and ent.payload["nb"] == 3
     new = list(pool.sequence(2).block_ids)
     assert set(new[:3]) != set(blocks)
     assert store.resume_into(pool, ent, new) == 10
-    assert torch.equal(pool.k[:, new[:3]], k0)
-    assert torch.equal(pool.v[:, new[:3]], v0)
+    assert torch.equal(pool.k[0][:, new[:3]], k0)
+    assert torch.equal(pool.v[0][:, new[:3]], v0)
     # the padded lane (width 4) went to the null block only
-    assert bool((pool.k[:, new[3]] == -3.0).all())
+    assert bool((pool.k[0][:, new[3]] == -3.0).all())
     assert store.n_resumes == 1 and store.resumed_tokens == 10
     pool.check_invariants()
 
@@ -116,7 +116,7 @@ def test_charges_and_evictions_equal_the_jax_store(budget):
             assert mine.tokens == ent.tokens
             for part in ("k", "v"):
                 np.testing.assert_array_equal(
-                    mine.payload[part].numpy(), np.asarray(ent.payload[part]))
+                    mine.payload[part][0].numpy(), np.asarray(ent.payload[part]))
         assert [s.seq_id for s in tp.sequences()] == \
             [s.seq_id for s in jp.sequences()] == []
     if budget is not None:
