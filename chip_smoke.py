@@ -144,6 +144,29 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    ``reference_attention``; ``choose_tp`` answers 1; tp = 2 on GPT-2
    small raises.  Printed as a ``{"tp": ...}`` line; no number in it is
    a speed of tp (the shards share one card);
+4h. the full-sequence forward and training, ``from_hf``'s route and CLIP
+   (after phase 4g): GPT-2 small built by ``config_from_gpt2`` and
+   ``params_from_gpt2_state_dict`` from a GPT-2-layout state dict drawn
+   from ``--seed``.  One f32 ``make_train_step`` at B 2, T 128 gives the
+   port's CPU step's loss, gradients and new params (``TRAIN_REL_TOL``);
+   20 bf16 steps at B 8, T 1024 on one batch must give finite losses
+   that fall from step 1 to step 20 (median step ms, trained tokens/s,
+   the allocator's peak, the device's busy share under torch.profiler,
+   the step's share of its bound).  ``TorchDecoderLM`` over the
+   converted weights in f32: ``generate_batch`` of the RAG prompts and
+   ``generate`` of the longest give the dense plain path's tokens, the
+   ragged, append and flash kernels each launched, and ``forward_logits``'
+   last position is the dense ``prefill``'s logits (``TOL``).  CLIP at
+   ``ClipConfig()`` (ViT-B/32 widths), random weights from ``--seed``: 8
+   images of 224 x 224 and 8 texts in f32 equal the CPU's
+   (``CLIP_F32_TOL``), batch rows equal ``embed_image``'s, bf16 rows keep
+   cosine ``CLIP_BF16_COS`` to f32; 1,024 images through
+   ``embed_image_batch`` (bf16) into a ``BruteForceKnn`` on the card and
+   64 text queries through ``search`` launch the scores kernel once each,
+   and an image's own embedding retrieves it.  The ragged and append
+   kernels at phase 5's heaviest shapes run on two streams at once, each
+   result equal to its plain version (one scratch per stream).  Printed
+   as a ``{"models": ...}`` line;
 5. print one ``{"kernels": [...]}`` line (launches on the main path,
    error against the plain version, kernel / plain / bound / library
    times at the main path's shapes: the median of 5 windows of 50
@@ -155,9 +178,12 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    ``launches_int8`` the int8 engine's launches of the paged kernels), a
    ``{"topk": ...}`` line (the index's ordered top-10 against
    ``torch.topk`` and a stable sort, at Q = 64 and Q = 1) and lines of
-   end-to-end numbers.  The kernels line is printed after phase 4g:
+   end-to-end numbers.  The kernels line is printed after phase 4h:
    ``launches_tp`` on the ragged, append and flash entries counts each
-   one's launches in phase 4g's f32 runs, by tp.
+   one's launches in phase 4g's f32 runs, by tp, ``launches_from_hf`` in
+   phase 4h's ``from_hf`` route; the ``knn_scores_clip`` entry is the
+   scores kernel at phase 4h's text -> image search (Q 1 over the 1,024
+   CLIP rows at d 512), its launches that search's.
 
 Phase 2 also holds the port's PRNG (``models/prng.py``) on the card to
 ``PRNG_KNOWN``, keys and bits that ``jax.random`` gives (the CPU tests
@@ -170,7 +196,9 @@ non-zero.
 and prints no result; ``--obs-only`` runs phase 4f alone on synthetic
 prompts after the build and prints no result; ``--tp-only`` runs phase
 4g alone on synthetic prompts and a random 16,384 x 384 matrix after
-the build and prints no result.
+the build and prints no result; ``--models-only`` runs phase 4h alone
+on synthetic prompts after the build and prints its line (with the
+``knn_scores_clip`` kernel entry) and no result.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``.
 Exits non-zero, printing no result, when no CUDA device is present or
@@ -182,6 +210,7 @@ from __future__ import annotations
 import argparse
 import itertools
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -2969,6 +2998,436 @@ def tp_only(torch, np, dec, seed, engine_sizes, smi) -> int:
     return 0
 
 
+# -- phase 4h: the full-sequence forward, training, from_hf, CLIP ------------
+
+TRAIN_STEPS = 20
+TRAIN_BATCH, TRAIN_T = 8, 1024  # bf16 steps; B 8 x T 1024 on one batch
+CHECK_BATCH, CHECK_T = 2, 128   # the f32 step held to the CPU's
+# f32 card vs CPU: each leaf's max |diff| over its max |ref|, floored at
+# TRAIN_REL_FLOOR of the tree's largest entry: the key bias's gradient is
+# zero in exact arithmetic (a query's scores all shift by q . b_k, which
+# the softmax cancels), so both sides hold rounding noise there
+TRAIN_REL_TOL, TRAIN_REL_FLOOR = 1e-4, 1e-3
+N_IMAGES, N_TEXT_QUERIES, N_CHECK_IMAGES = 1024, 64, 8
+IMAGE_CHUNK_PROBE = 256  # images a profiled embed_image_batch call
+CLIP_F32_TOL = 1e-4   # f32 card vs CPU, L2-normed rows
+CLIP_BATCH_TOL = 1e-5  # a batched forward against one image's, f32
+CLIP_BF16_COS = 0.99
+
+
+def gpt2_state_dict(torch, cfg, seed: int) -> dict:
+    """A GPT-2-layout state dict (``wte``, ``wpe``, ``h.{i}.attn.c_attn``,
+    ...; Conv1D weights (in, out)) drawn from ``seed`` on the CPU: N(0,
+    0.02) weights and biases, layer norms at N(1, 0.02) and N(0, 0.02)."""
+    g = torch.Generator().manual_seed(seed)
+    D, F, V = cfg.d_model, cfg.d_ff, cfg.vocab_size
+
+    def n(*shape, mean=0.0):
+        return torch.randn(shape, generator=g) * 0.02 + mean
+
+    sd = {"wte.weight": n(V, D), "wpe.weight": n(cfg.max_len, D),
+          "ln_f.weight": n(D, mean=1.0), "ln_f.bias": n(D)}
+    for i in range(cfg.n_layers):
+        p = f"h.{i}."
+        sd.update({
+            p + "ln_1.weight": n(D, mean=1.0), p + "ln_1.bias": n(D),
+            p + "attn.c_attn.weight": n(D, 3 * D),
+            p + "attn.c_attn.bias": n(3 * D),
+            p + "attn.c_proj.weight": n(D, D), p + "attn.c_proj.bias": n(D),
+            p + "ln_2.weight": n(D, mean=1.0), p + "ln_2.bias": n(D),
+            p + "mlp.c_fc.weight": n(D, F), p + "mlp.c_fc.bias": n(F),
+            p + "mlp.c_proj.weight": n(F, D), p + "mlp.c_proj.bias": n(D),
+        })
+    return sd
+
+
+def named_leaves(tree, prefix="") -> list:
+    if isinstance(tree, dict):
+        return [x for k, v in tree.items()
+                for x in named_leaves(v, f"{prefix}{k}.")]
+    if isinstance(tree, list):
+        return [x for i, v in enumerate(tree)
+                for x in named_leaves(v, f"{prefix}{i}.")]
+    return [(prefix[:-1], tree)]
+
+
+def tree_rel_err(got, want) -> tuple[float, str]:
+    """The largest over leaves of max |got - want| / max(max |want|,
+    TRAIN_REL_FLOOR x the tree's max |want|), and that leaf's name."""
+    pairs = list(zip(named_leaves(got), named_leaves(want)))
+    top = max(float(b.abs().max()) for _ga, (_n, b) in pairs)
+    errs = []
+    for (name, a), (_n, b) in pairs:
+        diff = float((a.float().cpu() - b.float()).abs().max())
+        errs.append((diff / max(float(b.abs().max()), TRAIN_REL_FLOOR * top),
+                     name))
+    return max(errs)
+
+
+def training_checks(torch, dec, cfg32, params_cpu, params, seed) -> dict:
+    """a. one f32 step on the card against the port's own CPU step; b.
+    ``TRAIN_STEPS`` bf16 steps at GPT-2 small width on one fixed batch."""
+    import dataclasses
+
+    g = torch.Generator().manual_seed(seed)
+    ids = torch.randint(0, cfg32.vocab_size, (CHECK_BATCH, CHECK_T),
+                        generator=g)
+    mask = torch.rand((CHECK_BATCH, CHECK_T), generator=g) < 0.9
+    out = {}
+    cpu = dec.make_train_step(cfg32, device="cpu")(
+        params_cpu, dec.init_opt_state(params_cpu), ids, mask)
+    card = dec.make_train_step(cfg32, device="cuda")(
+        params, dec.init_opt_state(params), ids, mask)
+    torch.cuda.synchronize()
+    loss_rel = abs(float(card[2]) - float(cpu[2])) / abs(float(cpu[2]))
+    grads_rel, grads_leaf = tree_rel_err(card[1], cpu[1])
+    params_rel, params_leaf = tree_rel_err(card[0], cpu[0])
+    for what, err in (("loss", loss_rel), (f"grads ({grads_leaf})", grads_rel),
+                      (f"new params ({params_leaf})", params_rel)):
+        require(err <= TRAIN_REL_TOL,
+                f"4h: f32 train step {what} on the card vs the CPU: {err}")
+    out["f32_step_vs_cpu"] = dict(
+        batch=CHECK_BATCH, tokens=CHECK_T, loss=float(cpu[2]),
+        loss_rel_err=loss_rel, grads_rel_err=grads_rel,
+        grads_worst_leaf=grads_leaf, params_rel_err=params_rel,
+        params_worst_leaf=params_leaf,
+        bk_grad_max_abs=max(float(layer["bk"].abs().max())
+                            for layer in cpu[1]["layers"]))
+    del cpu, card
+
+    # b. bf16 compute, f32 params/grads/momentum, one fixed batch
+    cfg16 = dataclasses.replace(cfg32, dtype="auto")
+    step = dec.make_train_step(cfg16, device="cuda")
+    ids = torch.randint(0, cfg32.vocab_size, (TRAIN_BATCH, TRAIN_T),
+                        generator=g).cuda()
+    mask = torch.ones((TRAIN_BATCH, TRAIN_T), dtype=torch.bool,
+                      device="cuda")
+    p, m = params, dec.init_opt_state(params)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    losses, step_ms = [], []
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t_run = time.perf_counter()
+        for _ in range(TRAIN_STEPS):
+            t0 = time.perf_counter()
+            p, m, loss = step(p, m, ids, mask)
+            losses.append(float(loss))  # syncs: the step is done
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        wall_ms = (time.perf_counter() - t_run) * 1e3
+    by_name: dict = {}
+    for e in prof.events():
+        if is_device_work(torch, e):
+            by_name[e.name] = (by_name.get(e.name, 0.0)
+                               + e.time_range.elapsed_us() / 1e3)
+    busy_ms = sum(by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    peak = torch.cuda.max_memory_allocated()
+    require(all(math.isfinite(x) for x in losses),
+            f"4h: non-finite bf16 training loss {losses}")
+    require(losses[-1] < losses[0],
+            f"4h: bf16 loss did not fall over {TRAIN_STEPS} steps: {losses}")
+    n_params = sum(t.numel() for t in dec._tree_leaves(params))
+    tokens = TRAIN_BATCH * (TRAIN_T - 1)
+    hd = cfg32.d_model // cfg32.n_heads
+    # forward + backward: 6 x params x tokens, and the two attention
+    # products (2 x 2 B H T^2 hd a layer forward, twice that backward)
+    flops = (6 * n_params * tokens + 3 * 4 * cfg32.n_layers * TRAIN_BATCH
+             * cfg32.n_heads * (TRAIN_T - 1) ** 2 * hd)
+    # bytes: params and momentum read, new params and momentum written
+    bound_ms, by = bound_entry(4 * 4 * n_params, flops, "bfloat16")
+    med = statistics.median(step_ms)
+    out["bf16_train"] = dict(
+        steps=TRAIN_STEPS, batch=TRAIN_BATCH, tokens=TRAIN_T,
+        params=n_params, lr=1e-3, momentum=0.9, losses=losses,
+        step_ms_median=med, step_ms_min_max=[min(step_ms), max(step_ms)],
+        trained_tokens_per_s=tokens / (med / 1e3),
+        peak_allocated_bytes=peak, peak_over_start_bytes=peak - base,
+        device_busy_ms=busy_ms, wall_ms=wall_ms,
+        device_busy_share=busy_ms / wall_ms, flops_per_step=flops,
+        bound_ms=bound_ms, bound_by=by, step_share_of_bound=bound_ms / med,
+        top_device_ms_per_step=[{"name": n[:80], "ms": v / TRAIN_STEPS}
+                                for n, v in top])
+    del p, m
+    return out
+
+
+def from_hf_checks(torch, dec, _cuda, cfg32, params, prompts,
+                   engine_sizes) -> tuple[dict, dict]:
+    """The converted weights through ``TorchDecoderLM`` in f32: the
+    paged engine's batch and one ``generate`` against the dense plain
+    path, and ``forward_logits``' last position against the dense
+    ``prefill``; the kernels each launched, counted from 0."""
+    lm = dec.TorchDecoderLM(cfg32, params=params, device="cuda")
+    eng = lm.paged_engine(**engine_sizes)
+    reqs = [(ids, NEW_TOKENS)
+            for ids in lm.encode_prompts(prompts, NEW_TOKENS)]
+    plan = lm.dense_params()
+    dense = [dense_greedy(torch, dec, cfg32, plan, ids, NEW_TOKENS)
+             for ids, _n in reqs]
+    _cuda.reset_launches()
+    got = [[int(t.strip("<>")) for t in s.split()]
+           for s in lm.generate_batch(prompts, NEW_TOKENS)]
+    longest = max(range(len(prompts)), key=lambda i: len(reqs[i][0]))
+    one = [int(t.strip("<>")) for t in
+           lm.generate(prompts[longest], NEW_TOKENS, fused=True).split()]
+    torch.cuda.synchronize()
+    launches = {k: _cuda.LAUNCHES[k] for k in (
+        "paged_attention", "paged_append_attend", "flash_attention")}
+    for k, n in launches.items():
+        require(n > 0, f"4h: from_hf's route never launched {k}")
+    for i, want in enumerate(dense):
+        require(got[i] == want, f"4h: from_hf generate_batch prompt {i}: "
+                                f"{got[i]} != dense {want}")
+    require(one == dense[longest], f"4h: from_hf generate: {one} != "
+                                   f"{dense[longest]}")
+    ids = reqs[longest][0]
+    n = len(ids)
+    L = lm._bucket(n + NEW_TOKENS)
+    buf = torch.zeros((1, L), dtype=torch.long, device="cuda")
+    buf[0, :n] = torch.tensor(ids, device="cuda")
+    with torch.no_grad():
+        want, _cache = dec.prefill(plan, cfg32, buf,
+                                   torch.tensor([n], device="cuda"))
+        last = dec.forward_logits(params, cfg32, buf[:, :n])[:, -1]
+    err = max_abs_err(last, want)
+    require(err <= TOL["float32"], f"4h: forward_logits' last position vs "
+                                   f"prefill: {err}")
+    out = dict(prompt_tokens=[len(r[0]) for r in reqs],
+               rounds=dict(eng.rounds), launches=launches,
+               generate_prompt_tokens=n, prefill_bucket=L,
+               forward_logits_vs_prefill_max_abs=err)
+    del lm, eng, plan
+    return out, launches
+
+
+def clip_checks(torch, kc, _cuda, seed) -> tuple[dict, dict]:
+    """CLIP at ViT-B/32 width with random weights from ``seed``: f32 on
+    the card against the CPU, bf16 against f32, and retrieval of images
+    by text through a ``BruteForceKnn`` on the card (kernel #3)."""
+    import numpy as np
+
+    from pathway_tpu_torch.models.clip import ClipConfig, TorchClip
+    from pathway_tpu_torch.stdlib.indexing.inner_index import BruteForceKnn
+
+    rng = np.random.default_rng(seed)
+    size = ClipConfig().vision.image_size
+    images = rng.integers(0, 256, (N_IMAGES, size, size, 3), dtype=np.uint8)
+    texts = [" ".join(f"w{j}" for j in rng.integers(0, 20000, k))
+             for k in rng.integers(4, 40, N_TEXT_QUERIES)]
+    check = images[:N_CHECK_IMAGES]
+    cfg32 = ClipConfig(dtype=torch.float32)
+    out = {}
+    cpu = TorchClip(cfg32, seed=seed, device="cpu")
+    c32 = TorchClip(cfg32, seed=seed, device="cuda")
+    img_err = float(np.abs(c32.embed_image_batch(check)
+                           - cpu.embed_image_batch(check)).max())
+    txt_err = max(float(np.abs(c32.embed_text(t) - cpu.embed_text(t)).max())
+                  for t in texts[:N_CHECK_IMAGES])
+    batch = c32.embed_image_batch(check)
+    rows_err = max(float(np.abs(batch[i] - c32.embed_image(im)).max())
+                   for i, im in enumerate(check))
+    require(img_err <= CLIP_F32_TOL and txt_err <= CLIP_F32_TOL,
+            f"4h: CLIP f32 card vs CPU: images {img_err}, texts {txt_err}")
+    require(rows_err <= CLIP_BATCH_TOL,
+            f"4h: embed_image_batch rows vs embed_image: {rows_err}")
+    t32 = np.stack([c32.embed_text(t) for t in texts[:N_CHECK_IMAGES]])
+    del cpu
+    c16 = TorchClip(ClipConfig(), seed=seed, device="cuda")
+    require(c16.cfg.dtype == torch.bfloat16, "4h: CLIP on the card in bf16")
+    i16 = c16.embed_image_batch(check)
+    t16 = np.stack([c16.embed_text(t) for t in texts[:N_CHECK_IMAGES]])
+    cos = [float(a @ b) for a, b in zip(i16, batch)] + [
+        float(a @ b) for a, b in zip(t16, t32)]
+    require(min(cos) >= CLIP_BF16_COS, f"4h: CLIP bf16 vs f32 cosine {cos}")
+    out["f32_vs_cpu"] = dict(images=N_CHECK_IMAGES, image_max_abs=img_err,
+                             text_max_abs=txt_err,
+                             batch_vs_single_max_abs=rows_err)
+    out["bf16_vs_f32_cos_min"] = min(cos)
+    del c32
+
+    # the index: every image through embed_image_batch (bf16), then the
+    # text queries through search on the card
+    c16.embed_image_batch(images[:64])  # warm-up
+    t0 = time.perf_counter()
+    rows = c16.embed_image_batch(images)
+    t_img = time.perf_counter() - t0
+    index = BruteForceKnn(c16.dimensions, reserved_space=N_IMAGES,
+                          metric="cos", device="cuda")
+    for i, r in enumerate(rows):
+        index.add(i, r)
+    index.search(rows[0], 1)  # consolidates the matrix on the card
+    c16.embed_text(texts[0])
+    torch.cuda.synchronize()
+    _cuda.reset_launches()
+    t0 = time.perf_counter()
+    q_rows = [c16.embed_text(t) for t in texts]
+    t_txt = time.perf_counter() - t0
+    hits = [index.search(q, 10) for q in q_rows]
+    launches = {"knn_scores": _cuda.LAUNCHES["knn_scores"]}
+    require(launches["knn_scores"] == N_TEXT_QUERIES,
+            f"4h: {N_TEXT_QUERIES} text searches launched knn "
+            f"{launches['knn_scores']} times")
+    require(all(len(h) == 10 for h in hits), "4h: text search results")
+    self_hits = [index.search(rows[i], 1)[0][0] for i in range(0, N_IMAGES,
+                                                               64)]
+    require(self_hits == list(range(0, N_IMAGES, 64)),
+            f"4h: an image's own embedding did not retrieve it: {self_hits}")
+
+    # kernel #3 at this call site: one text query over the image rows
+    m = torch.from_numpy(rows).cuda()
+    m = m / (torch.linalg.norm(m, dim=1, keepdim=True) + 1e-12)
+    q = torch.from_numpy(q_rows[0]).cuda()[None]
+    q = q / (torch.linalg.norm(q) + 1e-12)
+    err = max_abs_err(kc.knn_scores_cuda(q, m), kc.knn_scores_reference(q, m))
+    require(err <= KNN_TOL, f"4h: knn over CLIP rows err {err}")
+    Q, d, N = q.shape[0], q.shape[1], m.shape[0]
+    bound, by = bound_entry((Q * d + N * d + Q * N) * 4, 2 * Q * N * d,
+                            "float32")
+    kernel = dict(
+        name="knn_scores_clip", route="cuda",
+        source="pathway_tpu_torch/csrc/knn_scores.cu",
+        replaces="pathway_tpu/ops/knn_pallas.py:27", variant="gemv",
+        call="TorchClip.embed_text -> BruteForceKnn.search -> device_topk,"
+             " cos_prenorm, over the CLIP image rows",
+        launches=launches["knn_scores"], max_abs_err=err, bound_ms=bound,
+        bound_by=by, shape=f"Q={Q} N={N} d={d} float32",
+        **timed_entry({"kernel": lambda: kc.knn_scores_cuda(q, m),
+                       "library": lambda: torch.matmul(q, m.T),
+                       "plain": lambda: kc.knn_scores_reference(q, m)}))
+    # what bounds the two rates: the card's busy time for the same work
+    img_dev_ms = device_ms_per_call(
+        torch, lambda: c16.embed_image_batch(images[:IMAGE_CHUNK_PROBE]), 2)
+    txt_dev_ms = device_ms_per_call(torch, lambda: c16.embed_text(texts[1]))
+    out["retrieval"] = dict(
+        images=N_IMAGES, text_queries=N_TEXT_QUERIES,
+        images_per_s_bf16=N_IMAGES / t_img,
+        texts_per_s_bf16=N_TEXT_QUERIES / t_txt,
+        image_device_ms_per_image=img_dev_ms / IMAGE_CHUNK_PROBE,
+        image_wall_ms_per_image=t_img * 1e3 / N_IMAGES,
+        text_device_ms=txt_dev_ms,
+        text_wall_ms=t_txt * 1e3 / N_TEXT_QUERIES,
+        self_hits_checked=len(self_hits), launches=launches)
+    del index, c16, m
+    return out, kernel
+
+
+def two_stream_checks(torch, pa, seed) -> dict:
+    """Kernels #1 and #2 at phase 5's heaviest shapes on two streams at
+    once, each stream on its own inputs: every result equals its plain
+    version, and the scratch holds one entry per stream and shape."""
+    g = torch.Generator().manual_seed(seed)
+    tol = TOL["bfloat16"]
+    cases = []
+    for _ in range(2):
+        ragged = random_pool_case(torch, g, B=8, C=32, H=12, hd=64, BS=16,
+                                  NBLK=512, NBT=40, dtype=torch.bfloat16,
+                                  ragged=True)
+        append = random_pool_case(torch, g, B=8, C=1, H=12, hd=64, BS=16,
+                                  NBLK=512, NBT=40, dtype=torch.bfloat16,
+                                  ragged=False)
+        q, kp, vp, bt, kw = append
+        cl = kw["context_lens"].long()
+        rows = torch.arange(8, device="cuda")
+        sb = bt.long()[rows, (cl - 1) // 16].to(torch.int32)
+        so = ((cl - 1) % 16).to(torch.int32)
+        new = [torch.randn((8, 12, 64), generator=g).to("cuda", q.dtype)
+               for _ in range(2)]
+        cases.append((ragged, (q, new[0], new[1], kp, vp, bt,
+                               kw["context_lens"], sb, so)))
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    for st in streams:
+        st.wait_stream(torch.cuda.current_stream())
+    outs: list = [[], []]
+    before = set(pa._SCRATCH)
+    for _ in range(20):  # interleaved: the two streams' launches overlap
+        for i, st in enumerate(streams):
+            with torch.cuda.stream(st):
+                (q, kp, vp, bt, kw), app = cases[i]
+                outs[i].append((pa.paged_attention(q, kp, vp, bt, **kw),
+                                pa.paged_append_attend(*app)[0]))
+    for st in streams:
+        torch.cuda.current_stream().wait_stream(st)
+    torch.cuda.synchronize()
+    new_keys = set(pa._SCRATCH) - before
+    require({k[1] for k in new_keys} >= {st.cuda_stream for st in streams},
+            f"4h: scratch keys {sorted(new_keys)} lack a stream")
+    errs = []
+    for i in range(2):
+        (q, kp, vp, bt, kw), (qa, kn, vn, kpa, vpa, bta, cl, sb, so) = cases[i]
+        ref = pa.paged_attention_reference(q, kp, vp, bt, **kw)
+        kr, vr = kpa.clone(), vpa.clone()  # the append already wrote them
+        ref_a = pa.paged_attention_reference(qa, kr, vr, bta, cl)
+        for o, a in outs[i]:
+            errs.append((max_abs_err(o, ref), max_abs_err(a, ref_a)))
+    worst = [max(e[0] for e in errs), max(e[1] for e in errs)]
+    require(max(worst) <= tol, f"4h: two-stream launches err {worst}")
+    return dict(streams=2, launches_per_stream=40,
+                ragged_max_abs_err=worst[0], append_max_abs_err=worst[1],
+                scratch_entries_added=len(new_keys))
+
+
+def phase4h(torch, dec, s) -> tuple[dict, dict]:
+    """``s``: the card line, the seed, the RAG prompts and the engine
+    sizes.  Returns the ``{"models": ...}`` line and kernel entries and
+    launch counts for the kernels line."""
+    from pathway_tpu_torch.kvcache import paged_attention as pa
+    from pathway_tpu_torch.models import hf_import
+    from pathway_tpu_torch.ops import _cuda
+    from pathway_tpu_torch.ops import knn_cuda as kc
+
+    t_h = time.perf_counter()
+    torch.cuda.empty_cache()
+    # GPT-2 small through the converters: the config mapper from an HF
+    # config's fields, the weights from a GPT-2-layout state dict
+    cfg32 = hf_import.config_from_gpt2(types.SimpleNamespace(
+        model_type="gpt2", vocab_size=GPT2_SMALL["vocab_size"],
+        n_embd=GPT2_SMALL["d_model"], n_layer=GPT2_SMALL["n_layers"],
+        n_head=GPT2_SMALL["n_heads"], n_inner=None,
+        n_positions=GPT2_SMALL["max_len"], layer_norm_epsilon=1e-5,
+        activation_function="gelu_new"))
+    require(all(getattr(cfg32, k) == v for k, v in GPT2_SMALL.items()),
+            f"4h: config_from_gpt2 gave {cfg32}")
+    params_cpu = hf_import.params_from_gpt2_state_dict(
+        gpt2_state_dict(torch, cfg32, s.seed), cfg32)
+    params = dec._tree_map(lambda t: t.cuda(), params_cpu)
+    out = {"card": s.smi}
+    t0 = time.perf_counter()
+    out.update(training_checks(torch, dec, cfg32, params_cpu, params, s.seed))
+    out["train_s"] = time.perf_counter() - t0
+    del params_cpu
+    t0 = time.perf_counter()
+    out["from_hf"], launches = from_hf_checks(
+        torch, dec, _cuda, cfg32, params, s.prompts, s.engine_sizes)
+    out["from_hf_s"] = time.perf_counter() - t0
+    del params
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out["clip"], clip_kernel = clip_checks(torch, kc, _cuda, s.seed)
+    out["clip_s"] = time.perf_counter() - t0
+    out["two_streams"] = two_stream_checks(torch, pa, s.seed)
+    out["phase_s"] = time.perf_counter() - t_h
+    return out, dict(launches_from_hf=launches, clip_kernel=clip_kernel)
+
+
+def models_only(torch, np, dec, seed, engine_sizes, smi) -> int:
+    """``--models-only``: phase 4h on 8 synthetic prompts of phase 4's
+    lengths (the short first call after a change to the forward, the
+    training step, the converters or CLIP)."""
+    rng = np.random.default_rng(seed)
+    words = " ".join(make_docs(rng, 64)).split()
+    prompts = [" ".join(words[i:i + n]) for i, n in enumerate(
+        np.linspace(100, 600, N_PROMPTS).astype(int))]
+    line, extra = phase4h(torch, dec, types.SimpleNamespace(
+        smi=smi, seed=seed, prompts=prompts, engine_sizes=engine_sizes))
+    print(json.dumps({"models": dict(line, kernels=[extra["clip_kernel"]])}),
+          flush=True)
+    log("--models-only: stopping after phase 4h")
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2981,6 +3440,9 @@ def main() -> int:
     ap.add_argument("--tp-only", action="store_true",
                     help="build the kernels, then run phase 4g alone on "
                          "synthetic prompts and rows; prints no result")
+    ap.add_argument("--models-only", action="store_true",
+                    help="build the kernels, then run phase 4h alone on "
+                         "synthetic prompts; prints no result")
     args = ap.parse_args()
 
     import numpy as np
@@ -3046,6 +3508,8 @@ def main() -> int:
                         EngineFailedError)
     if args.tp_only:
         return tp_only(torch, np, dec, args.seed, engine_sizes, smi)
+    if args.models_only:
+        return models_only(torch, np, dec, args.seed, engine_sizes, smi)
 
     # phase 2: kernels against their plain versions
     g = torch.Generator().manual_seed(args.seed)
@@ -3514,9 +3978,23 @@ def main() -> int:
         f"kernels at H/tp heads, SSD, sharded KNN, ring and Ulysses in "
         f"{tp_line['phase_s']:.1f}s")
     print(json.dumps({"tp": tp_line}), flush=True)
+
+    # phase 4h: the full-sequence forward and training, from_hf's route
+    # and CLIP, after every measurement of the earlier phases
+    models_line, models_extra = phase4h(torch, dec, types.SimpleNamespace(
+        smi=smi, seed=args.seed, prompts=prompts, engine_sizes=engine_sizes))
+    log(f"phase 4h ok: f32 train step = CPU, bf16 loss "
+        f"{models_line['bf16_train']['losses'][0]:.4f} -> "
+        f"{models_line['bf16_train']['losses'][-1]:.4f}, from_hf = dense, "
+        f"CLIP f32 = CPU, two streams in {models_line['phase_s']:.1f}s")
+    print(json.dumps({"models": models_line}), flush=True)
     for k in kernels:
         if k["name"] in launches_tp:
             k["launches_tp"] = launches_tp[k["name"]]
+        if k["name"] in models_extra["launches_from_hf"]:
+            k["launches_from_hf"] = models_extra["launches_from_hf"][
+                k["name"]]
+    kernels.append(models_extra["clip_kernel"])
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({
         "rag": {

@@ -54,13 +54,18 @@ def _n_splits(block_tables, block_size: int, split: int) -> int:
 
 
 def _scratch(device, groups: int, n_split: int, rows: int, hd: int):
-    """The cached partials and arrival counters of one launch shape:
-    ``groups`` (row, head, column group) triples, each with ``n_split``
-    f32 records of ``rows * (hd + 4)`` floats (O, then m and l per
-    column), and one int32 counter per triple, which starts at 0 and
-    which every launch leaves at 0.  Launches that share a shape share
-    the scratch: they must run one after another (one stream)."""
-    key = (device, groups, n_split, rows, hd)
+    """The cached partials and arrival counters of one launch shape on
+    one stream: ``groups`` (row, head, column group) triples, each with
+    ``n_split`` f32 records of ``rows * (hd + 4)`` floats (O, then m and
+    l per column), and one int32 counter per triple, which starts at 0
+    and which every launch leaves at 0.  The key holds the stream the
+    launch goes to (the current stream of ``device``, the one
+    ``_cuda.launch`` launches on): launches on one stream run one after
+    another and share a shape's scratch; launches on two streams, or a
+    CUDA-graph capture on a side stream, never share partials or
+    counters."""
+    stream = torch.cuda.current_stream(device).cuda_stream
+    key = (device, stream, groups, n_split, rows, hd)
     hit = _SCRATCH.get(key)
     if hit is None:
         hit = (torch.empty(groups * n_split * rows * (hd + 4),

@@ -1286,6 +1286,126 @@ def ssd_chained_decode_sampled_tp(params, cfg: DecoderConfig, mesh, state,
             p, cfg, st, *a[:5], _chain_heads(*a[5:]), shard))
 
 
+# The full-sequence forward and the training step.  ``forward_logits`` is
+# the differentiated path: its attention is plain einsum with an f32
+# softmax, as in the JAX package, whose flash kernel has no VJP (nor has
+# the port's).  Params, grads and momentum stay f32; compute runs in
+# ``cfg.dtype``'s resolution (bf16 on the card).
+
+
+def _causal_attention(layer, x, n_heads: int):
+    B, T, D = x.shape
+    hd = D // n_heads
+    q = _proj(layer, x, "wq", "bq").reshape(B, T, n_heads, hd)
+    k = _proj(layer, x, "wk", "bk").reshape(B, T, n_heads, hd)
+    v = _proj(layer, x, "wv", "bv").reshape(B, T, n_heads, hd)
+    scores = torch.einsum("bqhd,bkhd->bhqk", q, k) / math.sqrt(hd)
+    causal = torch.tril(torch.ones((T, T), dtype=torch.bool,
+                                   device=x.device))
+    scores = scores.masked_fill(~causal, -1e9)
+    probs = torch.softmax(scores.float(), dim=-1).to(x.dtype)
+    out = torch.einsum("bhqk,bkhd->bqhd", probs, v).reshape(B, T, D)
+    return _proj(layer, out, "wo", "bo")
+
+
+def forward_logits(params: dict, cfg: DecoderConfig,
+                   token_ids: torch.Tensor) -> torch.Tensor:
+    """(B, T) -> (B, T, V) f32 logits (tied embedding head).
+
+    Pre-LN residual blocks — structurally GPT-2's forward, so GPT-2-family
+    weights map directly (models/hf_import.py).  Differentiable in
+    ``params``; runs on their device."""
+    dtype = resolve_dtype(cfg.dtype, token_ids.device)
+    token_ids = token_ids.long()
+    x = params["embed"].to(dtype)[token_ids]
+    T = token_ids.shape[1]
+    x = x + params["pos_embed"].to(dtype)[:T][None, :, :]
+    eps = cfg.ln_eps
+    act = _act_fn(cfg)
+    for layer in params["layers"]:
+        h = _layer_norm(x, layer["ln1_scale"], layer["ln1_bias"], eps)
+        x = x + _causal_attention(layer, h, cfg.n_heads)
+        h = _layer_norm(x, layer["ln2_scale"], layer["ln2_bias"], eps)
+        ff = act(_proj(layer, h, "w_up", "b_up"))
+        x = x + _proj(layer, ff, "w_down", "b_down")
+    x = _layer_norm(x, params["ln_f_scale"], params["ln_f_bias"], eps)
+    return (x @ params["embed"].to(x.dtype).T).float()
+
+
+def lm_loss(params: dict, cfg: DecoderConfig, token_ids: torch.Tensor,
+            mask: torch.Tensor) -> torch.Tensor:
+    """The masked mean next-token NLL of ``token_ids`` (B, T); ``mask``
+    (B, T) weighs each target position (an all-zero mask gives 0)."""
+    logits = forward_logits(params, cfg, token_ids[:, :-1])
+    targets = token_ids[:, 1:].long()
+    m = mask[:, 1:].float()
+    logp = torch.log_softmax(logits, dim=-1)
+    nll = -torch.gather(logp, -1, targets[..., None])[..., 0]
+    return (nll * m).sum() / torch.clamp(m.sum(), min=1.0)
+
+
+def _tree_map(fn, tree, *rest):
+    """``fn`` over the leaves of a params-shaped tree of dicts and lists
+    (``rest``: trees of the same shape, read by key and index)."""
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tree_map(fn, v, *(r[i] for r in rest))
+                for i, v in enumerate(tree)]
+    return fn(tree, *rest)
+
+
+def _tree_leaves(tree) -> list:
+    leaves: list = []
+    _tree_map(leaves.append, tree)
+    return leaves
+
+
+def make_train_step(cfg: DecoderConfig, learning_rate: float = 1e-3,
+                    device="cuda"):
+    """SGD with momentum 0.9 on :func:`lm_loss`, with no optimiser
+    library: ``train_step(params, momentum, token_ids, mask)`` returns
+    ``(new_params, new_momentum, loss)`` and leaves its inputs unchanged
+    (the JAX step is a pure function).  ``params`` and ``momentum``
+    (:func:`init_opt_state`) are f32 trees on ``device``; the token ids
+    and mask are moved there.  The first step from zero momentum returns
+    the gradients as its momentum."""
+    dev = resolve_device(device)
+
+    def train_step(params, opt_state, token_ids, mask):
+        bad = {str(t.device) for t in _tree_leaves(params)
+               if t.device.type != dev.type or dev.index not in (
+                   None, t.device.index)}
+        if bad:
+            raise ValueError(f"params on {sorted(bad)}, the step runs on "
+                             f"{dev}")
+        live = _tree_map(lambda t: t.detach().requires_grad_(True), params)
+        leaves = _tree_leaves(live)
+        loss = lm_loss(live, cfg, token_ids.to(dev), mask.to(dev))
+        grads = iter(torch.autograd.grad(loss, leaves, allow_unused=True))
+        with torch.no_grad():
+            new_momentum = _tree_map(
+                lambda t, m: 0.9 * m + _or_zeros(next(grads), t),
+                live, opt_state)
+            new_params = _tree_map(lambda p, m: p - learning_rate * m,
+                                   params, new_momentum)
+        return new_params, new_momentum, loss.detach()
+
+    return train_step
+
+
+def _or_zeros(grad, leaf):
+    """A leaf the loss does not reach (an SSD graft's ``w_a``) has zero
+    gradient, as ``jax.grad`` gives it."""
+    return torch.zeros_like(leaf) if grad is None else grad
+
+
+def init_opt_state(params):
+    """Zero momentum of ``params``' shape."""
+    return _tree_map(torch.zeros_like, params)
+
+
 def measured_tier_prior(db=None) -> str | None:
     """The single-stream tier race's recorded verdict in the cost store
     (``pw.decode_tier`` / ``single_stream_pick``, scoped to this
@@ -1362,6 +1482,21 @@ class TorchDecoderLM:
             prog = self._fused_progs[key] = profiled(
                 f"pw.lm_fused_k{max_new}{suffix}", fn)
         return prog
+
+    @classmethod
+    def from_hf(cls, model_name_or_path: str, **kwargs) -> "TorchDecoderLM":
+        """A locally stored GPT-2-family model (``transformers`` is
+        imported only here; no network), its weights moved to
+        ``device``; its tokenizer when one is saved beside the weights,
+        else the hash tokenizer.  ``kwargs`` are the constructor's."""
+        from .encoder import _HFTokenizerAdapter
+        from .hf_import import load_hf_decoder
+
+        dev = resolve_device(kwargs.pop("device", "cuda"))
+        params, cfg, hf_tok = load_hf_decoder(model_name_or_path)
+        tok = _HFTokenizerAdapter(hf_tok) if hf_tok is not None else None
+        return cls(cfg, params=_tree_map(lambda t: t.to(dev), params),
+                   tokenizer=tok, device=dev, **kwargs)
 
     def paged_engine(self, **kwargs):
         """The paged decode engine over this LM's weights, built on first

@@ -11,8 +11,8 @@ fleet over the paged decode engine (the port of ``pathway_tpu.serve``).
 - :class:`ReplicaFleet` — R engines behind prefix-affine routing, with
   failover between replicas and a shared session tier.
 - :mod:`pathway_tpu_torch.serve.metrics` — queue depth, batch occupancy,
-  time-in-queue, shed and fleet counters (their Prometheus/OTLP
-  rendering is not ported).
+  time-in-queue, shed and fleet counters, rendered as Prometheus lines
+  (``render_prometheus_lines``) and OTLP points (``otlp_points``).
 """
 
 from __future__ import annotations

@@ -1,25 +1,33 @@
 """The RAG path's document and query embedder.
 
 Counterpart of ``pathway_tpu/xpacks/llm/embedders.py``
-``SentenceTransformerEmbedder``, as a plain class: the JAX package's
-``BaseEmbedder`` builds dataflow expressions, and the port imports
-nothing of that dataflow.  A dataflow that wants this embedder wraps it
+``SentenceTransformerEmbedder``, with the JAX package's ``BaseEmbedder``
+surface (``_embed``, ``_embed_one``, ``_embed_uncached``,
+``_embed_many``, ``cache_strategy=``, the ``rag.embed`` spans), so a
+JAX caller that is handed this embedder (a reranker, an image or text
+index) runs over it unchanged.  Calling it on a string embeds the
+string.  The port has no dataflow expressions: a dataflow that wants
+this embedder wraps it in its own ``BaseEmbedder``
 (``tests/test_torch_rag_dataflow.py`` does so).
 """
 
 from __future__ import annotations
 
 import os
+import time
 
 import numpy as np
 
 from ..._device import resolve_device
+from ...internals.udfs import CacheStrategy, with_cache_strategy
 from ...models.encoder import EncoderConfig, TorchEncoder
+from ...obs.tracer import record_span
 from ...serve.scheduler import RequestScheduler
 
 
 class SentenceTransformerEmbedder:
-    """The port's transformer encoder behind ``embed`` / ``embed_many``.
+    """The port's transformer encoder behind ``embed`` / ``embed_many``
+    and the JAX ``BaseEmbedder`` methods.
 
     ``model`` naming an existing local path loads BERT-family weights
     through ``models/hf_import.py``; any other value (or None) builds the
@@ -33,10 +41,15 @@ class SentenceTransformerEmbedder:
     embedder's default scheduler (batches of up to 64, 3 ms linger,
     sizes padded to 1, 2, 4, ..., 64); or pass a configured
     ``RequestScheduler`` whose ``batch_fn`` maps a list of texts to one
-    (d,) row each."""
+    (d,) row each.
+
+    ``cache_strategy`` (``internals/udfs.py``) caches single-text
+    embeddings under the name ``emb:<model_name>``, with the JAX
+    package's keys: a ``DiskCache`` directory serves both packages."""
 
     def __init__(self, model: str | None = None, *, config=None,
                  seed: int = 0, device="cuda",
+                 cache_strategy: CacheStrategy | None = None,
                  device_resident: bool | None = None,
                  batch_scheduler=None):
         dev = resolve_device(device)
@@ -56,6 +69,9 @@ class SentenceTransformerEmbedder:
                 size_buckets=(1, 2, 4, 8, 16, 32, 64),
             )
         self._scheduler = batch_scheduler or None
+        if cache_strategy is not None:
+            self._embed = with_cache_strategy(  # type: ignore[method-assign]
+                self._embed_one, cache_strategy, f"emb:{self.model_name}")
 
     @property
     def encoder(self) -> TorchEncoder:
@@ -63,13 +79,18 @@ class SentenceTransformerEmbedder:
         serves single queries on the same weights)."""
         return self._enc
 
-    def embed(self, text: str) -> np.ndarray:
-        """One text's (d,) f32 embedding on the host (bf16 compute on the
-        card, f32 on the CPU); through the batch scheduler when there is
-        one."""
+    def _embed_uncached(self, text: str) -> np.ndarray:
+        """One text's (d,) f32 row on the host (bf16 compute on the card,
+        f32 on the CPU)."""
+        return self._enc.embed(text or "").float().cpu().numpy()
+
+    def _embed_one(self, text: str) -> np.ndarray:
         if self._scheduler is not None:
             return self._scheduler.submit(text or "")
-        return self._enc.embed(text or "").float().cpu().numpy()
+        return self._embed_uncached(text)
+
+    def _embed(self, text: str) -> np.ndarray:
+        return self._embed_one(text)
 
     def _embed_rows(self, texts: list[str]) -> list[np.ndarray]:
         """The default batch scheduler's ``batch_fn``: one forward for
@@ -77,14 +98,46 @@ class SentenceTransformerEmbedder:
         texts = [t or "" for t in texts]
         return list(self._enc.embed_batch(texts).float().cpu().numpy())
 
-    def embed_many(self, texts: list[str]) -> list:
+    def _embed_many(self, texts: list[str]) -> list:
         """One embedding per text: ``DeviceVec`` handles when
         ``device_resident`` (nothing synchronised or fetched), else (d,)
         numpy rows."""
-        texts = [t or "" for t in texts]
         if self.device_resident:
-            return self._enc.embed_batch_device(texts)
-        return list(self._enc.embed_batch(texts).float().cpu().numpy())
+            return self._enc.embed_batch_device([t or "" for t in texts])
+        return self._embed_rows(texts)
+
+    def _embed_traced(self, text):
+        t0 = time.perf_counter()
+        out = self._embed(text)
+        record_span("rag.embed", t0, time.perf_counter(), n=1,
+                    embedder=type(self).__name__)
+        return out
+
+    def _embed_many_traced(self, texts):
+        t0 = time.perf_counter()
+        out = self._embed_many(texts)
+        record_span("rag.embed", t0, time.perf_counter(), n=len(texts),
+                    embedder=type(self).__name__)
+        return out
+
+    def __call__(self, text, **kwargs):
+        """Embed one string (traced as a ``rag.embed`` span)."""
+        if not isinstance(text, str):
+            raise TypeError(
+                f"{type(self).__name__} embeds a str, got "
+                f"{type(text).__name__}: the port has no dataflow "
+                "expressions; a dataflow wraps this embedder in its own "
+                "BaseEmbedder, as tests/test_torch_rag_dataflow.py does")
+        return self._embed_traced(text)
+
+    def embed(self, text: str) -> np.ndarray:
+        """One text's (d,) f32 embedding on the host (through the cache
+        and the batch scheduler when there are any)."""
+        return self._embed(text)
+
+    def embed_many(self, texts: list[str]) -> list:
+        """:meth:`_embed_many`, for the port's own callers."""
+        return self._embed_many(texts)
 
     def get_embedding_dimension(self, **kwargs) -> int:
         return self._enc.dimensions

@@ -36,22 +36,23 @@ class TorchChat:
     of a message list, one at a time (:meth:`__call__`, the dense
     single-stream tier) or a whole coalesced batch in one pass of the
     paged engine (:meth:`generate_batch`).  ``config`` builds random
-    weights from ``seed`` unless ``params`` are given; ``model`` is a
-    label (a checkpoint path raises until ``TorchDecoderLM.from_hf`` is
-    ported)."""
+    weights from ``seed`` unless ``params`` are given; ``model`` naming
+    an existing local path loads GPT-2-family weights through
+    ``TorchDecoderLM.from_hf`` (``params``, when given, replace them, as
+    in ``JaxChat``); any other ``model`` is a label."""
 
     def __init__(self, config=None, *, seed: int = 0,
                  max_new_tokens: int = 64, params=None,
                  model: str | None = None, device="cuda"):
         dev = resolve_device(device)
-        if model is not None and config is None and os.path.exists(model):
-            raise NotImplementedError(
-                "a checkpoint path needs TorchDecoderLM.from_hf, not ported "
-                "yet: ROADMAP queue A, item 11"
-            )
         self.model_name = model or "pathway-tpu-decoder"
-        self._lm = TorchDecoderLM(config or DecoderConfig(), seed=seed,
-                                  params=params, device=dev)
+        if model is not None and config is None and os.path.exists(model):
+            self._lm = TorchDecoderLM.from_hf(model, device=dev)
+            if params is not None:
+                self._lm.params = params
+        else:
+            self._lm = TorchDecoderLM(config or DecoderConfig(), seed=seed,
+                                      params=params, device=dev)
         self.max_new_tokens = max_new_tokens
 
     def _call_llm(self, messages: list[dict], **kwargs) -> str:

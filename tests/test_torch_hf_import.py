@@ -186,3 +186,64 @@ def test_encoder_from_hf_embeds_as_jax_does(saved_models):
     texts = ["a b c", "one two three four five six seven eight nine"]
     np.testing.assert_allclose(t.embed_batch(texts).numpy(),
                                j.embed_batch(texts), atol=1e-4, rtol=1e-4)
+
+
+# -- TorchDecoderLM.from_hf and TorchChat(model=path) --------------------------
+
+
+@pytest.fixture(scope="module")
+def tiny_gpt2(tmp_path_factory):
+    """A random tiny GPT-2 LM (the HF logits' oracle) and its transformer
+    saved locally, as ``tests/test_hf_import.py`` saves one."""
+    transformers = pytest.importorskip("transformers")
+    torch.manual_seed(0)
+    model = transformers.GPT2LMHeadModel(transformers.GPT2Config(
+        vocab_size=150, n_embd=32, n_layer=2, n_head=4, n_positions=64,
+    )).eval()
+    path = tmp_path_factory.mktemp("tinygpt")
+    model.transformer.save_pretrained(path)
+    return model, str(path)
+
+
+def test_decoder_from_hf_generates_the_jax_ids(tiny_gpt2):
+    from pathway_tpu.models.decoder import JaxDecoderLM
+    from pathway_tpu_torch.models.decoder import TorchDecoderLM
+
+    _model, path = tiny_gpt2
+    lm = TorchDecoderLM.from_hf(path, device="cpu")
+    jlm = JaxDecoderLM.from_hf(path)
+    assert lm.cfg.dtype == torch.float32 and lm.cfg.act == "gelu_tanh"
+    assert lm.params["embed"].device.type == "cpu"
+    for prompt, n in (("hello", 3), ("the quick brown fox jumps", 8)):
+        got = lm.generate(prompt, max_new_tokens=n)
+        assert got and got == jlm.generate(prompt, max_new_tokens=n)
+    prompts = ["a b c", "one two three four five"]
+    assert (lm.generate_batch(prompts, max_new_tokens=4)
+            == jlm.generate_batch(prompts, max_new_tokens=4))
+
+
+def test_decoder_from_hf_forward_logits_match_hf(tiny_gpt2):
+    from pathway_tpu_torch.models.decoder import TorchDecoderLM, forward_logits
+
+    model, path = tiny_gpt2
+    lm = TorchDecoderLM.from_hf(path, device="cpu")
+    ids = np.random.default_rng(0).integers(0, 150, (2, 10))
+    with torch.no_grad():
+        ref = model(input_ids=torch.tensor(ids)).logits.numpy()
+        ours = forward_logits(lm.params, lm.cfg, torch.tensor(ids)).numpy()
+    assert np.abs(ours - ref).max() < 5e-4
+    assert (ours[:, -1].argmax(-1) == ref[:, -1].argmax(-1)).all()
+
+
+def test_chat_from_a_checkpoint_path_answers_as_jax_chat(tiny_gpt2):
+    from pathway_tpu.xpacks.llm.llms import JaxChat
+    from pathway_tpu_torch.xpacks.llm.llms import TorchChat
+
+    _model, path = tiny_gpt2
+    chat = TorchChat(model=path, max_new_tokens=5, device="cpu")
+    jchat = JaxChat(model=path, max_new_tokens=5)
+    assert chat.model_name == path
+    question = [{"role": "user", "content": "what is a paged kv cache"}]
+    assert chat(question) == jchat(question)
+    assert (chat.generate_batch([question, "and a block table?"])
+            == jchat.generate_batch([question, "and a block table?"]))

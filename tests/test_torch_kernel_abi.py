@@ -102,12 +102,20 @@ def recorded_launches(monkeypatch):
     calls = []
     monkeypatch.setattr(_cuda, "check", check_any_device)
     monkeypatch.setattr(attention_cuda, "_check_operand", lambda *a: None)
+    # the paged wrappers key their scratch by the launch's stream
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: _FakeStream(0))
     def launch(source, fn, name, device, *args):
         assert device == torch.device("cpu")  # the tensors' own device
         calls.append((source, fn, name, args))
 
     monkeypatch.setattr(_cuda, "launch", launch)
     return calls
+
+
+class _FakeStream:
+    def __init__(self, handle):
+        self.cuda_stream = handle
 
 
 class _OnCuda:
@@ -202,6 +210,49 @@ def test_paged_wrappers_split_the_table_span(recorded_launches):
     assert ragged[9:18] == (B, C, H, hd, BS, NBT, pa.RAGGED_SPLIT, 3, 1)
     # ... B, H, hd, BS, NBT, split, n_split, dtype, scale
     assert append[12:20] == (B, H, hd, BS, NBT, pa.APPEND_SPLIT, 5, 1)
+
+
+def test_the_paged_scratch_is_per_stream(recorded_launches, monkeypatch):
+    """Each wrapper's split partials and arrival counters are keyed by the
+    stream the launch goes to: two streams launching one shape (or a
+    graph capture on a side stream beside eager launches) get distinct
+    buffers, and launches on one stream reuse theirs."""
+    from pathway_tpu_torch.kvcache import paged_attention as pa
+
+    monkeypatch.setattr(pa, "_SCRATCH", {})
+    stream = [_FakeStream(7)]
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: stream[0])
+    B, C, H, hd, NB, BS = 2, 3, 2, 32, 6, 4
+    q = torch.zeros((B, C, H, hd))
+    pool = torch.zeros((NB, BS, H, hd))
+    bt = torch.zeros((B, 2), dtype=torch.int32)
+    ctx = torch.full((B,), 4, dtype=torch.int32)
+    new = torch.zeros((B, H, hd))
+
+    def launch_both():
+        pa.paged_attention_cuda(q, pool, pool.clone(), bt, ctx, ctx)
+        pa.paged_append_attend_cuda(torch.zeros((B, 1, H, hd)), new,
+                                    new.clone(), pool, pool.clone(), bt,
+                                    ctx, ctx, ctx)
+
+    def scratch_args(calls):
+        """(partials, counters) pointers each launch was passed."""
+        ptrs = {t.data_ptr() for pair in pa._SCRATCH.values() for t in pair}
+        return [tuple(a for a in call[3] if type(a) is int and a in ptrs)
+                for call in calls]
+
+    for handle in (7, 8, 7):
+        stream[0] = _FakeStream(handle)
+        launch_both()
+    first, second, again = (scratch_args(recorded_launches[i:i + 2])
+                            for i in (0, 2, 4))
+    assert all(len(pair) == 2 for pair in first + second)
+    for a, b in zip(first, second):  # per kernel: stream 7 against 8
+        assert not set(a) & set(b)
+    assert again == first  # stream 7 again: the same buffers
+    assert len(pa._SCRATCH) == 4  # two shapes on two streams
+    assert {key[1] for key in pa._SCRATCH} == {7, 8}
 
 
 # -- the launch itself, over a stub library ----------------------------------

@@ -50,6 +50,13 @@ def test_the_guard_covers_the_parallel_modules():
         assert f"pathway_tpu_torch.{name}" in _modules()
 
 
+def test_the_guard_covers_the_model_and_embedder_modules():
+    """... and the CLIP dual encoder, the result caches and the embedder
+    with the JAX package's ``BaseEmbedder`` surface."""
+    for name in ("models.clip", "internals.udfs", "xpacks.llm.embedders"):
+        assert f"pathway_tpu_torch.{name}" in _modules()
+
+
 def test_import_loads_neither_jax_nor_the_jax_package():
     code = (
         "import importlib, sys\n"
@@ -86,7 +93,7 @@ def test_no_source_imports_jax_or_the_jax_package(path):
 def _entry_points():
     from pathway_tpu_torch.kvcache.block_pool import BlockPool
     from pathway_tpu_torch.kvcache.engine import PagedDecodeEngine
-    from pathway_tpu_torch.models import decoder, encoder
+    from pathway_tpu_torch.models import clip, decoder, encoder
     from pathway_tpu_torch.models.host_encoder import CompiledQueryEncoder
     from pathway_tpu_torch.models.tokenizer import HashTokenizer
     from pathway_tpu_torch.ops.device_store import DeviceVecStore
@@ -120,14 +127,16 @@ def _entry_points():
             config=ecfg),
         "ReplicaFleet": lambda: ReplicaFleet(dcfg, params, replicas=2),
         "TorchChat": lambda: TorchChat(dcfg, params=params),
+        "TorchClip": lambda: clip.TorchClip(),
+        "make_train_step": lambda: decoder.make_train_step(dcfg),
     }
 
 
 @pytest.mark.parametrize("name", [
     "BlockPool", "BruteForceKnn", "CompiledQueryEncoder", "DeviceVecStore",
     "PagedDecodeEngine", "ReplicaFleet", "SentenceTransformerEmbedder",
-    "TorchChat", "TorchDecoderLM", "TorchDecoderLM.generate", "TorchEncoder",
-    "init_params", "knn_topk",
+    "TorchChat", "TorchClip", "TorchDecoderLM", "TorchDecoderLM.generate",
+    "TorchEncoder", "init_params", "knn_topk", "make_train_step",
 ])
 def test_entry_point_without_a_card_raises(name, monkeypatch):
     # decided inside the test: the default device is the card, and a

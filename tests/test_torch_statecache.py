@@ -23,6 +23,7 @@ accepts ``w_a``/``b_a``), at the JAX state-cache tests' widths
   through ``make_backend("paged")`` with unchanged results.
 """
 
+import dataclasses
 import threading
 
 import jax
@@ -737,3 +738,48 @@ def test_session_store_charges_real_buffer_bytes():
     assert short.payload["s"][0].nbytes == expect
     assert store.host_bytes == ent.nbytes + 2 * expect
     assert cache.stats()["suspends"] == 2
+
+
+def test_bf16_state_drift_is_no_more_than_the_jax_packages(weights):
+    """Each package's ``StateDecodeEngine`` in bf16 prefills one 256-token
+    prompt (chunks of 8), and its slot's state is held against the
+    package's own f32 token-by-token recurrence over the same prompt: the
+    port's relative drift (largest absolute difference over the largest
+    f32 entry) may be at most 1.5x the JAX package's."""
+    pj, pt = weights
+    [prompt] = _prompts([256], seed=31)
+
+    def engine_state(eng, as_f32):
+        eng.generate_batch([(prompt, 1)])
+        state = as_f32(eng.pool)
+        live = [s for s in range(state.shape[1])
+                if np.abs(state[:, s]).max() > 0]
+        assert len(live) == 1, live  # the request's slot; 0 stays null
+        return state[:, live[0]]
+
+    eng_t = StateDecodeEngine(dataclasses.replace(CFG_T, dtype=torch.bfloat16),
+                              pt, device="cpu", **SKW)
+    got_t = engine_state(eng_t, lambda pool: pool.shards[0].float().numpy())
+    eng_j = JaxState(dataclasses.replace(CFG_J, dtype=jnp.bfloat16), pj,
+                     name="drift_bf16", **SKW)
+    got_j = engine_state(
+        eng_j, lambda pool: np.asarray(pool.state.astype(jnp.float32)))
+
+    s = _zeros(1)
+    for tok in prompt:
+        _out, s = tdec._ssd_forward_step(pt, CFG_T, s, torch.tensor([tok]),
+                                         None)
+    ref_t = s[:, 0].numpy()
+    step_j = jax.jit(lambda st, tok: jdec._ssd_forward_step(
+        pj, CFG_J, st, tok, None, None))
+    sj = jnp.zeros((L, 1, H, HD, HD), jnp.float32)
+    for tok in prompt:
+        _out, sj = step_j(sj, jnp.asarray([tok], jnp.int32))
+    ref_j = np.asarray(sj)[:, 0]
+    np.testing.assert_allclose(ref_t, ref_j, **TOL)  # the two f32 oracles
+
+    def drift(got, ref):
+        return float(np.abs(got - ref).max() / np.abs(ref).max())
+
+    d_t, d_j = drift(got_t, ref_t), drift(got_j, ref_j)
+    assert 0 < d_j and d_t <= 1.5 * d_j, (d_t, d_j)
