@@ -4,7 +4,11 @@ checkouts of the port: tokens/s of 8 prompts × 32 new tokens through the
 paged engine at ``chip_smoke.py``'s GPT-2-small width and engine sizes,
 and the host synchronise calls (``cudaStreamSynchronize``,
 ``cudaDeviceSynchronize``, ``cudaEventSynchronize``) torch.profiler
-counts in one such run.
+counts in one such run.  The profiled run is made twice with host and
+device tracing and twice with the device alone (``greedy_twice``): each
+gives its device events, by kind, and the hand-written kernels'
+launches counted by their wrappers (``ops/_cuda.LAUNCHES``), so two
+identical runs show whether the profiler's count is stable.
 
     python3 chip_obs_ab.py --root DIR [--reps 5] [--seed 0]
 
@@ -96,23 +100,44 @@ def main() -> int:
         if out != toks:
             raise AssertionError("tokens changed between runs")
         rates.append(sum(len(t) for t in out) / wall)
-    eng.prefix.clear()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        eng.generate_batch(reqs)
-        torch.cuda.synchronize()
-    syncs = {name: 0 for name in SYNC_CALLS}
-    kernels = 0
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            kernels += 1
-        elif e.name in syncs:
-            syncs[e.name] += 1
+    def profiled(activities):
+        """One run under torch.profiler: its host syncs, its device
+        events (all, and by kind), and the hand-written kernels'
+        launches counted by their wrappers."""
+        eng.prefix.clear()
+        _cuda.reset_launches()
+        with profile(activities=activities) as prof:
+            out = eng.generate_batch(reqs)
+            torch.cuda.synchronize()
+        if out != toks:
+            raise AssertionError("tokens changed under the profiler")
+        syncs = {name: 0 for name in SYNC_CALLS}
+        kinds = {"kernel": 0, "memcpy": 0, "memset": 0, "other": 0}
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                low = e.name.lower()
+                kind = next((k for k in ("memcpy", "memset") if k in low),
+                            "kernel" if not e.is_user_annotation else "other")
+                kinds[kind] += 1
+            elif e.name in syncs:
+                syncs[e.name] += 1
+        return dict(syncs=syncs, device_events=sum(kinds.values()),
+                    by_kind=kinds, launches=dict(_cuda.LAUNCHES))
+
+    # the same greedy run twice per profiler setting, in one process: if
+    # the counts of two identical runs differ while the wrappers'
+    # launches agree, the profiler dropped records
+    both = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    host_dev = [profiled(both) for _ in range(2)]
+    dev_only = [profiled([ProfilerActivity.CUDA]) for _ in range(2)]
     print(json.dumps({"ab": {
         "root": args.root, "card": smi, "torch": torch.__version__,
         "tokens_per_s": rates, "tokens_per_s_median": statistics.median(
             rates),
-        "syncs_profiled": syncs, "device_events_profiled": kernels,
+        "syncs_profiled": host_dev[0]["syncs"],
+        "device_events_profiled": host_dev[0]["device_events"],
+        "greedy_twice": {"host_and_device": host_dev,
+                         "device_only": dev_only},
         "rounds": dict(eng.rounds), "tokens": sum(len(t) for t in toks),
     }}), flush=True)
     return 0

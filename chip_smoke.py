@@ -167,6 +167,27 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    kernels at phase 5's heaviest shapes run on two streams at once, each
    result equal to its plain version (one scratch per stream).  Printed
    as a ``{"models": ...}`` line;
+4i. the data plane (after phase 4h): ``calibrate_mapreduce`` on the
+   card (2^12 to 2^22 elements, 256 groups; each side's ms and the
+   crossover ``planner.jit_crossover`` reads), then wordcount, the
+   workload of Pathway's own benchmarks: 524,288 updates (a word of a
+   20,000-word Zipf(1.1) vocabulary, an int, a float; cut from 1,048,576
+   to keep the phase under a minute) in four batches of 131,072, 5% of
+   each later batch retracting earlier rows, through
+   ``pw.debug.table_from_rows`` and ``run_tables(device="cuda")``:
+   select (``a*2+1``, ``b*0.5``, ``a*b``) -> filter -> groupby(word)
+   with sum, min, max, count and avg, and an inner join of the filtered
+   stream with a 4,096-row table on the int key, grouped by the
+   table's category.  The pipeline runs on the device tier (both
+   crossovers pinned to 65,536, the JAX package's fresh-host default)
+   and with numpy pinned: the captures must be equal, keys included,
+   the device run's vectorized batches and join memberships on the card
+   > 0 and the numpy run's 0.  At 65,536 updates the row path must give
+   the device tier's captures (float sums within 1e-12: the row path
+   sums in another order).  Printed as a ``{"dataplane": ...}`` line
+   (rows/s on each tier, the device tier's stream ms and bytes moved,
+   the crossovers after the runs); the data plane's device programs are
+   torch operations and add no entry to the kernels line;
 5. print one ``{"kernels": [...]}`` line (launches on the main path,
    error against the plain version, kernel / plain / bound / library
    times at the main path's shapes: the median of 5 windows of 50
@@ -178,7 +199,7 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    ``launches_int8`` the int8 engine's launches of the paged kernels), a
    ``{"topk": ...}`` line (the index's ordered top-10 against
    ``torch.topk`` and a stable sort, at Q = 64 and Q = 1) and lines of
-   end-to-end numbers.  The kernels line is printed after phase 4h:
+   end-to-end numbers.  The kernels line is printed after phase 4i:
    ``launches_tp`` on the ragged, append and flash entries counts each
    one's launches in phase 4g's f32 runs, by tp, ``launches_from_hf`` in
    phase 4h's ``from_hf`` route; the ``knn_scores_clip`` entry is the
@@ -198,7 +219,9 @@ prompts after the build and prints no result; ``--tp-only`` runs phase
 4g alone on synthetic prompts and a random 16,384 x 384 matrix after
 the build and prints no result; ``--models-only`` runs phase 4h alone
 on synthetic prompts after the build and prints its line (with the
-``knn_scores_clip`` kernel entry) and no result.
+``knn_scores_clip`` kernel entry) and no result; ``--dataplane-only``
+runs phase 4i alone (it builds no kernel) and prints its line and no
+result.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``.
 Exits non-zero, printing no result, when no CUDA device is present or
@@ -3428,6 +3451,271 @@ def models_only(torch, np, dec, seed, engine_sizes, smi) -> int:
     return 0
 
 
+# -- phase 4i: the data plane ----------------------------------------------
+
+# wordcount, the workload of Pathway's own benchmarks: each row a word of
+# a 20,000-word Zipf(1.1) vocabulary, an int and a float, streamed in
+# four batches; 5% of each batch after the first retracts a row of an
+# earlier one.  Cut from 1,048,576 updates (4 x 262,144) to 524,288
+# (4 x 131,072): at the full count the phase took 72.4 s on the card's
+# host against its 60 s (the engine is host-bound).  Batches stay above
+# the 65,536-row crossover after the filter, so the same tiers run.
+DP_ROWS_FULL = 1 << 20
+DP_ROWS, DP_BATCHES, DP_RETRACT = 1 << 19, 4, 0.05
+DP_VOCAB, DP_ZIPF, DP_DIM_ROWS = 20000, 1.1, 4096
+# the row path is checked on a stream of this many updates
+DP_ROW_PATH_ROWS = 65536
+# both pins of the device run: the JAX package's fresh-host default, so
+# the batches that reach the card are the ones that reach its TPU
+DP_CROSSOVER = 65536
+DP_NEVER = 1 << 62  # the numpy run's pin
+DP_CALIBRATE = tuple(1 << k for k in range(12, 23))  # 2^12 .. 2^22
+
+
+def dataplane_stream(np, seed: int, n_rows: int) -> tuple[list, list]:
+    """``n_rows`` updates ``(rid, word, a, b, time, diff)`` in
+    ``DP_BATCHES`` batches at times 2, 4, ...: each batch after the first
+    retracts ``DP_RETRACT`` of its updates' worth of live rows (same row
+    id and values, diff -1); ``a`` in [0, 2 x DP_DIM_ROWS), so about half
+    the rows find a partner in the dimension table.  Also the dimension
+    table's ``(k, cat)`` rows."""
+    rng = np.random.default_rng(seed)
+    p = 1.0 / np.arange(1, DP_VOCAB + 1) ** DP_ZIPF
+    p /= p.sum()
+    vocab = [f"w{i:05d}" for i in range(DP_VOCAB)]
+    per = n_rows // DP_BATCHES
+    rows: list = []
+    live: list = []
+    next_rid = 0
+    for b in range(DP_BATCHES):
+        t = 2 * (b + 1)
+        n_ret = int(per * DP_RETRACT) if b else 0
+        n_new = per - n_ret
+        words = rng.choice(DP_VOCAB, n_new, p=p).tolist()
+        ints = rng.integers(0, 2 * DP_DIM_ROWS, n_new).tolist()
+        floats = rng.random(n_new).tolist()
+        if n_ret:
+            gone = set(rng.choice(len(live), n_ret, replace=False).tolist())
+            rows.extend(r + (t, -1) for i, r in enumerate(live) if i in gone)
+            live = [r for i, r in enumerate(live) if i not in gone]
+        new = [(next_rid + i, vocab[w], a, x)
+               for i, (w, a, x) in enumerate(zip(words, ints, floats))]
+        next_rid += n_new
+        rows.extend(r + (t, 1) for r in new)
+        live.extend(new)
+    dim = [(k, f"c{k % 64:02d}") for k in range(DP_DIM_ROWS)]
+    return rows, dim
+
+
+def dataplane_pipeline(pw, rows, dim_rows):
+    """select -> filter -> groupby(word) with sum/min/max/count/avg, and
+    the filtered stream joined on its int key with the dimension table,
+    then grouped by the dimension's category: the two captured tables."""
+
+    class Events(pw.Schema):
+        rid: int = pw.column_definition(primary_key=True)
+        word: str
+        a: int
+        b: float
+
+    class Dim(pw.Schema):
+        k: int
+        cat: str
+
+    t = pw.debug.table_from_rows(Events, rows, is_stream=True)
+    dim = pw.debug.table_from_rows(Dim, dim_rows)
+    # a * b written with a float cast, the same values: the vectorized
+    # tiers' static int64 bound takes every column for an int of up to
+    # 2^44, so a bare t.a * t.b (2^88) sends the whole select to the row
+    # interpreter, in the JAX package too
+    s = t.select(word=t.word, a=t.a, x=t.a * 2 + 1, y=t.b * 0.5,
+                 z=pw.cast(float, t.a) * t.b)
+    f = s.filter(s.x > 1000)
+    counts = f.groupby(f.word).reduce(
+        f.word, s=pw.reducers.sum(f.x), mn=pw.reducers.min(f.y),
+        mx=pw.reducers.max(f.y), n=pw.reducers.count(),
+        av=pw.reducers.avg(f.z))
+    j = f.join(dim, f.a == dim.k).select(cat=pw.right.cat, x=pw.left.x,
+                                         z=pw.left.z)
+    by_cat = j.groupby(j.cat).reduce(j.cat, n=pw.reducers.count(),
+                                     s=pw.reducers.sum(j.x),
+                                     zs=pw.reducers.sum(j.z))
+    return counts, by_cat
+
+
+def dataplane_run(torch, outs, pin: int, device="cuda",
+                  row_path: bool = False) -> dict:
+    """One run of the pipeline's tables ``outs`` with both crossovers
+    pinned to ``pin`` (``row_path``: the vectorized plans and the
+    columnar groupby and join specs off), through ``GraphRunner`` as
+    ``run_tables`` drives a static graph: the captures, the engine's
+    wall time, each operator kind's host seconds and the tiers'
+    counters."""
+    from pathway_tpu_torch.engine import runner, vectorize
+    from pathway_tpu_torch.internals import parse_graph as pg
+    from pathway_tpu_torch.parallel import mapreduce as mr
+
+    saved = (vectorize.DEVICE_THRESHOLD, mr._JIT_MIN_ELEMENTS,
+             vectorize.compile_plan, runner._groupby_simple_spec,
+             runner._join_simple_spec)
+    vectorize.DEVICE_THRESHOLD = mr._JIT_MIN_ELEMENTS = pin
+    if row_path:
+        vectorize.compile_plan = lambda *a, **k: None
+        runner._groupby_simple_spec = lambda *a, **k: None
+        runner._join_simple_spec = lambda *a, **k: None
+    for st in (vectorize.STATS, mr.STATS):
+        st.update({k: type(v)() for k, v in st.items()})
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sinks = [t._materialize_capture() for t in outs]
+        graph = runner.GraphRunner(sinks, device=device)
+        by_id = graph.run_batch()
+        caps = [by_id[n.id] for n in sinks]
+        wall = time.perf_counter() - t0
+        busy: dict = {}
+        for op in graph.lg.scheduler.operators:
+            kind = op.name.split(":")[0]
+            busy[kind] = busy.get(kind, 0.0) + op.busy_s
+    finally:
+        pg.G.clear()
+        (vectorize.DEVICE_THRESHOLD, mr._JIT_MIN_ELEMENTS,
+         vectorize.compile_plan, runner._groupby_simple_spec,
+         runner._join_simple_spec) = saved
+    return dict(caps=[c.squash() for c in caps], wall_s=wall,
+                op_busy_s=busy, vec=dict(vectorize.STATS),
+                mapreduce=dict(mr.STATS))
+
+
+def float_sums_close(a: dict, b: dict, rel: float) -> bool:
+    """Two captures equal key for key, value for value, except floats,
+    which may differ by ``rel`` (a sum over another order of rows)."""
+    if a.keys() != b.keys():
+        return False
+    for k, ra in a.items():
+        for x, y in zip(ra, b[k]):
+            if isinstance(x, float) and isinstance(y, float):
+                if abs(x - y) > rel * max(abs(x), abs(y)):
+                    return False
+            elif x != y or type(x) is not type(y):
+                return False
+    return True
+
+
+def phase4i(torch, np, s) -> dict:
+    """``s``: the card line and the seed.  The crossovers measured by
+    ``calibrate_mapreduce`` on the card, the pipeline on the device tier
+    and with numpy pinned (captures equal), and the row path at 65,536
+    updates against the device tier.  Returns the ``{"dataplane": ...}``
+    line."""
+    import tempfile
+
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch.internals import parse_graph as pg
+    from pathway_tpu_torch.obs import costdb, planner
+
+    t_i = time.perf_counter()
+    out = {"card": s.smi, "rows": DP_ROWS, "rows_cut_from": DP_ROWS_FULL,
+           "batches": DP_BATCHES,
+           "retract": DP_RETRACT, "vocab": DP_VOCAB, "zipf": DP_ZIPF,
+           "dim_rows": DP_DIM_ROWS, "pin_device": DP_CROSSOVER}
+    prev = os.environ.get("PW_COSTDB_PATH")
+    os.environ["PW_COSTDB_PATH"] = os.path.join(
+        tempfile.mkdtemp(prefix="pw_dataplane_"), "costdb.json")
+    costdb.shutdown()
+    planner.invalidate_cache()
+    try:
+        t0 = time.perf_counter()
+        out["calibrate_ms"] = planner.calibrate_mapreduce(
+            sizes=DP_CALIBRATE, n_groups=256, repeats=3, device="cuda")
+        out["calibrate_s"] = time.perf_counter() - t0
+        out["crossover_calibrated"] = planner.jit_crossover(
+            "pw.reduce.segment_sum").value
+
+        t0 = time.perf_counter()
+        rows, dim_rows = dataplane_stream(np, s.seed, DP_ROWS)
+        pg.G.clear()
+        outs = dataplane_pipeline(pw, rows, dim_rows)
+        out["build_s"] = time.perf_counter() - t0
+        dev = dataplane_run(torch, outs, DP_CROSSOVER)
+        npy = dataplane_run(torch, outs, DP_NEVER)
+        require(dev["caps"] == npy["caps"],
+                "4i: the device and numpy runs' captures differ")
+        counts, by_cat = dev["caps"]
+        require(len(counts) > 1000 and len(by_cat) == 64,
+                f"4i: {len(counts)} words, {len(by_cat)} categories")
+        require(all(r[4] > 0 and all(math.isfinite(v) for v in r[1:])
+                    for r in counts.values()), "4i: a group's row")
+        require(dev["vec"]["device_batches"] > 0
+                and dev["mapreduce"]["member_device"] > 0,
+                f"4i: the device run's tiers {dev['vec']} "
+                f"{dev['mapreduce']}")
+        require(npy["vec"]["device_batches"] == 0
+                and npy["mapreduce"]["member_device"] == 0
+                and npy["mapreduce"]["segment_device"] == 0,
+                "4i: the numpy run reached the device")
+        dv, dm = dev["vec"], dev["mapreduce"]
+        out.update(
+            rows_per_s_device=DP_ROWS / dev["wall_s"],
+            rows_per_s_numpy=DP_ROWS / npy["wall_s"],
+            wall_s_device=dev["wall_s"], wall_s_numpy=npy["wall_s"],
+            device_ms=dv["device_ms"] + dm["device_ms"],
+            vecplan_device_ms=dv["device_ms"],
+            member_device_ms=dm["device_ms"],
+            h2d_bytes=dv["h2d_bytes"] + dm["h2d_bytes"],
+            d2h_bytes=dv["d2h_bytes"] + dm["d2h_bytes"],
+            op_busy_s_device=dev["op_busy_s"],
+            op_busy_s_numpy=npy["op_busy_s"],
+            tiers_device=dict(vec=dv, mapreduce=dm),
+            tiers_numpy=dict(vec=npy["vec"], mapreduce=npy["mapreduce"]),
+            groups=len(counts))
+        del rows, outs, dev, npy
+
+        # the row path on a smaller stream, against the device tier (both
+        # pins low enough that its 16,384-update batches reach the card);
+        # the row path sums each group's floats in another order
+        small, small_dim = dataplane_stream(np, s.seed + 1, DP_ROW_PATH_ROWS)
+        pg.G.clear()
+        outs = dataplane_pipeline(pw, small, small_dim)
+        on_dev = dataplane_run(torch, outs, 4096)
+        by_row = dataplane_run(torch, outs, DP_NEVER, row_path=True)
+        require(all(float_sums_close(a, b, 1e-12) for a, b in
+                    zip(on_dev["caps"], by_row["caps"])),
+                "4i: the row path's captures differ from the device tier's")
+        require(on_dev["vec"]["device_batches"] > 0
+                and by_row["vec"]["device_batches"] == 0
+                and by_row["vec"]["np_batches"] == 0,
+                "4i: the row-path check's tiers")
+        out["row_path"] = dict(rows=DP_ROW_PATH_ROWS,
+                               wall_s_row=by_row["wall_s"],
+                               wall_s_device=on_dev["wall_s"])
+        out["crossovers"] = {
+            prog: planner.jit_crossover(prog).as_dict()
+            for prog in ("pw.reduce.segment_sum", "pw.join.member",
+                         "pw.map.vecplan")}
+    finally:
+        pg.G.clear()
+        costdb.shutdown()
+        planner.invalidate_cache()
+        if prev is None:
+            os.environ.pop("PW_COSTDB_PATH", None)
+        else:
+            os.environ["PW_COSTDB_PATH"] = prev
+    out["phase_s"] = time.perf_counter() - t_i
+    if out["phase_s"] > 60.0:
+        log(f"4i: the phase took {out['phase_s']:.1f}s, over its 60 s")
+    return out
+
+
+def dataplane_only(torch, np, seed, smi) -> int:
+    """``--dataplane-only``: phase 4i alone (the short first call after a
+    change to the data plane), printing its line and no result."""
+    line = phase4i(torch, np, types.SimpleNamespace(smi=smi, seed=seed))
+    print(json.dumps({"dataplane": line}), flush=True)
+    log("--dataplane-only: stopping after phase 4i")
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3443,6 +3731,9 @@ def main() -> int:
     ap.add_argument("--models-only", action="store_true",
                     help="build the kernels, then run phase 4h alone on "
                          "synthetic prompts; prints no result")
+    ap.add_argument("--dataplane-only", action="store_true",
+                    help="run phase 4i (the data plane) alone, without "
+                         "building the kernels; prints no result")
     args = ap.parse_args()
 
     import numpy as np
@@ -3488,6 +3779,8 @@ def main() -> int:
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip().splitlines()[0]
     print(smi, flush=True)
+    if args.dataplane_only:
+        return dataplane_only(torch, np, args.seed, smi)
     t0 = time.perf_counter()
     build_logs = _cuda.build_all()
     log(f"built kernels in {time.perf_counter() - t0:.1f}s")
@@ -3995,6 +4288,16 @@ def main() -> int:
             k["launches_from_hf"] = models_extra["launches_from_hf"][
                 k["name"]]
     kernels.append(models_extra["clip_kernel"])
+
+    # phase 4i: the data plane (its device programs are torch operations,
+    # no kernel of the kernels line), after every earlier measurement
+    dp_line = phase4i(torch, np, types.SimpleNamespace(smi=smi,
+                                                       seed=args.seed))
+    log(f"phase 4i ok: device and numpy captures equal, "
+        f"{dp_line['rows_per_s_device']:.0f} / "
+        f"{dp_line['rows_per_s_numpy']:.0f} rows/s, row path equal in "
+        f"{dp_line['phase_s']:.1f}s")
+    print(json.dumps({"dataplane": dp_line}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({
         "rag": {

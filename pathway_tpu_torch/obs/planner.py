@@ -9,12 +9,15 @@ rationale (:meth:`Plan.render` prints the table).
 
 Knobs:
 
-  - the jit/numpy crossover of the data plane's dual-path primitives
-    (``pw.reduce.segment_sum``, ``pw.map.vecplan``), read from recorded
-    ``<program>.jit`` / ``<program>.numpy`` rows.  The port has no data
-    plane yet, so on a host that recorded none these report their
-    documented ``default`` (or an ``env`` pin); the measuring half
-    (``calibrate_mapreduce``) waits for the data plane;
+  - the device/numpy crossover of the data plane's dual-path
+    primitives (``pw.reduce.segment_sum``, ``pw.map.vecplan``), read
+    from recorded ``<program>.jit`` / ``<program>.numpy`` rows (the JAX
+    package's names: ``.jit`` is the device side).  The segment
+    reductions and the join membership record both sides per call of at
+    least 4,096 elements, and :func:`calibrate_mapreduce` measures the
+    ``pw.reduce.segment_sum`` pair over a ladder of sizes on the device
+    the data plane runs on; a host that recorded none reports the
+    documented ``default`` (or an ``env`` pin);
   - cluster process count (:func:`choose_process_count`);
   - tp/dp degree (:func:`choose_tp`, counting ``torch.cuda
     .device_count()``);
@@ -404,3 +407,56 @@ def plan(*, cfg=None, db=None, current_processes: int | None = None,
             why="2 x block_size (engine admission tiling rule)",
         ))
     return p
+
+
+# -- calibration ------------------------------------------------------------
+
+def calibrate_mapreduce(db=None, *, sizes=(1 << 12, 1 << 14, 1 << 16,
+                                           1 << 18, 1 << 20),
+                        n_groups: int = 256, repeats: int = 3,
+                        device="cuda") -> dict:
+    """Measure both sides of the segment-sum dual path across the bucket
+    ladder on ``device`` (default the card; it raises without one unless
+    ``device="cpu"``) and record them, so :func:`jit_crossover` has a
+    pair at every size even where the device side has never naturally
+    run.  On the card each timed call is bracketed by a synchronize.
+    Returns the recorded ms per (side, size)."""
+    import time as _time
+
+    import numpy as np
+    import torch
+
+    from .._device import resolve_device
+    from ..parallel import mapreduce
+
+    dev = resolve_device(device)
+    store = _db(db)
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    out: dict[str, float] = {}
+    rng = np.random.default_rng(0)
+    for n in sizes:
+        values = rng.standard_normal(n).astype(np.float32)
+        codes = rng.integers(0, n_groups, n).astype(np.int32)
+        for side in ("numpy", "jit"):
+            best = None
+            for _ in range(repeats):
+                sync()
+                t0 = _time.perf_counter()
+                if side == "numpy":
+                    acc = np.zeros(n_groups, values.dtype)
+                    np.add.at(acc, codes, values)
+                else:
+                    mapreduce._run_jit_segment_sum(values, codes, n_groups,
+                                                   device=dev)
+                sync()
+                dt = (_time.perf_counter() - t0) * 1e3
+                best = dt if best is None else min(best, dt)
+            store.observe(f"pw.reduce.segment_sum.{side}", f"n{n}", ms=best)
+            out[f"{side}.n{n}"] = round(best, 4)
+    store.flush()
+    invalidate_cache()
+    return out

@@ -57,6 +57,36 @@ def test_the_guard_covers_the_model_and_embedder_modules():
         assert f"pathway_tpu_torch.{name}" in _modules()
 
 
+def test_the_guard_covers_the_data_plane_modules():
+    """... and the data plane: tables, expressions, the runner and its
+    operators, the vectorized tier and the segment programs."""
+    for name in ("internals.value", "internals.dtype", "internals.schema",
+                 "internals.expression", "internals.expressions.string",
+                 "internals.expressions.date_time",
+                 "internals.expressions.numerical",
+                 "internals.expressions.binary", "internals.thisclass",
+                 "internals.desugaring", "internals.type_interpreter",
+                 "internals.parse_graph", "internals.trace",
+                 "internals.table", "internals.reducers",
+                 "internals.datasource", "internals.run", "engine",
+                 "engine.types", "engine.graph", "engine.columnar",
+                 "engine.reducers_impl", "engine.operators",
+                 "engine.telemetry", "engine.vectorize", "engine.runner",
+                 "parallel.mapreduce", "debug", "io", "io._subscribe"):
+        assert f"pathway_tpu_torch.{name}" in _modules()
+
+
+def test_import_initialises_no_cuda():
+    code = (
+        "import torch, pathway_tpu_torch as pw\n"
+        "assert pw.Table and pw.debug and pw.io.subscribe and pw.run\n"
+        "assert not torch.cuda.is_initialized()\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
 def test_import_loads_neither_jax_nor_the_jax_package():
     code = (
         "import importlib, sys\n"
@@ -109,7 +139,33 @@ def _entry_points():
     ecfg = encoder.EncoderConfig(vocab_size=32, d_model=8, n_layers=1,
                                  n_heads=2, d_ff=16, max_len=16)
     params = decoder.init_decoder_params(dcfg, 0, device="cpu")
+    import numpy as np
+
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch.engine.runner import GraphRunner, run_tables
+    from pathway_tpu_torch.internals import parse_graph as pg
+    from pathway_tpu_torch.obs.planner import calibrate_mapreduce
+    from pathway_tpu_torch.parallel import mapreduce
+
+    def table():
+        pg.G.clear()
+        return pw.debug.table_from_markdown("a | b\n1 | 2")
+
+    def run():
+        pw.io.subscribe(table(), on_change=lambda **kw: None)
+        pw.run()
+
+    codes = np.zeros(4, np.int32)
     return {
+        "run_tables": lambda: run_tables(table()),
+        "GraphRunner": lambda: GraphRunner([table()._materialize_capture()]),
+        "pw.run": run,
+        "compute_and_print": lambda: pw.debug.compute_and_print(table()),
+        "table_to_pandas": lambda: pw.debug.table_to_pandas(table()),
+        "segment_sum": lambda: mapreduce.segment_sum(codes, codes, 1),
+        "hash_join_membership": lambda: mapreduce.hash_join_membership(
+            codes, codes),
+        "calibrate_mapreduce": lambda: calibrate_mapreduce(sizes=(1024,)),
         "TorchEncoder": lambda: encoder.TorchEncoder(ecfg),
         "init_params": lambda: encoder.init_params(ecfg),
         "TorchDecoderLM": lambda: decoder.TorchDecoderLM(dcfg),
@@ -137,13 +193,21 @@ def _entry_points():
     "PagedDecodeEngine", "ReplicaFleet", "SentenceTransformerEmbedder",
     "TorchChat", "TorchClip", "TorchDecoderLM", "TorchDecoderLM.generate",
     "TorchEncoder", "init_params", "knn_topk", "make_train_step",
+    "run_tables", "GraphRunner", "pw.run", "compute_and_print",
+    "table_to_pandas", "segment_sum", "hash_join_membership",
+    "calibrate_mapreduce",
 ])
 def test_entry_point_without_a_card_raises(name, monkeypatch):
     # decided inside the test: the default device is the card, and a
     # machine without one raises rather than computing on the CPU
+    from pathway_tpu_torch.internals import parse_graph as pg
+
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    with pytest.raises(RuntimeError, match="device='cpu'"):
-        _entry_points()[name]()
+    try:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            _entry_points()[name]()
+    finally:
+        pg.G.clear()  # the data-plane cases leave their sinks
 
 
 def test_chip_smoke_fails_without_a_card_or_the_package(tmp_path):
