@@ -188,6 +188,24 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    (rows/s on each tier, the device tier's stream ms and bytes moved,
    the crossovers after the runs); the data plane's device programs are
    torch operations and add no entry to the kernels line;
+4j. the README quickstart through the port's own dataflow (after phase
+   4i): ``RAG_DOCS`` (8,192, cut from 16,384 to keep the phase under a
+   minute) of ``make_docs``'s documents written as files, ``pw.io.fs.read(format="binary", mode="streaming",
+   with_metadata=True)`` -> ``DocumentStore`` over the MiniLM-width
+   embedder (device-resident) and ``BruteForceKnnFactory`` -> two
+   ``QARestServer``s on 127.0.0.1 in one ``pw.run(device="cuda")``: one
+   over ``BaseRAGQuestionAnswerer(llm_scheduler=True)`` (the paged
+   engine at phase 4's sizes), one over ``AdaptiveRAGQuestionAnswerer``
+   (the dense tier); GPT-2 small, ``search_topk`` 4.  In f32:
+   ``/v1/statistics`` reaches the file count; 64 concurrent
+   ``/v1/retrieve`` (k = 10) equal a stable sort of the kernel's scores
+   over a reference matrix of ``embed_batch`` rows, scores within 1e-4
+   of the plain f32 ones; 16 files written mid-run are each their own
+   top-1; 8 answers from each server equal the dense plain path's
+   greedy answer to the prompt built from the documents retrieved;
+   kernels #1-#4 were launched.  In bf16, timed: 64 concurrent
+   retrieves and 32 concurrent answers.  Printed as a
+   ``{"rag_pipeline": ...}`` line;
 5. print one ``{"kernels": [...]}`` line (launches on the main path,
    error against the plain version, kernel / plain / bound / library
    times at the main path's shapes: the median of 5 windows of 50
@@ -204,7 +222,9 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    one's launches in phase 4g's f32 runs, by tp, ``launches_from_hf`` in
    phase 4h's ``from_hf`` route; the ``knn_scores_clip`` entry is the
    scores kernel at phase 4h's text -> image search (Q 1 over the 1,024
-   CLIP rows at d 512), its launches that search's.
+   CLIP rows at d 512), its launches that search's;
+   ``launches_rag_pipeline`` counts each kernel's launches in phase 4j
+   (#3 split into its GEMM and GEMV entries by the index passes' sizes).
 
 Phase 2 also holds the port's PRNG (``models/prng.py``) on the card to
 ``PRNG_KNOWN``, keys and bits that ``jax.random`` gives (the CPU tests
@@ -221,7 +241,8 @@ the build and prints no result; ``--models-only`` runs phase 4h alone
 on synthetic prompts after the build and prints its line (with the
 ``knn_scores_clip`` kernel entry) and no result; ``--dataplane-only``
 runs phase 4i alone (it builds no kernel) and prints its line and no
-result.
+result; ``--rag-pipeline-only`` runs phase 4j alone after the build and
+prints its line and no result.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``.
 Exits non-zero, printing no result, when no CUDA device is present or
@@ -3716,6 +3737,381 @@ def dataplane_only(torch, np, seed, smi) -> int:
     return 0
 
 
+# -- phase 4j: the README quickstart through the port's own dataflow -------
+
+# documents in each RAG prompt: 4 of make_docs's 60-120 words, the
+# template and a 12-word question stay under 560 tokens, so a prompt and
+# its 32 new tokens fit GPT-2 small's 1,024 positions and the engine's
+# largest bucket
+RAG_TOPK = 4
+# the adaptive answerer: 2 documents first, 4 when the llm finds nothing
+RAG_ADAPTIVE = dict(n_starting_documents=2, factor=2, max_iterations=2)
+RAG_K = 10          # k of the checked and timed /v1/retrieve calls
+RAG_NEW_FILES = 16  # files written while the servers run
+RAG_REPEAT = 4      # the bf16 load: phase 4's 8 questions, 4 times each
+# documents written as files: cut from N_DOCS (16,384), at which the
+# phase took 73.7 s on an H100's host against its 60 s (the host bounds
+# it: a rescan of the watched files took 1.5 s, the ingest 28 s)
+RAG_DOCS, RAG_DOCS_FULL = 8192, N_DOCS
+RAG_DEADLINE_S = 180.0   # statistics must reach a count within this
+RAG_IDLE_STOP_S = 3.0    # the run ends this long after the last request
+RAG_RUN_LIMIT_S = 600.0  # pw.run's timeout_s, a bound it never reaches
+
+
+def http_json(port: int, route: str, payload: dict, timeout: float = 120.0):
+    """POST ``payload`` to 127.0.0.1:``port``; the JSON of a 200."""
+    import urllib.request
+
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}{route}", json.dumps(payload).encode(),
+        headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        require(r.status == 200, f"{route}: HTTP {r.status}")
+        return json.loads(r.read())
+
+
+def timed_http(port: int, route: str, payload: dict):
+    t0 = time.perf_counter()
+    out = http_json(port, route, payload)
+    return out, time.perf_counter() - t0
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def wait_listening(port: int, deadline_s: float) -> None:
+    import socket
+
+    end = time.monotonic() + deadline_s
+    while True:
+        try:
+            socket.create_connection(("127.0.0.1", port), timeout=1).close()
+            return
+        except OSError:
+            require(time.monotonic() < end, f"nothing listens on {port}")
+            time.sleep(0.02)
+
+
+def write_file(root: str, watched: str, name: str, text: str) -> None:
+    """Write outside the watched directory, then rename into it: the
+    file source never reads a file half written."""
+    tmp = os.path.join(root, name)
+    with open(tmp, "w") as f:
+        f.write(text)
+    os.replace(tmp, os.path.join(watched, name))
+
+
+def wait_chunks(port: int, n: int) -> float:
+    """Poll ``/v1/statistics`` until it counts ``n`` chunks; the time."""
+    end = time.perf_counter() + RAG_DEADLINE_S
+    while True:
+        got = http_json(port, "/v1/statistics", {})["chunk_count"]
+        if got == n:
+            return time.perf_counter()
+        require(got < n and time.perf_counter() < end,
+                f"4j: /v1/statistics counts {got} chunks, waiting for {n}")
+        time.sleep(0.05)
+
+
+def rag_client(c) -> dict:
+    """The client side of phase 4j, against the two servers of ``c``
+    while the run serves them: every request is HTTP on 127.0.0.1."""
+    out = {}
+    wait_listening(c.port_rag, 60.0)
+    wait_listening(c.port_ada, 60.0)
+    # 1. every written file indexed: the statistics count them all
+    t_indexed = wait_chunks(c.port_rag, RAG_DOCS)
+    require(http_json(c.port_ada, "/v1/statistics", {})["chunk_count"]
+            == RAG_DOCS, "4j: the second server's statistics")
+    out["index_s"] = t_indexed - c.t_write
+    # 2. concurrent retrieves (checked against the reference later)
+    out["retrieve_f32"] = concurrently(
+        lambda q: http_json(c.port_rag, "/v1/retrieve",
+                            {"query": q, "k": RAG_K}), c.queries)
+    # 3. files written while the servers run: each its own top-1
+    for i, text in enumerate(c.new_docs):
+        write_file(c.root, c.watched, f"new{i:02d}.txt", text)
+    wait_chunks(c.port_rag, RAG_DOCS + RAG_NEW_FILES)
+    out["top1_new"] = concurrently(
+        lambda t: http_json(c.port_rag, "/v1/retrieve", {"query": t, "k": 1}),
+        c.new_docs)
+    # 4. answers: the documents each question retrieves, then its answer
+    # from each answerer (checked against the dense plain path later)
+    out["context"] = concurrently(
+        lambda q: http_json(c.port_rag, "/v1/retrieve",
+                            {"query": q, "k": RAG_TOPK}), c.questions)
+    out["answers_f32"] = concurrently(
+        lambda q: http_json(c.port_rag, "/v1/pw_ai_answer", {"prompt": q}),
+        c.questions)
+    out["adaptive_f32"] = concurrently(
+        lambda q: http_json(c.port_ada, "/v1/pw_ai_answer", {"prompt": q}),
+        c.questions)
+    # bf16, timed: the chat's LM becomes the bf16 one (same weights,
+    # phase 4's engine sizes); one untimed round warms it
+    c.chat._lm = c.lm16
+    concurrently(lambda q: http_json(c.port_rag, "/v1/pw_ai_answer",
+                                     {"prompt": q}), c.questions)
+    retr = concurrently(
+        lambda q: timed_http(c.port_rag, "/v1/retrieve",
+                             {"query": q, "k": RAG_K}), c.queries)
+    out["retrieve_ms"] = [dt * 1e3 for _r, dt in retr]
+    load = c.questions * RAG_REPEAT
+    t0 = time.perf_counter()
+    ans = concurrently(
+        lambda q: timed_http(c.port_rag, "/v1/pw_ai_answer", {"prompt": q}),
+        load)
+    out["answers_wall_s"] = time.perf_counter() - t0
+    out["answer_ms"] = [dt * 1e3 for _a, dt in ans]
+    out["answers_bf16"] = [a for a, _dt in ans]
+    return out
+
+
+def phase4j(torch, np, dec, s) -> tuple[dict, dict]:
+    """``s``: the card line, the seed and phase 4's engine sizes.  The
+    README's quickstart through the port's own dataflow, on the card:
+    ``RAG_DOCS`` files -> ``pw.io.fs.read`` (streaming) ->
+    ``DocumentStore`` over the MiniLM-width embedder (device-resident) and
+    ``BruteForceKnnFactory`` -> two ``QARestServer``s in one
+    ``pw.run(device="cuda")``, one over ``BaseRAGQuestionAnswerer(
+    llm_scheduler=True)`` (the paged engine), one over
+    ``AdaptiveRAGQuestionAnswerer`` (the dense tier).  f32 checks, bf16
+    numbers.  Returns the ``{"rag_pipeline": ...}`` line and the
+    launches of kernels #1-#4 over the run."""
+    import tempfile
+    import threading
+
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch.engine import runner as runner_mod
+    from pathway_tpu_torch.internals import parse_graph as pg
+    from pathway_tpu_torch.internals import run as run_mod
+    from pathway_tpu_torch.io._utils import FilePollingSource
+    from pathway_tpu_torch.models.encoder import EncoderConfig
+    from pathway_tpu_torch.obs import costdb, planner
+    from pathway_tpu_torch.ops import _cuda
+    from pathway_tpu_torch.ops import knn_cuda as kc
+    from pathway_tpu_torch.ops.knn import metric_scores
+    from pathway_tpu_torch.stdlib.indexing import BruteForceKnnFactory
+    from pathway_tpu_torch.stdlib.indexing.data_index import (
+        ExternalIndexOperator)
+    from pathway_tpu_torch.xpacks.llm import question_answering as qa
+    from pathway_tpu_torch.xpacks.llm.document_store import DocumentStore
+    from pathway_tpu_torch.xpacks.llm.embedders import (
+        SentenceTransformerEmbedder)
+    from pathway_tpu_torch.xpacks.llm.llms import TorchChat, _prompt_text
+    from pathway_tpu_torch.xpacks.llm.servers import QARestServer
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(s.seed + 4)
+    docs = make_docs(rng, RAG_DOCS)
+    new_docs = make_docs(rng, RAG_NEW_FILES)
+    picks = rng.integers(0, RAG_DOCS, size=N_QUERIES)
+    queries = [" ".join(docs[j].split()[5:17]) for j in picks]
+    c = types.SimpleNamespace(queries=queries, questions=queries[:N_PROMPTS],
+                              new_docs=new_docs)
+    c.root = tempfile.mkdtemp(prefix="pw_rag_")
+    c.watched = os.path.join(c.root, "docs")
+    os.mkdir(c.watched)
+    # a fresh cost store: the chat's "auto" tier is the fused dense one
+    prev_db = os.environ.get("PW_COSTDB_PATH")
+    os.environ["PW_COSTDB_PATH"] = os.path.join(c.root, "costdb.json")
+    costdb.shutdown()
+    planner.invalidate_cache()
+
+    emb = SentenceTransformerEmbedder(config=EncoderConfig(**MINILM),
+                                      seed=s.seed, device="cuda")
+    require(emb.device_resident, "4j: the embedder is device-resident")
+    cfg32 = dec.DecoderConfig(**GPT2_SMALL, dtype=torch.float32)
+    c.chat = TorchChat(cfg32, seed=s.seed, max_new_tokens=NEW_TOKENS,
+                       device="cuda")
+    lm32 = c.chat._lm
+    eng32 = lm32.paged_engine(**s.engine_sizes)
+    c.lm16 = dec.TorchDecoderLM(dec.DecoderConfig(**GPT2_SMALL),
+                                params=lm32.params, device="cuda")
+    c.lm16.paged_engine(**s.engine_sizes)
+
+    pg.G.clear()
+    files = pw.io.fs.read(c.watched, format="binary", mode="streaming",
+                          with_metadata=True)
+    store = DocumentStore(files, retriever_factory=BruteForceKnnFactory(
+        dimensions=emb.get_embedding_dimension(), embedder=emb,
+        reserved_space=RAG_DOCS + RAG_NEW_FILES, device="cuda"))
+    rag = qa.BaseRAGQuestionAnswerer(c.chat, store, search_topk=RAG_TOPK,
+                                     llm_scheduler=True)
+    require(rag._llm_scheduler.max_batch_size == eng32.max_batch_size,
+            "4j: the llm scheduler is sized from the paged engine")
+    ada = qa.AdaptiveRAGQuestionAnswerer(c.chat, store, **RAG_ADAPTIVE)
+    c.port_rag, c.port_ada = free_port(), free_port()
+    QARestServer("127.0.0.1", c.port_rag, rag)
+    QARestServer("127.0.0.1", c.port_ada, ada)
+
+    # the files are written before the run (nothing reads them yet): its
+    # first scan reads them all
+    setup_s = time.perf_counter() - t_phase
+    c.t_write = time.perf_counter()
+    for i, text in enumerate(docs):
+        with open(os.path.join(c.watched, f"doc{i:05d}.txt"), "w") as f:
+            f.write(text)
+    write_s = time.perf_counter() - c.t_write
+
+    runners = []
+
+    class RecordingRunner(runner_mod.GraphRunner):
+        """pw.run's runner, kept for its operators' counters."""
+
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            runners.append(self)
+
+    run_errors = []
+
+    def serve():
+        try:
+            pw.run(device="cuda", timeout_s=RAG_RUN_LIMIT_S,
+                   idle_stop_s=RAG_IDLE_STOP_S)
+        except BaseException as exc:  # noqa: BLE001 - raised below
+            run_errors.append(exc)
+
+    run_mod.GraphRunner = RecordingRunner
+    torch.cuda.synchronize()
+    _cuda.reset_launches()
+    th = threading.Thread(target=serve, daemon=True, name="pw-rag-run")
+    th.start()
+    try:
+        got = rag_client(c)
+    finally:
+        th.join(RAG_RUN_LIMIT_S)
+        run_mod.GraphRunner = runner_mod.GraphRunner
+        pg.G.clear()
+    require(not th.is_alive(), "4j: pw.run did not end")
+    if run_errors:
+        raise run_errors[0]
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - c.t_write - write_s
+    t_checks = time.perf_counter()
+    launches = {n: _cuda.LAUNCHES[n] for n in (
+        "knn_scores", "paged_attention", "paged_append_attend",
+        "flash_attention")}
+    for name, n in launches.items():
+        require(n > 0, f"4j: the pipeline never launched {name}")
+    [runner] = runners
+    ops = runner.lg.scheduler.operators
+    busy: dict = {}
+    for op in ops:
+        kind = op.name.split(":")[0]
+        busy[kind] = busy.get(kind, 0.0) + op.busy_s
+    index_ops = [op for op in ops if isinstance(op, ExternalIndexOperator)]
+    batches = sorted(n for op in index_ops for n in op.query_batches)
+    # kernel #3's launches by variant: an index pass of n >= 4 queries is
+    # one search_batch (the GEMM at n >= 16, else the GEMV), a smaller
+    # pass one search a query (the GEMV)
+    gemm = sum(1 for n in batches if n >= 16)
+    require(launches["knn_scores"] == sum(1 if n >= 4 else n
+                                          for n in batches),
+            f"4j: knn launches {launches['knn_scores']} against the index "
+            f"passes {batches}")
+
+    # 2. each retrieve = a stable sort of the kernel's scores over a
+    # reference matrix built apart from the index (embed_batch's rows, in
+    # the order the file source reads them), scores within KNN_TOL of the
+    # plain f32 scores; the query rows are the embedder's, as served
+    enc = emb.encoder
+    m = enc.embed_batch(docs)
+    m = m / (torch.linalg.norm(m, dim=1, keepdim=True) + 1e-12)
+    t0 = time.perf_counter()
+    q_rows = torch.stack([torch.from_numpy(np.asarray(emb._embed(q)))
+                          for q in queries]).to("cuda")
+    query_embed_ms = (time.perf_counter() - t0) * 1e3 / len(queries)
+    sc = metric_scores(q_rows, m, "cos_prenorm", kc.knn_scores)
+    plain = metric_scores(q_rows, m, "cos_prenorm", kc.knn_scores_reference)
+    order = torch.sort(sc, dim=1, descending=True, stable=True).indices
+    key_of = {t: i for i, t in enumerate(docs)}
+    err = 0.0
+    for qi, res in enumerate(got["retrieve_f32"]):
+        keys = [key_of[d["text"]] for d in res]
+        require(keys == order[qi, :RAG_K].tolist(),
+                f"4j: retrieve {qi} keys differ from the reference's sort")
+        err = max([err] + [abs(d["score"] - float(plain[qi, k]))
+                           for d, k in zip(res, keys)])
+    require(err <= KNN_TOL, f"4j: retrieve scores err {err}")
+    # 3. each file written mid-run is its own top-1
+    for text, res in zip(new_docs, got["top1_new"]):
+        require(len(res) == 1 and res[0]["text"] == text,
+                "4j: a file written mid-run is not its own top-1")
+    # 4. each answer = the dense plain path's greedy answer to the prompt
+    # built from the documents that question retrieves
+    def dense_answer(ctx, question):
+        prompt = _prompt_text([{"role": "user",
+                                "content": qa._prompt(ctx, question)}])
+        ids = lm32.encode_prompts([prompt], NEW_TOKENS)[0]
+        return lm32._decode_out(dense_greedy(torch, dec, cfg32, eng32.params,
+                                             ids, NEW_TOKENS))
+
+    for i, q in enumerate(c.questions):
+        ctx = [d["text"] for d in got["context"][i]]
+        require(len(ctx) == RAG_TOPK, "4j: answer context")
+        require(got["answers_f32"][i] == dense_answer(ctx, q),
+                f"4j: /v1/pw_ai_answer {i} differs from the dense path")
+        require(got["adaptive_f32"][i] == dense_answer(
+            ctx[:RAG_ADAPTIVE["n_starting_documents"]], q),
+            f"4j: adaptive answer {i} differs from the dense path")
+    n_tok = [len(a.split()) for a in got["answers_bf16"]]
+    require(n_tok == [NEW_TOKENS] * len(n_tok), f"4j: bf16 answers {n_tok}")
+
+    checks_s = time.perf_counter() - t_checks
+    # one rescan of the watched files, as the file source makes every
+    # poll (the listing and a modification time a file), on the runner's
+    # thread
+    t0 = time.perf_counter()
+    listed = FilePollingSource(c.watched, None, None)._files()
+    for f in listed:
+        os.path.getmtime(f)
+    scan_s = time.perf_counter() - t0
+    require(len(listed) == RAG_DOCS + RAG_NEW_FILES, "4j: the rescan")
+    os.environ.pop("PW_COSTDB_PATH", None)
+    if prev_db is not None:
+        os.environ["PW_COSTDB_PATH"] = prev_db
+    costdb.shutdown()
+    planner.invalidate_cache()
+    line = dict(
+        card=s.smi, docs=RAG_DOCS, docs_cut_from=RAG_DOCS_FULL,
+        new_files=RAG_NEW_FILES,
+        search_topk=RAG_TOPK, adaptive=RAG_ADAPTIVE, k=RAG_K,
+        docs_per_s_indexed=RAG_DOCS / got["index_s"],
+        index_s=got["index_s"], write_s=write_s, setup_s=setup_s,
+        run_s=run_s, checks_s=checks_s, rescan_s=scan_s,
+        query_embed_ms=query_embed_ms,
+        retrieve_p50_ms=statistics.median(got["retrieve_ms"]),
+        retrieve_p99_ms=p99(got["retrieve_ms"]),
+        retrieves=len(got["retrieve_ms"]),
+        answer_p50_ms=statistics.median(got["answer_ms"]),
+        answer_p99_ms=p99(got["answer_ms"]),
+        answers=len(got["answer_ms"]),
+        generated_tokens_per_s_bf16=sum(n_tok) / got["answers_wall_s"],
+        retrieve_scores_err=err,
+        index_query_batches=batches, index_operators=len(index_ops),
+        knn_launches_gemm=gemm, knn_launches_gemv=launches["knn_scores"] - gemm,
+        op_busy_s=busy, launches=launches,
+        phase_s=time.perf_counter() - t_phase)
+    if line["phase_s"] > 60.0:
+        log(f"4j: the phase took {line['phase_s']:.1f}s, over its 60 s")
+    return line, launches
+
+
+def rag_pipeline_only(torch, np, dec, seed, engine_sizes, smi) -> int:
+    """``--rag-pipeline-only``: phase 4j alone after the build (the short
+    first call after a change to the RAG pipeline)."""
+    line, _launches = phase4j(torch, np, dec, types.SimpleNamespace(
+        smi=smi, seed=seed, engine_sizes=engine_sizes))
+    print(json.dumps({"rag_pipeline": line}), flush=True)
+    log("--rag-pipeline-only: stopping after phase 4j")
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3734,6 +4130,9 @@ def main() -> int:
     ap.add_argument("--dataplane-only", action="store_true",
                     help="run phase 4i (the data plane) alone, without "
                          "building the kernels; prints no result")
+    ap.add_argument("--rag-pipeline-only", action="store_true",
+                    help="build the kernels, then run phase 4j (the RAG "
+                         "pipeline's servers) alone; prints no result")
     args = ap.parse_args()
 
     import numpy as np
@@ -3803,6 +4202,9 @@ def main() -> int:
         return tp_only(torch, np, dec, args.seed, engine_sizes, smi)
     if args.models_only:
         return models_only(torch, np, dec, args.seed, engine_sizes, smi)
+    if args.rag_pipeline_only:
+        return rag_pipeline_only(torch, np, dec, args.seed, engine_sizes,
+                                 smi)
 
     # phase 2: kernels against their plain versions
     g = torch.Generator().manual_seed(args.seed)
@@ -4298,6 +4700,24 @@ def main() -> int:
         f"{dp_line['rows_per_s_numpy']:.0f} rows/s, row path equal in "
         f"{dp_line['phase_s']:.1f}s")
     print(json.dumps({"dataplane": dp_line}), flush=True)
+
+    # phase 4j: the README quickstart through the port's own dataflow,
+    # after every earlier measurement; its launches go on the kernels line
+    rag_line, rag_launches = phase4j(torch, np, dec, types.SimpleNamespace(
+        smi=smi, seed=args.seed, engine_sizes=engine_sizes))
+    log(f"phase 4j ok: {rag_line['docs_per_s_indexed']:.0f} docs/s indexed,"
+        f" retrieve p50 {rag_line['retrieve_p50_ms']:.1f} ms, answers "
+        f"{rag_line['generated_tokens_per_s_bf16']:.1f} tokens/s in "
+        f"{rag_line['phase_s']:.1f}s")
+    print(json.dumps({"rag_pipeline": rag_line}), flush=True)
+    for k in kernels:
+        if k["name"] in ("paged_attention", "paged_append_attend",
+                         "flash_attention"):
+            k["launches_rag_pipeline"] = rag_launches[k["name"]]
+        elif k["name"] == "knn_scores":
+            k["launches_rag_pipeline"] = rag_line["knn_launches_gemm"]
+        elif k["name"] == "knn_scores_q1":
+            k["launches_rag_pipeline"] = rag_line["knn_launches_gemv"]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({
         "rag": {

@@ -2,10 +2,14 @@
 serving path.
 
 The data plane (``pw.Table``, expressions, the dataflow runner and its
-operators, ``debug``, ``run`` and ``io.subscribe``) runs its three device
+operators, ``debug``, ``run``, ``io.subscribe``, ``io.fs``,
+``io.python`` and ``io.http``'s REST connector, ``stdlib.indexing``'s
+``DataIndex`` and the as-of-now join) runs its three device
 programs — the vectorized expression tier, the segment reductions and
 the join membership (``engine/vectorize.py``, ``parallel/mapreduce.py``)
-— in PyTorch on the data plane's device.
+— in PyTorch on the data plane's device.  The RAG pipeline
+(``xpacks.llm``: the document store, the question answerers and their
+REST servers) runs through that data plane.
 
 The generation half (``kvcache.engine.PagedDecodeEngine`` over the paged
 KV cache, greedy or seeded sampling, with supervised restart,
@@ -123,6 +127,13 @@ def declare_type(target_type, expr) -> ColumnExpression:
 # -- namespaces --------------------------------------------------------------
 from . import debug  # noqa: E402
 from . import io  # noqa: E402
+from .stdlib import indexing, temporal  # noqa: E402
+
+# the as-of-now join grafted onto Table (reference:
+# python/pathway/__init__.py:185-214)
+Table.asof_now_join = temporal.asof_now_join
+Table.asof_now_join_inner = temporal.asof_now_join_inner
+Table.asof_now_join_left = temporal.asof_now_join_left
 
 __all__ = [
     "resolve_device", "resolve_dtype", "DType", "Schema", "ColumnDefinition",
@@ -133,5 +144,5 @@ __all__ = [
     "declare_type", "ColumnExpression", "ColumnReference", "Json", "Pointer",
     "ERROR", "PENDING", "JoinMode", "INT", "FLOAT", "BOOL", "STR", "BYTES",
     "DATE_TIME_NAIVE", "DATE_TIME_UTC", "DURATION", "debug", "io", "run",
-    "run_all",
+    "run_all", "indexing", "temporal",
 ]

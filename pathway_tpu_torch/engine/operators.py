@@ -65,6 +65,19 @@ class InputOperator(Operator):
         self.emit(time, updates)
 
 
+def _batched_columns(raw_exprs) -> list | None:
+    """(position, expr) of the columns whose top-level Apply carries a
+    ``batch_fn`` over positional arguments (the device-UDF hook)."""
+    if raw_exprs is None:
+        return None
+    from ..internals.expression import ApplyExpression
+
+    batched = [(i, e) for i, e in enumerate(raw_exprs)
+               if isinstance(e, ApplyExpression) and e._batch_fn is not None
+               and not e._kwargs]
+    return batched or None
+
+
 class StatelessRowwise(Operator):
     """select/with_columns over a single input with deterministic expressions.
 
@@ -85,17 +98,7 @@ class StatelessRowwise(Operator):
         self._plan = ...  # compiled lazily; None = unsupported
         self._raw_exprs = raw_exprs
         # device-UDF batching: columns whose top-level Apply carries batch_fn
-        self._batched: list[tuple[int, Any]] | None = None
-        if raw_exprs is not None:
-            from ..internals.expression import ApplyExpression
-
-            batched = [
-                (i, e) for i, e in enumerate(raw_exprs)
-                if isinstance(e, ApplyExpression)
-                and e._batch_fn is not None
-                and not e._kwargs  # batch_fn contract covers positional args only
-            ]
-            self._batched = batched or None
+        self._batched = _batched_columns(raw_exprs)
 
     def _get_plan(self):
         if self._plan is ...:
@@ -213,23 +216,74 @@ class StatefulRowwise(DiffOutputOperator):
 
     Port 0 is the primary table; extra ports are same-universe tables whose
     columns are referenced.  Output exists only when all inputs have the key.
+    A column whose Apply carries a ``batch_fn`` is computed for all of a
+    time's changed keys in one call; a call that raises records the error
+    and poisons those rows, as a failing row call does.
     """
 
-    def __init__(self, n_inputs: int, env: EnvBuilder, exprs, name=""):
+    def __init__(self, n_inputs: int, env: EnvBuilder, exprs, name="",
+                 raw_exprs=None):
         super().__init__(n_inputs, name)
         self.env = env
         self.exprs = exprs
+        self._batched = _batched_columns(raw_exprs)
+        self._precomputed: dict[Key, dict[int, Any]] = {}
 
-    def compute(self, key: Key) -> Row | None:
+    def _env(self, key: Key) -> dict | None:
         rows = []
         for st in self.state:
             r = st.get_row(key)
             if r is None:
                 return None
             rows.append(r)
-        joined = tuple(v for r in rows for v in r)
-        e = self.env.build(key, joined)
-        return tuple(f(e) for f in self.exprs)
+        return self.env.build(key, tuple(v for r in rows for v in r))
+
+    def compute(self, key: Key) -> Row | None:
+        e = self._env(key)
+        if e is None:
+            return None
+        pre = self._precomputed.get(key, {})
+        return tuple(pre[i] if i in pre else f(e)
+                     for i, f in enumerate(self.exprs))
+
+    def flush(self, time: Time) -> None:
+        if self._batched is not None and len(self._dirty) > 1:
+            self._precompute_batched()
+        try:
+            super().flush(time)
+        finally:
+            self._precomputed.clear()
+
+    def _precompute_batched(self) -> None:
+        from ..internals.expression import _record_error
+
+        envs = {k: e for k in self._dirty
+                if (e := self._env(k)) is not None}
+        for i, e in self._batched:
+            todo, vals = [], []
+            for key, env in envs.items():
+                args = [a._eval(env) for a in e._args]
+                if any(isinstance(v, Error) for v in args):
+                    out = ERROR
+                elif e._propagate_none and any(v is None for v in args):
+                    out = None
+                else:
+                    todo.append(key)
+                    vals.append(args[0] if len(args) == 1 else tuple(args))
+                    continue
+                self._precomputed.setdefault(key, {})[i] = out
+            if not todo:
+                continue
+            try:
+                outs = list(e._batch_fn(vals))
+                if len(outs) != len(todo):
+                    raise ValueError(f"batch_fn returned {len(outs)} results "
+                                     f"for {len(todo)} inputs")
+            except Exception as exc:
+                _record_error(exc, getattr(e._batch_fn, "__name__", "apply"))
+                outs = [ERROR] * len(todo)
+            for key, out in zip(todo, outs):
+                self._precomputed.setdefault(key, {})[i] = out
 
 
 class StatelessFilter(Operator):

@@ -12,9 +12,12 @@ row moves unless ``device="cpu"``.  The operators that hold device
 programs (the vectorized select/filter plans, the groupby's segment sums,
 the join's membership) get it at lowering.  Node kinds of the JAX
 package that this package does not lower (the async UDF operators, the
-temporal, time and stream operators, external indexes, gradual
-broadcast) raise at lowering, naming the kind; a later lowering can be
-plugged in with :func:`register_lowering`.
+temporal, time and stream operators, gradual broadcast) raise at
+lowering, naming the kind.  Other modules plug their node kinds in with
+:func:`register_lowering` when they are imported: the external index
+(``stdlib/indexing/data_index.py``), the as-of-now join
+(``stdlib/temporal``) and the REST response writer (``io/http.py``).
+Live sources are stopped when a streaming run ends.
 """
 
 from __future__ import annotations
@@ -228,7 +231,8 @@ def _make_operator(node: pg.OpNode, lg: LoweredGraph, device) -> Operator:
                 n_in_cols=len(tables[0]._colnames), name="select",
                 device=device,
             )
-        return ops.StatefulRowwise(len(tables), _env_multi(tables), exprs, name="select*")
+        return ops.StatefulRowwise(len(tables), _env_multi(tables), exprs,
+                                   name="select*", raw_exprs=p["exprs"])
 
     if kind == "filter":
         pred = _compile(p["predicate"])
@@ -361,8 +365,8 @@ def _make_operator(node: pg.OpNode, lg: LoweredGraph, device) -> Operator:
     raise NotImplementedError(f"no lowering for node kind {kind!r}")
 
 
-# plug-in lowering registry for stdlib/temporal/index operators (none is
-# registered by this package yet)
+# plug-in lowering registry: node kinds lowered by the modules that build
+# them (external_index, asof_now_join, raw_output)
 _EXTRA_LOWERINGS: dict[str, Callable[[pg.OpNode, "LoweredGraph"], Operator]] = {}
 
 
@@ -441,6 +445,17 @@ class GraphRunner:
                     for t in sorted(by_t):
                         sched.push_input(op, t, by_t[t])
                 op.finished = True
+        try:
+            return self._stream(live, start, autocommit_ms, timeout_s,
+                                idle_stop_s)
+        finally:
+            # the live sources end here (a REST endpoint's webserver shuts
+            # down), after a failure too
+            for _op, source in live:
+                source.stop()
+
+    def _stream(self, live, start, autocommit_ms, timeout_s, idle_stop_s):
+        sched = self.lg.scheduler
         sched.run_until_idle()
         last_event = _time.monotonic()
         finished: set[int] = set()

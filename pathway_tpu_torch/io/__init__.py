@@ -1,7 +1,11 @@
-"""Connectors: ``pw.io.subscribe`` (the port of ``pathway_tpu/io``'s
-subscribe).  The file, message-queue and HTTP connectors, and input
-synchronization groups, are not ported."""
+"""Connectors (the port of ``pathway_tpu/io``): ``subscribe``, ``fs``
+(binary and plaintext files, static or streaming), ``python`` (custom
+subjects) and the serving half of ``http`` (``rest_connector`` and
+``PathwayWebserver``).  ``csv``, ``jsonlines``, the HTTP client
+connectors, the message-queue connectors and input synchronization
+groups are not ported."""
 
+from . import fs, http, python
 from ._subscribe import subscribe
 
 
@@ -12,4 +16,5 @@ def register_input_synchronization_group(*columns, max_difference,
         "input synchronization groups are not supported by this package")
 
 
-__all__ = ["subscribe", "register_input_synchronization_group"]
+__all__ = ["fs", "http", "python", "subscribe",
+           "register_input_synchronization_group"]

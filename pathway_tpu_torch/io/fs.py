@@ -1,0 +1,96 @@
+"""Filesystem connector: ``binary``, ``plaintext`` and
+``plaintext_by_file`` formats with metadata (the port of
+``pathway_tpu/io/fs.py``; reference: io/fs +
+src/connectors/scanner/filesystem.rs).
+
+``mode="static"`` reads what is there once; ``mode="streaming"`` polls
+the path and emits new files and new lines, retracting the rows of a
+deleted file.  ``format="csv"`` and ``"json"`` raise: ``io.csv`` and
+``io.jsonlines`` are not ported.
+"""
+
+from __future__ import annotations
+
+import glob
+import os
+
+from ..internals import dtype as dt
+from ..internals.datasource import StaticDataSource
+from ..internals.schema import (ColumnDefinition, SchemaMetaclass,
+                                schema_from_columns)
+from ..internals.table import Table
+from ..internals.value import Json
+from ._utils import FilePollingSource, events_from_dicts, make_input_table
+
+
+def _schema(data_dtype, with_metadata: bool) -> SchemaMetaclass:
+    cols = {"data": ColumnDefinition(dtype=data_dtype)}
+    if with_metadata:
+        cols["_metadata"] = ColumnDefinition(dtype=dt.JSON)
+    return schema_from_columns(cols, name="FsSchema")
+
+
+def _metadata_for(path: str) -> Json:
+    st = os.stat(path)
+    return Json({
+        "path": os.path.abspath(path),
+        "name": os.path.basename(path),
+        "size": st.st_size,
+        "modified_at": int(st.st_mtime),
+        "created_at": int(st.st_ctime),
+        "seen_at": int(st.st_mtime),
+    })
+
+
+def read(
+    path: str,
+    *,
+    format: str = "binary",  # noqa: A002
+    schema: SchemaMetaclass | None = None,
+    mode: str = "streaming",
+    with_metadata: bool = False,
+    autocommit_duration_ms: int = 1500,
+    **kwargs,
+) -> Table:
+    if format in ("csv", "json"):
+        raise NotImplementedError(
+            f"io.fs.read(format={format!r}) needs io.csv / io.jsonlines, "
+            "which this package does not port")
+    if format not in ("plaintext", "plaintext_by_file", "binary"):
+        raise ValueError(f"unknown format {format!r}")
+    binary = format == "binary"
+    by_file = format in ("binary", "plaintext_by_file")
+    sch = schema or _schema(dt.BYTES if binary else dt.STR, with_metadata)
+
+    def parse_file(p: str) -> list[dict]:
+        meta = _metadata_for(p) if with_metadata else None
+        if binary:
+            with open(p, "rb") as f:
+                rows = [{"data": f.read()}]
+        else:
+            with open(p, encoding="utf-8", errors="replace") as f:
+                text = f.read()
+            rows = ([{"data": text}] if by_file else
+                    [{"data": line.rstrip("\n")} for line in text.splitlines()])
+        if with_metadata:
+            for r in rows:
+                r["_metadata"] = meta
+        return rows
+
+    if mode in ("static", "batch"):
+        if os.path.isdir(path):
+            files = [os.path.join(root, f)
+                     for root, _d, fs in os.walk(path) for f in fs]
+        else:
+            files = glob.glob(path) or ([path] if os.path.exists(path) else [])
+        events = []
+        for f in sorted(files):
+            events.extend(events_from_dicts(parse_file(f), sch, seed=f))
+        return make_input_table(sch, StaticDataSource(events), name="fs")
+    if mode != "streaming":
+        raise ValueError(f"unknown mode {mode!r}")
+    return make_input_table(sch, FilePollingSource(path, parse_file, sch),
+                            name="fs")
+
+
+__all__ = ["read"]

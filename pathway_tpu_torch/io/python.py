@@ -1,0 +1,84 @@
+"""Custom Python sources (the port of ``pathway_tpu/io/python.py``;
+reference: io/python/__init__.py:49 ConnectorSubject)."""
+
+from __future__ import annotations
+
+import json
+from typing import Any
+
+from ..internals import dtype as dt
+from ..internals.datasource import SubjectDataSource
+from ..internals.schema import SchemaMetaclass
+from ..internals.table import Table
+from ._utils import coerce_value, make_input_table
+
+
+class ConnectorSubject:
+    """Subclass and implement run(); call self.next(**values) / next_json /
+    next_str / next_bytes; the stream ends when run() returns."""
+
+    _source: SubjectDataSource | None = None
+    _colnames: list[str] = []
+    _dtypes: dict[str, dt.DType] = {}
+
+    def run(self) -> None:
+        raise NotImplementedError
+
+    # -- emit API ----------------------------------------------------------
+    def _row(self, kwargs: dict) -> tuple:
+        return tuple(coerce_value(kwargs.get(c), self._dtypes.get(c, dt.ANY))
+                     for c in self._colnames)
+
+    def next(self, **kwargs: Any) -> None:
+        self._source.push(self._row(kwargs), 1, kwargs.get("_key"))
+
+    def next_json(self, message: dict | str) -> None:
+        if isinstance(message, str):
+            message = json.loads(message)
+        self.next(**message)
+
+    def next_str(self, message: str) -> None:
+        self.next(data=message)
+
+    def next_bytes(self, message: bytes) -> None:
+        self.next(data=message)
+
+    def remove(self, **kwargs: Any) -> None:
+        self._source.push(self._row(kwargs), -1, kwargs.get("_key"))
+
+    def close(self) -> None:
+        pass  # the source closes when run() returns
+
+    def commit(self) -> None:
+        pass
+
+    def on_stop(self) -> None:
+        pass
+
+    # driver hook
+    def _run(self, source: SubjectDataSource) -> None:
+        self._source = source
+        try:
+            self.run()
+        finally:
+            self.on_stop()
+
+
+def read(
+    subject: ConnectorSubject,
+    *,
+    schema: SchemaMetaclass,
+    autocommit_duration_ms: int = 1500,
+    name: str | None = None,
+    **kwargs,
+) -> Table:
+    pk = schema.primary_key_columns()
+    colnames = schema.column_names()
+    pk_positions = [colnames.index(c) for c in pk] if pk else None
+    source = SubjectDataSource(subject, colnames, pk_positions)
+    subject._colnames = colnames
+    subject._dtypes = dict(schema.dtypes())
+    return make_input_table(schema, source, name=name or "python")
+
+
+__all__ = ["ConnectorSubject", "read"]

@@ -1,7 +1,14 @@
-"""Dense exact KNN index with its matrix held on the device.
+"""Mutable secondary indexes behind ``DataIndex``: ``add`` / ``remove`` /
+``search`` (the JAX package's ``InnerIndex``).
 
-Counterpart of ``pathway_tpu/stdlib/indexing/inner_index.py``
-``BruteForceKnn``.  Rows come in two kinds, as in the JAX index:
+Counterpart of ``pathway_tpu/stdlib/indexing/inner_index.py``: the dense
+exact KNN index ``BruteForceKnn`` (and ``USearchKnn``, its alias), with
+its matrix held on the device, and the host-side full-text indexes the
+RAG templates use, ``TantivyBM25`` (Okapi BM25 over an inverted index)
+and ``HybridIndex`` (reciprocal-rank fusion over sub-indexes), which are
+Python on the host in both packages.
+
+``BruteForceKnn``'s rows come in two kinds, as in the JAX index:
 
 - host rows (a tensor or an array-like), written into one dense
   (capacity, d) f32 matrix on the index's device;
@@ -33,14 +40,32 @@ numpy, because its rows live there; the port's rows live on the device.)
 
 from __future__ import annotations
 
+import math
+import re
+import time as _time
+from collections import Counter, defaultdict
 from typing import Any
 
 import numpy as np
 import torch
 
 from ..._device import resolve_device
+from ...obs.tracer import record_span
 from ...ops.device_store import DeviceVec
 from ...ops.knn import METRICS, batched_topk, device_topk, device_topk_scores
+
+
+class InnerIndex:
+    def add(self, key: int, item: Any, metadata: Any = None) -> None:
+        raise NotImplementedError
+
+    def remove(self, key: int) -> None:
+        raise NotImplementedError
+
+    def search(self, query: Any, k: int, metadata_filter: str | None = None
+               ) -> list[tuple[int, float]]:
+        """Returns [(key, score)] with higher score = better."""
+        raise NotImplementedError
 
 
 def _check_metadata(metadata, metadata_filter: str | None) -> bool:
@@ -58,7 +83,7 @@ def _host_vec(x) -> np.ndarray:
     return np.asarray(x, dtype=np.float32).reshape(-1)
 
 
-class BruteForceKnn:
+class BruteForceKnn(InnerIndex):
     def __init__(self, dimensions: int | None = None, *,
                  reserved_space: int = 1024, metric: str = "cos",
                  device="cuda", mesh=None, mesh_axis: str | None = None):
@@ -320,3 +345,114 @@ class BruteForceKnn:
                if kk < self.n else np.arange(self.n))
         order = idx[np.argsort(-scores[idx])]
         return [(self.keys[i], float(scores[i])) for i in order]
+
+
+class USearchKnn(BruteForceKnn):
+    """The JAX package's alias for the reference's USearch HNSW: exact
+    search over the device matrix here."""
+
+
+_TOKEN_RE = re.compile(r"\w+")
+
+
+def _tokenize(text: str) -> list[str]:
+    return [t.lower() for t in _TOKEN_RE.findall(text or "")]
+
+
+class TantivyBM25(InnerIndex):
+    """BM25 full-text index (reference: tantivy_integration.rs): a host
+    inverted index with Okapi BM25 scoring, as in the JAX package."""
+
+    def __init__(self, *, k1: float = 1.2, b: float = 0.75, **kwargs):
+        self.k1, self.b = k1, b
+        self.postings: dict[str, dict[int, int]] = defaultdict(dict)
+        self.doc_len: dict[int, int] = {}
+        self.metadata: dict[int, Any] = {}
+        self.total_len = 0
+
+    def add(self, key: int, item: Any, metadata: Any = None) -> None:
+        if key in self.doc_len:
+            self.remove(key)
+        toks = _tokenize(item if isinstance(item, str) else str(item))
+        for tok, c in Counter(toks).items():
+            self.postings[tok][key] = c
+        self.doc_len[key] = len(toks)
+        self.total_len += len(toks)
+        self.metadata[key] = metadata
+
+    def remove(self, key: int) -> None:
+        n = self.doc_len.pop(key, None)
+        if n is None:
+            return
+        self.total_len -= n
+        self.metadata.pop(key, None)
+        for tok in list(self.postings.keys()):
+            self.postings[tok].pop(key, None)
+            if not self.postings[tok]:
+                del self.postings[tok]
+
+    def search(self, query, k, metadata_filter=None):
+        if not self.doc_len:
+            return []
+        toks = _tokenize(query if isinstance(query, str) else str(query))
+        n_docs = len(self.doc_len)
+        avg_len = self.total_len / n_docs if n_docs else 1.0
+        scores: dict[int, float] = defaultdict(float)
+        for tok in toks:
+            plist = self.postings.get(tok)
+            if not plist:
+                continue
+            idf = math.log(1 + (n_docs - len(plist) + 0.5) / (len(plist) + 0.5))
+            for key, tf in plist.items():
+                dl = self.doc_len[key]
+                scores[key] += idf * tf * (self.k1 + 1) / (
+                    tf + self.k1 * (1 - self.b + self.b * dl / avg_len))
+        out = [(key, s) for key, s in scores.items()
+               if _check_metadata(self.metadata.get(key), metadata_filter)]
+        out.sort(key=lambda t: -t[1])
+        return out[:k]
+
+
+class HybridIndex(InnerIndex):
+    """Reciprocal-rank fusion over sub-indexes (reference:
+    hybrid_index.py:14): each sub-index's match at rank r adds
+    ``w / (k + r + 1)`` to its key.  A zero weight disables a sub-index
+    entirely (no adds, removals or probes), so its items may be raw.
+    Each probe and the fusion are recorded as ``index.probe`` /
+    ``index.fuse`` spans."""
+
+    def __init__(self, inner_indexes: list[InnerIndex], *, k: float = 60.0,
+                 weights: list[float] | None = None):
+        self.inner = inner_indexes
+        self.k = k
+        if weights is not None and len(weights) != len(inner_indexes):
+            raise ValueError("weights must match inner_indexes length")
+        self.weights = weights or [1.0] * len(inner_indexes)
+
+    def add(self, key, item, metadata=None):
+        # item is a tuple: one entry per sub-index
+        for idx, it, w in zip(self.inner, item, self.weights):
+            if w != 0.0:
+                idx.add(key, it, metadata)
+
+    def remove(self, key):
+        for idx, w in zip(self.inner, self.weights):
+            if w != 0.0:
+                idx.remove(key)
+
+    def search(self, query, k, metadata_filter=None):
+        fused: dict[int, float] = defaultdict(float)
+        for idx, q, w in zip(self.inner, query, self.weights):
+            if w == 0.0:
+                continue
+            t0 = _time.perf_counter()
+            matches = idx.search(q, k * 2, metadata_filter)
+            record_span("index.probe", t0, _time.perf_counter(),
+                        kind=type(idx).__name__, k=k * 2)
+            for rank, (key, _score) in enumerate(matches):
+                fused[key] += w / (self.k + rank + 1)
+        t0 = _time.perf_counter()
+        out = sorted(fused.items(), key=lambda t: -t[1])[:k]
+        record_span("index.fuse", t0, _time.perf_counter(),
+                    candidates=len(fused), k=k)
+        return out

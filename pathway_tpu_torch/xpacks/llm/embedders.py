@@ -6,9 +6,11 @@ surface (``_embed``, ``_embed_one``, ``_embed_uncached``,
 ``_embed_many``, ``cache_strategy=``, the ``rag.embed`` spans), so a
 JAX caller that is handed this embedder (a reranker, an image or text
 index) runs over it unchanged.  Calling it on a string embeds the
-string.  The port has no dataflow expressions: a dataflow that wants
-this embedder wraps it in its own ``BaseEmbedder``
-(``tests/test_torch_rag_dataflow.py`` does so).
+string; calling it on a column expression of the port's dataflow gives
+an ``ApplyExpression`` whose ``batch_fn`` embeds a whole update batch in
+one call (``_embed_many_traced``), as the JAX ``BaseEmbedder`` does: a
+``DataIndex`` over it receives ``DeviceVec`` handles when
+``device_resident``.
 """
 
 from __future__ import annotations
@@ -19,6 +21,8 @@ import time
 import numpy as np
 
 from ..._device import resolve_device
+from ...internals import dtype as dt
+from ...internals.expression import ApplyExpression, ColumnExpression
 from ...internals.udfs import CacheStrategy, with_cache_strategy
 from ...models.encoder import EncoderConfig, TorchEncoder
 from ...obs.tracer import record_span
@@ -121,13 +125,18 @@ class SentenceTransformerEmbedder:
         return out
 
     def __call__(self, text, **kwargs):
-        """Embed one string (traced as a ``rag.embed`` span)."""
+        """Embed one string (traced as a ``rag.embed`` span), or build the
+        dataflow expression embedding a column: one row per text through
+        ``_embed_traced``, one update batch per call through
+        ``_embed_many_traced``."""
+        if isinstance(text, ColumnExpression):
+            return ApplyExpression(
+                self._embed_traced, dt.ANY_ARRAY, (text,), {},
+                propagate_none=True, batch_fn=self._embed_many_traced)
         if not isinstance(text, str):
             raise TypeError(
-                f"{type(self).__name__} embeds a str, got "
-                f"{type(text).__name__}: the port has no dataflow "
-                "expressions; a dataflow wraps this embedder in its own "
-                "BaseEmbedder, as tests/test_torch_rag_dataflow.py does")
+                f"{type(self).__name__} embeds a str or a column "
+                f"expression, got {type(text).__name__}")
         return self._embed_traced(text)
 
     def embed(self, text: str) -> np.ndarray:

@@ -1,11 +1,9 @@
 """The RAG path's chat model.
 
-Counterpart of ``pathway_tpu/xpacks/llm/llms.py`` ``JaxChat``, as a plain
-class: the JAX package's ``BaseChat`` builds dataflow expressions, and
-the port imports nothing of that dataflow.  A dataflow that wants this
-chat calls it, or its :meth:`TorchChat.generate_batch` through a request
-scheduler, from its own expressions (``tests/test_torch_rag_serving.py``
-does so).
+Counterpart of ``pathway_tpu/xpacks/llm/llms.py`` ``JaxChat``: called on
+a message list (or a question) it answers it.  The question answerers
+(``xpacks/llm/question_answering.py``) call it from their expressions,
+or its :meth:`TorchChat.generate_batch` through a request scheduler.
 """
 
 from __future__ import annotations

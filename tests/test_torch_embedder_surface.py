@@ -7,13 +7,16 @@
   embedding of a text is a hit, under the JAX package's key; a
   ``DiskCache`` directory written by the JAX embedder serves the port's,
   and one written by the port's serves the JAX one;
-- ``__call__`` on a string embeds it (a ``rag.embed`` span), anything
-  else raises ``TypeError``; ``_embed_many`` gives handles or rows;
+- ``__call__`` on a string embeds it (a ``rag.embed`` span), on a
+  column expression of the port's dataflow gives the ``ApplyExpression``
+  over ``_embed_traced`` with ``batch_fn=_embed_many_traced``, and on
+  anything else raises ``TypeError``; ``_embed_many`` gives handles or
+  rows;
 - the e2e flow of ``tests/test_e2e_rag.py``'s
   ``test_rag_answers_through_scheduler_with_429_on_overflow`` over the
-  port's embedder: the JAX ``BaseEmbedder.__call__`` builds the
-  dataflow's expressions over the port's own ``_embed_traced`` and
-  ``_embed_many_traced`` (the port has no expressions), and the server
+  port's embedder inside the JAX dataflow: the JAX
+  ``BaseEmbedder.__call__`` builds that dataflow's expressions over the
+  port's own ``_embed_traced`` and ``_embed_many_traced``, and the server
   answers through the scheduler and sheds overflow with 429.
 """
 
@@ -157,8 +160,21 @@ def test_call_embeds_a_string_and_refuses_anything_else(weights):
     assert spans and spans[-1].attrs == {
         "n": 1, "embedder": "SentenceTransformerEmbedder"}
     for bad in (None, 3, ["a question"], b"bytes"):
-        with pytest.raises(TypeError, match="no dataflow expressions"):
+        with pytest.raises(TypeError, match="a str or a column expression"):
             emb(bad)
+    # a column expression of the port's dataflow: one row per text, one
+    # update batch per call
+    import pathway_tpu_torch as tpw
+    from pathway_tpu_torch.internals import parse_graph as tpg
+    from pathway_tpu_torch.internals.expression import ApplyExpression
+
+    tpg.G.clear()
+    t = tpw.debug.table_from_markdown("text\n1 | a")
+    expr = emb(t.text)
+    tpg.G.clear()
+    assert isinstance(expr, ApplyExpression)
+    assert expr._batch_fn == emb._embed_many_traced
+    assert expr._fun == emb._embed_traced and expr._propagate_none
 
 
 @pytest.mark.parametrize("resident", [False, True])

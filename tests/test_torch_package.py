@@ -4,7 +4,9 @@
   ``pathway_tpu`` (checked in a fresh interpreter), and no source file
   of the port or ``chip_smoke.py`` imports them;
 - entry points called without ``device=`` on a machine with no CUDA
-  device raise instead of falling back to the CPU;
+  device raise instead of falling back to the CPU (the RAG pipeline's
+  too: a document store with its default retriever, a KNN factory's
+  index, a REST server's run, ``pw.run`` over a file source);
 - ``chip_smoke.py`` exits non-zero and prints no result without a card.
 """
 
@@ -73,6 +75,19 @@ def test_the_guard_covers_the_data_plane_modules():
                  "engine.reducers_impl", "engine.operators",
                  "engine.telemetry", "engine.vectorize", "engine.runner",
                  "parallel.mapreduce", "debug", "io", "io._subscribe"):
+        assert f"pathway_tpu_torch.{name}" in _modules()
+
+
+def test_the_guard_covers_the_rag_pipeline_modules():
+    """... and the RAG pipeline: the indexes behind ``DataIndex``, the
+    as-of-now join, the connectors and the LLM xpack."""
+    for name in ("stdlib.indexing", "stdlib.indexing.data_index",
+                 "stdlib.indexing.inner_index", "stdlib.indexing.retrievers",
+                 "stdlib.temporal", "stdlib.temporal._asof_now_join",
+                 "io._utils", "io.python", "io.fs", "io.http", "xpacks.llm",
+                 "xpacks.llm.parsers", "xpacks.llm.splitters",
+                 "xpacks.llm.prompts", "xpacks.llm.document_store",
+                 "xpacks.llm.question_answering", "xpacks.llm.servers"):
         assert f"pathway_tpu_torch.{name}" in _modules()
 
 
@@ -155,8 +170,38 @@ def _entry_points():
         pw.io.subscribe(table(), on_change=lambda **kw: None)
         pw.run()
 
+    from pathway_tpu_torch.stdlib.indexing import (BruteForceKnnFactory,
+                                                   TantivyBM25Factory)
+    from pathway_tpu_torch.xpacks.llm.document_store import DocumentStore
+    from pathway_tpu_torch.xpacks.llm.question_answering import (
+        BaseRAGQuestionAnswerer)
+    from pathway_tpu_torch.xpacks.llm.servers import QARestServer
+
+    def docs():
+        pg.G.clear()
+        return pw.debug.table_from_markdown("data\n1 | a")
+
+    def qa_server_run():
+        store = DocumentStore(docs(), retriever_factory=TantivyBM25Factory())
+        rag = BaseRAGQuestionAnswerer(lambda messages: "x", store)
+        QARestServer("127.0.0.1", 0, rag).run(timeout_s=1.0)
+
+    def fs_run():
+        import tempfile
+
+        pg.G.clear()
+        pw.io.subscribe(pw.io.fs.read(tempfile.gettempdir() + "/no-such-dir",
+                                      mode="streaming"),
+                        on_change=lambda **kw: None)
+        pw.run(timeout_s=1.0)
+
     codes = np.zeros(4, np.int32)
     return {
+        "DocumentStore": lambda: DocumentStore(docs()),
+        "BruteForceKnnFactory.build_index": lambda: BruteForceKnnFactory(
+            dimensions=8).build_index(docs().data, docs()),
+        "QARestServer.run": qa_server_run,
+        "pw.run(io.fs.read)": fs_run,
         "run_tables": lambda: run_tables(table()),
         "GraphRunner": lambda: GraphRunner([table()._materialize_capture()]),
         "pw.run": run,
@@ -195,7 +240,8 @@ def _entry_points():
     "TorchEncoder", "init_params", "knn_topk", "make_train_step",
     "run_tables", "GraphRunner", "pw.run", "compute_and_print",
     "table_to_pandas", "segment_sum", "hash_join_membership",
-    "calibrate_mapreduce",
+    "calibrate_mapreduce", "DocumentStore", "BruteForceKnnFactory.build_index",
+    "QARestServer.run", "pw.run(io.fs.read)",
 ])
 def test_entry_point_without_a_card_raises(name, monkeypatch):
     # decided inside the test: the default device is the card, and a
