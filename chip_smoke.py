@@ -206,6 +206,41 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    kernels #1-#4 were launched.  In bf16, timed: 64 concurrent
    retrieves and 32 concurrent answers.  Printed as a
    ``{"rag_pipeline": ...}`` line;
+4k. a Nexmark-shaped event stream through the port's temporal
+   operators (after phase 4j): ``--nexmark-events`` events (default
+   ``NX_EVENTS``, cut from 1,048,576 to keep the phase near a minute)
+   drawn from ``--seed`` by the Nexmark generator's defaults (of every
+   50 events 1 person, 3 auctions, 46 bids; bids name one of the last
+   100 auctions, bidders and sellers one of the last 1,000 persons),
+   int ms times over 300 s, 5% of bids up to 4 s late and 0.5% 20-30 s
+   late (past the 10 s cutoff), in 16 ``__time__`` batches through
+   ``pw.debug.table_from_rows``.  Queries, written through the public
+   API: Q7 (tumbling 10 s, cutoff 10 s, highest bid), Q5 (sliding 10 s
+   every 2 s per auction, the hottest auctions of each window), Q4
+   (winning bids joined to their auctions, averaged by category), Q8
+   (``window_join`` of persons and the auctions they opened), an
+   ``interval_join`` of bids with their bidders, an ``asof_join`` of
+   bids with their auctions, ``diff`` of each auction's prices.  Each
+   query runs alone on the device tier (both crossovers pinned to
+   1,024: the phase's batches hold a few thousand bids, so phase 4i's
+   65,536 would send none to the card) and with numpy pinned: the captures must be equal, keys
+   included, and equal to a plain reference of dicts applied batch by
+   batch (the cutoff dropping exactly the bids past it); the device
+   run's vectorized batches and join memberships on the card > 0 and
+   the numpy run's 0, each counted by operator; each windowby groupby's
+   and join's ``state_size()`` within the bound computed from the
+   reference's windows and buckets.  Then the bids as jsonlines files
+   written batch by batch while one ``pw.run(device="cuda")`` reads them
+   (``pw.io.jsonlines.read(mode="streaming")``) into Q5 and Q7, written
+   with ``pw.io.jsonlines.write`` (the files, netted, = the first run's
+   captures) and timed by ``pw.io.subscribe`` (lag p50 / p99); the
+   auctions' names through ``@pw.udf`` on ``async_executor(capacity=
+   64)`` and ``fully_async_executor()`` calling the MiniLM-width
+   embedder on the card (vectors = ``embed_batch``'s within 1e-5; every
+   fully-async row ``PENDING`` first, resolved once); ``pw.iterate``'s
+   min-label propagation = a union-find; one gradual broadcast = its
+   threshold rule.  Printed as a ``{"temporal": ...}`` line; the path
+   launches none of the four kernels;
 5. print one ``{"kernels": [...]}`` line (launches on the main path,
    error against the plain version, kernel / plain / bound / library
    times at the main path's shapes: the median of 5 windows of 50
@@ -242,7 +277,8 @@ on synthetic prompts after the build and prints its line (with the
 ``knn_scores_clip`` kernel entry) and no result; ``--dataplane-only``
 runs phase 4i alone (it builds no kernel) and prints its line and no
 result; ``--rag-pipeline-only`` runs phase 4j alone after the build and
-prints its line and no result.
+prints its line and no result; ``--temporal-only`` runs phase 4k alone
+(it builds no kernel) and prints its line and no result.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``.
 Exits non-zero, printing no result, when no CUDA device is present or
@@ -4112,6 +4148,891 @@ def rag_pipeline_only(torch, np, dec, seed, engine_sizes, smi) -> int:
     return 0
 
 
+# -- phase 4k: a Nexmark-shaped event stream through the port's dataflow ---
+
+# the Nexmark generator's defaults (Beam / Flink Nexmark suites, after
+# Tucker et al., "NEXMark"): of every 50 events 1 person, 3 auctions and
+# 46 bids; bids name one of the last 100 auctions in flight, bidders and
+# sellers come from the last 1,000 persons; ids count from 1,000; a
+# price is round(10^(6u) * 100) cents
+NX_PROPORTION = (1, 3, 46)
+NX_IN_FLIGHT, NX_ACTIVE_PEOPLE, NX_FIRST_ID = 100, 1000, 1000
+NX_SPAN_MS = 300_000  # event time the run spans, whatever its size
+NX_BATCHES = 16       # __time__ batches (and streamed files)
+# added, not in Nexmark: 5% of bids lag the stream by up to 4 s (inside
+# the cutoff), 0.5% by 20-30 s (past any 10 s window's end + cutoff)
+NX_LATE, NX_LATE_MS = 0.05, 4_000
+NX_TOO_LATE, NX_TOO_LATE_MS = 0.005, (20_001, 30_000)
+NX_WINDOW_MS, NX_HOP_MS, NX_CUTOFF_MS = 10_000, 2_000, 10_000
+NX_INTERVAL_MS = (-10_000, 0)
+# both crossovers of the device run: a batch of 1,024 rows and more goes
+# to the card (the join's membership pre-filter takes no smaller batch).
+# Phase 4i's 65,536 would send none of this phase's batches: at the
+# phase's size a __time__ batch holds a few thousand bids
+NX_PIN_DEVICE = 1024
+# cut from 1,048,576 events to 32,768 to keep the phase near its minute
+# (host-bound, linear in events: PERF.md section 4 lists each size's
+# measured time); 16,384 would hold 942 bids a batch, under the 1,024
+# rows the join's membership pre-filter takes, and no join would reach
+# the card
+NX_EVENTS_FULL = 1 << 20
+NX_EVENTS = 1 << 15
+NX_ITERATE_EVENTS = 16_384  # the iterate query's edges: these events' bids
+# auctions embedded by the async UDFs: cut from all of them (1,968 at
+# NX_EVENTS) to 64 to keep the phase near its minute; the fully-async
+# executor embeds 47-58 rows/s on the card's host (PERF.md)
+NX_ASYNC_ROWS = 64
+NX_ASYNC_TOL = 1e-5
+NX_CITIES = ("Phoenix", "Los Angeles", "San Francisco", "Boise", "Portland",
+             "Bend", "Redmond", "Seattle", "Kent", "Cheyenne")
+NX_STATES = ("AZ", "CA", "ID", "OR", "WA", "WY")
+NX_FIRST = ("Peter", "Paul", "Luke", "John", "Saul", "Vicky", "Kate",
+            "Julie", "Sarah", "Deiter", "Walter")
+NX_LAST = ("Shultz", "Abrams", "Spencer", "White", "Bartels", "Walton",
+           "Smith", "Jones", "Noris")
+NX_CHANNELS = ("Google", "Facebook", "Baidu", "Apple")
+NX_ITEMS = ("vintage", "camera", "guitar", "lamp", "chair", "watch", "map",
+            "bicycle", "kettle", "radio", "poster", "coin", "stamp", "vase",
+            "book", "record", "helmet", "scarf", "clock", "mirror")
+
+
+def nexmark_events(np, seed: int, n_events: int) -> dict:
+    """``n_events`` Nexmark events drawn from ``seed``, in event order:
+    ``persons``, ``auctions`` and ``bids`` rows (the Nexmark fields, times
+    in int ms over ``NX_SPAN_MS``), each table's ``__time__`` batch
+    (``2 * (b + 1)`` for batch b of ``NX_BATCHES`` by event index), and
+    each bid's lateness class (0 on time, 1 within 4 s, 2 past the
+    cutoff).  One auction's bids carry distinct times (a collision moves
+    a bid 1 ms later), so the diff query's order has no ties."""
+    rng = np.random.default_rng(seed)
+    i = np.arange(n_events)
+    slot = i % sum(NX_PROPORTION)
+    kind = np.where(slot < NX_PROPORTION[0], 0,
+                    np.where(slot < NX_PROPORTION[0] + NX_PROPORTION[1], 1, 2))
+    t = i * NX_SPAN_MS // n_events
+    batch = 2 * (i * NX_BATCHES // n_events + 1)
+    n_persons = np.cumsum(kind == 0)   # persons among events 0..i
+    n_auctions = np.cumsum(kind == 1)
+
+    def recent(seen, window):
+        return NX_FIRST_ID + seen - 1 - rng.integers(
+            0, np.minimum(seen, window))
+
+    def price(n):
+        return np.round(10.0 ** (rng.random(n) * 6.0) * 100.0).astype(
+            np.int64)
+
+    p_at = np.flatnonzero(kind == 0)
+    a_at = np.flatnonzero(kind == 1)
+    b_at = np.flatnonzero(kind == 2)
+    persons = []
+    first = rng.integers(0, len(NX_FIRST), p_at.size)
+    last = rng.integers(0, len(NX_LAST), p_at.size)
+    city = rng.integers(0, len(NX_CITIES), p_at.size)
+    state = rng.integers(0, len(NX_STATES), p_at.size)
+    card = rng.integers(1000, 10000, (p_at.size, 4))
+    for j, e in enumerate(p_at.tolist()):
+        pid = NX_FIRST_ID + j
+        name = f"{NX_FIRST[first[j]]} {NX_LAST[last[j]]}"
+        persons.append((pid, name, f"{name.replace(' ', '.').lower()}@nexmark"
+                        ".com", " ".join(map(str, card[j].tolist())),
+                        NX_CITIES[city[j]], NX_STATES[state[j]], int(t[e]),
+                        ""))
+    sellers = recent(n_persons[a_at], NX_ACTIVE_PEOPLE)
+    initial = price(a_at.size)
+    reserve = initial + price(a_at.size)
+    item = rng.integers(0, len(NX_ITEMS), (a_at.size, 2))
+    category = NX_FIRST_ID * 10 + rng.integers(0, 5, a_at.size)
+    expires = rng.integers(10_000, 60_000, a_at.size)
+    auctions = []
+    for j, e in enumerate(a_at.tolist()):
+        name = f"{NX_ITEMS[item[j, 0]]} {NX_ITEMS[item[j, 1]]}"
+        auctions.append((NX_FIRST_ID + j, name, f"a {name} for sale",
+                         int(initial[j]), int(reserve[j]), int(t[e]),
+                         int(t[e] + expires[j]), int(sellers[j]),
+                         int(category[j]), ""))
+    auction = recent(n_auctions[b_at], NX_IN_FLIGHT)
+    bidder = recent(n_persons[b_at], NX_ACTIVE_PEOPLE)
+    bid_price = price(b_at.size)
+    u = rng.random(b_at.size)
+    late = np.where(u < NX_LATE, 1, np.where(u < NX_LATE + NX_TOO_LATE, 2, 0))
+    lag = np.where(late == 1, rng.integers(1, NX_LATE_MS + 1, b_at.size),
+                   np.where(late == 2, rng.integers(
+                       NX_TOO_LATE_MS[0], NX_TOO_LATE_MS[1] + 1, b_at.size),
+                       0))
+    channel = rng.integers(0, len(NX_CHANNELS), b_at.size)
+    bids, taken = [], set()
+    for j, e in enumerate(b_at.tolist()):
+        a, bt = int(auction[j]), int(t[e] - lag[j])
+        while (a, bt) in taken:
+            bt += 1
+        taken.add((a, bt))
+        ch = NX_CHANNELS[channel[j]]
+        bids.append((a, int(bidder[j]), int(bid_price[j]), ch,
+                     f"https://www.nexmark.com/{ch.lower()}/item.htm"
+                     f"?query=1&channel_id={a % 1000}", bt, ""))
+    return dict(persons=persons, auctions=auctions, bids=bids,
+                person_times=batch[p_at].tolist(),
+                auction_times=batch[a_at].tolist(),
+                bid_times=batch[b_at].tolist(), lateness=late.tolist(),
+                n_events=n_events)
+
+
+def nexmark_schemas(pw):
+    """The Nexmark Person, Auction and Bid records (ids as primary keys;
+    a bid has none, so its key is its row's ordinal)."""
+    class Person(pw.Schema):
+        id: int = pw.column_definition(primary_key=True)
+        name: str
+        email_address: str
+        credit_card: str
+        city: str
+        state: str
+        date_time: int
+        extra: str
+
+    class Auction(pw.Schema):
+        id: int = pw.column_definition(primary_key=True)
+        item_name: str
+        description: str
+        initial_bid: int
+        reserve: int
+        date_time: int
+        expires: int
+        seller: int
+        category: int
+        extra: str
+
+    class Bid(pw.Schema):
+        auction: int
+        bidder: int
+        price: int
+        channel: str
+        url: str
+        date_time: int
+        extra: str
+
+    return Person, Auction, Bid
+
+
+def nexmark_tables(pw, ev) -> tuple:
+    """``(persons, auctions, bids)`` streamed in their ``__time__``
+    batches through ``pw.debug.table_from_rows``."""
+    Person, Auction, Bid = nexmark_schemas(pw)
+    return tuple(
+        pw.debug.table_from_rows(schema, [r + (tm, 1) for r, tm in zip(
+            ev[name], ev[times])], is_stream=True)
+        for schema, name, times in ((Person, "persons", "person_times"),
+                                    (Auction, "auctions", "auction_times"),
+                                    (Bid, "bids", "bid_times")))
+
+
+def nx_q7(pw, bids):
+    """Q7-shaped: the highest bid of each 10 s tumbling window, late bids
+    past the 10 s cutoff ignored."""
+    return bids.windowby(
+        bids.date_time, window=pw.temporal.tumbling(duration=NX_WINDOW_MS),
+        behavior=pw.temporal.common_behavior(cutoff=NX_CUTOFF_MS),
+    ).reduce(start=pw.this._pw_window_start, end=pw.this._pw_window_end,
+             max_price=pw.reducers.max(bids.price), n=pw.reducers.count())
+
+
+def nx_q5_parts(pw, bids) -> tuple:
+    """Q5-shaped: bids per auction in sliding 10 s windows every 2 s, the
+    largest count of each window, and the auctions holding it."""
+    counts = bids.windowby(
+        bids.date_time, window=pw.temporal.sliding(hop=NX_HOP_MS,
+                                                   duration=NX_WINDOW_MS),
+        instance=bids.auction,
+    ).reduce(auction=pw.this._pw_instance, start=pw.this._pw_window_start,
+             end=pw.this._pw_window_end, n=pw.reducers.count())
+    top = counts.groupby(counts.start).reduce(counts.start,
+                                              top=pw.reducers.max(counts.n))
+    hot = counts.join(top, counts.start == top.start,
+                      counts.n == top.top).select(
+        auction=pw.left.auction, start=pw.left.start, end=pw.left.end,
+        n=pw.left.n)
+    return counts, top, hot
+
+
+def nx_q4(pw, bids, auctions):
+    """Q4-shaped: each auction's winning bid (its highest while open),
+    averaged by category; the bids join the auctions on one int key."""
+    b = bids.select(bids.auction, bids.price, bids.date_time)
+    j = b.join(auctions, b.auction == auctions.id).select(
+        auction=b.auction, category=auctions.category, price=b.price,
+        t=b.date_time, opened=auctions.date_time, expires=auctions.expires)
+    won = j.filter((j.t >= j.opened) & (j.t <= j.expires))
+    final = won.groupby(won.auction, won.category).reduce(
+        won.auction, won.category, price=pw.reducers.max(won.price))
+    return final.groupby(final.category).reduce(
+        final.category, avg_price=pw.reducers.avg(final.price),
+        n=pw.reducers.count())
+
+
+def nexmark_queries(pw, persons, auctions, bids) -> tuple[dict, dict]:
+    """Phase 4k's queries as a user writes them: ``{name: table}``, and
+    the intermediate tables whose operators' state the phase bounds."""
+    counts, top, hot = nx_q5_parts(pw, bids)
+    q8 = persons.window_join(
+        auctions, persons.date_time, auctions.date_time,
+        pw.temporal.tumbling(NX_WINDOW_MS), persons.id == auctions.seller,
+    ).select(person=auctions.seller, name=persons.name,
+             reserve=auctions.reserve, opened=auctions.date_time,
+             expires=auctions.expires)
+    interval = bids.interval_join(
+        persons, bids.date_time, persons.date_time,
+        pw.temporal.interval(*NX_INTERVAL_MS), bids.bidder == persons.id,
+    ).select(auction=bids.auction, bidder=bids.bidder, price=bids.price,
+             t=bids.date_time, name=persons.name, joined=persons.date_time)
+    asof = bids.asof_join(
+        auctions, bids.date_time, auctions.date_time,
+        bids.auction == auctions.id,
+    ).select(auction=bids.auction, price=bids.price, t=bids.date_time,
+             seller=auctions.seller, opened=auctions.date_time)
+    d = bids.diff(bids.date_time, bids.price, instance=bids.auction)
+    diff = d.select(d.auction, d.bidder, d.price, d.date_time, d.diff_price)
+    queries = dict(q7=nx_q7(pw, bids), q5=hot, q4=nx_q4(pw, bids, auctions),
+                   q8=q8, interval=interval, asof=asof, diff=diff)
+    return queries, dict(q5_counts=counts, q5_top=top)
+
+
+def nexmark_reference(ev) -> dict:
+    """Every query's final result as a ``Counter`` of value rows, computed
+    with dicts from the same events by the queries' rules: windows by
+    floor division, the cutoff applied bid by bid in arrival order (a bid
+    is dropped when its window's end + cutoff <= the largest time kept
+    so far; a kept bid moves that frontier), joins by key and time, the
+    as-of match as the auction opened at or before the bid, the diff over
+    each auction's bids in time order.  ``bounds``: the state each
+    operator must stay within; ``late``: the kept / dropped bids of each
+    lateness class under the cutoff."""
+    import collections
+
+    W, H, C = NX_WINDOW_MS, NX_HOP_MS, NX_CUTOFF_MS
+    bids, persons, auctions = ev["bids"], ev["persons"], ev["auctions"]
+    frontier, q7, late = None, {}, collections.Counter()
+    for row, cls in zip(bids, ev["lateness"]):
+        price, t = row[2], row[5]
+        s = t // W * W
+        if frontier is not None and s + W + C <= frontier:
+            late[(cls, "dropped")] += 1
+            continue
+        late[(cls, "kept")] += 1
+        w = q7.setdefault(s, [price, 0])
+        w[0] = max(w[0], price)
+        w[1] += 1
+        frontier = t if frontier is None else max(frontier, t)
+    counts: dict = collections.Counter()
+    for row in bids:
+        t = row[5]
+        for k in range((t - W) // H + 1, t // H + 1):
+            counts[(k * H, row[0])] += 1
+    top: dict = {}
+    for (s, _a), n in counts.items():
+        top[s] = max(top.get(s, 0), n)
+    by_id = {p[0]: p for p in persons}
+    person_win = {(p[6] // W, p[0]): p for p in persons}
+    auction_by_id = {a[0]: a for a in auctions}
+    lo, hi = NX_INTERVAL_MS
+    width = hi - lo
+    interval, asof, buckets, won = [], [], 0, {}
+    for row in bids:
+        a, bidder, price, t = row[0], row[1], row[2], row[5]
+        au = auction_by_id.get(a)
+        if au is not None and au[5] <= t <= au[6]:
+            won[(a, au[8])] = max(won.get((a, au[8]), price), price)
+        buckets += (t + hi) // width - (t + lo) // width + 1
+        p = by_id.get(bidder)
+        if p is not None and lo <= p[6] - t <= hi:
+            interval.append((a, bidder, price, t, p[1], p[6]))
+        asof.append((a, price, t, au[7], au[5]) if au is not None
+                    and au[5] <= t else (a, price, t, None, None))
+    q8 = []
+    for au in auctions:
+        p = person_win.get((au[5] // W, au[7]))
+        if p is not None:
+            q8.append((au[7], p[1], au[4], au[5], au[6]))
+    by_category: dict = {}
+    for (_a, cat), price in won.items():
+        by_category.setdefault(cat, []).append(price)
+    diff, by_auction = [], collections.defaultdict(list)
+    for row in bids:
+        by_auction[row[0]].append(row)
+    for rows in by_auction.values():
+        prev = None
+        for row in sorted(rows, key=lambda r: r[5]):
+            diff.append((row[0], row[1], row[2], row[5],
+                         None if prev is None else row[2] - prev))
+            prev = row[2]
+    C_ = collections.Counter
+    return dict(
+        q7=C_((s, s + W, mx, n) for s, (mx, n) in q7.items()),
+        q5=C_((a, s, s + W, n) for (s, a), n in counts.items()
+              if n == top[s]),
+        q4=C_((cat, sum(ps) / len(ps), len(ps))
+              for cat, ps in by_category.items()),
+        q8=C_(q8), interval=C_(interval), asof=C_(asof), diff=C_(diff),
+        late=dict(late),
+        bounds=dict(
+            # a groupby holds a state and an emitted row a group; a join
+            # holds its two arrangements' rows (the interval join's left
+            # rows once a bucket they probe)
+            q7_groupby=2 * len(q7), q5_groupby=2 * len(counts),
+            q5_top_groupby=2 * len(top), q5_join=len(counts) + len(top),
+            q4_join=len(bids) + len(auctions),
+            q8_join=len(persons) + len(auctions),
+            interval_join=buckets + len(persons),
+            asof_join=2 * len(bids) + len(auctions)))
+
+
+def nexmark_late_ok(late: dict) -> bool:
+    """The cutoff dropped every bid past it and kept every other one."""
+    return (late.get((2, "kept"), 0) == 0 and late.get((1, "dropped"), 0) == 0
+            and late.get((0, "dropped"), 0) == 0
+            and late.get((2, "dropped"), 0) > 0 and late.get((1, "kept"), 0) > 0)
+
+
+def values_counter(state: dict):
+    import collections
+
+    return collections.Counter(tuple(r) for r in state.values())
+
+
+def upstream_op(graph, table, kind: str):
+    """The operator of the first ``kind`` node upstream of ``table``
+    (breadth first, the table's own node included)."""
+    seen, queue = set(), [table._node]
+    while queue:
+        node = queue.pop(0)
+        if node.id in seen:
+            continue
+        seen.add(node.id)
+        if node.kind == kind:
+            return graph.lg.by_node[node.id]
+        queue.extend(t._node for t in node.input_tables)
+    raise LookupError(f"no {kind} node upstream of {table}")
+
+
+def nexmark_run(torch, table, pin: int, device="cuda") -> dict:
+    """One query's table run alone with both crossovers pinned to
+    ``pin``, through ``GraphRunner.run_batch`` as ``run_tables`` drives a
+    static graph: its squashed capture, wall time, host seconds by
+    operator kind, and each operator kind's device and numpy tier
+    counts (the tiers' counters read around every operator call)."""
+    from pathway_tpu_torch.engine import runner, vectorize
+    from pathway_tpu_torch.parallel import mapreduce as mr
+
+    keys = ("device_batches", "np_batches", "row_batches", "segment_device",
+            "segment_numpy", "member_device", "member_numpy")
+
+    def tally():
+        both = {**vectorize.STATS, **mr.STATS}
+        return {k: both[k] for k in keys}
+
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    saved = (vectorize.DEVICE_THRESHOLD, mr._JIT_MIN_ELEMENTS)
+    vectorize.DEVICE_THRESHOLD = mr._JIT_MIN_ELEMENTS = pin
+    by_op: dict = {}
+    try:
+        sync()
+        t0 = time.perf_counter()
+        sink = table._materialize_capture()
+        graph = runner.GraphRunner([sink], device=device)
+        sched = graph.lg.scheduler
+        invoke = sched._invoke
+
+        def counted(op, fn, *args):
+            before = tally()
+            try:
+                return invoke(op, fn, *args)
+            finally:
+                after = tally()
+                kind = op.name.split(":")[0]
+                mine = by_op.setdefault(kind, dict.fromkeys(keys, 0))
+                for k in keys:
+                    mine[k] += after[k] - before[k]
+
+        sched._invoke = counted
+        cap = graph.run_batch()[sink.id]
+        sync()
+        wall = time.perf_counter() - t0
+        busy: dict = {}
+        for op in sched.operators:
+            kind = op.name.split(":")[0]
+            busy[kind] = busy.get(kind, 0.0) + op.busy_s
+    finally:
+        vectorize.DEVICE_THRESHOLD, mr._JIT_MIN_ELEMENTS = saved
+    return dict(state=cap.squash(), wall_s=wall, op_busy_s=busy,
+                tiers={k: v for k, v in by_op.items() if any(v.values())},
+                graph=graph)
+
+
+def nexmark_state_sizes(queries: dict, parts: dict, runs: dict) -> dict:
+    """Each windowby groupby's and join's ``state_size()`` at the end of
+    its query's device run."""
+    def size(q, table, kind):
+        return upstream_op(runs[q]["graph"], table, kind).state_size()
+
+    return dict(
+        q7_groupby=size("q7", queries["q7"], "groupby"),
+        q5_groupby=size("q5", parts["q5_counts"], "groupby"),
+        q5_top_groupby=size("q5", parts["q5_top"], "groupby"),
+        q5_join=size("q5", queries["q5"], "join"),
+        q4_join=size("q4", queries["q4"], "join"),
+        q8_join=size("q8", queries["q8"], "join"),
+        interval_join=size("interval", queries["interval"], "join"),
+        asof_join=size("asof", queries["asof"], "asof_join"))
+
+
+def min_label_components(pw, edges):
+    """Min-label propagation over undirected ``edges`` with ``pw.iterate``:
+    each vertex takes the least label among its own and its neighbours'
+    until none changes; the fixed point labels each component by its
+    least vertex."""
+    class E(pw.Schema):
+        u: int
+        v: int
+
+    class V(pw.Schema):
+        n: int = pw.column_definition(primary_key=True)
+        lab: int
+
+    nodes = sorted({x for e in edges for x in e})
+    e = pw.debug.table_from_rows(E, list(edges) + [(v, u) for u, v in edges])
+    verts = pw.debug.table_from_rows(V, [(n, n) for n in nodes])
+
+    def step(verts):
+        j = e.join(verts, e.u == verts.n).select(n=e.v, lab=verts.lab)
+        best = j.groupby(j.n).reduce(j.n, lab=pw.reducers.min(j.lab))
+        cand = verts.concat_reindex(best)
+        return cand.groupby(cand.n).reduce(
+            cand.n, lab=pw.reducers.min(cand.lab)).with_id_from(pw.this.n)
+
+    return pw.iterate(step, verts=verts)
+
+
+def union_find(edges) -> dict:
+    """Each vertex of ``edges`` mapped to its component's least vertex."""
+    parent: dict = {}
+
+    def find(x):
+        parent.setdefault(x, x)
+        while parent[x] != x:
+            parent[x] = parent[parent[x]]
+            x = parent[x]
+        return x
+
+    for u, v in edges:
+        ru, rv = find(u), find(v)
+        if ru != rv:
+            parent[max(ru, rv)] = min(ru, rv)
+    return {x: find(x) for x in parent}
+
+
+def nexmark_edges(ev, n_events: int) -> list:
+    """The bidder -> seller edges of the bids among the first
+    ``n_events`` events."""
+    seller = {a[0]: a[7] for a in ev["auctions"]}
+    n_bids = n_events * NX_PROPORTION[2] // sum(NX_PROPORTION)
+    return [(b[1], seller[b[0]]) for b in ev["bids"][:n_bids]]
+
+
+def broadcast_rule(key: int, lower, value, upper):
+    """The gradual broadcast's approximate value of row ``key``: ``upper``
+    below the threshold key scale((value - lower) / (upper - lower),
+    2^128 - 1), ``lower`` at or above it."""
+    top = (1 << 128) - 1
+    if upper == lower:
+        thr = top if value >= upper else 0
+    else:
+        thr = int(min(max((value - lower) / (upper - lower), 0.0), 1.0)
+                  * top)
+    return upper if int(key) < thr else lower
+
+
+def write_jsonl(path: str, colnames, rows, tmp: str) -> None:
+    """``rows`` as one jsonlines file at ``path``, written at ``tmp`` (off
+    the watched directory) and renamed into place."""
+    with open(tmp, "w", encoding="utf-8") as f:
+        for r in rows:
+            f.write(json.dumps(dict(zip(colnames, r))) + "\n")
+    os.replace(tmp, path)
+
+
+def net_jsonl(path: str, colnames) -> "collections.Counter":
+    """The rows a jsonlines output describes, their diffs summed."""
+    import collections
+
+    net = collections.Counter()
+    with open(path, encoding="utf-8") as f:
+        for line in f:
+            obj = json.loads(line)
+            net[tuple(obj[c] for c in colnames)] += obj["diff"]
+    return +net
+
+
+def nexmark_streaming(ev, want: dict, device="cuda") -> dict:
+    """Bids written as jsonlines files in ``NX_BATCHES`` batches while
+    one ``pw.run(device="cuda")`` reads them with ``pw.io.jsonlines.read(
+    mode="streaming")`` into Q5 and Q7, which end in
+    ``pw.io.jsonlines.write`` and ``pw.io.subscribe``.  A batch is
+    written once the previous one's rows have all entered the dataflow
+    (so one batch's scan overlaps the previous one's queries); its lag
+    runs from its file written to the first ``on_time_end`` of Q7's
+    subscriber at or past the logical time its last row entered at."""
+    import shutil
+    import tempfile
+    import threading
+
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch.internals import parse_graph as pg
+
+    root = tempfile.mkdtemp(prefix="pw_nexmark_")
+    src = os.path.join(root, "bids")
+    os.makedirs(src)
+    _p, _a, Bid = nexmark_schemas(pw)
+    cols = Bid.column_names()
+    per_batch: list = [[] for _ in range(NX_BATCHES)]
+    for row, tm in zip(ev["bids"], ev["bid_times"]):
+        per_batch[tm // 2 - 1].append(row)
+    cum = list(itertools.accumulate(len(b) for b in per_batch))
+    lock = threading.Lock()
+    st = dict(seen=0, closed=-1, written={}, entered={}, lag={})
+    entered = [threading.Event() for _ in per_batch]
+
+    def settle():
+        for b, t_in in list(st["entered"].items()):
+            if b not in st["lag"] and st["closed"] >= t_in:
+                st["lag"][b] = time.perf_counter() - st["written"][b]
+
+    def on_change(key, row, time, is_addition):
+        with lock:
+            st["seen"] += 1
+            for b, c in enumerate(cum):
+                if st["seen"] == c:
+                    st["entered"][b] = time
+                    entered[b].set()
+            settle()
+
+    def on_time_end(t):
+        with lock:
+            st["closed"] = max(st["closed"], t)
+            settle()
+
+    def writer():
+        for b, rows in enumerate(per_batch):
+            with lock:
+                st["written"][b] = time.perf_counter()
+            write_jsonl(os.path.join(src, f"bids-{b:02d}.jsonl"), cols, rows,
+                        os.path.join(root, "batch.tmp"))
+            if not entered[b].wait(120):
+                return
+
+    pg.G.clear()
+    try:
+        bids = pw.io.jsonlines.read(src, schema=Bid, mode="streaming")
+        q7 = nx_q7(pw, bids)
+        _c, _t, q5 = nx_q5_parts(pw, bids)
+        out7, out5 = os.path.join(root, "q7.jsonl"), os.path.join(
+            root, "q5.jsonl")
+        pw.io.jsonlines.write(q7, out7)
+        pw.io.jsonlines.write(q5, out5)
+        pw.io.subscribe(bids, on_change=on_change)
+        pw.io.subscribe(q7, on_time_end=on_time_end)
+        th = threading.Thread(target=writer, daemon=True)
+        t0 = time.perf_counter()
+        th.start()
+        # the run ends 1 s (two scans of the file source) after the last
+        # batch's rows were processed
+        pw.run(device=device, timeout_s=300.0, idle_stop_s=1.0)
+        th.join(timeout=10)
+        require(len(st["lag"]) == NX_BATCHES,
+                f"4k: {len(st['lag'])} of {NX_BATCHES} streamed batches "
+                "covered")
+        span = max(st["written"][b] + st["lag"][b] for b in st["lag"]) - t0
+        q7_cols = ["start", "end", "max_price", "n"]
+        q5_cols = ["auction", "start", "end", "n"]
+        require(net_jsonl(out7, q7_cols) == want["q7"],
+                "4k: the streamed Q7 file differs from run 1's capture")
+        require(net_jsonl(out5, q5_cols) == want["q5"],
+                "4k: the streamed Q5 file differs from run 1's capture")
+        lags = sorted(1e3 * v for v in st["lag"].values())
+    finally:
+        pg.G.clear()
+        shutil.rmtree(root, ignore_errors=True)
+    return dict(events_per_s=len(ev["bids"]) / span, span_s=span,
+                lag_p50_ms=statistics.median(lags), lag_p99_ms=p99(lags),
+                lag_ms=lags)
+
+
+def nexmark_async(np, ev, seed: int, device="cuda", rows=NX_ASYNC_ROWS,
+                  config=None) -> dict:
+    """The first ``rows`` auctions' item names through ``@pw.udf`` calling
+    the port's ``SentenceTransformerEmbedder`` (``config``, default the
+    MiniLM width) on ``device``: once on
+    ``async_executor(capacity=64)``, once on ``fully_async_executor()``.
+    Every vector must equal ``embed_batch``'s row of its name within
+    ``NX_ASYNC_TOL``; the fully-async run must emit each row ``PENDING``
+    first and resolve it exactly once."""
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch.engine.runner import run_tables
+    from pathway_tpu_torch.internals import parse_graph as pg
+    from pathway_tpu_torch.models.encoder import EncoderConfig
+    from pathway_tpu_torch.xpacks.llm.embedders import (
+        SentenceTransformerEmbedder)
+
+    enc = SentenceTransformerEmbedder(
+        config=EncoderConfig(**(config or MINILM)), seed=seed,
+        device=device).encoder
+    names = [a[1] for a in ev["auctions"][:rows]]
+    want = enc.embed_batch(names).float().cpu().numpy()
+    row_of = {n: want[i] for i, n in enumerate(names)}
+
+    class Item(pw.Schema):
+        item_name: str
+
+    out = {}
+    for mode in ("async", "fully_async"):
+        ex = (pw.udfs.async_executor(capacity=64) if mode == "async"
+              else pw.udfs.fully_async_executor())
+
+        @pw.udf(executor=ex)
+        async def embed(name: str):
+            return enc.embed_batch([name])[0].float().cpu().numpy()
+
+        pg.G.clear()
+        try:
+            t = pw.debug.table_from_rows(Item, [(n,) for n in names])
+            t0 = time.perf_counter()
+            [cap] = run_tables(t.select(t.item_name, vec=embed(t.item_name)),
+                               device=device)
+            wall = time.perf_counter() - t0
+        finally:
+            pg.G.clear()
+        state = cap.squash()
+        require(len(state) == len(names), f"4k: {mode} rows {len(state)}")
+        err = max(float(np.abs(np.asarray(v) - row_of[n]).max())
+                  for n, v in state.values())
+        require(err <= NX_ASYNC_TOL, f"4k: {mode} vectors err {err}")
+        line = dict(rows_per_s=len(names) / wall, wall_s=wall, max_err=err)
+        if mode == "fully_async":
+            pend, done = {}, {}
+            for k, row, _t, diff in cap.as_list():
+                is_pending = type(row[1]).__name__ == "Pending"
+                book = pend if is_pending else done
+                book[k] = book.get(k, 0) + (1 if diff > 0 else 0)
+            require(len(pend) == len(names)
+                    and all(v == 1 for v in pend.values())
+                    and all(done.get(k) == 1 for k in pend)
+                    and len(done) == len(names),
+                    "4k: the fully-async rows did not each go PENDING, "
+                    "then resolve exactly once")
+            line["pending_rows"] = len(pend)
+        out[mode] = line
+    return out
+
+
+def nexmark_iterate(ev, device="cuda") -> dict:
+    """``pw.iterate``'s min-label propagation over the bidder -> seller
+    edges of the first ``NX_ITERATE_EVENTS`` events must label every
+    vertex as a union-find does."""
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch.engine.runner import run_tables
+    from pathway_tpu_torch.internals import parse_graph as pg
+
+    edges = nexmark_edges(ev, NX_ITERATE_EVENTS)
+    pg.G.clear()
+    try:
+        t0 = time.perf_counter()
+        [cap] = run_tables(min_label_components(pw, edges), device=device)
+        wall = time.perf_counter() - t0
+    finally:
+        pg.G.clear()
+    labels = {n: lab for n, lab in cap.squash().values()}
+    require(labels == union_find(edges),
+            "4k: iterate's labels differ from the union-find's")
+    return dict(edges=len(edges), vertices=len(labels),
+                components=len(set(labels.values())), wall_s=wall)
+
+
+def nexmark_broadcast(ev, device="cuda", trip=(0.0, 0.375, 1.0)) -> dict:
+    """One ``_gradual_broadcast`` of a one-row threshold table over the
+    auctions must give every row the threshold rule's value."""
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch.engine.runner import run_tables
+    from pathway_tpu_torch.internals import parse_graph as pg
+
+    _p, Auction, _b = nexmark_schemas(pw)
+
+    class Thr(pw.Schema):
+        lower: float
+        value: float
+        upper: float
+
+    pg.G.clear()
+    try:
+        aucs = pw.debug.table_from_rows(Auction, ev["auctions"])
+        thr = pw.debug.table_from_rows(Thr, [trip])
+        t0 = time.perf_counter()
+        [cap] = run_tables(aucs.select(aucs.reserve)
+                           ._gradual_broadcast(thr, thr.lower, thr.value,
+                                               thr.upper), device=device)
+        wall = time.perf_counter() - t0
+    finally:
+        pg.G.clear()
+    bc = cap.squash()
+    require(len(bc) == len(ev["auctions"]) and all(
+        row[1] == broadcast_rule(k, *trip) for k, row in bc.items()),
+        "4k: gradual broadcast differs from the threshold rule")
+    return dict(rows=len(bc), upper=sum(r[1] == trip[2] for r in bc.values()),
+                wall_s=wall)
+
+
+def phase4k(torch, np, s) -> dict:
+    """``s``: the card line, the seed and ``nx_events``.  Phase 4k:
+    Nexmark-shaped events through the port's temporal queries on the
+    device tier and with numpy pinned (captures equal), each query's
+    result equal to the plain reference, the windowby and join state
+    within its bound, Q5 and Q7 over streamed jsonlines files, the async
+    UDFs on the card, ``pw.iterate`` = a union-find and one gradual
+    broadcast = its threshold rule.  Returns the ``{"temporal": ...}``
+    line."""
+    import tempfile
+
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch.internals import parse_graph as pg
+    from pathway_tpu_torch.obs import costdb, planner
+
+    t_k = time.perf_counter()
+    n_events = s.nx_events
+    out = {"card": s.smi, "events": n_events,
+           "events_cut_from": NX_EVENTS_FULL, "batches": NX_BATCHES,
+           "pin_device": NX_PIN_DEVICE, "cuts": []}
+    if n_events < NX_EVENTS_FULL:
+        out["cuts"].append(f"events {NX_EVENTS_FULL} -> {n_events}")
+    out["cuts"].append(f"async UDFs: the first {NX_ASYNC_ROWS} auctions")
+    out["cuts"].append(f"iterate: the bids of the first {NX_ITERATE_EVENTS}"
+                       " events")
+    prev = os.environ.get("PW_COSTDB_PATH")
+    os.environ["PW_COSTDB_PATH"] = os.path.join(
+        tempfile.mkdtemp(prefix="pw_temporal_"), "costdb.json")
+    costdb.shutdown()
+    planner.invalidate_cache()
+    try:
+        t0 = time.perf_counter()
+        ev = nexmark_events(np, s.seed, n_events)
+        out["generate_s"] = time.perf_counter() - t0
+        out["rows"] = {k: len(ev[k]) for k in ("persons", "auctions", "bids")}
+        t0 = time.perf_counter()
+        ref = nexmark_reference(ev)
+        out["reference_s"] = time.perf_counter() - t0
+        require(nexmark_late_ok(ref["late"]),
+                f"4k: the reference's cutoff {ref['late']}")
+        out["late_bids"] = {f"{cls}_{what}": n
+                            for (cls, what), n in ref["late"].items()}
+
+        pg.G.clear()
+        t0 = time.perf_counter()
+        queries, parts = nexmark_queries(pw, *nexmark_tables(pw, ev))
+        out["build_s"] = time.perf_counter() - t0
+        from pathway_tpu_torch.engine import vectorize
+        from pathway_tpu_torch.parallel import mapreduce as mr
+
+        ms0 = vectorize.STATS["device_ms"] + mr.STATS["device_ms"]
+        dev = {q: nexmark_run(torch, t, NX_PIN_DEVICE)
+               for q, t in queries.items()}
+        log(f"4k: device tier {sum(r['wall_s'] for r in dev.values()):.1f}s")
+        out["device_ms"] = (vectorize.STATS["device_ms"]
+                            + mr.STATS["device_ms"] - ms0)
+        npy = {q: nexmark_run(torch, t, DP_NEVER) for q, t in queries.items()}
+        log(f"4k: numpy tier {sum(r['wall_s'] for r in npy.values()):.1f}s")
+        for q in queries:
+            require(float_sums_close(dev[q]["state"], npy[q]["state"], 1e-12),
+                    f"4k: {q}'s device and numpy captures differ")
+            require(values_counter(dev[q]["state"]) == ref[q],
+                    f"4k: {q} differs from the plain reference")
+            require(len(dev[q]["state"]) > 0, f"4k: {q} is empty")
+        sizes = nexmark_state_sizes(queries, parts, dev)
+        for k, v in sizes.items():
+            require(v <= ref["bounds"][k],
+                    f"4k: {k} holds {v} rows, over its bound "
+                    f"{ref['bounds'][k]}")
+        out["state"] = {k: dict(size=v, bound=ref["bounds"][k])
+                        for k, v in sizes.items()}
+
+        def tier_sum(runs, key):
+            return sum(t.get(key, 0) for r in runs.values()
+                       for t in r["tiers"].values())
+
+        for key in ("device_batches", "member_device"):
+            require(tier_sum(dev, key) > 0, f"4k: the device run's {key} 0")
+        for key in ("device_batches", "member_device", "segment_device"):
+            require(tier_sum(npy, key) == 0,
+                    f"4k: the numpy run reached the device ({key})")
+        for name, runs in (("device", dev), ("numpy", npy)):
+            out[f"events_per_s_{name}"] = {
+                q: n_events / r["wall_s"] for q, r in runs.items()}
+            out[f"events_per_s_total_{name}"] = n_events / sum(
+                r["wall_s"] for r in runs.values())
+            out[f"wall_s_{name}"] = {q: r["wall_s"] for q, r in runs.items()}
+            busy: dict = {}
+            for r in runs.values():
+                for kind, b in r["op_busy_s"].items():
+                    busy[kind] = busy.get(kind, 0.0) + b
+            out[f"op_busy_s_{name}"] = busy
+            out[f"tiers_{name}"] = {q: r["tiers"] for q, r in runs.items()}
+        out["segment_device_total"] = tier_sum(dev, "segment_device")
+        out["rows_out"] = {q: len(r["state"]) for q, r in dev.items()}
+        want = {q: values_counter(dev[q]["state"]) for q in ("q7", "q5")}
+        del dev, npy, queries, parts
+        pg.G.clear()
+
+        # streaming: Q5 and Q7 over jsonlines files written mid-run
+        before = (dict(vectorize.STATS), dict(mr.STATS))
+        saved = (vectorize.DEVICE_THRESHOLD, mr._JIT_MIN_ELEMENTS)
+        vectorize.DEVICE_THRESHOLD = mr._JIT_MIN_ELEMENTS = NX_PIN_DEVICE
+        try:
+            out["streaming"] = nexmark_streaming(ev, want)
+            log(f"4k: streaming {out['streaming']['span_s']:.1f}s")
+        finally:
+            vectorize.DEVICE_THRESHOLD, mr._JIT_MIN_ELEMENTS = saved
+        dv = {k: vectorize.STATS[k] - before[0][k]
+              for k in ("device_batches", "np_batches", "device_ms")}
+        dm = {k: mr.STATS[k] - before[1][k]
+              for k in ("member_device", "segment_device", "device_ms")}
+        out["streaming"]["tiers"] = dict(vec=dv, mapreduce=dm)
+
+        out["async"] = nexmark_async(np, ev, s.seed)
+        log(f"4k: async {out['async']['async']['wall_s']:.1f}s + "
+            f"{out['async']['fully_async']['wall_s']:.1f}s")
+
+        out["iterate"] = nexmark_iterate(ev)
+        out["gradual_broadcast"] = nexmark_broadcast(ev)
+    finally:
+        pg.G.clear()
+        costdb.shutdown()
+        planner.invalidate_cache()
+        if prev is None:
+            os.environ.pop("PW_COSTDB_PATH", None)
+        else:
+            os.environ["PW_COSTDB_PATH"] = prev
+    out["phase_s"] = time.perf_counter() - t_k
+    if out["phase_s"] > 60.0:
+        log(f"4k: the phase took {out['phase_s']:.1f}s, over its 60 s")
+    return out
+
+
+def temporal_only(torch, np, seed, smi, nx_events) -> int:
+    """``--temporal-only``: phase 4k alone (it builds no kernel), printing
+    its line and no result."""
+    line = phase4k(torch, np, types.SimpleNamespace(
+        smi=smi, seed=seed, nx_events=nx_events))
+    print(json.dumps({"temporal": line}), flush=True)
+    log("--temporal-only: stopping after phase 4k")
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4133,6 +5054,11 @@ def main() -> int:
     ap.add_argument("--rag-pipeline-only", action="store_true",
                     help="build the kernels, then run phase 4j (the RAG "
                          "pipeline's servers) alone; prints no result")
+    ap.add_argument("--temporal-only", action="store_true",
+                    help="run phase 4k (the Nexmark-shaped stream) alone, "
+                         "without building the kernels; prints no result")
+    ap.add_argument("--nexmark-events", type=int, default=NX_EVENTS,
+                    help="phase 4k's event count (default %(default)s)")
     args = ap.parse_args()
 
     import numpy as np
@@ -4180,6 +5106,8 @@ def main() -> int:
     print(smi, flush=True)
     if args.dataplane_only:
         return dataplane_only(torch, np, args.seed, smi)
+    if args.temporal_only:
+        return temporal_only(torch, np, args.seed, smi, args.nexmark_events)
     t0 = time.perf_counter()
     build_logs = _cuda.build_all()
     log(f"built kernels in {time.perf_counter() - t0:.1f}s")
@@ -4710,6 +5638,18 @@ def main() -> int:
         f"{rag_line['generated_tokens_per_s_bf16']:.1f} tokens/s in "
         f"{rag_line['phase_s']:.1f}s")
     print(json.dumps({"rag_pipeline": rag_line}), flush=True)
+
+    # phase 4k: a Nexmark-shaped stream through the temporal operators
+    # (host operators and the data plane's torch programs, no kernel of
+    # the kernels line), after every earlier measurement
+    temporal_line = phase4k(torch, np, types.SimpleNamespace(
+        smi=smi, seed=args.seed, nx_events=args.nexmark_events))
+    log(f"phase 4k ok: {temporal_line['events']} events, "
+        f"{temporal_line['events_per_s_total_device']:.0f} / "
+        f"{temporal_line['events_per_s_total_numpy']:.0f} events/s, lag p50 "
+        f"{temporal_line['streaming']['lag_p50_ms']:.0f} ms in "
+        f"{temporal_line['phase_s']:.1f}s")
+    print(json.dumps({"temporal": temporal_line}), flush=True)
     for k in kernels:
         if k["name"] in ("paged_attention", "paged_append_attend",
                          "flash_attention"):

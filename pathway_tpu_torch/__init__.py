@@ -2,9 +2,12 @@
 serving path.
 
 The data plane (``pw.Table``, expressions, the dataflow runner and its
-operators, ``debug``, ``run``, ``io.subscribe``, ``io.fs``,
-``io.python`` and ``io.http``'s REST connector, ``stdlib.indexing``'s
-``DataIndex`` and the as-of-now join) runs its three device
+operators, ``debug``, ``run``, ``io.subscribe``, ``io.fs``, ``io.csv``,
+``io.jsonlines``, ``io.python`` and ``io.http``'s REST connector,
+``stdlib.indexing``'s ``DataIndex``, the windows, temporal joins,
+behaviors and sort of ``stdlib.temporal``, the stream and time
+operators, ``pw.udf`` with its sync, async and fully-async executors,
+``AsyncTransformer`` and ``pw.iterate``) runs its three device
 programs — the vectorized expression tier, the segment reductions and
 the join membership (``engine/vectorize.py``, ``parallel/mapreduce.py``)
 — in PyTorch on the data plane's device.  The RAG pipeline
@@ -90,6 +93,12 @@ def apply_with_type(fun, ret_type, *args, **kwargs) -> ApplyExpression:
     return ApplyExpression(fun, ret_type, args, kwargs)
 
 
+def apply_async(fun, *args, **kwargs) -> ApplyExpression:
+    from .internals.udfs import async_apply_expression
+
+    return async_apply_expression(fun, args, kwargs)
+
+
 def if_else(if_clause, then_clause, else_clause) -> IfElseExpression:
     return IfElseExpression(if_clause, then_clause, else_clause)
 
@@ -127,22 +136,84 @@ def declare_type(target_type, expr) -> ColumnExpression:
 # -- namespaces --------------------------------------------------------------
 from . import debug  # noqa: E402
 from . import io  # noqa: E402
-from .stdlib import indexing, temporal  # noqa: E402
+from . import stdlib  # noqa: E402
+from .internals import udfs  # noqa: E402
+from .internals.udfs import UDF, udf  # noqa: E402
+from .stdlib import indexing, ordered, stateful, statistical, temporal, utils  # noqa: E402
+from .stdlib.temporal import (  # noqa: E402
+    asof_join,
+    asof_join_left,
+    asof_join_outer,
+    asof_join_right,
+    asof_now_join,
+    asof_now_join_inner,
+    asof_now_join_left,
+    interval,
+    interval_join,
+    interval_join_inner,
+    interval_join_left,
+    interval_join_outer,
+    interval_join_right,
+    intervals_over,
+    session,
+    sliding,
+    tumbling,
+    window_join,
+    window_join_inner,
+    window_join_left,
+    window_join_outer,
+    window_join_right,
+)
+from .stdlib.utils.async_transformer import AsyncTransformer  # noqa: E402
+from .internals.iterate import iterate, iteration_limit  # noqa: E402
+from .engine import time_ops as _time_ops  # noqa: E402
 
-# the as-of-now join grafted onto Table (reference:
+_time_ops.install_table_methods()
+from .engine import stream_ops as _stream_ops  # noqa: E402
+
+_stream_ops.install_table_methods()
+
+# temporal join/window methods grafted onto Table (reference:
 # python/pathway/__init__.py:185-214)
-Table.asof_now_join = temporal.asof_now_join
-Table.asof_now_join_inner = temporal.asof_now_join_inner
-Table.asof_now_join_left = temporal.asof_now_join_left
+Table.windowby = temporal.windowby
+Table.interval_join = interval_join
+Table.interval_join_inner = interval_join_inner
+Table.interval_join_left = interval_join_left
+Table.interval_join_right = interval_join_right
+Table.interval_join_outer = interval_join_outer
+Table.window_join = window_join
+Table.window_join_inner = window_join_inner
+Table.window_join_left = window_join_left
+Table.window_join_right = window_join_right
+Table.window_join_outer = window_join_outer
+Table.asof_join = asof_join
+Table.asof_join_left = asof_join_left
+Table.asof_join_right = asof_join_right
+Table.asof_join_outer = asof_join_outer
+Table.asof_now_join = asof_now_join
+Table.asof_now_join_inner = asof_now_join_inner
+Table.asof_now_join_left = asof_now_join_left
+Table.diff = ordered.diff
+Table.interpolate = statistical.interpolate
+Table.sort = temporal.sort
+
+from .internals import udfs as asynchronous  # noqa: E402  (reference alias)
+from .stdlib.temporal import _window as window  # noqa: E402
+from .stdlib.temporal._asof_join import AsofJoinResult  # noqa: E402
+from .stdlib.temporal._interval_join import IntervalJoinResult  # noqa: E402
+from .stdlib.temporal._window_join import WindowJoinResult  # noqa: E402
 
 __all__ = [
     "resolve_device", "resolve_dtype", "DType", "Schema", "ColumnDefinition",
     "column_definition", "schema_from_dict", "schema_from_pandas",
     "schema_from_types", "Table", "GroupedTable", "JoinResult", "Universe",
-    "this", "left", "right", "reducers", "apply", "apply_with_type", "cast",
+    "this", "left", "right", "reducers", "apply", "apply_with_type",
+    "apply_async", "udf", "UDF", "udfs", "cast",
     "coalesce", "if_else", "require", "make_tuple", "unwrap", "fill_error",
     "declare_type", "ColumnExpression", "ColumnReference", "Json", "Pointer",
     "ERROR", "PENDING", "JoinMode", "INT", "FLOAT", "BOOL", "STR", "BYTES",
     "DATE_TIME_NAIVE", "DATE_TIME_UTC", "DURATION", "debug", "io", "run",
-    "run_all", "indexing", "temporal",
+    "run_all", "indexing", "temporal", "ordered", "statistical", "stateful",
+    "utils", "AsyncTransformer", "iterate", "iteration_limit", "window",
+    "AsofJoinResult", "IntervalJoinResult", "WindowJoinResult",
 ]

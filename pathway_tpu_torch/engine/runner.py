@@ -10,14 +10,18 @@ The runner takes the data plane's ``device`` (default ``"cuda"``) and
 resolves it when it is built, so without a card a run raises before any
 row moves unless ``device="cpu"``.  The operators that hold device
 programs (the vectorized select/filter plans, the groupby's segment sums,
-the join's membership) get it at lowering.  Node kinds of the JAX
-package that this package does not lower (the async UDF operators, the
-temporal, time and stream operators, gradual broadcast) raise at
-lowering, naming the kind.  Other modules plug their node kinds in with
-:func:`register_lowering` when they are imported: the external index
-(``stdlib/indexing/data_index.py``), the as-of-now join
-(``stdlib/temporal``) and the REST response writer (``io/http.py``).
-Live sources are stopped when a streaming run ends.
+the join's membership) get it at lowering, and a lowering plugged in
+from another module reads it as ``lg.device``.  Those modules plug
+their node kinds in with :func:`register_lowering` when they are
+imported: the time and stream operators (``engine/time_ops.py``,
+``engine/stream_ops.py``), the as-of, as-of-now and sort operators
+(``stdlib/temporal``), ``iterate`` (``internals/iterate.py``), the
+external index (``stdlib/indexing/data_index.py``) and the REST response
+writer (``io/http.py``).  A node kind that no module lowers raises at
+lowering, naming it.  Rowwise selects over async UDFs lower to the
+operators of ``engine/async_ops.py``; a run stays alive while their
+completions are in flight.  Live sources are stopped when a streaming
+run ends.
 """
 
 from __future__ import annotations
@@ -81,7 +85,8 @@ def _compile(expr: ColumnExpression) -> Callable[[dict], Any]:
 
 
 class LoweredGraph:
-    def __init__(self) -> None:
+    def __init__(self, device=None) -> None:
+        self.device = device  # the data plane's, resolved by lower()
         self.scheduler = Scheduler()
         self.by_node: dict[int, Operator] = {}
         self.input_ops: list[tuple[ops.InputOperator, Any]] = []  # (op, source)
@@ -188,7 +193,7 @@ def lower(sinks: list[pg.OpNode], device="cuda") -> LoweredGraph:
     """The engine operators of every node the sinks reach; ``device`` is
     the data plane's (the runner passes the one it resolved)."""
     device = resolve_device(device)
-    lg = LoweredGraph()
+    lg = LoweredGraph(device)
 
     def build(node: pg.OpNode) -> Operator:
         if node.id in lg.by_node:
@@ -203,6 +208,21 @@ def lower(sinks: list[pg.OpNode], device="cuda") -> LoweredGraph:
 
     for sink in sinks:
         build(sink)
+    # companion sinks: a feedback-loop source (AsyncTransformer) is fed by a
+    # subscribe node on its INPUT table — a side-effect sink the tree-shake
+    # from the requested outputs cannot see.  Pull such sinks in whenever
+    # their source landed in the lowered graph (fixpoint: a companion may
+    # itself reference further sources with companions).
+    while True:
+        extra = []
+        for _op, source in list(lg.input_ops):
+            for node in getattr(source, "companion_sinks", ()):
+                if node.id not in lg.by_node:
+                    extra.append(node)
+        if not extra:
+            break
+        for node in extra:
+            build(node)
     return lg
 
 
@@ -217,13 +237,16 @@ def _make_operator(node: pg.OpNode, lg: LoweredGraph, device) -> Operator:
         return op
 
     if kind == "rowwise":
-        if p.get("fully_async") or any(
+        if p.get("fully_async"):
+            from .async_ops import lower_fully_async
+
+            return lower_fully_async(node, lg)
+        if len(tables) == 1 and any(
             getattr(e, "_async_spec", None) is not None for e in p["exprs"]
         ):
-            raise NotImplementedError(
-                "no lowering for node kind 'rowwise' over async UDFs "
-                "(the async operators are not ported)"
-            )
+            from .async_ops import lower_async_batch
+
+            return lower_async_batch(node, lg)
         exprs = [_compile(e) for e in p["exprs"]]
         if p.get("deterministic", True) and len(tables) == 1:
             return ops.StatelessRowwise(
@@ -359,6 +382,15 @@ def _make_operator(node: pg.OpNode, lg: LoweredGraph, device) -> Operator:
 
         return ops.OutputOperator(on_time, on_end=getattr(writer, "close", None), name="output")
 
+    if kind == "gradual_broadcast":
+        from .gradual_broadcast import GradualBroadcastOperator
+
+        _src, thr = tables
+        return GradualBroadcastOperator(
+            _compile(p["lower"]), _compile(p["value"]), _compile(p["upper"]),
+            _env_for(thr), name="gradual_broadcast",
+        )
+
     if kind in _EXTRA_LOWERINGS:
         return _EXTRA_LOWERINGS[kind](node, lg)
 
@@ -366,7 +398,8 @@ def _make_operator(node: pg.OpNode, lg: LoweredGraph, device) -> Operator:
 
 
 # plug-in lowering registry: node kinds lowered by the modules that build
-# them (external_index, asof_now_join, raw_output)
+# them (time and stream operators, asof/asof_now joins, sort, iterate,
+# external_index, raw_output)
 _EXTRA_LOWERINGS: dict[str, Callable[[pg.OpNode, "LoweredGraph"], Operator]] = {}
 
 
@@ -463,7 +496,9 @@ class GraphRunner:
         if logical % 2:
             logical += 1
         # close the initial static time so its output flushes to the sinks
-        # even if no live source ever produces an event
+        # even if no live source ever produces an event (an AsyncTransformer
+        # feeding only off static input needs its on_change/on_time_end NOW,
+        # not at the first live commit)
         sched.pending[logical]  # touch: creates the bucket
         sched._note_time(logical)
         sched.run_until_idle()
@@ -472,7 +507,8 @@ class GraphRunner:
         # per-sink upstream live sources: a sink whose upstream inputs have
         # ALL finished gets its on_end early (reference: subscribe's
         # on_subscribe_end fires when the input frontier closes, not when
-        # the whole run stops)
+        # the whole run stops — the AsyncTransformer feedback loop relies on
+        # this to know no more invocations are coming)
         from . import operators as _ops
 
         live_ids = {op.id for op, _s in live}
@@ -494,6 +530,13 @@ class GraphRunner:
         closed_sinks: set[int] = set()
 
         def _close_finished_sinks() -> None:
+            # in-flight fully-async UDF completions still deliver rows after
+            # their (static) inputs finished — no sink may close before they
+            # drain, or subscribers would see on_end before those on_changes
+            if any(
+                getattr(op, "_completions", None) for op in sched.operators
+            ):
+                return
             for op in sched.operators:
                 if (
                     isinstance(op, _ops.OutputOperator)
@@ -519,7 +562,15 @@ class GraphRunner:
                     got_any = True
                     updates = [(key, row, diff) for _, key, row, diff in events]
                     sched.push_input(op, logical, updates)
-            if got_any:
+            # async completions need a tick so their flush runs
+            has_completions = any(
+                getattr(op, "_completions", None) for op in sched.operators
+            )
+            if got_any or has_completions:
+                if not got_any:
+                    # schedule an empty time so every operator's flush runs
+                    sched.pending[logical]  # touch: creates the bucket
+                    sched._note_time(logical)
                 sched.run_until_idle()
                 logical += 2
                 last_event = _time.monotonic()
@@ -547,15 +598,15 @@ def run_tables(
     the data plane on ``device`` (default the card; ``device="cpu"``
     runs it on the CPU).
 
-    Graphs with live sources (connector subjects that close when done)
-    run the streaming loop until those sources finish; pure-static
-    graphs take the batch path."""
+    Graphs with live sources (AsyncTransformer feedback loops, connector
+    subjects that close when done) run the streaming loop until those
+    sources finish; pure-static graphs take the batch path."""
     sinks = [t._materialize_capture() for t in tables]
     runner = GraphRunner(sinks, terminate_on_error=terminate_on_error,
                          device=device)
     if has_live_sources(sinks):
-        # the harness must terminate: sources that close when done
-        # finish the run; a genuinely endless source stops after the
+        # the harness must terminate: sources that close when done (the
+        # AsyncTransformer loop, finite connector subjects) finish the run; a genuinely endless source stops after the
         # idle window instead of hanging the test (pw.run is the
         # production entry point with explicit timeout control)
         caps = runner.run_streaming(autocommit_ms=20, idle_stop_s=10.0)

@@ -1,12 +1,13 @@
 """Connectors (the port of ``pathway_tpu/io``): ``subscribe``, ``fs``
-(binary and plaintext files, static or streaming), ``python`` (custom
-subjects) and the serving half of ``http`` (``rest_connector`` and
-``PathwayWebserver``).  ``csv``, ``jsonlines``, the HTTP client
-connectors, the message-queue connectors and input synchronization
-groups are not ported."""
+(binary, plaintext, csv and json files, static or streaming), ``csv``
+and ``jsonlines`` (read and write), ``python`` (custom subjects) and the
+serving half of ``http`` (``rest_connector`` and ``PathwayWebserver``).
+The HTTP client connectors, the message-queue connectors and input
+synchronization groups are not ported."""
 
-from . import fs, http, python
+from . import csv, fs, http, jsonlines, python
 from ._subscribe import subscribe
+from .csv import CsvParserSettings
 
 
 def register_input_synchronization_group(*columns, max_difference,
@@ -16,5 +17,5 @@ def register_input_synchronization_group(*columns, max_difference,
         "input synchronization groups are not supported by this package")
 
 
-__all__ = ["fs", "http", "python", "subscribe",
-           "register_input_synchronization_group"]
+__all__ = ["CsvParserSettings", "csv", "fs", "http", "jsonlines", "python",
+           "subscribe", "register_input_synchronization_group"]

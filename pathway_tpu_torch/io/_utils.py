@@ -1,15 +1,18 @@
 """Shared connector plumbing: value coercion, input tables, file polling.
 
-The part of ``pathway_tpu/io/_utils.py`` that ``io.fs``, ``io.python`` and
-``io.http`` stand on (reference: src/connectors/data_format/ and the
-Reader trait, src/connectors/data_storage/mod.rs:516).  The file and
-format writers, the object cache and cluster partitioning of the scan
-are not ported: this package runs one process without persistence.
+The part of ``pathway_tpu/io/_utils.py`` that ``io.fs``, ``io.csv``,
+``io.jsonlines``, ``io.python`` and ``io.http`` stand on (reference:
+src/connectors/data_format/ and the Reader trait,
+src/connectors/data_storage/mod.rs:516), with the file writers.  The
+object cache, a writer's snapshot resume and cluster partitioning of the
+scan are not ported: this package runs one process without persistence.
 """
 
 from __future__ import annotations
 
+import csv as _csv
 import glob
+import json
 import logging
 import os
 import queue
@@ -17,9 +20,10 @@ import threading
 import time
 from typing import Any, Callable, Iterable
 
+from ..engine.types import unwrap_row
 from ..internals import dtype as dt
 from ..internals import parse_graph as pg
-from ..internals.datasource import DataSource
+from ..internals.datasource import DataSource, StaticDataSource
 from ..internals.schema import SchemaMetaclass
 from ..internals.table import Table, Universe
 from ..internals.value import ERROR, Json, ref_scalar
@@ -231,3 +235,83 @@ def _jsonable(v):
     if isinstance(v, np.ndarray):
         return v.tolist()
     return v
+
+
+class FileWriter:
+    """Base sink writing consolidated update batches, one line an update
+    (the JAX package's ``FileWriter`` without its snapshot resume).  The
+    file opens at the first write."""
+
+    def __init__(self, path: str):
+        self.path = path
+        self._fh = None
+        self._lock = threading.Lock()
+
+    def _ensure_open(self):
+        if self._fh is None:
+            self._fh = open(self.path, "w", encoding="utf-8")
+
+    def write_batch(self, time: int, colnames: list[str], updates: list) -> None:
+        with self._lock:
+            self._ensure_open()
+            for key, row, diff in updates:
+                self.write_row(time, colnames, key, unwrap_row(row), diff)
+            self._fh.flush()
+
+    def write_row(self, time, colnames, key, row, diff):
+        raise NotImplementedError
+
+    def close(self) -> None:
+        with self._lock:
+            if self._fh is not None:
+                self._fh.close()
+                self._fh = None
+
+
+class JsonlinesWriter(FileWriter):
+    def write_row(self, time, colnames, key, row, diff):
+        obj = dict(zip(colnames, [_jsonable(v) for v in row]))
+        obj["time"] = time
+        obj["diff"] = diff
+        self._fh.write(json.dumps(obj, default=str) + "\n")
+
+
+class CsvWriter(FileWriter):
+    def __init__(self, path: str):
+        super().__init__(path)
+        self._writer = None
+
+    def write_row(self, time, colnames, key, row, diff):
+        if self._writer is None:
+            self._writer = _csv.writer(self._fh)
+            self._writer.writerow(list(colnames) + ["time", "diff"])
+        self._writer.writerow([_csvable(v) for v in row] + [time, diff])
+
+
+def _csvable(v):
+    if isinstance(v, Json):
+        return str(v)
+    return v
+
+
+def add_output_node(table: Table, writer) -> None:
+    pg.new_output_node(
+        "output", [table], colnames=table.column_names(), writer=writer
+    )
+
+
+def plain_scalar(v, keep_bytes: bool = False):
+    """JSON/transport-safe scalar: passthrough primitives, unwrap Json,
+    stringify the rest (shared by the sink connectors).  keep_bytes
+    passes bytes through for binary-capable sinks."""
+    if isinstance(v, (int, float, str, bool, type(None))):
+        return v
+    if keep_bytes and isinstance(v, (bytes, bytearray)):
+        return bytes(v)
+    if isinstance(v, Json):
+        return v.value
+    import numpy as np
+
+    if isinstance(v, np.generic):
+        return v.item()
+    return str(v)

@@ -1,12 +1,12 @@
 """Filesystem connector: ``binary``, ``plaintext`` and
-``plaintext_by_file`` formats with metadata (the port of
+``plaintext_by_file`` formats with metadata, and ``csv`` / ``json``
+through ``io.csv`` / ``io.jsonlines`` (the port of
 ``pathway_tpu/io/fs.py``; reference: io/fs +
 src/connectors/scanner/filesystem.rs).
 
 ``mode="static"`` reads what is there once; ``mode="streaming"`` polls
 the path and emits new files and new lines, retracting the rows of a
-deleted file.  ``format="csv"`` and ``"json"`` raise: ``io.csv`` and
-``io.jsonlines`` are not ported.
+deleted file.
 """
 
 from __future__ import annotations
@@ -20,6 +20,8 @@ from ..internals.schema import (ColumnDefinition, SchemaMetaclass,
                                 schema_from_columns)
 from ..internals.table import Table
 from ..internals.value import Json
+from . import csv as _csv_mod
+from . import jsonlines as _jsonl_mod
 from ._utils import FilePollingSource, events_from_dicts, make_input_table
 
 
@@ -52,10 +54,10 @@ def read(
     autocommit_duration_ms: int = 1500,
     **kwargs,
 ) -> Table:
-    if format in ("csv", "json"):
-        raise NotImplementedError(
-            f"io.fs.read(format={format!r}) needs io.csv / io.jsonlines, "
-            "which this package does not port")
+    if format == "csv":
+        return _csv_mod.read(path, schema=schema, mode=mode, **kwargs)
+    if format == "json":
+        return _jsonl_mod.read(path, schema=schema, mode=mode, **kwargs)
     if format not in ("plaintext", "plaintext_by_file", "binary"):
         raise ValueError(f"unknown format {format!r}")
     binary = format == "binary"
@@ -93,4 +95,13 @@ def read(
                             name="fs")
 
 
-__all__ = ["read"]
+def write(table: Table, filename: str, format: str = "json", **kwargs) -> None:  # noqa: A002
+    if format in ("json", "jsonlines"):
+        _jsonl_mod.write(table, filename)
+    elif format == "csv":
+        _csv_mod.write(table, filename)
+    else:
+        raise ValueError(f"unknown format {format!r}")
+
+
+__all__ = ["read", "write"]

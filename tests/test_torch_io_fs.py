@@ -3,7 +3,8 @@ source's streaming mode in the port's ``pw.run``.
 
 Static mode: the same ``tmp_path`` files read by both packages give the
 same rows (the metadata's times masked), for ``binary``, ``plaintext``
-and ``plaintext_by_file``, with and without ``with_metadata``.
+and ``plaintext_by_file``, with and without ``with_metadata``, and for
+``csv`` and ``json`` with a schema.
 Streaming mode: a file written while the run is live appears, and a
 deleted file's rows are retracted; each is waited for on an event the
 subscriber sets, with a bounded wait, and the run ends by its idle
@@ -70,10 +71,27 @@ def test_static_read_gives_the_jax_rows(files, fmt, with_metadata):
     assert len(out["torch"]) == n_lines
 
 
-def test_csv_and_json_formats_raise_naming_the_format(files):
-    for fmt in ("csv", "json"):
-        with pytest.raises(NotImplementedError, match=fmt):
-            tpw.io.fs.read(str(files), format=fmt, mode="static")
+def test_csv_and_json_formats_raise_naming_the_format(tmp_path):
+    """Named for what it checked before ``io.csv`` and ``io.jsonlines``
+    were ported (that both formats raised): ``format="csv"`` and
+    ``"json"`` now read through them and give the JAX package's rows,
+    keyed by the schema's primary key."""
+    (tmp_path / "t.csv").write_text("k,w\n1,a\n2,b\n")
+    (tmp_path / "t.jsonl").write_text('{"k": 1, "w": "a"}\n{"k": 2, "w": "b"}\n')
+    for fmt, name in (("csv", "t.csv"), ("json", "t.jsonl")):
+        out = {}
+        for pkg, pw, runner in (("jax", jpw, jrunner), ("torch", tpw, trunner)):
+            class S(pw.Schema):
+                k: int = pw.column_definition(primary_key=True)
+                w: str
+
+            t = pw.io.fs.read(str(tmp_path / name), format=fmt, schema=S,
+                              mode="static")
+            kw = {"device": "cpu"} if pkg == "torch" else {}
+            [cap] = runner.run_tables(t, **kw)
+            out[pkg] = cap.squash()
+        assert out["torch"] == out["jax"], fmt
+        assert sorted(out["torch"].values()) == [(1, "a"), (2, "b")]
 
 
 def test_streaming_read_sees_a_new_file_and_a_deletion(tmp_path):

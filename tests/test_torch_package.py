@@ -91,6 +91,23 @@ def test_the_guard_covers_the_rag_pipeline_modules():
         assert f"pathway_tpu_torch.{name}" in _modules()
 
 
+def test_the_guard_covers_the_temporal_stream_and_async_modules():
+    """... and the temporal slice: windows, temporal joins, behaviors,
+    sort, the time, stream and async operators, the UDF executors,
+    iterate, gradual broadcast and the csv / jsonlines connectors."""
+    for name in ("stdlib.temporal.temporal_behavior",
+                 "stdlib.temporal._window", "stdlib.temporal._interval_join",
+                 "stdlib.temporal._window_join", "stdlib.temporal._asof_join",
+                 "stdlib.temporal._sort", "stdlib.temporal.time_utils",
+                 "stdlib.ordered", "stdlib.statistical", "stdlib.stateful",
+                 "stdlib.utils", "stdlib.utils.col",
+                 "stdlib.utils.async_transformer", "engine.time_ops",
+                 "engine.stream_ops", "engine.async_ops",
+                 "engine.gradual_broadcast", "internals.iterate",
+                 "internals.udfs", "io.csv", "io.jsonlines"):
+        assert f"pathway_tpu_torch.{name}" in _modules()
+
+
 def test_import_initialises_no_cuda():
     code = (
         "import torch, pathway_tpu_torch as pw\n"

@@ -7,8 +7,8 @@ and asserts the captures are EQUAL, keys included.  The port runs on the
 CPU (``device="cpu"``); the columnar cases run it on its numpy tier, its
 device tier (the crossovers pinned low) and its row path.  Also: one
 hypothesis property over random rows, ``pw.run`` with ``io.subscribe``
-over a live subject, the debug printers, and the kinds the port does not
-lower.
+over a live subject, the debug printers, gradual broadcast and a
+fully-async select.
 """
 
 import io
@@ -428,19 +428,28 @@ def test_table_from_pandas_equals_the_jax_package():
 
 
 @pytest.mark.parametrize("kind", ["gradual_broadcast", "async"])
-def test_a_kind_the_port_does_not_lower_raises_naming_it(kind):
-    t = tpw.debug.table_from_markdown(LEFT)
-    if kind == "gradual_broadcast":
-        thr = tpw.debug.table_from_markdown("lo | va | up\n1 | 2 | 3")
-        out = t._gradual_broadcast(thr, thr.lo, thr.va, thr.up)
-    else:
-        from pathway_tpu_torch.internals.expression import (
-            FullyAsyncApplyExpression)
+def test_a_kind_the_port_does_not_lower_raises_naming_it(kind, monkeypatch):
+    """Named for what it checked before gradual broadcast and the async
+    operators were ported (that lowering raised, naming the kind): each
+    kind now runs and gives the JAX package's captures — the threshold
+    rule's approximate values, and a fully-async select's resolved
+    rows."""
+    def build(pw):
+        t = _md(pw, LEFT)
+        if kind == "gradual_broadcast":
+            thr = pw.debug.table_from_markdown("lo | va | up\n1 | 2 | 3")
+            return t._gradual_broadcast(thr, thr.lo, thr.va, thr.up)
+        async def triple(v):
+            return v * 3
 
-        out = t.select(x=FullyAsyncApplyExpression(lambda v: v, int,
-                                                   (t.v,), {}))
-    with pytest.raises(NotImplementedError, match=kind.split("_")[0]):
-        trunner.run_tables(out, device="cpu")
+        return t.select(t.k, x=pw.udf(
+            triple, executor=pw.udfs.fully_async_executor())(t.v))
+
+    [got] = _equal_to_jax(build, monkeypatch, tiers=("numpy",))
+    if kind == "gradual_broadcast":
+        assert {r[-1] for r in got.values()} <= {1, 3}
+    else:
+        assert sorted(got.values()) == [(2, 21), (2, 60), (3, 90), (4, 15)]
 
 
 def test_a_failing_udf_poisons_and_logs_to_the_port_error_log():
