@@ -241,6 +241,45 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    min-label propagation = a union-find; one gradual broadcast = its
    threshold rule.  Printed as a ``{"temporal": ...}`` line; the path
    launches none of the four kernels;
+4l. the RAG xpack's remainder (after phase 4k), at full width (the
+   MiniLM-width encoder, CLIP ViT-B/32 and GPT-2 small, f32, random
+   weights from ``--seed``) through the public API, at ``RR_SIZES``
+   (three counts cut by halves from ``RR_SIZES_FULL`` to keep the phase
+   near a minute): (a) the chunks of
+   ``evaluate.synthetic_beir_corpus(512 topics x 32)`` (16,384, cut from
+   65,536) and 72 of its queries embedded once on the card, then one
+   ``pw.run(device="cuda")`` of three ``DataIndex``es over that vector
+   column (``BruteForceKnnFactory``, ``IvfKnnFactory`` and
+   ``LshKnnFactory`` at their defaults): a 64-query as-of-now pass, then
+   8 single queries.  Brute force = a stable sort of the kernel's scores
+   over a reference matrix (scores within 1e-4 of plain f32); IVF and LSH
+   = the same classes fed the same rows in the script, keys and scores
+   identical; recall / NDCG / MRR against the qrels and each ANN tier's
+   recall@10 against brute force printed.  (b) 64 decks (cut from 256)
+   of 4 pages (448 x 252 P6 frames) written as files -> ``pw.io.fs.read`` (binary,
+   streaming) -> ``SlidesDocumentStore(parser=SlideParser(clip_model=
+   TorchClip))`` -> a ``QARestServer`` over ``DeckRetriever``, the
+   parsed documents behind a ``rest_connector`` and a text -> image
+   ``DataIndex`` over the pages' ``clip_embedding``: every page's
+   embedding within 1e-4 of ``embed_image_batch``, its own embedding
+   retrieving it first, 64 text queries = a stable sort of the kernel's
+   scores, every page listed without ``b64_image``, a jmespath filter
+   giving one deck's pages, the deck retriever = ``retrieve_query``.
+   (c) ``VectorStoreServer(4,096 chunks).run_server(threaded=True)``
+   with ``pw.io.http.read`` (32 queries, cut from 64, from a local
+   NDJSON endpoint that drops its first connection mid-stream,
+   ``n_retries=2``) ->
+   ``retrieve_query`` -> ``EncoderReranker`` -> ``rerank_topk_filter``
+   -> ``pw.io.http.write`` to a local sink in the same run: 32
+   ``VectorStoreClient.query`` = ``DocumentStoreClient.retrieve`` = a
+   stable sort of the kernel's scores; each query read once; the sink =
+   the subscription; rerank scores = ``embed_batch`` rows' cosine within
+   1e-5; the top 5 = a stable sort.  Then an ``McpServer`` (demo key)
+   whose ``retrieve`` tool calls a ``VectorStoreClient``: ``tools/call``
+   over HTTP = the client's answers; a write to a closed port fails its
+   run; ``LLMReranker(TorchChat)`` over 8 pairs of 256+ token prompts
+   (the flash kernel's buckets): each score = the number in the dense
+   plain path's answer.  Printed as a ``{"rag_rest": ...}`` line;
 5. print one ``{"kernels": [...]}`` line (launches on the main path,
    error against the plain version, kernel / plain / bound / library
    times at the main path's shapes: the median of 5 windows of 50
@@ -259,7 +298,9 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    scores kernel at phase 4h's text -> image search (Q 1 over the 1,024
    CLIP rows at d 512), its launches that search's;
    ``launches_rag_pipeline`` counts each kernel's launches in phase 4j
-   (#3 split into its GEMM and GEMV entries by the index passes' sizes).
+   (#3 split into its GEMM and GEMV entries by the index passes' sizes),
+   ``launches_rag_rest`` in phase 4l's runs (#3 split the same way, #4
+   the LLM reranker's).
 
 Phase 2 also holds the port's PRNG (``models/prng.py``) on the card to
 ``PRNG_KNOWN``, keys and bits that ``jax.random`` gives (the CPU tests
@@ -278,7 +319,9 @@ on synthetic prompts after the build and prints its line (with the
 runs phase 4i alone (it builds no kernel) and prints its line and no
 result; ``--rag-pipeline-only`` runs phase 4j alone after the build and
 prints its line and no result; ``--temporal-only`` runs phase 4k alone
-(it builds no kernel) and prints its line and no result.
+(it builds no kernel) and prints its line and no result;
+``--rag-rest-only`` runs phase 4l alone after the build and prints its
+line and no result.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``.
 Exits non-zero, printing no result, when no CUDA device is present or
@@ -1233,21 +1276,21 @@ def make_docs(rng, n_docs: int, vocab_words: int = 20000):
     return docs
 
 
-def dense_greedy(torch, dec, cfg, params, prompt, n_new):
+def dense_greedy(torch, dec, cfg, params, prompt, n_new, device="cuda"):
     """The port's dense plain path: einsum prefill (``flash=False``, so
     the oracle never runs the flash kernel it checks) + decode_step."""
     n = len(prompt)
     T = -(-(n + n_new) // 64) * 64
-    buf = torch.zeros((1, T), dtype=torch.long, device="cuda")
-    buf[0, :n] = torch.tensor(prompt, device="cuda")
+    buf = torch.zeros((1, T), dtype=torch.long, device=device)
+    buf[0, :n] = torch.tensor(prompt, device=device)
     logits, cache = dec.prefill(params, cfg, buf,
-                                torch.tensor([n], device="cuda"),
+                                torch.tensor([n], device=device),
                                 flash=False)
     out = [int(dec.greedy(logits)[0])]
     pos = n
     for _ in range(n_new - 1):
         logits, cache = dec.decode_step(
-            params, cfg, cache, torch.tensor([out[-1]], device="cuda"), pos)
+            params, cfg, cache, torch.tensor([out[-1]], device=device), pos)
         out.append(int(dec.greedy(logits)[0]))
         pos += 1
     return out
@@ -3854,6 +3897,79 @@ def wait_chunks(port: int, n: int) -> float:
         time.sleep(0.05)
 
 
+class RunRecorder:
+    """``pw.run``'s runners, kept for their operators' counters (the index
+    passes' sizes), while the ``with`` block runs."""
+
+    def __enter__(self):
+        from pathway_tpu_torch.engine import runner as runner_mod
+        from pathway_tpu_torch.internals import run as run_mod
+
+        runners = self.runners = []
+
+        class RecordingRunner(runner_mod.GraphRunner):
+            def __init__(self, *a, **kw):
+                super().__init__(*a, **kw)
+                runners.append(self)
+
+        self._run_mod, self._base = run_mod, runner_mod.GraphRunner
+        run_mod.GraphRunner = RecordingRunner
+        return self
+
+    def __exit__(self, *exc):
+        self._run_mod.GraphRunner = self._base
+        return False
+
+    def index_ops(self):
+        from pathway_tpu_torch.stdlib.indexing.data_index import (
+            ExternalIndexOperator)
+
+        return [op for r in self.runners for op in r.lg.scheduler.operators
+                if isinstance(op, ExternalIndexOperator)]
+
+    def knn_passes(self) -> list:
+        """The sizes of every as-of-now pass of an index on the card."""
+        from pathway_tpu_torch.stdlib.indexing.inner_index import (
+            BruteForceKnn)
+
+        return sorted(n for op in self.index_ops()
+                      if isinstance(op.index, BruteForceKnn)
+                      for n in op.query_batches)
+
+
+def knn_variants(passes) -> tuple[int, int]:
+    """Kernel #3's launches for index passes of these sizes, as (GEMM,
+    GEMV): a pass of n >= 4 queries is one ``search_batch`` (the GEMM at
+    n >= 16, else the GEMV), a smaller pass one ``search`` a query."""
+    gemm = sum(1 for n in passes if n >= 16)
+    return gemm, sum(1 if n >= 4 else n for n in passes) - gemm
+
+
+def serve_in_thread(run, kwargs: dict):
+    """``run(**kwargs)`` on a thread; (thread, errors list)."""
+    import threading
+
+    errors = []
+
+    def target():
+        try:
+            run(**kwargs)
+        except BaseException as exc:  # noqa: BLE001 - raised by the caller
+            errors.append(exc)
+
+    th = threading.Thread(target=target, daemon=True, name="pw-run")
+    th.start()
+    return th, errors
+
+
+def end_run(th, errors, what: str) -> None:
+    """Join a ``serve_in_thread`` run; raise its error."""
+    th.join(RAG_RUN_LIMIT_S)
+    require(not th.is_alive(), f"{what}: pw.run did not end")
+    if errors:
+        raise errors[0]
+
+
 def rag_client(c) -> dict:
     """The client side of phase 4j, against the two servers of ``c``
     while the run serves them: every request is HTTP on 127.0.0.1."""
@@ -3919,12 +4035,9 @@ def phase4j(torch, np, dec, s) -> tuple[dict, dict]:
     numbers.  Returns the ``{"rag_pipeline": ...}`` line and the
     launches of kernels #1-#4 over the run."""
     import tempfile
-    import threading
 
     import pathway_tpu_torch as pw
-    from pathway_tpu_torch.engine import runner as runner_mod
     from pathway_tpu_torch.internals import parse_graph as pg
-    from pathway_tpu_torch.internals import run as run_mod
     from pathway_tpu_torch.io._utils import FilePollingSource
     from pathway_tpu_torch.models.encoder import EncoderConfig
     from pathway_tpu_torch.obs import costdb, planner
@@ -3932,8 +4045,6 @@ def phase4j(torch, np, dec, s) -> tuple[dict, dict]:
     from pathway_tpu_torch.ops import knn_cuda as kc
     from pathway_tpu_torch.ops.knn import metric_scores
     from pathway_tpu_torch.stdlib.indexing import BruteForceKnnFactory
-    from pathway_tpu_torch.stdlib.indexing.data_index import (
-        ExternalIndexOperator)
     from pathway_tpu_torch.xpacks.llm import question_answering as qa
     from pathway_tpu_torch.xpacks.llm.document_store import DocumentStore
     from pathway_tpu_torch.xpacks.llm.embedders import (
@@ -3994,38 +4105,18 @@ def phase4j(torch, np, dec, s) -> tuple[dict, dict]:
             f.write(text)
     write_s = time.perf_counter() - c.t_write
 
-    runners = []
-
-    class RecordingRunner(runner_mod.GraphRunner):
-        """pw.run's runner, kept for its operators' counters."""
-
-        def __init__(self, *a, **kw):
-            super().__init__(*a, **kw)
-            runners.append(self)
-
-    run_errors = []
-
-    def serve():
-        try:
-            pw.run(device="cuda", timeout_s=RAG_RUN_LIMIT_S,
-                   idle_stop_s=RAG_IDLE_STOP_S)
-        except BaseException as exc:  # noqa: BLE001 - raised below
-            run_errors.append(exc)
-
-    run_mod.GraphRunner = RecordingRunner
     torch.cuda.synchronize()
     _cuda.reset_launches()
-    th = threading.Thread(target=serve, daemon=True, name="pw-rag-run")
-    th.start()
-    try:
-        got = rag_client(c)
-    finally:
-        th.join(RAG_RUN_LIMIT_S)
-        run_mod.GraphRunner = runner_mod.GraphRunner
-        pg.G.clear()
-    require(not th.is_alive(), "4j: pw.run did not end")
-    if run_errors:
-        raise run_errors[0]
+    with RunRecorder() as rec:
+        th, run_errors = serve_in_thread(pw.run, dict(
+            device="cuda", timeout_s=RAG_RUN_LIMIT_S,
+            idle_stop_s=RAG_IDLE_STOP_S))
+        try:
+            got = rag_client(c)
+        finally:
+            th.join(RAG_RUN_LIMIT_S)
+            pg.G.clear()
+    end_run(th, run_errors, "4j")
     torch.cuda.synchronize()
     run_s = time.perf_counter() - c.t_write - write_s
     t_checks = time.perf_counter()
@@ -4034,20 +4125,15 @@ def phase4j(torch, np, dec, s) -> tuple[dict, dict]:
         "flash_attention")}
     for name, n in launches.items():
         require(n > 0, f"4j: the pipeline never launched {name}")
-    [runner] = runners
-    ops = runner.lg.scheduler.operators
+    [runner] = rec.runners
     busy: dict = {}
-    for op in ops:
+    for op in runner.lg.scheduler.operators:
         kind = op.name.split(":")[0]
         busy[kind] = busy.get(kind, 0.0) + op.busy_s
-    index_ops = [op for op in ops if isinstance(op, ExternalIndexOperator)]
-    batches = sorted(n for op in index_ops for n in op.query_batches)
-    # kernel #3's launches by variant: an index pass of n >= 4 queries is
-    # one search_batch (the GEMM at n >= 16, else the GEMV), a smaller
-    # pass one search a query (the GEMV)
-    gemm = sum(1 for n in batches if n >= 16)
-    require(launches["knn_scores"] == sum(1 if n >= 4 else n
-                                          for n in batches),
+    index_ops = rec.index_ops()
+    batches = rec.knn_passes()
+    gemm, gemv = knn_variants(batches)
+    require(launches["knn_scores"] == gemm + gemv,
             f"4j: knn launches {launches['knn_scores']} against the index "
             f"passes {batches}")
 
@@ -4130,7 +4216,7 @@ def phase4j(torch, np, dec, s) -> tuple[dict, dict]:
         generated_tokens_per_s_bf16=sum(n_tok) / got["answers_wall_s"],
         retrieve_scores_err=err,
         index_query_batches=batches, index_operators=len(index_ops),
-        knn_launches_gemm=gemm, knn_launches_gemv=launches["knn_scores"] - gemm,
+        knn_launches_gemm=gemm, knn_launches_gemv=gemv,
         op_busy_s=busy, launches=launches,
         phase_s=time.perf_counter() - t_phase)
     if line["phase_s"] > 60.0:
@@ -5033,6 +5119,897 @@ def temporal_only(torch, np, seed, smi, nx_events) -> int:
     return 0
 
 
+# -- phase 4l: the RAG xpack's remainder -------------------------------------
+
+# the phase's sizes (``rag_rest_sizes`` scales them for a CPU run):
+# synthetic_beir_corpus's topics x documents a topic = the chunks of the
+# index tiers; the as-of-now pass, then the single queries; the slide
+# decks, their pages and each page's 16:9 frame (wider than CLIP's 224 x
+# 224, so its resize runs); the text -> image queries; the deck
+# retriever's prompts and k; the vector store's documents, queries and k;
+# the reranked top n; the LLM reranker's pairs and its chat's new tokens;
+# the MCP tool calls.  Three counts are cut, by halves, to keep the phase
+# near its minute (RR_SIZES_FULL: 156.7 s on an H100's host, of it (a)
+# 66.8 s, most of it LSH's per-candidate scoring, (b) 57.2 s, (c) 32.0
+# s): the chunks 65,536 -> 16,384, the decks 256 -> 64 (1,024 -> 256
+# pages) and the vector store's queries 64 -> 32
+RR_SIZES_FULL = dict(topics=2048, docs_per_topic=32, batch=64, singles=8,
+                     decks=256, pages=4, page=(448, 252), text_queries=64,
+                     deck_prompts=8, deck_topk=4, vs_docs=4096,
+                     vs_queries=64, vs_k=10, topn=5, llm_pairs=8, llm_new=4,
+                     mcp_calls=8)
+RR_SIZES = dict(RR_SIZES_FULL, topics=512, decks=64, vs_queries=32)
+RR_K = 10              # k of the index tiers' and the text -> image queries
+RR_DROP_AT = 20        # http.read: the first connection drops after these
+RR_RERANK_TOL = 1e-5   # EncoderReranker against embed_batch rows' cosine
+RR_CLIP_TOL = 1e-4     # a page's embedding (4 a forward) vs 256 a forward
+RR_IDLE_STOP_S = 1.0   # each run ends this long after its last event
+RR_DEADLINE_S = 300.0  # a client waits this long for the pipeline
+
+
+def rag_rest_sizes(scale: int = 1) -> dict:
+    """``RR_SIZES`` with every count divided by ``scale`` (at least 1;
+    the pages and the frame stay), for a run on the CPU."""
+    out = {}
+    for k, v in RR_SIZES.items():
+        out[k] = v if k in ("page", "pages", "deck_topk", "topn", "vs_k") \
+            else max(1, v // scale)
+    return out
+
+
+def rr_reference(torch, kc, q_rows, m, k: int):
+    """Per query row: the top ``k`` of a stable descending sort of the
+    kernel's scores over ``m`` (L2-normalised here), the plain f32 scores
+    of those rows, and the kernel's largest distance from plain.  One
+    launch for the rows together (the GEMM when there are 16+)."""
+    from pathway_tpu_torch.ops.knn import metric_scores
+
+    m = m / (torch.linalg.norm(m, dim=1, keepdim=True) + 1e-12)
+    sc = metric_scores(q_rows, m, "cos_prenorm", kc.knn_scores)
+    plain = metric_scores(q_rows, m, "cos_prenorm", kc.knn_scores_reference)
+    order = torch.sort(sc, dim=1, descending=True, stable=True).indices
+    top = order[:, :k].tolist()
+    return top, [[float(plain[i, j]) for j in row] for i, row in
+                 enumerate(top)], max_abs_err(sc, plain)
+
+
+def rr_tiers(torch, np, s, c) -> dict:
+    """(a): the brute-force, IVF and LSH ``DataIndex``es over one vector
+    column in one ``pw.run``; checks and numbers."""
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch.internals import parse_graph as pg
+    from pathway_tpu_torch.internals.value import ref_scalar
+    from pathway_tpu_torch.ops import _cuda
+    from pathway_tpu_torch.ops import knn_cuda as kc
+    from pathway_tpu_torch.stdlib.indexing import (BruteForceKnnFactory,
+                                                   IvfKnnFactory,
+                                                   LshKnnFactory)
+    from pathway_tpu_torch.stdlib.indexing.inner_index import IvfKnn, LshKnn
+    from pathway_tpu_torch.xpacks.llm.evaluate import (evaluate_retrieval,
+                                                       synthetic_beir_corpus)
+
+    z = s.sizes
+    corpus, queries, qrels = synthetic_beir_corpus(
+        n_topics=z["topics"], docs_per_topic=z["docs_per_topic"],
+        seed=s.seed)
+    c.corpus_texts = texts = list(corpus.values())
+    doc_ids = list(corpus)
+    n, nq = len(texts), z["batch"] + z["singles"]
+    rng = np.random.default_rng(s.seed + 11)
+    qids = [list(queries)[j] for j in
+            rng.choice(len(queries), nq, replace=False)]
+    c.query_texts = q_texts = [queries[q] for q in qids]
+    # every chunk and query embedded once, on the device
+    enc = c.emb.encoder
+    t0 = time.perf_counter()
+    rows = enc.embed_batch(texts)
+    q_rows = enc.embed_batch(q_texts)
+    rows_np, q_np = rows.cpu().numpy(), q_rows.cpu().numpy()
+    embed_s = time.perf_counter() - t0
+    require(rows_np.shape == (n, enc.dimensions)
+            and bool(np.isfinite(rows_np).all()), "4l.a: chunk embeddings")
+
+    pg.G.clear()
+
+    class Docs(pw.Schema):
+        i: int = pw.column_definition(primary_key=True)
+        vec: object
+
+    class Queries(pw.Schema):
+        qi: int
+        qv: object
+
+    # a static table's rows reach each index in their order
+    docs = pw.debug.table_from_rows(Docs, [(i, rows_np[i]) for i in range(n)])
+    # the as-of-now pass of ``batch`` queries at time 2, then one query a
+    # time
+    qrows = [(j, q_np[j], 2, 1) for j in range(z["batch"])] + [
+        (z["batch"] + j, q_np[z["batch"] + j], 4 + 2 * j, 1)
+        for j in range(z["singles"])]
+    qs = pw.debug.table_from_rows(Queries, qrows, is_stream=True)
+    factories = {
+        "brute_force": BruteForceKnnFactory(dimensions=enc.dimensions,
+                                            device=s.device),
+        "ivf": IvfKnnFactory(dimensions=enc.dimensions),
+        "lsh": LshKnnFactory(dimensions=enc.dimensions),
+    }
+    got = {name: {} for name in factories}
+    for name, f in factories.items():
+        reply = f.build_index(docs.vec, docs).query_as_of_now(
+            qs.qv, number_of_matches=RR_K)
+        out = reply.select(qi=qs.qi, ids=reply._pw_index_reply_id,
+                           scores=reply._pw_index_reply_score, docs=reply.i)
+
+        def keep(key, row, time, is_addition, _g=got[name]):
+            require(is_addition and row["qi"] not in _g,
+                    "4l.a: an as-of-now answer was revised")
+            _g[row["qi"]] = row
+
+        pw.io.subscribe(out, on_change=keep)
+    sync(torch, s)
+    _cuda.reset_launches()
+    t0 = time.perf_counter()
+    with RunRecorder() as rec:
+        pw.run(device=s.device)
+    sync(torch, s)
+    run_s = time.perf_counter() - t0
+    launches = _cuda.LAUNCHES["knn_scores"]
+    passes = rec.knn_passes()
+    gemm, gemv = knn_variants(passes)
+    busy = {type(op.index).__name__: op.busy_s for op in rec.index_ops()}
+    pg.G.clear()
+    require(passes == sorted([1] * z["singles"] + [z["batch"]]),
+            f"4l.a: brute-force passes {passes}")
+    if s.device == "cuda":
+        require(launches == gemm + gemv,
+                f"4l.a: knn launches {launches} against the passes {passes}")
+    for name in factories:
+        require(sorted(got[name]) == list(range(nq)),
+                f"4l.a: {name} answered {len(got[name])} of {nq} queries")
+
+    # brute force: a stable sort of the kernel's scores over a reference
+    # matrix (the same rows, normalised here), the pass's queries in one
+    # launch and each single query in its own, as the index ran them
+    m = torch.from_numpy(rows_np).to(s.device)
+    qd = torch.from_numpy(q_np).to(s.device)
+    b = z["batch"]
+    ref = [rr_reference(torch, kc, qd[:b], m, RR_K)] + [
+        rr_reference(torch, kc, qd[j:j + 1], m, RR_K) for j in range(b, nq)]
+    want = [r for top, _p, _e in ref for r in top]
+    plain = [r for _t, p, _e in ref for r in p]
+    kernel_err = max(e for _t, _p, e in ref)
+    require(kernel_err <= KNN_TOL, f"4l.a: kernel vs plain {kernel_err}")
+    err = 0.0
+    for j in range(nq):
+        row = got["brute_force"][j]
+        require(list(row["docs"]) == want[j],
+                f"4l.a: brute-force query {j} differs from the reference")
+        err = max([err] + [abs(a - b) for a, b in zip(row["scores"],
+                                                      plain[j])])
+    require(err <= KNN_TOL, f"4l.a: brute-force scores err {err}")
+
+    # the approximate tiers: the same classes, at the factories' defaults,
+    # fed the same rows under the same keys, give the same keys and scores
+    direct = {"ivf": IvfKnn(enc.dimensions, n_clusters=256, nprobe=16,
+                            metric="cos", train_min=4096,
+                            reserved_space=1024),
+              "lsh": LshKnn(enc.dimensions)}
+    build_s, qps = {}, {}
+    t_direct = time.perf_counter()
+    keys = [ref_scalar(i) for i in range(n)]
+    for name, ix in direct.items():
+        t0 = time.perf_counter()
+        for i in range(n):
+            ix.add(keys[i], rows_np[i])
+        build_s[name] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        answers = [ix.search(q_np[j], RR_K) for j in range(nq)]
+        qps[name] = nq / (time.perf_counter() - t0)
+        for j, ans in enumerate(answers):
+            row = got[name][j]
+            require(list(row["ids"]) == [k for k, _s in ans]
+                    and list(row["scores"]) == [sc for _k, sc in ans],
+                    f"4l.a: {name} query {j} differs from the class fed "
+                    f"directly")
+    require((direct["ivf"].centroids is not None) == (n >= 4096),
+            "4l.a: the IVF trains once it holds train_min rows")
+    direct_s = time.perf_counter() - t_direct
+
+    # retrieval quality (printed, not gated): each tier against the
+    # qrels, and each ANN tier's recall@10 against brute force
+    quality, overlap = {}, {}
+    subset = dict(zip(qids, q_texts))
+    for name in factories:
+        by_text = {q_texts[j]: [doc_ids[i] for i in got[name][j]["docs"]]
+                   for j in range(nq)}
+        quality[name] = evaluate_retrieval(lambda t, k, _b=by_text: _b[t][:k],
+                                           subset, qrels, k=RR_K)
+        if name != "brute_force":
+            overlap[name] = float(np.mean([
+                len(set(got[name][j]["docs"])
+                    & set(got["brute_force"][j]["docs"])) / RR_K
+                for j in range(nq)]))
+    return dict(
+        chunks=n, queries=nq, batch=b, singles=z["singles"], k=RR_K,
+        embed_s=embed_s, run_s=run_s, direct_s=direct_s, index_busy_s=busy,
+        direct_build_s=build_s, direct_queries_per_s=qps,
+        quality=quality, recall_at_10_vs_brute_force=overlap,
+        brute_force_scores_err=err, kernel_vs_plain_err=kernel_err,
+        knn_passes=passes, knn_gemm=gemm, knn_gemv=gemv,
+        knn_launches=launches)
+
+
+def ppm(px) -> bytes:
+    h, w, _ = px.shape
+    return f"P6\n{w} {h}\n255\n".encode() + px.tobytes()
+
+
+def rr_slides(torch, np, s, c) -> dict:
+    """(b): slide decks written as files, parsed over CLIP into a
+    ``SlidesDocumentStore``, served with a ``DeckRetriever``, the parsed
+    documents and a text -> image index on 127.0.0.1 in one ``pw.run``."""
+    import tempfile
+
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch.internals import parse_graph as pg
+    from pathway_tpu_torch.models.clip import TorchClip
+    from pathway_tpu_torch.ops import _cuda
+    from pathway_tpu_torch.ops import knn_cuda as kc
+    from pathway_tpu_torch.stdlib.indexing import BruteForceKnnFactory
+    from pathway_tpu_torch.stdlib.indexing.inner_index import BruteForceKnn
+    from pathway_tpu_torch.xpacks.llm.document_store import (
+        SlidesDocumentStore)
+    from pathway_tpu_torch.xpacks.llm.parsers import SlideParser
+    from pathway_tpu_torch.xpacks.llm.question_answering import DeckRetriever
+    from pathway_tpu_torch.xpacks.llm.servers import QARestServer
+
+    z = s.sizes
+    w, h = z["page"]
+    n_pages = z["decks"] * z["pages"]
+    rng = np.random.default_rng(s.seed + 12)
+    root = tempfile.mkdtemp(prefix="pw_slides_")
+    watched = os.path.join(root, "decks")
+    os.mkdir(watched)
+    frames = {}  # (deck name, page) -> uint8 frame
+    t_gen = time.perf_counter()
+    for d in range(z["decks"]):
+        name = f"deck{d:04d}.ppm"
+        pages = [rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+                 for _ in range(z["pages"])]
+        for p, px in enumerate(pages):
+            frames[(name, p)] = px
+        tmp = os.path.join(root, name)
+        with open(tmp, "wb") as f:
+            f.write(b"".join(ppm(px) for px in pages))
+        os.replace(tmp, os.path.join(watched, name))
+    write_s = time.perf_counter() - t_gen
+    clip = TorchClip(s.clip_cfg, seed=s.seed, device=s.device)
+    words = [f"w{i}" for i in range(2000)]
+    texts = [" ".join(rng.choice(words, 6)) for _ in range(z["text_queries"])]
+    prompts = [" ".join(rng.choice(words, 4))
+               for _ in range(z["deck_prompts"])]
+
+    pg.G.clear()
+    files = pw.io.fs.read(watched, format="binary", mode="streaming",
+                          with_metadata=True)
+    store = SlidesDocumentStore(
+        files, parser=SlideParser(clip_model=clip),
+        retriever_factory=BruteForceKnnFactory(
+            dimensions=c.emb.get_embedding_dimension(), embedder=c.emb,
+            device=s.device))
+    port_qa, port_docs, port_img = free_port(), free_port(), free_port()
+    QARestServer("127.0.0.1", port_qa,
+                 DeckRetriever(None, store, search_topk=z["deck_topk"]))
+
+    class ParsedQuery(pw.Schema):
+        metadata_filter: str | None
+
+    pq, pq_writer = pw.io.http.rest_connector(
+        host="127.0.0.1", port=port_docs, route="/v1/parsed_documents",
+        schema=ParsedQuery)
+    pq_writer(store.parsed_documents_query(pq))
+    parsed = store.parsed_docs
+    pages_t = parsed.select(
+        name=pw.apply(lambda m: os.path.basename(m.value["path"]),
+                      parsed.metadata),
+        page=pw.apply(lambda m: m.value["page"], parsed.metadata),
+        vec=pw.apply(lambda m: m.value["clip_embedding"], parsed.metadata))
+    page_rows = {}
+
+    def keep_page(key, row, time, is_addition):
+        require(is_addition, "4l.b: a parsed page was retracted")
+        page_rows[(row["name"], row["page"])] = row["vec"]
+
+    pw.io.subscribe(pages_t, on_change=keep_page)
+    image_index = BruteForceKnnFactory(dimensions=clip.dimensions,
+                                       device=s.device).build_index(
+        pages_t.vec, pages_t)
+
+    class TextQuery(pw.Schema):
+        query: str
+        k: int
+
+    tq, tq_writer = pw.io.http.rest_connector(
+        host="127.0.0.1", port=port_img, route="/v1/text_to_image",
+        schema=TextQuery)
+    tq_vec = tq.select(qv=pw.apply(clip.embed_text, tq.query), k=tq.k)
+    reply = image_index.query_as_of_now(tq_vec.qv, number_of_matches=tq_vec.k)
+    tq_writer(reply.select(result=pw.apply(
+        lambda names, pages, scores: pw.Json(
+            [[nm, p, sc] for nm, p, sc in zip(names, pages, scores)]),
+        reply.name, reply.page, reply._pw_index_reply_score)))
+
+    sync(torch, s)
+    _cuda.reset_launches()
+    t_run = time.perf_counter()
+    with RunRecorder() as rec:
+        th, errors = serve_in_thread(pw.run, dict(
+            device=s.device, timeout_s=RAG_RUN_LIMIT_S,
+            idle_stop_s=RR_IDLE_STOP_S))
+        try:
+            wait_listening(port_qa, 60.0)
+            end = time.perf_counter() + RR_DEADLINE_S
+            while True:  # every page parsed and indexed
+                count = http_json(port_qa, "/v1/statistics",
+                                  {})["chunk_count"]
+                if count == n_pages:
+                    break
+                require(count < n_pages and time.perf_counter() < end,
+                        f"4l.b: {count} chunks, waiting for {n_pages}")
+                time.sleep(0.05)
+            index_s = time.perf_counter() - t_run
+            wait_listening(port_img, 60.0)
+            t0 = time.perf_counter()
+            image_answers, image_ms = [], []
+            for text in texts:  # one text -> image query at a time
+                ans, dt = timed_http(port_img, "/v1/text_to_image",
+                                     {"query": text, "k": RR_K})
+                image_answers.append(ans)
+                image_ms.append(dt * 1e3)
+            queries_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            listed = http_json(port_docs, "/v1/parsed_documents",
+                               {"metadata_filter": None})
+            one = http_json(port_docs, "/v1/parsed_documents", {
+                "metadata_filter": "globmatch('*deck0001.ppm', path)"
+                if z["decks"] > 1 else "globmatch('*deck0000.ppm', path)"})
+            listing_s = time.perf_counter() - t0
+            decks = [http_json(port_qa, "/v1/pw_ai_answer", {"prompt": p})
+                     for p in prompts]
+            retrieved = [http_json(port_qa, "/v1/retrieve",
+                                   {"query": p, "k": z["deck_topk"]})
+                         for p in prompts]
+        finally:
+            t0 = time.perf_counter()
+            end_run(th, errors, "4l.b")
+            end_s = time.perf_counter() - t0
+    sync(torch, s)
+    t_checks = time.perf_counter()
+    launches = _cuda.LAUNCHES["knn_scores"]
+    passes = rec.knn_passes()
+    gemm, gemv = knn_variants(passes)
+    pg.G.clear()
+    if s.device == "cuda":
+        require(launches == gemm + gemv,
+                f"4l.b: knn launches {launches} against the passes {passes}")
+
+    # every page's embedding = embed_image_batch on the decoded frames
+    require(sorted(page_rows) == sorted(frames),
+            f"4l.b: {len(page_rows)} pages parsed of {len(frames)}")
+    order = sorted(frames)
+    decoded = [frames[k].astype(np.float32) / 255.0 for k in order]
+    want = clip.embed_image_batch(decoded)
+    got = np.stack([np.asarray(page_rows[k]) for k in order])
+    page_err = float(np.abs(got - want).max())
+    require(page_err <= RR_CLIP_TOL, f"4l.b: page embeddings err {page_err}")
+    # each page's own embedding retrieves it first
+    own = BruteForceKnn(clip.dimensions, reserved_space=len(order),
+                        device=s.device)
+    for i, k in enumerate(order):
+        own.add(i, got[i])
+    self_first = [row[0][0] for row in own.search_batch(list(got), 1)]
+    require(self_first == list(range(len(order))),
+            "4l.b: a page's own embedding did not retrieve it first")
+    # text -> image = a stable sort of the kernel's scores (one query a
+    # launch, as served) over the page rows
+    m = torch.from_numpy(got).to(s.device)
+    err = 0.0
+    for text, ans in zip(texts, image_answers):
+        q = torch.from_numpy(clip.embed_text(text)).to(s.device)[None]
+        [top], [plain], kerr = rr_reference(torch, kc, q, m, RR_K)
+        require([(nm, p) for nm, p, _sc in ans] == [order[i] for i in top],
+                "4l.b: a text -> image answer differs from the reference")
+        err = max([err, kerr] + [abs(sc - pl) for (_n, _p, sc), pl
+                                 in zip(ans, plain)])
+    require(err <= KNN_TOL, f"4l.b: text -> image scores err {err}")
+    # the parsed documents: every page, no b64_image; one deck's pages
+    require(len(listed) == n_pages
+            and all("b64_image" not in d for d in listed),
+            f"4l.b: parsed_documents_query listed {len(listed)}")
+    deck_name = "deck0001.ppm" if z["decks"] > 1 else "deck0000.ppm"
+    require(sorted((os.path.basename(d["path"]), d["page"]) for d in one)
+            == [(deck_name, p) for p in range(z["pages"])],
+            "4l.b: the jmespath filter on the path")
+    # the deck retriever answers what retrieve_query retrieves
+    for ans, ret in zip(decks, retrieved):
+        require(len(ans) == z["deck_topk"]
+                and [(d["text"], d["metadata"]) for d in ans]
+                == [(d["text"], d["metadata"]) for d in ret],
+                "4l.b: DeckRetriever differs from retrieve_query")
+    return dict(
+        decks=z["decks"], pages=n_pages, frame=[w, h],
+        files_mb=sum(px.nbytes for px in frames.values()) / 1e6,
+        write_s=write_s, index_s=index_s, queries_s=queries_s,
+        listing_s=listing_s, end_s=end_s,
+        checks_s=time.perf_counter() - t_checks,
+        pages_per_s_parsed_and_indexed=n_pages / index_s,
+        text_to_image_queries=len(texts),
+        text_to_image_p50_ms=statistics.median(image_ms),
+        text_to_image_p99_ms=p99(image_ms),
+        page_embedding_err=page_err, text_to_image_scores_err=err,
+        deck_prompts=len(prompts), knn_passes=passes, knn_gemm=gemm,
+        knn_gemv=gemv, knn_launches=launches)
+
+
+class Sink:
+    """A local endpoint recording every POSTed JSON body (the
+    ``pw.io.http.write`` target)."""
+
+    def __init__(self):
+        import http.server
+        import threading
+
+        bodies = self.bodies = []
+
+        class Handler(http.server.BaseHTTPRequestHandler):
+            def log_message(self, *a):
+                pass
+
+            def do_POST(self):
+                n = int(self.headers.get("Content-Length", 0))
+                bodies.append(json.loads(self.rfile.read(n)))
+                self.send_response(200)
+                self.send_header("Content-Length", "0")
+                self.end_headers()
+
+        self.srv = http.server.ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+        self.port = self.srv.server_address[1]
+        threading.Thread(target=self.srv.serve_forever, daemon=True).start()
+
+    def close(self):
+        self.srv.shutdown()
+        self.srv.server_close()
+
+
+class QueryStream:
+    """A local endpoint serving newline-delimited JSON messages with a
+    Content-Length; its first connection drops after ``drop_at``."""
+
+    def __init__(self, messages: list, drop_at: int):
+        import http.server
+        import threading
+
+        body = b"".join(json.dumps(m).encode() + b"\n" for m in messages)
+        head = b"".join(json.dumps(m).encode() + b"\n"
+                        for m in messages[:drop_at])
+        self.attempts = 0
+        stream = self
+
+        class Handler(http.server.BaseHTTPRequestHandler):
+            def log_message(self, *a):
+                pass
+
+            def do_GET(self):
+                stream.attempts += 1
+                self.send_response(200)
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                if stream.attempts == 1:
+                    self.wfile.write(head)
+                    self.wfile.flush()
+                    self.connection.close()
+                    return
+                self.wfile.write(body)
+
+        self.srv = http.server.ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+        self.port = self.srv.server_address[1]
+        threading.Thread(target=self.srv.serve_forever, daemon=True).start()
+
+    def close(self):
+        self.srv.shutdown()
+        self.srv.server_close()
+
+
+def rr_serving(torch, np, dec, s, c) -> dict:
+    """(c): the vector store (threaded ``run_server``) with an
+    ``http.read`` -> retrieve -> ``EncoderReranker`` ->
+    ``rerank_topk_filter`` -> ``http.write`` pipeline in one run; MCP over
+    a second run; the LLM reranker; a write to a closed port."""
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch.internals import parse_graph as pg
+    from pathway_tpu_torch.ops import _cuda
+    from pathway_tpu_torch.ops import knn_cuda as kc
+    from pathway_tpu_torch.xpacks.llm.document_store import (
+        DocumentStoreClient)
+    from pathway_tpu_torch.xpacks.llm.llms import TorchChat, _prompt_text
+    from pathway_tpu_torch.xpacks.llm.mcp_server import McpConfig, McpServer
+    from pathway_tpu_torch.xpacks.llm.rerankers import (EncoderReranker,
+                                                        LLMReranker,
+                                                        rerank_topk_filter)
+    from pathway_tpu_torch.xpacks.llm.servers import DocumentStoreServer
+    from pathway_tpu_torch.xpacks.llm.vector_store import (VectorStoreClient,
+                                                           VectorStoreServer)
+
+    z = s.sizes
+    docs_texts = c.corpus_texts[: z["vs_docs"]]
+    q_texts = (c.query_texts * z["vs_queries"])[: z["vs_queries"]]
+    k = z["vs_k"]
+    out = {}
+
+    class Docs(pw.Schema):
+        data: str
+        _metadata: object
+
+    def doc_table():
+        return pw.debug.table_from_rows(Docs, [
+            (t, pw.Json({"doc": i})) for i, t in enumerate(docs_texts)])
+
+    class ReadQuery(pw.Schema):
+        qid: int
+        query: str
+        k: int
+
+    # run 1: the vector store, and the query stream through the reranker
+    pg.G.clear()
+    vs = VectorStoreServer(doc_table(), embedder=c.emb, device=s.device)
+    stream = QueryStream([{"qid": j, "query": t, "k": k}
+                          for j, t in enumerate(q_texts)],
+                         min(RR_DROP_AT, len(q_texts) // 2))
+    sink = Sink()
+    rr = EncoderReranker(embedder=c.emb)
+    rerank_s = []
+
+    def rerank(docs, query):
+        t0 = time.perf_counter()
+        scores = tuple(rr(d, query) for d in docs)
+        rerank_s.append(time.perf_counter() - t0)
+        return scores
+
+    q = pw.io.http.read(
+        f"http://127.0.0.1:{stream.port}/queries", schema=ReadQuery,
+        n_retries=2, retry_policy=pw.io.http.RetryPolicy(first_delay_ms=50),
+        autocommit_duration_ms=50)
+    arrived = []
+    pw.io.subscribe(q, on_change=lambda **kw:
+                    arrived.append(time.perf_counter()))
+    res = vs.document_store.retrieve_query(q)
+    cand = res.select(
+        qid=q.qid, query=q.query,
+        docs=pw.apply(lambda r: tuple(d["text"] for d in r.value),
+                      res.result))
+    scored = cand.select(qid=cand.qid, docs=cand.docs,
+                         scores=pw.apply(rerank, cand.docs, cand.query))
+    top = scored.select(qid=scored.qid, docs=scored.docs,
+                        scores=scored.scores,
+                        top=rerank_topk_filter(scored.docs, scored.scores,
+                                               k=z["topn"]))
+    pw.io.http.write(top, f"http://127.0.0.1:{sink.port}/rows")
+    captured = []
+    pw.io.subscribe(top, on_change=lambda key, row, time, is_addition:
+                    captured.append((dict(row), 1 if is_addition else -1)))
+    port_vs = free_port()
+    sync(torch, s)
+    _cuda.reset_launches()
+    t_run = time.perf_counter()
+    with RunRecorder() as rec:
+        th = vs.run_server("127.0.0.1", port_vs, threaded=True,
+                           device=s.device, timeout_s=RAG_RUN_LIMIT_S,
+                           idle_stop_s=RR_IDLE_STOP_S)
+        try:
+            wait_listening(port_vs, 60.0)
+            vc = VectorStoreClient("127.0.0.1", port_vs)
+            dc = DocumentStoreClient("127.0.0.1", port_vs)
+            vs_answers, vs_ms = [], []
+            for t in q_texts:  # one query at a time
+                t0 = time.perf_counter()
+                ans = vc.query(t, k=k)
+                vs_ms.append((time.perf_counter() - t0) * 1e3)
+                require(ans == dc.retrieve(t, k=k), "4l.c: VectorStoreClient "
+                        "differs from DocumentStoreClient")
+                vs_answers.append(ans)
+            end = time.perf_counter() + RR_DEADLINE_S
+            while len(sink.bodies) < len(q_texts):
+                require(time.perf_counter() < end,
+                        f"4l.c: the sink holds {len(sink.bodies)} rows")
+                time.sleep(0.05)
+        finally:
+            th.join(RAG_RUN_LIMIT_S)
+            stream.close()
+            sink.close()
+    require(not th.is_alive(), "4l.c: the vector store's run did not end")
+    sync(torch, s)
+    launches = _cuda.LAUNCHES["knn_scores"]
+    passes = rec.knn_passes()
+    gemm, gemv = knn_variants(passes)
+    if s.device == "cuda":
+        require(launches == gemm + gemv,
+                f"4l.c: knn launches {launches} against the passes {passes}")
+    out.update(vs_docs=len(docs_texts), vs_queries=len(q_texts), k=k,
+               retrieve_p50_ms=statistics.median(vs_ms),
+               retrieve_p99_ms=p99(vs_ms), knn_passes=passes, knn_gemm=gemm,
+               knn_gemv=gemv, knn_launches=launches)
+
+    # each retrieve = a stable sort of the kernel's scores (one query a
+    # launch) over embed_batch's rows of the documents, the query row the
+    # embedder's single-text one, as served
+    enc = c.emb.encoder
+    m = enc.embed_batch(docs_texts)
+    key_of = {t: i for i, t in enumerate(docs_texts)}
+    err = 0.0
+    for t, ans in zip(q_texts, vs_answers):
+        qv = torch.from_numpy(np.asarray(c.emb._embed(t))).to(s.device)[None]
+        [want], [plain], kerr = rr_reference(torch, kc, qv, m, k)
+        require([key_of[d["text"]] for d in ans] == want,
+                "4l.c: a vector store answer differs from the reference")
+        err = max([err, kerr] + [abs(d["score"] - p)
+                                 for d, p in zip(ans, plain)])
+    require(err <= KNN_TOL, f"4l.c: vector store scores err {err}")
+
+    # the stream: read once each (a reconnect, no duplicate), the sink =
+    # the subscription, rerank scores = embed_batch rows' cosine, the top
+    # n = a stable sort
+    require(stream.attempts == 2, f"4l.c: {stream.attempts} connections")
+    rows = {}
+    for row, diff in captured:
+        require(diff == 1 and row["qid"] not in rows,
+                "4l.c: a query row arrived twice or was retracted")
+        rows[row["qid"]] = row
+    require(sorted(rows) == list(range(len(q_texts))),
+            f"4l.c: {len(rows)} query rows of {len(q_texts)}")
+    sunk = sorted((json.dumps([b["qid"], b["top"], b["diff"]])
+                   for b in sink.bodies))
+    subscribed = sorted(json.dumps([r["qid"], [list(x) for x in r["top"]], 1])
+                        for r in rows.values())
+    require(sunk == subscribed, "4l.c: the sink's rows differ from the "
+                                "subscription's")
+    uniq = sorted({d for r in rows.values() for d in r["docs"]})
+    d_rows = enc.embed_batch(uniq).double().cpu().numpy()
+    q_rows = enc.embed_batch(q_texts).double().cpu().numpy()
+    d_of = {d: d_rows[i] / np.linalg.norm(d_rows[i])
+            for i, d in enumerate(uniq)}
+    rerank_err, pairs = 0.0, 0
+    for j, r in rows.items():
+        qn = q_rows[j] / np.linalg.norm(q_rows[j])
+        require([d for d in r["docs"]] == [d["text"] for d in vs_answers[j]],
+                "4l.c: the stream's retrieve differs from the client's")
+        for d, sc in zip(r["docs"], r["scores"]):
+            rerank_err = max(rerank_err, abs(sc - float(d_of[d] @ qn)))
+            pairs += 1
+        ordered = sorted(zip(r["docs"], r["scores"]), key=lambda p: -p[1])
+        want = ordered[: z["topn"]]
+        require(list(zip(*r["top"])) == want,
+                "4l.c: rerank_topk_filter's top differs from a stable sort")
+    require(rerank_err <= RR_RERANK_TOL, f"4l.c: rerank err {rerank_err}")
+    out.update(read_rows=len(rows), read_connections=stream.attempts,
+               read_rows_per_s=len(rows) / (max(arrived) - t_run),
+               reranked_pairs=pairs,
+               reranked_pairs_per_s=pairs / sum(rerank_s),
+               rerank_err=rerank_err, run1_s=time.perf_counter() - t_run)
+
+    # run 2: an McpServer with a retrieve tool over a VectorStoreClient
+    t_mcp = time.perf_counter()
+    pw.set_license_key("demo-license-key-no-telemetry")
+    pg.G.clear()
+    vs2 = VectorStoreServer(doc_table(), embedder=c.emb, device=s.device)
+    port_vs2, port_mcp = free_port(), free_port()
+    DocumentStoreServer("127.0.0.1", port_vs2, vs2.document_store)
+    client = VectorStoreClient("127.0.0.1", port_vs2)
+    mcp = McpServer(McpConfig(host="127.0.0.1", port=port_mcp))
+    mcp.tool("retrieve",
+             request_handler=lambda a: client.query(a["query"], k=a["k"]),
+             schema=pw.schema_from_types(query=str, k=int))
+    sync(torch, s)
+    _cuda.reset_launches()
+    with RunRecorder() as rec:
+        th, errors = serve_in_thread(mcp.run, dict(
+            device=s.device, timeout_s=RAG_RUN_LIMIT_S,
+            idle_stop_s=RR_IDLE_STOP_S))
+        try:
+            wait_listening(port_mcp, 60.0)
+            wait_listening(port_vs2, 60.0)
+            init = http_json(port_mcp, "/mcp", {"jsonrpc": "2.0", "id": 1,
+                                                "method": "initialize"})
+            tools = http_json(port_mcp, "/mcp", {"jsonrpc": "2.0", "id": 2,
+                                                 "method": "tools/list"})
+            calls = [http_json(port_mcp, "/mcp", {
+                "jsonrpc": "2.0", "id": 3 + j, "method": "tools/call",
+                "params": {"name": "retrieve",
+                           "arguments": {"query": t, "k": k}}})
+                for j, t in enumerate(q_texts[: z["mcp_calls"]])]
+        finally:
+            end_run(th, errors, "4l.c MCP")
+    sync(torch, s)
+    mcp_launches = _cuda.LAUNCHES["knn_scores"]
+    mcp_passes = rec.knn_passes()
+    pg.G.clear()
+    mg, mv = knn_variants(mcp_passes)
+    if s.device == "cuda":
+        require(mcp_launches == mg + mv, f"4l.c: MCP run's knn launches "
+                                         f"{mcp_launches}, passes {mcp_passes}")
+    require(init["result"]["serverInfo"]["name"] == McpConfig().name
+            and [t["name"] for t in tools["result"]["tools"]] == ["retrieve"],
+            "4l.c: MCP initialize / tools/list")
+    for j, call in enumerate(calls):
+        require(json.loads(call["result"]["content"][0]["text"])
+                == vs_answers[j], f"4l.c: MCP tools/call {j} differs from "
+                                  f"the vector store's answer")
+    out.update(mcp_calls=len(calls), mcp_knn_passes=mcp_passes,
+               mcp_s=time.perf_counter() - t_mcp)
+    out["knn_gemm"] += mg
+    out["knn_gemv"] += mv
+
+    # a second write, to a port nothing listens on, fails its run
+    pg.G.clear()
+    closed = free_port()
+    pw.io.http.write(pw.debug.table_from_rows(
+        pw.schema_from_types(x=int), [(1,)]), f"http://127.0.0.1:{closed}/")
+    failed = None
+    try:
+        pw.run(device=s.device)
+    except Exception as exc:  # noqa: BLE001 - the failure is the check
+        failed = exc
+    pg.G.clear()
+    require(failed is not None and "URLError" in str(failed),
+            f"4l.c: a write to a closed port did not fail the run: {failed}")
+    out["closed_port_write_error"] = str(failed).splitlines()[0]
+
+    # the LLM reranker over the chat on the dense path: a query and a
+    # document of four make_docs documents a pair, every prompt 256 tokens
+    # or more (the flash kernel's buckets)
+    chat = TorchChat(s.chat_cfg, seed=s.seed, max_new_tokens=z["llm_new"],
+                     device=s.device)
+    lm = chat._lm
+    llm_rr = LLMReranker(chat)
+    rng = np.random.default_rng(s.seed + 13)
+    pairs = [(" ".join(make_docs(rng, 4)), c.query_texts[j % len(
+        c.query_texts)]) for j in range(z["llm_pairs"])]
+    prompts = [_prompt_text([{"role": "user", "content": llm_rr.template
+                              .format(query=qq, doc=d)}]) for d, qq in pairs]
+    ids = lm.encode_prompts(prompts, z["llm_new"])
+    n_tok = [len(i) for i in ids]
+    require(min(n_tok) >= s.llm_min_tokens,
+            f"4l.c: LLM reranker prompts of {n_tok} tokens")
+    sync(torch, s)
+    _cuda.reset_launches()
+    llm_scores, llm_ms = [], []
+    for d, qq in pairs:
+        t0 = time.perf_counter()
+        llm_scores.append(llm_rr(d, qq))
+        llm_ms.append((time.perf_counter() - t0) * 1e3)
+    sync(torch, s)
+    # the first call costs the fused program's bucket (obs/profiler.py's
+    # first-call costing, the JAX compile's counterpart): the rate is the
+    # later calls'
+    llm_s = sum(llm_ms[1:]) / 1e3
+    flash = _cuda.LAUNCHES["flash_attention"]
+    if s.device == "cuda":
+        require(flash > 0, "4l.c: the LLM reranker never launched the "
+                           "flash kernel")
+    import re
+
+    for sc, i in zip(llm_scores, ids):
+        answer = lm._decode_out(dense_greedy(
+            torch, dec, lm.cfg, lm.dense_params(), i, z["llm_new"],
+            device=s.device))
+        m_ = re.search(r"\d+(\.\d+)?", answer)
+        require(sc == (float(m_.group()) if m_ else 0.0),
+                f"4l.c: LLM reranker score {sc} for the answer {answer!r}")
+    out.update(llm_pairs=len(pairs), llm_prompt_tokens=n_tok,
+               llm_scores=llm_scores, llm_ms=llm_ms,
+               llm_pairs_per_s=((len(pairs) - 1) / llm_s if llm_s
+                                else None),
+               flash_launches=flash)
+    del chat, lm
+    return out
+
+
+def sync(torch, s) -> None:
+    if s.device == "cuda":
+        torch.cuda.synchronize()
+
+
+def phase4l(torch, np, dec, s) -> tuple[dict, dict]:
+    """``s``: the card line, the seed, the device, ``sizes`` and the
+    encoder, CLIP and chat configurations.  The RAG xpack's remainder on
+    the card: (a) the brute-force, IVF and LSH tiers over
+    ``synthetic_beir_corpus``'s chunks; (b) slide decks over CLIP in a
+    ``SlidesDocumentStore`` with a ``DeckRetriever``; (c) the vector
+    store, MCP, the rerankers and the HTTP client connectors.  Returns
+    the ``{"rag_rest": ...}`` line and the launches of kernel #3 (GEMM and
+    GEMV) and #4 over the phase's main-path runs."""
+    import tempfile
+
+    from pathway_tpu_torch.obs import costdb, planner
+    from pathway_tpu_torch.xpacks.llm.embedders import (
+        SentenceTransformerEmbedder)
+
+    t_phase = time.perf_counter()
+    c = types.SimpleNamespace()
+    # a fresh cost store: the chat's "auto" tier is the fused dense one
+    prev_db = os.environ.get("PW_COSTDB_PATH")
+    os.environ["PW_COSTDB_PATH"] = os.path.join(
+        tempfile.mkdtemp(prefix="pw_rr_"), "costdb.json")
+    costdb.shutdown()
+    planner.invalidate_cache()
+    try:
+        c.emb = SentenceTransformerEmbedder(config=s.enc_cfg, seed=s.seed,
+                                            device=s.device)
+        t0 = time.perf_counter()
+        tiers = rr_tiers(torch, np, s, c)
+        tiers["phase_s"] = time.perf_counter() - t0
+        log(f"4l.a ok: {tiers['chunks']} chunks, brute force = the "
+            f"reference, IVF / LSH = their classes; {tiers['run_s']:.1f}s")
+        t0 = time.perf_counter()
+        slides = rr_slides(torch, np, s, c)
+        slides["phase_s"] = time.perf_counter() - t0
+        log(f"4l.b ok: {slides['pages']} pages, "
+            f"{slides['pages_per_s_parsed_and_indexed']:.1f} pages/s, text "
+            f"-> image p50 {slides['text_to_image_p50_ms']:.1f} ms")
+        t0 = time.perf_counter()
+        serving = rr_serving(torch, np, dec, s, c)
+        serving["phase_s"] = time.perf_counter() - t0
+        log(f"4l.c ok: vector store, MCP, rerankers, http read/write in "
+            f"{serving['phase_s']:.1f}s")
+    finally:
+        os.environ.pop("PW_COSTDB_PATH", None)
+        if prev_db is not None:
+            os.environ["PW_COSTDB_PATH"] = prev_db
+        costdb.shutdown()
+        planner.invalidate_cache()
+    launches = dict(
+        knn_scores=tiers["knn_gemm"] + slides["knn_gemm"] + serving["knn_gemm"],
+        knn_scores_q1=(tiers["knn_gemv"] + slides["knn_gemv"]
+                       + serving["knn_gemv"]),
+        flash_attention=serving["flash_launches"])
+    if s.device == "cuda":
+        for name, n in launches.items():
+            require(n > 0, f"4l: the phase never launched {name}")
+    line = dict(card=s.smi, sizes=s.sizes, tiers=tiers, slides=slides,
+                serving=serving, launches=launches,
+                phase_s=time.perf_counter() - t_phase)
+    if line["phase_s"] > 60.0:
+        log(f"4l: the phase took {line['phase_s']:.1f}s, over its 60 s")
+    return line, launches
+
+
+def rag_rest_inputs(torch, dec, smi, seed, device="cuda", scale: int = 1,
+                    enc_cfg=None, clip_cfg=None, chat_cfg=None,
+                    llm_min_tokens: int = 256):
+    """Phase 4l's inputs: full width on the card (the MiniLM-width
+    encoder, CLIP ViT-B/32 and GPT-2 small, all f32, random weights from
+    ``seed``); the CPU tests pass small configurations and a ``scale``."""
+    from pathway_tpu_torch.models.clip import ClipConfig
+    from pathway_tpu_torch.models.encoder import EncoderConfig
+
+    return types.SimpleNamespace(
+        smi=smi, seed=seed, device=device, sizes=rag_rest_sizes(scale),
+        enc_cfg=enc_cfg or EncoderConfig(**MINILM, dtype=torch.float32),
+        clip_cfg=clip_cfg or ClipConfig(dtype=torch.float32),
+        chat_cfg=chat_cfg or dec.DecoderConfig(**GPT2_SMALL,
+                                               dtype=torch.float32),
+        llm_min_tokens=llm_min_tokens)
+
+
+def rag_rest_only(torch, np, dec, seed, smi) -> int:
+    """``--rag-rest-only``: phase 4l alone after the build (the short
+    first call after a change to the RAG xpack's remainder)."""
+    line, _launches = phase4l(torch, np, dec,
+                              rag_rest_inputs(torch, dec, smi, seed))
+    print(json.dumps({"rag_rest": line}), flush=True)
+    log("--rag-rest-only: stopping after phase 4l")
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5057,6 +6034,9 @@ def main() -> int:
     ap.add_argument("--temporal-only", action="store_true",
                     help="run phase 4k (the Nexmark-shaped stream) alone, "
                          "without building the kernels; prints no result")
+    ap.add_argument("--rag-rest-only", action="store_true",
+                    help="build the kernels, then run phase 4l (the RAG "
+                         "xpack's remainder) alone; prints no result")
     ap.add_argument("--nexmark-events", type=int, default=NX_EVENTS,
                     help="phase 4k's event count (default %(default)s)")
     args = ap.parse_args()
@@ -5133,6 +6113,8 @@ def main() -> int:
     if args.rag_pipeline_only:
         return rag_pipeline_only(torch, np, dec, args.seed, engine_sizes,
                                  smi)
+    if args.rag_rest_only:
+        return rag_rest_only(torch, np, dec, args.seed, smi)
 
     # phase 2: kernels against their plain versions
     g = torch.Generator().manual_seed(args.seed)
@@ -5650,6 +6632,17 @@ def main() -> int:
         f"{temporal_line['streaming']['lag_p50_ms']:.0f} ms in "
         f"{temporal_line['phase_s']:.1f}s")
     print(json.dumps({"temporal": temporal_line}), flush=True)
+
+    # phase 4l: the RAG xpack's remainder (the index tiers, slide decks over
+    # CLIP, the vector store, MCP, the rerankers, the HTTP client
+    # connectors), after every earlier measurement; its launches go on the
+    # kernels line
+    rest_line, rest_launches = phase4l(torch, np, dec, rag_rest_inputs(
+        torch, dec, smi, args.seed))
+    log(f"phase 4l ok: {rest_line['tiers']['chunks']} chunks on three "
+        f"tiers, {rest_line['slides']['pages']} slide pages, vector store, "
+        f"MCP, rerankers and http read/write in {rest_line['phase_s']:.1f}s")
+    print(json.dumps({"rag_rest": rest_line}), flush=True)
     for k in kernels:
         if k["name"] in ("paged_attention", "paged_append_attend",
                          "flash_attention"):
@@ -5658,6 +6651,8 @@ def main() -> int:
             k["launches_rag_pipeline"] = rag_line["knn_launches_gemm"]
         elif k["name"] == "knn_scores_q1":
             k["launches_rag_pipeline"] = rag_line["knn_launches_gemv"]
+        if k["name"] in rest_launches:
+            k["launches_rag_rest"] = rest_launches[k["name"]]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({
         "rag": {

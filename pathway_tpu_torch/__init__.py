@@ -166,6 +166,7 @@ from .stdlib.temporal import (  # noqa: E402
 )
 from .stdlib.utils.async_transformer import AsyncTransformer  # noqa: E402
 from .internals.iterate import iterate, iteration_limit  # noqa: E402
+from .internals.config import set_license_key, set_monitoring_config  # noqa: E402
 from .engine import time_ops as _time_ops  # noqa: E402
 
 _time_ops.install_table_methods()
@@ -216,4 +217,5 @@ __all__ = [
     "run_all", "indexing", "temporal", "ordered", "statistical", "stateful",
     "utils", "AsyncTransformer", "iterate", "iteration_limit", "window",
     "AsofJoinResult", "IntervalJoinResult", "WindowJoinResult",
+    "set_license_key", "set_monitoring_config",
 ]

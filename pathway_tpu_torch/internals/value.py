@@ -192,9 +192,15 @@ def auto_row_keys(n: int) -> list[Pointer]:
 
 
 class Json:
-    """pw.Json — wrapper for parsed JSON values."""
+    """pw.Json — wrapper for parsed JSON values.
 
-    __slots__ = ("value",)
+    Its hash serializes the value (``json.dumps``) once per object: the
+    engine hashes a row at every consolidation, and a value holding an
+    array (a CLIP embedding in a parser's metadata) formats it through
+    numpy each time otherwise.  A Json's value is not mutated once it is
+    in a table."""
+
+    __slots__ = ("value", "_pw_repr")
 
     def __init__(self, value: Any) -> None:
         if isinstance(value, Json):
@@ -248,7 +254,12 @@ class Json:
     def _pw_hash_repr_(self) -> Any:
         import json as _json
 
-        return ("#json", _json.dumps(self.value, sort_keys=True, default=str))
+        cached = getattr(self, "_pw_repr", None)
+        if cached is not None and cached[0] is self.value:
+            return cached[1]
+        out = ("#json", _json.dumps(self.value, sort_keys=True, default=str))
+        self._pw_repr = (self.value, out)
+        return out
 
     def __repr__(self) -> str:
         return f"pw.Json({self.value!r})"

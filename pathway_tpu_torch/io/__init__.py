@@ -1,9 +1,10 @@
 """Connectors (the port of ``pathway_tpu/io``): ``subscribe``, ``fs``
 (binary, plaintext, csv and json files, static or streaming), ``csv``
-and ``jsonlines`` (read and write), ``python`` (custom subjects) and the
-serving half of ``http`` (``rest_connector`` and ``PathwayWebserver``).
-The HTTP client connectors, the message-queue connectors and input
-synchronization groups are not ported."""
+and ``jsonlines`` (read and write), ``python`` (custom subjects) and
+``http``: the serving half (``rest_connector`` and ``PathwayWebserver``)
+and the client connectors (``read`` and ``write``).  The message-queue,
+database and cloud connectors, persistence and input synchronization
+groups are not ported."""
 
 from . import csv, fs, http, jsonlines, python
 from ._subscribe import subscribe

@@ -2,10 +2,12 @@
 
 The serving half of ``pathway_tpu/io/http.py``: ``PathwayWebserver``
 (``/_schema``, ``/debug/trace``, ``/debug/profile``, SSE streams),
-``rest_connector`` and its ``raw_output`` lowering.  The HTTP client
-connectors ``read`` and ``write`` are not ported.  The server starts
-when the engine starts the connector's source and shuts down when the
-run stops it.
+``rest_connector`` and its ``raw_output`` lowering, and the HTTP client
+connectors: ``read`` (a delimited streaming response as a live table,
+with retries, reconnects that skip the messages already delivered, and
+the trailing-buffer rules) and ``write`` (one POST an update row; a
+failed POST fails the run).  The server starts when the engine starts
+the connector's source and shuts down when the run stops it.
 
 Reference: io/http/_server.py:388-723 — aiohttp server with per-endpoint
 OpenAPI 3.0.3 schema generation served at ``/_schema``.  The server is
@@ -32,6 +34,7 @@ import json
 import logging
 import threading
 import time
+import urllib.request
 import uuid
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Any, Sequence
@@ -913,6 +916,261 @@ class _RestSource(SubjectDataSource):
         self.webserver.shutdown()
 
 
+class RetryPolicy:
+    """Delay policy for stream-read retries (reference: io/http
+    RetryPolicy)."""
+
+    def __init__(self, first_delay_ms: int = 1000, backoff_factor: float = 2.0,
+                 jitter_ms: int = 0):
+        self.first_delay_ms = first_delay_ms
+        self.backoff_factor = backoff_factor
+        self.jitter_ms = jitter_ms
+
+    @classmethod
+    def default(cls) -> "RetryPolicy":
+        return cls()
+
+    def delay_s(self, attempt: int) -> float:
+        import random
+
+        base = self.first_delay_ms * (self.backoff_factor ** attempt)
+        return (base + random.uniform(0, self.jitter_ms)) / 1000.0
+
+
+def read(
+    url: str,
+    *,
+    schema: SchemaMetaclass | None = None,
+    method: str = "GET",
+    payload: Any | None = None,
+    headers: dict[str, str] | None = None,
+    response_mapper=None,
+    format: str = "json",  # noqa: A002
+    delimiter: str | bytes | None = None,
+    n_retries: int = 0,
+    retry_policy: RetryPolicy | None = None,
+    connect_timeout_ms: int | None = None,
+    request_timeout_ms: int | None = None,
+    allow_redirects: bool = True,
+    retry_codes: tuple | None = (429, 500, 502, 503, 504),
+    autocommit_duration_ms: int = 10000,
+    flush_trailing: bool = False,
+    deterministic_rerun: bool = False,
+    **kwargs,
+):
+    """Read a table from a streaming HTTP endpoint (reference: io/http
+    read).  The response body splits into messages on `delimiter`
+    (default newline); "json" format parses each message into schema
+    columns, "raw" binds it to a single `data` column.
+
+    `flush_trailing`: deliver a final message that was not terminated by
+    `delimiter` when the stream ends.  Off by default — for endpoints
+    without Content-Length (chunked streaming, the usual case) a dropped
+    connection is indistinguishable from a clean EOF, and flushing would
+    emit the truncated tail as a complete record and end the stream; with
+    the flag off such an EOF retries like any other disconnect.  Responses WITH Content-Length verify completeness directly, so
+    their delimiter-less tail is always delivered.  With ``n_retries >= 2``
+    an IDENTICAL trailing buffer re-read on 3 consecutive attempts is
+    recognized as a stable tail from a well-behaved endpoint and delivered
+    as the final record — a dropped connection would re-read a
+    different or growing stream; with fewer retries only the distinct
+    mid-message log line fires.
+
+    `deterministic_rerun`: under persistence, whether a process restart
+    re-delivers the same byte stream from the start.  Kept as a flag; this
+    package has no persistence, so it has no effect (as in the JAX
+    package without a persistence config).
+
+    A read that fails past its retries raises on the source's thread and
+    ends the stream there; the run goes on with the rows delivered, as in
+    the JAX package."""
+    from ..internals.schema import schema_from_types
+    from . import python as io_python
+
+    if format == "raw":
+        if schema is not None:
+            raise ValueError(
+                "format='raw' produces a single `data` column; a custom "
+                "schema cannot be honored — drop one of the two"
+            )
+        schema = schema_from_types(data=bytes)
+    elif schema is None:
+        schema = schema_from_types(data=str)
+    delim = delimiter if delimiter is not None else b"\n"
+    if isinstance(delim, str):
+        delim = delim.encode()
+    policy = retry_policy or RetryPolicy.default()
+
+    _det_rerun = deterministic_rerun
+
+    class _HttpStreamSubject(io_python.ConnectorSubject):
+        deterministic_rerun = _det_rerun
+
+        def run(self) -> None:
+            import http.client as _http_client
+            import urllib.error
+            import urllib.request
+
+            attempt = 0
+            delivered = 0  # survives reconnects: re-read msgs are skipped
+            last_tail: bytes | None = None  # trailing buffer of prior attempt
+            tail_stable = 0  # consecutive attempts ending in the SAME tail
+            while True:
+                hdrs = dict(headers or {})
+                if payload is not None and not any(
+                    h.lower() == "content-type" for h in hdrs
+                ):
+                    hdrs["Content-Type"] = "application/json"
+                req = urllib.request.Request(
+                    url,
+                    data=(json.dumps(payload).encode()
+                          if payload is not None else None),
+                    headers=hdrs, method=method,
+                )
+                try:
+                    connect_s = (connect_timeout_ms or 0) / 1000 or None
+                    # whole-request wall-clock cap, enforced between chunks
+                    # (urllib has no separate read-phase timeout)
+                    deadline = (
+                        time.monotonic() + request_timeout_ms / 1000
+                        if request_timeout_ms else None
+                    )
+                    opener = urllib.request.build_opener() if allow_redirects \
+                        else urllib.request.build_opener(_NoRedirect())
+                    seen = 0
+                    with opener.open(req, timeout=connect_s) as resp:
+                        expected = resp.headers.get("Content-Length")
+                        expected = int(expected) if expected else None
+                        received = 0
+                        buf = bytearray()
+                        while True:
+                            if deadline is not None and \
+                                    time.monotonic() > deadline:
+                                raise TimeoutError(
+                                    f"http.read exceeded request timeout "
+                                    f"{request_timeout_ms}ms"
+                                )
+                            chunk = resp.read(8192)
+                            if not chunk:
+                                if expected is not None and received < expected:
+                                    # premature close: http.client returns
+                                    # EOF instead of raising — surface it so
+                                    # the retry path resumes the stream
+                                    raise OSError(
+                                        f"connection closed after {received}"
+                                        f"/{expected} bytes"
+                                    )
+                                break
+                            received += len(chunk)
+                            buf.extend(chunk)
+                            # consume complete messages; one prefix-del per
+                            # chunk keeps this linear in stream size
+                            start = 0
+                            while True:
+                                pos = buf.find(delim, start)
+                                if pos < 0:
+                                    break
+                                seen += 1
+                                if seen > delivered:
+                                    self._deliver(bytes(buf[start:pos]))
+                                    delivered = seen
+                                    # fresh data flowed: this connection is
+                                    # healthy, so earlier transport errors
+                                    # stop counting against the retry
+                                    # budget (and against the stable-tail
+                                    # attempts a trailing record needs)
+                                    attempt = 0
+                                start = pos + len(delim)
+                            if start:
+                                del buf[:start]
+                        if bytes(buf).strip():
+                            # a delimiter-less tail at EOF: for a stream
+                            # with verified Content-Length it is the last
+                            # message; without one, a mid-message drop
+                            # looks identical to clean EOF, so treat it as
+                            # a retryable disconnect unless the caller
+                            # opted into flushing
+                            if expected is None and not flush_trailing:
+                                tail = bytes(buf)
+                                if tail == last_tail:
+                                    tail_stable += 1
+                                else:
+                                    last_tail, tail_stable = tail, 1
+                                if tail_stable >= 3:
+                                    # the SAME unterminated tail came back
+                                    # on 3 consecutive attempts: a dropped
+                                    # connection would re-read a different
+                                    # (or growing) stream, so this is a
+                                    # well-behaved endpoint whose final
+                                    # record simply lacks the delimiter —
+                                    # deliver it instead of burning the
+                                    # rest of the retry budget
+                                    logging.getLogger(__name__).warning(
+                                        "http.read %s: identical %d-byte "
+                                        "trailing buffer across %d "
+                                        "consecutive attempts; delivering "
+                                        "it as the final record",
+                                        url, len(tail), tail_stable,
+                                    )
+                                    seen += 1
+                                    if seen > delivered:
+                                        self._deliver(tail)
+                                        delivered = seen
+                                else:
+                                    logging.getLogger(__name__).info(
+                                        "http.read %s: connection ended "
+                                        "mid-message (no Content-Length, "
+                                        "%d-byte trailing buffer, seen "
+                                        "%dx); retrying",
+                                        url, len(buf), tail_stable,
+                                    )
+                                    raise OSError(
+                                        "connection ended mid-message (no "
+                                        "Content-Length, trailing partial "
+                                        "buffer); pass flush_trailing=True "
+                                        "to deliver unterminated tails "
+                                        "instead"
+                                    )
+                            else:
+                                seen += 1
+                                if seen > delivered:
+                                    self._deliver(bytes(buf))
+                                    delivered = seen
+                    return  # stream finished cleanly
+                except urllib.error.HTTPError as exc:
+                    if (retry_codes and exc.code in retry_codes
+                            and attempt < n_retries):
+                        time.sleep(policy.delay_s(attempt))
+                        attempt += 1
+                        continue
+                    raise
+                except (OSError, TimeoutError, _http_client.HTTPException):
+                    if attempt < n_retries:
+                        time.sleep(policy.delay_s(attempt))
+                        attempt += 1
+                        continue
+                    raise
+
+        def _deliver(self, msg: bytes) -> None:
+            if response_mapper is not None:
+                msg = response_mapper(msg)
+            if format == "raw":
+                self.next_bytes(msg)
+            else:
+                self.next_json(json.loads(msg))
+
+    return io_python.read(
+        _HttpStreamSubject(), schema=schema,
+        autocommit_duration_ms=autocommit_duration_ms,
+        name=f"http:{url}",
+    )
+
+
+class _NoRedirect(urllib.request.HTTPRedirectHandler):
+    def redirect_request(self, *args, **kwargs):
+        return None
+
+
 def rest_connector(
     host: str = "0.0.0.0",
     port: int = 8080,
@@ -996,3 +1254,26 @@ def rest_connector(
 def _lower_raw_output(node, lg):
     return _ops.OutputOperator(node.params["on_time"], name="raw_output")
 
+
+
+def write(table: Table, url: str, *, method: str = "POST",
+          format: str = "json", **kwargs) -> None:  # noqa: A002
+    """POST each update row to ``url`` as one JSON object: the row's
+    columns plus ``time`` and ``diff`` (reference: io/http write).  A POST
+    that fails (no answer, or an HTTP error status) fails the run: no
+    output row is lost without a trace."""
+    colnames = table.column_names()
+
+    def on_time(time: int, updates: list) -> None:
+        for key, row, diff in updates:
+            obj = dict(zip(colnames, [_jsonable(v) for v in unwrap_row(row)]))
+            obj.update(time=time, diff=diff)
+            req = urllib.request.Request(
+                url, json.dumps(obj, default=str).encode(),
+                headers={"Content-Type": "application/json"}, method=method,
+            )
+            with urllib.request.urlopen(req, timeout=10):
+                pass
+
+    pg.new_output_node("raw_output", [table], on_time=on_time,
+                       colnames=colnames)

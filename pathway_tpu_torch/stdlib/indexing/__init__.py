@@ -2,9 +2,10 @@
 ``DataIndex`` (the port of ``pathway_tpu/stdlib/indexing``; reference:
 python/pathway/stdlib/indexing/).
 
-The KNN helpers take ``device`` (default ``"cuda"``) for the index they
-build.  ``IvfKnn`` and ``LshKnn``, with their factories and
-``default_lsh_knn_document_index``, are not ported.
+The brute-force KNN helpers take ``device`` (default ``"cuda"``) for the
+index they build; the approximate tiers ``IvfKnn`` and ``LshKnn`` (with
+their factories and ``default_lsh_knn_document_index``) are host numpy
+and take none.
 """
 
 import enum
@@ -14,6 +15,8 @@ from .inner_index import (
     BruteForceKnn,
     HybridIndex,
     InnerIndex,
+    IvfKnn,
+    LshKnn,
     TantivyBM25,
     USearchKnn,
 )
@@ -21,6 +24,8 @@ from .retrievers import (
     AbstractRetrieverFactory,
     BruteForceKnnFactory,
     HybridIndexFactory,
+    IvfKnnFactory,
+    LshKnnFactory,
     TantivyBM25Factory,
     UsearchKnnFactory,
 )
@@ -74,6 +79,15 @@ def default_brute_force_knn_document_index(
                                metadata_column=metadata_column)
 
 
+def default_lsh_knn_document_index(
+    data_column, data_table, *, dimensions=None, embedder=None,
+    metadata_column=None,
+) -> DataIndex:
+    factory = LshKnnFactory(dimensions=dimensions, embedder=embedder)
+    return factory.build_index(data_column, data_table,
+                               metadata_column=metadata_column)
+
+
 def default_usearch_knn_document_index(
     data_column, data_table, dimensions=None, *, embedder=None,
     metadata_column=None, metric="cos", reserved_space: int = 1024,
@@ -93,11 +107,12 @@ def default_full_text_document_index(data_column, data_table, *,
 
 
 __all__ = [
-    "DataIndex", "InnerIndex", "BruteForceKnn", "USearchKnn", "TantivyBM25",
-    "HybridIndex", "AbstractRetrieverFactory", "BruteForceKnnFactory",
-    "UsearchKnnFactory", "TantivyBM25Factory", "HybridIndexFactory",
+    "DataIndex", "InnerIndex", "BruteForceKnn", "USearchKnn", "IvfKnn",
+    "LshKnn", "TantivyBM25", "HybridIndex", "AbstractRetrieverFactory",
+    "BruteForceKnnFactory", "IvfKnnFactory", "UsearchKnnFactory",
+    "LshKnnFactory", "TantivyBM25Factory", "HybridIndexFactory",
     "DefaultKnnFactory", "BruteForceKnnMetricKind", "USearchMetricKind",
     "default_vector_document_index", "default_full_text_document_index",
     "default_brute_force_knn_document_index",
-    "default_usearch_knn_document_index",
+    "default_lsh_knn_document_index", "default_usearch_knn_document_index",
 ]

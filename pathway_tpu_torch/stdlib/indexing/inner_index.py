@@ -3,10 +3,14 @@
 
 Counterpart of ``pathway_tpu/stdlib/indexing/inner_index.py``: the dense
 exact KNN index ``BruteForceKnn`` (and ``USearchKnn``, its alias), with
-its matrix held on the device, and the host-side full-text indexes the
-RAG templates use, ``TantivyBM25`` (Okapi BM25 over an inverted index)
-and ``HybridIndex`` (reciprocal-rank fusion over sub-indexes), which are
-Python on the host in both packages.
+its matrix held on the device; the approximate tiers ``IvfKnn`` (a
+k-means coarse quantizer over a cluster-major matrix) and ``LshKnn``
+(random-hyperplane buckets), host numpy in both packages with the same
+seeded draws, so their keys and scores equal the JAX indexes'; and the
+host-side full-text indexes the RAG templates use, ``TantivyBM25``
+(Okapi BM25 over an inverted index) and ``HybridIndex`` (reciprocal-rank
+fusion over sub-indexes), which are Python on the host in both
+packages.
 
 ``BruteForceKnn``'s rows come in two kinds, as in the JAX index:
 
@@ -350,6 +354,350 @@ class BruteForceKnn(InnerIndex):
 class USearchKnn(BruteForceKnn):
     """The JAX package's alias for the reference's USearch HNSW: exact
     search over the device matrix here."""
+
+
+class IvfKnn(InnerIndex):
+    """Inverted-file ANN: the scale tier (reference equivalent: USearch HNSW,
+    usearch_integration.rs:21-80 — re-designed for dense matmuls).  Host
+    numpy, as in the JAX package, with the same seeded draws: keys and
+    scores equal the JAX index's on the same rows.
+
+    Vectors live in ONE matrix laid out cluster-major by a trained coarse
+    quantizer, so probing a cluster is a contiguous-block matmul (zero
+    gather, zero pointer chasing).
+    Search scores the C centroids (one small matmul), probes the `nprobe`
+    best clusters' blocks, and exactly rescores their members.  Mutation is
+    incremental: adds append to a per-cluster overflow tail; removes
+    tombstone in place; the index re-trains and compacts when it outgrows
+    its training set 4x or tombstones exceed 25%.
+    """
+
+    def __init__(
+        self,
+        dimensions: int | None = None,
+        *,
+        n_clusters: int = 256,
+        nprobe: int = 16,
+        metric: str = "cos",
+        train_min: int = 4096,
+        train_sample: int = 50_000,
+        seed: int = 0,
+        reserved_space: int = 1024,
+    ):
+        if metric not in ("cos", "dot", "l2sq"):
+            raise ValueError(f"unsupported metric {metric!r}")
+        self.dim = dimensions
+        self.n_clusters = n_clusters
+        self.nprobe = nprobe
+        self.metric = metric
+        self.train_min = train_min
+        self.train_sample = train_sample
+        self.seed = seed
+        self.capacity = max(reserved_space, 16)
+        self.matrix: np.ndarray | None = None  # normalized rows for cos
+        self.keys: list[int] = []  # slot -> key
+        self.slot_of: dict[int, int] = {}
+        self.metadata: dict[int, Any] = {}
+        self.alive: np.ndarray | None = None  # slot -> live?
+        self.n_slots = 0
+        self.n = 0  # live count
+        self.centroids: np.ndarray | None = None
+        self._cent_adj: np.ndarray | None = None  # -||c||^2 for l2sq assignment
+        self.sqnorms: np.ndarray | None = None  # per-slot ||v||^2 (l2sq)
+        # cluster-major layout: block_bounds[c]:block_bounds[c+1] are cluster
+        # c's contiguous slots; later adds land in overflow[c] (slot lists)
+        self.block_bounds: np.ndarray | None = None
+        self.overflow: list[list[int]] = []
+        self._trained_at = 0
+
+    # -- storage ------------------------------------------------------------
+    def _norm(self, vec: np.ndarray) -> np.ndarray:
+        if self.metric == "cos":
+            return vec / (np.linalg.norm(vec) + 1e-12)
+        return vec
+
+    def _ensure(self, dim: int) -> None:
+        if self.matrix is None:
+            self.dim = dim
+            self.matrix = np.zeros((self.capacity, dim), dtype=np.float32)
+            self.alive = np.zeros(self.capacity, bool)
+            if self.metric == "l2sq":
+                self.sqnorms = np.zeros(self.capacity, np.float32)
+
+    def _grow(self) -> None:
+        self.capacity *= 2
+        new = np.zeros((self.capacity, self.dim), dtype=np.float32)
+        new[: self.n_slots] = self.matrix[: self.n_slots]
+        self.matrix = new
+        na = np.zeros(self.capacity, bool)
+        na[: self.n_slots] = self.alive[: self.n_slots]
+        self.alive = na
+        if self.sqnorms is not None:
+            ns = np.zeros(self.capacity, np.float32)
+            ns[: self.n_slots] = self.sqnorms[: self.n_slots]
+            self.sqnorms = ns
+
+    def add(self, key: int, item: Any, metadata: Any = None) -> None:
+        vec = self._norm(_host_vec(item))
+        self._ensure(vec.shape[0])
+        if key in self.slot_of:
+            self.remove(key)
+        if self.n_slots == self.capacity:
+            self._grow()
+        slot = self.n_slots
+        self.matrix[slot] = vec
+        if self.sqnorms is not None:
+            self.sqnorms[slot] = float(vec @ vec)
+        self.alive[slot] = True
+        self.slot_of[key] = slot
+        self.keys.append(key)
+        self.metadata[key] = metadata
+        self.n_slots += 1
+        self.n += 1
+        if self.centroids is None:
+            if self.n >= self.train_min:
+                self._train()
+        else:
+            c = int(np.argmax(self._assign_scores(vec[None, :])[0]))
+            self.overflow[c].append(slot)
+            dead = self.n_slots - self.n
+            if self.n >= 4 * max(self._trained_at, 1) or (
+                self.n_slots > 64 and dead > self.n_slots // 4
+            ):
+                self._train()
+
+    def remove(self, key: int) -> None:
+        slot = self.slot_of.pop(key, None)
+        if slot is None:
+            return
+        self.metadata.pop(key, None)
+        self.alive[slot] = False  # tombstone; compaction happens at retrain
+        self.n -= 1
+
+    def _assign_scores(self, rows: np.ndarray) -> np.ndarray:
+        """(B, C) centroid affinity; for l2sq this ranks by true distance."""
+        s = rows @ self.centroids.T
+        if self.metric == "l2sq":
+            s = 2.0 * s + self._cent_adj[None, :]
+        return s
+
+    # -- quantizer ----------------------------------------------------------
+    def _train(self) -> None:
+        rng = np.random.default_rng(self.seed)
+        live = np.flatnonzero(self.alive[: self.n_slots])
+        n = len(live)
+        if n == 0:
+            return
+        C = max(1, min(self.n_clusters, n // 8 or 1))
+        sample_n = min(n, self.train_sample)
+        sample = self.matrix[rng.choice(live, size=sample_n, replace=False)]
+        # k-means: random init + a few matmul-assignment iterations
+        cent = sample[rng.choice(sample_n, size=C, replace=False)].copy()
+        for _ in range(6):
+            if self.metric == "l2sq":
+                adj = -np.sum(cent * cent, axis=1)
+                assign = np.argmax(2.0 * (sample @ cent.T) + adj[None, :], axis=1)
+            else:
+                assign = np.argmax(sample @ cent.T, axis=1)
+            for c in range(C):
+                pts = sample[assign == c]
+                if len(pts):
+                    m = pts.mean(axis=0)
+                    if self.metric == "cos":
+                        m /= np.linalg.norm(m) + 1e-12
+                    cent[c] = m
+        self.centroids = cent.astype(np.float32)
+        self._cent_adj = -np.sum(cent * cent, axis=1).astype(np.float32)
+        # assign all live rows in chunks, then rebuild the matrix
+        # cluster-major (compacting tombstones away)
+        assigns = np.empty(n, np.int64)
+        for s in range(0, n, 65536):
+            rows = self.matrix[live[s : s + 65536]]
+            assigns[s : s + len(rows)] = np.argmax(self._assign_scores(rows), axis=1)
+        order = np.argsort(assigns, kind="stable")
+        sorted_live = live[order]
+        sorted_assigns = assigns[order]
+        new_matrix = np.zeros((max(self.capacity, n), self.dim), np.float32)
+        new_matrix[:n] = self.matrix[sorted_live]
+        if self.sqnorms is not None:
+            ns = np.zeros(len(new_matrix), np.float32)
+            ns[:n] = self.sqnorms[sorted_live]
+            self.sqnorms = ns
+        old_keys = self.keys
+        self.keys = [old_keys[s] for s in sorted_live]
+        self.slot_of = {k: i for i, k in enumerate(self.keys)}
+        self.matrix = new_matrix
+        self.capacity = len(new_matrix)
+        self.alive = np.zeros(self.capacity, bool)
+        self.alive[:n] = True
+        self.n_slots = n
+        self.n = n
+        counts = np.bincount(sorted_assigns, minlength=C)
+        self.block_bounds = np.concatenate([[0], np.cumsum(counts)])
+        self.overflow = [[] for _ in range(C)]
+        self._trained_at = n
+
+    # -- search -------------------------------------------------------------
+    def search(self, query, k, metadata_filter=None):
+        if self.n == 0:
+            return []
+        q = self._norm(_host_vec(query))
+        qsq = float(q @ q)
+
+        def _score_rows(rows_2d, sq_1d):
+            sc = rows_2d @ q
+            if self.metric == "l2sq":
+                sc = 2.0 * sc - sq_1d - qsq
+            return sc
+
+        if self.centroids is None:
+            # untrained: exact scan (small index)
+            scores = _score_rows(
+                self.matrix[: self.n_slots],
+                self.sqnorms[: self.n_slots] if self.sqnorms is not None else None,
+            )
+            scores[~self.alive[: self.n_slots]] = -np.inf
+            slots = np.arange(self.n_slots)
+        else:
+            cs = self._assign_scores(q[None, :])[0]
+            np_probe = min(self.nprobe, len(cs))
+            probe = np.argpartition(-cs, np_probe - 1)[:np_probe]
+            slot_chunks = []
+            score_chunks = []
+            bb = self.block_bounds
+            for c in probe:
+                c = int(c)
+                start, end = int(bb[c]), int(bb[c + 1])
+                if end > start:
+                    block_scores = _score_rows(
+                        self.matrix[start:end],
+                        self.sqnorms[start:end] if self.sqnorms is not None else None,
+                    )
+                    a = self.alive[start:end]
+                    if not a.all():
+                        block_scores = np.where(a, block_scores, -np.inf)
+                    score_chunks.append(block_scores)
+                    slot_chunks.append(np.arange(start, end))
+                ov = self.overflow[c]
+                if ov:
+                    ov_arr = np.asarray(ov, np.int64)
+                    ov_scores = _score_rows(
+                        self.matrix[ov_arr],
+                        self.sqnorms[ov_arr] if self.sqnorms is not None else None,
+                    )
+                    a = self.alive[ov_arr]
+                    if not a.all():
+                        ov_scores = np.where(a, ov_scores, -np.inf)
+                    score_chunks.append(ov_scores)
+                    slot_chunks.append(ov_arr)
+            if not score_chunks:
+                return []
+            scores = np.concatenate(score_chunks)
+            slots = np.concatenate(slot_chunks)
+        if metadata_filter is None:
+            kk = min(max(k * 4, k), len(scores))
+            idx = (
+                np.argpartition(-scores, kk - 1)[:kk]
+                if kk < len(scores)
+                else np.arange(len(scores))
+            )
+            order = idx[np.argsort(-scores[idx])]
+        else:
+            # a selective filter must scan past non-matching candidates
+            # (BruteForceKnn parity), so rank ALL probed candidates
+            order = np.argsort(-scores)
+        out = []
+        for i in order:
+            if scores[i] == -np.inf:
+                continue
+            key = self.keys[int(slots[i])]
+            if metadata_filter is not None and not _check_metadata(
+                self.metadata.get(key), metadata_filter
+            ):
+                continue
+            out.append((key, float(scores[i])))
+            if len(out) >= k:
+                break
+        return out
+
+
+class LshKnn(InnerIndex):
+    """Locality-sensitive hashing ANN (reference: stdlib/ml/_lsh.py).
+
+    Random-hyperplane buckets; search unions candidate buckets then scores
+    exactly.  Host numpy, as in the JAX package, with the same seeded
+    planes: keys and scores equal the JAX index's on the same rows.  Each
+    row's norm is computed once, at ``add`` (the JAX index recomputes it
+    for every candidate of every query; the value is the same)."""
+
+    def __init__(self, dimensions: int | None = None, *, n_or: int = 8, n_and: int = 6,
+                 bucket_length: float = 1.0, seed: int = 0, metric: str = "cos"):
+        self.dim = dimensions
+        self.n_or = n_or
+        self.n_and = n_and
+        self.seed = seed
+        self.metric = metric
+        self.planes: np.ndarray | None = None
+        self.buckets: list[dict[bytes, set]] = [defaultdict(set) for _ in range(n_or)]
+        self.vectors: dict[int, np.ndarray] = {}
+        self.norms: dict[int, np.float32] = {}
+        self.metadata: dict[int, Any] = {}
+
+    def _ensure(self, dim: int) -> None:
+        if self.planes is None:
+            rng = np.random.default_rng(self.seed)
+            self.planes = rng.normal(size=(self.n_or, self.n_and, dim)).astype(np.float32)
+            self.dim = dim
+
+    def _hashes(self, vec: np.ndarray) -> list[bytes]:
+        bits = (np.einsum("oad,d->oa", self.planes, vec) > 0)
+        return [bits[i].tobytes() for i in range(self.n_or)]
+
+    def add(self, key: int, item: Any, metadata: Any = None) -> None:
+        vec = _host_vec(item)
+        self._ensure(vec.shape[0])
+        if key in self.vectors:
+            self.remove(key)
+        self.vectors[key] = vec
+        self.norms[key] = np.linalg.norm(vec)
+        self.metadata[key] = metadata
+        for i, h in enumerate(self._hashes(vec)):
+            self.buckets[i][h].add(key)
+
+    def remove(self, key: int) -> None:
+        vec = self.vectors.pop(key, None)
+        if vec is None:
+            return
+        self.norms.pop(key, None)
+        self.metadata.pop(key, None)
+        for i, h in enumerate(self._hashes(vec)):
+            self.buckets[i][h].discard(key)
+
+    def search(self, query, k, metadata_filter=None):
+        if not self.vectors:
+            return []
+        q = _host_vec(query)
+        self._ensure(q.shape[0])
+        cands: set[int] = set()
+        for i, h in enumerate(self._hashes(q)):
+            cands |= self.buckets[i].get(h, set())
+        if not cands:
+            cands = set(self.vectors.keys())
+        scored = []
+        qn = q / (np.linalg.norm(q) + 1e-12)
+        for key in cands:
+            if metadata_filter is not None and not _check_metadata(
+                self.metadata.get(key), metadata_filter
+            ):
+                continue
+            v = self.vectors[key]
+            if self.metric == "cos":
+                s = float(v @ qn / (self.norms[key] + 1e-12))
+            else:
+                s = float(-np.sum((v - q) ** 2))
+            scored.append((key, s))
+        scored.sort(key=lambda t: -t[1])
+        return scored[:k]
 
 
 _TOKEN_RE = re.compile(r"\w+")

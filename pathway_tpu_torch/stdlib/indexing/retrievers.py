@@ -4,10 +4,13 @@ nearest_neighbors.py:65-574, bm25.py:41, hybrid_index.py:14).
 The port of ``pathway_tpu/stdlib/indexing/retrievers.py``.  A factory's
 ``build_index(data_column, data_table, metadata_column=None)`` returns a
 ``DataIndex`` whose ``InnerIndex`` is made when the graph is lowered.
-The KNN factories take ``device`` (default ``"cuda"``, resolved by
-``build_index``, so without a card it raises there unless
+The brute-force KNN factories take ``device`` (default ``"cuda"``,
+resolved by ``build_index``, so without a card it raises there unless
 ``device="cpu"``) and give it to the index; ``mesh`` (a
 ``parallel/mesh.TPMesh``) goes to ``BruteForceKnn(mesh=)``.
+``IvfKnnFactory`` and ``LshKnnFactory`` build the host-numpy approximate
+indexes and take no device.  Neither index has ``search_batch``, so
+``DataIndex`` sends each of their queries to ``search``.
 """
 
 from __future__ import annotations
@@ -19,7 +22,8 @@ from ..._device import resolve_device
 from ...internals.expression import MakeTupleExpression
 from ...internals.table import Table
 from .data_index import DataIndex
-from .inner_index import BruteForceKnn, HybridIndex, TantivyBM25, USearchKnn
+from .inner_index import (BruteForceKnn, HybridIndex, IvfKnn, LshKnn,
+                          TantivyBM25, USearchKnn)
 
 
 class AbstractRetrieverFactory:
@@ -68,6 +72,54 @@ class UsearchKnnFactory(BruteForceKnnFactory):
 
 
 @dataclasses.dataclass
+class IvfKnnFactory(AbstractRetrieverFactory):
+    """Scale-tier ANN (``inner_index.IvfKnn``): a coarse quantizer and
+    exact rescoring of the probed clusters' rows."""
+
+    dimensions: int | None = None
+    n_clusters: int = 256
+    nprobe: int = 16
+    metric: str = "cos"
+    train_min: int = 4096
+    reserved_space: int = 1024
+    embedder: Callable | None = None
+
+    def build_index(self, data_column, data_table, metadata_column=None
+                    ) -> DataIndex:
+        dim = self.dimensions
+        kw = dict(n_clusters=self.n_clusters, nprobe=self.nprobe,
+                  metric=self.metric, train_min=self.train_min,
+                  reserved_space=self.reserved_space)
+
+        def factory():
+            return IvfKnn(dim, **kw)
+
+        return DataIndex(data_table, data_column, index_factory=factory,
+                         metadata_column=metadata_column,
+                         embedder=self.embedder)
+
+
+@dataclasses.dataclass
+class LshKnnFactory(AbstractRetrieverFactory):
+    dimensions: int | None = None
+    n_or: int = 8
+    n_and: int = 6
+    embedder: Callable | None = None
+    metric: str = "cos"
+
+    def _inner(self) -> Callable[[], LshKnn]:
+        dim, n_or, n_and, metric = (self.dimensions, self.n_or, self.n_and,
+                                    self.metric)
+        return lambda: LshKnn(dim, n_or=n_or, n_and=n_and, metric=metric)
+
+    def build_index(self, data_column, data_table, metadata_column=None
+                    ) -> DataIndex:
+        return DataIndex(data_table, data_column, index_factory=self._inner(),
+                         metadata_column=metadata_column,
+                         embedder=self.embedder)
+
+
+@dataclasses.dataclass
 class TantivyBM25Factory(AbstractRetrieverFactory):
     ram_budget: int = 50_000_000
     in_memory_index: bool = True
@@ -80,7 +132,8 @@ class TantivyBM25Factory(AbstractRetrieverFactory):
 
 @dataclasses.dataclass
 class HybridIndexFactory(AbstractRetrieverFactory):
-    """RRF fusion over sub-retrievers (KNN and BM25 factories).
+    """RRF fusion over sub-retrievers (brute-force KNN, LSH and BM25
+    factories).
     ``weights`` (one per sub-factory) scales each sub-index's RRF
     contribution; a zero weight disables that retriever end to end: its
     query-side embedding is not computed and no probe runs."""
@@ -104,7 +157,7 @@ class HybridIndexFactory(AbstractRetrieverFactory):
                              for emb, w in zip(sub_embedders, weights)]
 
         def make_inner(f):
-            if isinstance(f, BruteForceKnnFactory):
+            if isinstance(f, (BruteForceKnnFactory, LshKnnFactory)):
                 return f._inner()
             if isinstance(f, TantivyBM25Factory):
                 return TantivyBM25

@@ -7,7 +7,9 @@ query_as_of_now so each query is answered exactly once (SURVEY.md §3.5).
 Without a ``retriever_factory`` the store builds the port's
 ``SentenceTransformerEmbedder`` and ``BruteForceKnnFactory`` on
 ``device`` (default ``"cuda"``: without a card it raises unless
-``device="cpu"``).  ``SlidesDocumentStore`` waits for the slide parser.
+``device="cpu"``).  ``SlidesDocumentStore`` adds
+``parsed_documents_query``: the parsed (pre-split) documents' metadata,
+bulky fields dropped, optionally filtered by a jmespath expression.
 """
 
 from __future__ import annotations
@@ -175,6 +177,47 @@ def _pack_results(texts, metas, scores) -> Json:
             }
         )
     return Json(out)
+
+
+class SlidesDocumentStore(DocumentStore):
+    """Slide-search document store (reference: document_store.py:576).
+
+    Adds ``parsed_documents_query``: the metadata of every document after
+    the parsing / post-processing stages (pre-split), with the fields
+    named in ``excluded_response_metadata`` (``b64_image``) dropped from
+    the responses and an optional jmespath ``metadata_filter``."""
+
+    excluded_response_metadata = ["b64_image"]
+
+    def parsed_documents_query(self, parse_docs_queries: Table) -> Table:
+        docs = self.parsed_docs
+        all_metas = docs.reduce(metadatas=R.tuple(docs.metadata))
+        cols = parse_docs_queries.column_names()
+        mf = (parse_docs_queries.metadata_filter
+              if "metadata_filter" in cols else None)
+        excluded = list(self.excluded_response_metadata)
+
+        def fmt(metadatas, metadata_filter) -> Json:
+            metas = [m.value if isinstance(m, Json) else m
+                     for m in (metadatas or ())]
+            if metadata_filter:
+                from ...stdlib.indexing.jmespath_filter import evaluate_filter
+
+                metas = [m for m in metas
+                         if evaluate_filter(metadata_filter, m)]
+            out = []
+            for m in metas:
+                m = dict(m) if isinstance(m, dict) else {"value": m}
+                for k in excluded:
+                    m.pop(k, None)
+                out.append(m)
+            return Json(out)
+
+        return parse_docs_queries.asof_now_join(
+            all_metas, how="left", id=parse_docs_queries.id
+        ).select(
+            result=apply_with_type(fmt, dt.JSON, all_metas.metadatas, mf)
+        )
 
 
 class DocumentStoreClient:

@@ -1,9 +1,11 @@
 """The RAG path's document and query embedder.
 
-Counterpart of ``pathway_tpu/xpacks/llm/embedders.py``
-``SentenceTransformerEmbedder``, with the JAX package's ``BaseEmbedder``
-surface (``_embed``, ``_embed_one``, ``_embed_uncached``,
-``_embed_many``, ``cache_strategy=``, the ``rag.embed`` spans), so a
+Counterpart of ``pathway_tpu/xpacks/llm/embedders.py``: its
+``BaseEmbedder`` (for embedders written over another callable, such as
+the vector store's LangChain adapter) and ``SentenceTransformerEmbedder``,
+with the JAX package's ``BaseEmbedder`` surface (``_embed``,
+``_embed_one``, ``_embed_uncached``, ``_embed_many``,
+``cache_strategy=``, the ``rag.embed`` spans), so a
 JAX caller that is handed this embedder (a reranker, an image or text
 index) runs over it unchanged.  Calling it on a string embeds the
 string; calling it on a column expression of the port's dataflow gives
@@ -27,6 +29,43 @@ from ...internals.udfs import CacheStrategy, with_cache_strategy
 from ...models.encoder import EncoderConfig, TorchEncoder
 from ...obs.tracer import record_span
 from ...serve.scheduler import RequestScheduler
+
+
+class BaseEmbedder:
+    """The JAX package's embedder base: subclasses implement ``_embed``
+    (one text to one vector).  Callable on column expressions (an
+    ``ApplyExpression`` whose ``batch_fn`` embeds an update batch through
+    ``_embed_many``) and on plain strings (immediate evaluation)."""
+
+    def _embed(self, text: str) -> np.ndarray:
+        raise NotImplementedError
+
+    def _embed_many(self, texts: list[str]) -> list[np.ndarray]:
+        return [self._embed(t) for t in texts]
+
+    def get_embedding_dimension(self, **kwargs) -> int:
+        return int(np.asarray(self._embed("dimension probe")).shape[0])
+
+    def _embed_traced(self, text):
+        t0 = time.perf_counter()
+        out = self._embed(text)
+        record_span("rag.embed", t0, time.perf_counter(), n=1,
+                    embedder=type(self).__name__)
+        return out
+
+    def _embed_many_traced(self, texts):
+        t0 = time.perf_counter()
+        out = self._embed_many(texts)
+        record_span("rag.embed", t0, time.perf_counter(), n=len(texts),
+                    embedder=type(self).__name__)
+        return out
+
+    def __call__(self, text, **kwargs):
+        if isinstance(text, ColumnExpression):
+            return ApplyExpression(
+                self._embed_traced, dt.ANY_ARRAY, (text,), {},
+                propagate_none=True, batch_fn=self._embed_many_traced)
+        return self._embed_traced(text)
 
 
 class SentenceTransformerEmbedder:

@@ -13,7 +13,8 @@ call returns; a failure to build it raises (the JAX answerer logs it and
 decodes serially).  The answer column of ``answer_query`` submits a whole
 update batch of questions to the scheduler at once, so they coalesce
 into engine batches; each answer is the one a lone call gives.
-``DeckRetriever`` waits for the slide document store.
+``DeckRetriever`` answers a prompt with the pages (text and metadata) a
+slide document store retrieves for it; it calls no llm.
 """
 
 from __future__ import annotations
@@ -267,6 +268,28 @@ class AdaptiveRAGQuestionAnswerer(BaseRAGQuestionAnswerer):
             max_iterations=self.max_iterations,
         )
         return q.select(result=ans)
+
+    answer = answer_query
+
+
+class DeckRetriever(BaseRAGQuestionAnswerer):
+    """Slide-deck retrieval app (reference: DeckRetriever): each prompt's
+    ``search_topk`` pages, as ``{"text", "metadata"}`` dicts."""
+
+    def answer_query(self, prompt_queries: Table) -> Table:
+        q = prompt_queries
+        reply = self.indexer.index.query_as_of_now(
+            q.prompt, number_of_matches=self.search_topk
+        )
+        return reply.select(
+            result=apply_with_type(
+                lambda ts, ms: Json([
+                    {"text": t, "metadata": m.value if isinstance(m, Json) else m}
+                    for t, m in zip(ts or (), ms or ())
+                ]),
+                dt.JSON, reply.text, reply.metadata,
+            )
+        )
 
     answer = answer_query
 

@@ -108,6 +108,18 @@ def test_the_guard_covers_the_temporal_stream_and_async_modules():
         assert f"pathway_tpu_torch.{name}" in _modules()
 
 
+def test_the_guard_covers_the_rag_remainder_modules():
+    """... and the rest of the RAG xpack: the licence gates, the IVF / LSH
+    tiers behind the classic ML API, the parsers' OCR engine, the
+    rerankers, the vector store, MCP and retrieval evaluation."""
+    for name in ("internals.config", "internals.licensing", "stdlib.ml",
+                 "stdlib.ml.index", "stdlib.ml.classifiers",
+                 "xpacks.llm._ocr", "xpacks.llm.rerankers",
+                 "xpacks.llm.vector_store", "xpacks.llm.mcp_server",
+                 "xpacks.llm.evaluate"):
+        assert f"pathway_tpu_torch.{name}" in _modules()
+
+
 def test_import_initialises_no_cuda():
     code = (
         "import torch, pathway_tpu_torch as pw\n"
@@ -212,8 +224,15 @@ def _entry_points():
                         on_change=lambda **kw: None)
         pw.run(timeout_s=1.0)
 
+    from pathway_tpu_torch.stdlib.ml import KNNIndex
+    from pathway_tpu_torch.xpacks.llm.rerankers import EncoderReranker
+    from pathway_tpu_torch.xpacks.llm.vector_store import VectorStoreServer
+
     codes = np.zeros(4, np.int32)
     return {
+        "VectorStoreServer": lambda: VectorStoreServer(docs()),
+        "EncoderReranker": lambda: EncoderReranker(),
+        "KNNIndex": lambda: KNNIndex(docs().data, docs()),
         "DocumentStore": lambda: DocumentStore(docs()),
         "BruteForceKnnFactory.build_index": lambda: BruteForceKnnFactory(
             dimensions=8).build_index(docs().data, docs()),
@@ -258,7 +277,8 @@ def _entry_points():
     "run_tables", "GraphRunner", "pw.run", "compute_and_print",
     "table_to_pandas", "segment_sum", "hash_join_membership",
     "calibrate_mapreduce", "DocumentStore", "BruteForceKnnFactory.build_index",
-    "QARestServer.run", "pw.run(io.fs.read)",
+    "QARestServer.run", "pw.run(io.fs.read)", "VectorStoreServer",
+    "EncoderReranker", "KNNIndex",
 ])
 def test_entry_point_without_a_card_raises(name, monkeypatch):
     # decided inside the test: the default device is the card, and a
