@@ -280,6 +280,34 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    run; ``LLMReranker(TorchChat)`` over 8 pairs of 256+ token prompts
    (the flash kernel's buckets): each score = the number in the dense
    plain path's answer.  Printed as a ``{"rag_rest": ...}`` line;
+4m. persistence (after phase 4l): (a) phase 4j's quickstart (``PS_DOCS``
+   files, 4,096, cut from 16,384 with the wordcount's rows to keep the
+   phase under a minute, -> ``pw.io.fs.read`` streaming ->
+   ``DocumentStore`` over the MiniLM-width device-resident embedder and
+   ``BruteForceKnnFactory`` ->
+   a ``QARestServer`` over ``BaseRAGQuestionAnswerer(llm_scheduler=
+   True)`` on the paged engine, GPT-2 small f32, and a JSON-lines sink of
+   the parsed documents) under ``pw.persistence.Config(Backend.
+   filesystem(...))``: run 1 indexes the files and serves a few
+   retrieves and answers, then stops on its idle window; run 2, the same
+   graph built anew over the same storage, replays the journal while
+   ``RAG_NEW_FILES`` files arrive.  ``/v1/statistics`` must reach exactly
+   every document (a count past it fails), 32 concurrent retrieves =
+   a stable sort of the kernel's scores over a reference matrix of every
+   document, each new file its own top-1, the answers = the dense plain
+   path's, the sink each document once, and #3 and #1/#2 launched in run
+   2.  (b) a phase-4i-shaped wordcount (``PS_WC_ROWS``, 32,768 rows cut
+   from 524,288; Zipf(1.1) over 20,000 words, 5%
+   retractions as rows of diff -1) written to a csv in batches, under
+   ``operator_persisting`` with snapshots every 250 ms and a JSON-lines
+   sink, on the device tier (crossovers pinned to 1,024): once
+   uninterrupted, once crashed mid-stream (a raise injected right after
+   its third journal commit) and restarted while the batches keep
+   coming; the squashed sinks = each other = the plain count, the restart
+   folds a snapshot (its journal tail shorter than the journal and not
+   empty) and no sink row is written twice.  Printed as a ``{"persistence":
+   ...}`` line (ingest s, time to recover, replayed events/s, journal
+   bytes, retrieve p50 after the restart; ``reduced`` lists the cuts);
 5. print one ``{"kernels": [...]}`` line (launches on the main path,
    error against the plain version, kernel / plain / bound / library
    times at the main path's shapes: the median of 5 windows of 50
@@ -300,7 +328,8 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    ``launches_rag_pipeline`` counts each kernel's launches in phase 4j
    (#3 split into its GEMM and GEMV entries by the index passes' sizes),
    ``launches_rag_rest`` in phase 4l's runs (#3 split the same way, #4
-   the LLM reranker's).
+   the LLM reranker's), ``launches_persistence`` in phase 4m's run after
+   the restart (#3 split the same way, #1 and #2).
 
 Phase 2 also holds the port's PRNG (``models/prng.py``) on the card to
 ``PRNG_KNOWN``, keys and bits that ``jax.random`` gives (the CPU tests
@@ -321,7 +350,8 @@ result; ``--rag-pipeline-only`` runs phase 4j alone after the build and
 prints its line and no result; ``--temporal-only`` runs phase 4k alone
 (it builds no kernel) and prints its line and no result;
 ``--rag-rest-only`` runs phase 4l alone after the build and prints its
-line and no result.
+line and no result; ``--persistence-only`` runs phase 4m alone after the
+build and prints its line and no result.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``.
 Exits non-zero, printing no result, when no CUDA device is present or
@@ -3885,15 +3915,17 @@ def write_file(root: str, watched: str, name: str, text: str) -> None:
     os.replace(tmp, os.path.join(watched, name))
 
 
-def wait_chunks(port: int, n: int) -> float:
-    """Poll ``/v1/statistics`` until it counts ``n`` chunks; the time."""
+def wait_chunks(port: int, n: int, what: str = "4j") -> float:
+    """Poll ``/v1/statistics`` until it counts ``n`` chunks; the time.
+    A count past ``n`` fails: a document indexed twice."""
     end = time.perf_counter() + RAG_DEADLINE_S
     while True:
         got = http_json(port, "/v1/statistics", {})["chunk_count"]
         if got == n:
             return time.perf_counter()
         require(got < n and time.perf_counter() < end,
-                f"4j: /v1/statistics counts {got} chunks, waiting for {n}")
+                f"{what}: /v1/statistics counts {got} chunks, waiting for "
+                f"{n}")
         time.sleep(0.05)
 
 
@@ -6010,6 +6042,493 @@ def rag_rest_only(torch, np, dec, seed, smi) -> int:
     return 0
 
 
+# -- phase 4m: persistence --------------------------------------------------
+
+# (a) phase 4j's quickstart under pw.persistence, stopped and restarted:
+# PS_DOCS files indexed in run 1, the journal replayed in run 2, and
+# RAG_NEW_FILES files written while run 2 serves.  (b) a phase-4i-shaped
+# wordcount streamed from a csv file in batches under operator snapshots,
+# crashed mid-stream and restarted.  Both cut so the phase fits its
+# minute: at 8,192 files and 65,536 rows it took 72.8 s on an H100's host
+# ((a) 54.8 s, of which run 1's ingest 19.2; (b) 15.6 s at 9,802 rows/s)
+PS_FULL = dict(docs=RAG_DOCS_FULL, wc_rows=DP_ROWS)
+PS_DOCS = 4096
+PS_IDLE_STOP_S = 2.0  # (a)'s runs end this long after the last request
+PS_QUERIES = 32     # concurrent retrieves after the restart: a GEMM pass
+PS_QUESTIONS = 4    # answers held to the dense plain path after it
+PS_RUN1_QUERIES = 8  # retrieves served before the stop
+PS_WC_ROWS, PS_WC_BATCHES = 1 << 15, 8
+PS_WC_GAP_S = 0.4    # between the csv's batch appends
+# run 1 of (b) crashes right after its journal's third record lands (an
+# injected raise at ``persistence.commit``), before that record's rows
+# reach the operators, the sink or a snapshot
+PS_WC_CRASH_AT = 3
+# (b)'s idle window: longer than a scan of the whole csv (the source
+# parses the file again at each change)
+PS_WC_IDLE_S = 3.0
+PS_SNAPSHOT_MS = 250
+PS_PIN = 1024        # both crossovers, as phase 4k: batches reach the card
+
+
+def persistence_sizes(scale: int = 1) -> dict:
+    """Phase 4m's counts, each divided by ``scale`` (the CPU tests)."""
+    return dict(docs=PS_DOCS // scale,
+                new_files=max(RAG_NEW_FILES // scale, 2),
+                queries=max(PS_QUERIES // scale, 4),
+                questions=max(PS_QUESTIONS // scale, 2),
+                run1_queries=max(PS_RUN1_QUERIES // scale, 2),
+                wc_rows=PS_WC_ROWS // scale, wc_batches=PS_WC_BATCHES)
+
+
+def persistence_inputs(torch, dec, smi, seed, engine_sizes, device="cuda",
+                       scale: int = 1, enc_cfg=None, chat_cfg=None):
+    """Phase 4m's inputs: full width on the card (the MiniLM-width
+    encoder and GPT-2 small, f32, random weights from ``seed``); the CPU
+    tests pass small configurations and a ``scale``."""
+    from pathway_tpu_torch.models.encoder import EncoderConfig
+
+    return types.SimpleNamespace(
+        smi=smi, seed=seed, device=device, engine_sizes=engine_sizes,
+        sizes=persistence_sizes(scale),
+        enc_cfg=enc_cfg or EncoderConfig(**MINILM),
+        chat_cfg=chat_cfg or dec.DecoderConfig(**GPT2_SMALL,
+                                               dtype=torch.float32))
+
+
+def dir_bytes(root: str, prefix: str = "") -> int:
+    return sum(os.path.getsize(os.path.join(root, f))
+               for f in os.listdir(root) if f.startswith(prefix))
+
+
+def journal_records(store_dir: str) -> list:
+    """(stream, seq, number of events) of every input journal record."""
+    import pickle
+
+    from pathway_tpu_torch.persistence import Backend
+
+    be = Backend.filesystem(store_dir)
+    out = []
+    for st in be.list_streams("input_"):
+        for rec in be.read_all(st):
+            seq, events = pickle.loads(rec)[:2]
+            out.append((st, seq, len(events)))
+    return out
+
+
+def ps_quickstart(torch, np, dec, s, c) -> tuple[dict, dict]:
+    """(a): run 1 indexes ``docs`` files and serves a few retrieves and
+    answers under a filesystem backend, then stops on its idle window; run
+    2, the same graph built anew over the same backend, replays the
+    journal and serves while ``new_files`` files arrive.  Returns the
+    line and the kernels' launches in run 2."""
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch.internals import parse_graph as pg
+    from pathway_tpu_torch.ops import _cuda
+    from pathway_tpu_torch.ops import knn_cuda as kc
+    from pathway_tpu_torch.ops.knn import metric_scores
+    from pathway_tpu_torch.stdlib.indexing import BruteForceKnnFactory
+    from pathway_tpu_torch.xpacks.llm import question_answering as qa
+    from pathway_tpu_torch.xpacks.llm.document_store import DocumentStore
+    from pathway_tpu_torch.xpacks.llm.llms import _prompt_text
+    from pathway_tpu_torch.xpacks.llm.servers import QARestServer
+
+    z = s.sizes
+    n_docs, n_new = z["docs"], z["new_files"]
+    rng = np.random.default_rng(s.seed + 13)
+    docs = make_docs(rng, n_docs)
+    new_docs = make_docs(rng, n_new)
+    picks = rng.integers(0, n_docs, size=z["queries"])
+    queries = [" ".join(docs[j].split()[5:17]) for j in picks]
+    questions = queries[: z["questions"]]
+    watched = os.path.join(c.root, "docs")
+    store_dir = os.path.join(c.root, "pstore")
+    sink = os.path.join(c.root, "parsed.jsonl")
+    os.mkdir(watched)
+    for i, text in enumerate(docs):
+        with open(os.path.join(watched, f"doc{i:05d}.txt"), "w") as f:
+            f.write(text)
+
+    def serve(client) -> tuple[dict, "RunRecorder"]:
+        pg.G.clear()
+        files = pw.io.fs.read(watched, format="binary", mode="streaming",
+                              with_metadata=True)
+        store = DocumentStore(files, retriever_factory=BruteForceKnnFactory(
+            dimensions=c.emb.get_embedding_dimension(), embedder=c.emb,
+            reserved_space=n_docs + n_new, device=s.device))
+        rag = qa.BaseRAGQuestionAnswerer(c.chat, store, search_topk=RAG_TOPK,
+                                         llm_scheduler=True)
+        port = free_port()
+        QARestServer("127.0.0.1", port, rag)
+        pw.io.jsonlines.write(store.parsed_docs, sink)
+        out: dict = {}
+        with RunRecorder() as rec:
+            t0 = time.perf_counter()
+            th, errors = serve_in_thread(pw.run, dict(
+                device=s.device, timeout_s=RAG_RUN_LIMIT_S,
+                idle_stop_s=PS_IDLE_STOP_S,
+                persistence_config=pw.persistence.Config(
+                    pw.persistence.Backend.filesystem(store_dir))))
+            try:
+                wait_listening(port, 60.0)
+                client(port, out, t0)
+            finally:
+                th.join(RAG_RUN_LIMIT_S)
+                pg.G.clear()
+        end_run(th, errors, "4m.a")
+        return out, rec
+
+    def run1(port, out, t0):
+        out["ingest_s"] = wait_chunks(port, n_docs, "4m.a") - t0
+        out["retrieve"] = concurrently(
+            lambda q: http_json(port, "/v1/retrieve", {"query": q, "k": RAG_K}),
+            queries[: z["run1_queries"]])
+        out["answers"] = concurrently(
+            lambda q: http_json(port, "/v1/pw_ai_answer", {"prompt": q}),
+            questions)
+
+    def run2(port, out, t0):
+        out["recover_s"] = wait_chunks(port, n_docs, "4m.a") - t0
+        for i, text in enumerate(new_docs):
+            write_file(c.root, watched, f"new{i:02d}.txt", text)
+        out["full_s"] = wait_chunks(port, n_docs + n_new, "4m.a") - t0
+        retr = concurrently(
+            lambda q: timed_http(port, "/v1/retrieve",
+                                 {"query": q, "k": RAG_K}), queries)
+        out["retrieve"] = [r for r, _dt in retr]
+        out["retrieve_ms"] = [dt * 1e3 for _r, dt in retr]
+        out["top1_new"] = concurrently(
+            lambda t: http_json(port, "/v1/retrieve", {"query": t, "k": 1}),
+            new_docs)
+        out["context"] = concurrently(
+            lambda q: http_json(port, "/v1/retrieve",
+                                {"query": q, "k": RAG_TOPK}), questions)
+        out["answers"] = concurrently(
+            lambda q: http_json(port, "/v1/pw_ai_answer", {"prompt": q}),
+            questions)
+        out["stats_end"] = http_json(port, "/v1/statistics", {})[
+            "chunk_count"]
+
+    first, _rec1 = serve(run1)
+    journal = journal_records(store_dir)
+    jbytes = dir_bytes(store_dir, "input_")
+    cache_bytes = dir_bytes(store_dir, "objcache")
+    sync(torch, s)
+    _cuda.reset_launches()
+    got, rec = serve(run2)
+    sync(torch, s)
+    launches = {n: _cuda.LAUNCHES[n] for n in (
+        "knn_scores", "paged_attention", "paged_append_attend")}
+    if s.device == "cuda":
+        for name, n in launches.items():
+            require(n > 0, f"4m.a: run 2 never launched {name}")
+    passes = rec.knn_passes()
+    gemm, gemv = knn_variants(passes)
+    if s.device == "cuda":
+        require(launches["knn_scores"] == gemm + gemv,
+                f"4m.a: knn launches {launches['knn_scores']} against the "
+                f"index passes {passes}")
+    require(got["stats_end"] == n_docs + n_new,
+            f"4m.a: statistics end at {got['stats_end']}")
+
+    # retrieves = a stable sort of the kernel's scores over a reference
+    # matrix of every document (embed_batch's rows), as phase 4j checks
+    enc = c.emb.encoder
+    every = docs + new_docs
+    m = enc.embed_batch(every).float()
+    m = m / (torch.linalg.norm(m, dim=1, keepdim=True) + 1e-12)
+    q_rows = torch.stack([torch.from_numpy(np.asarray(c.emb._embed(q)))
+                          for q in queries]).to(s.device)
+    sc = metric_scores(q_rows, m, "cos_prenorm", kc.knn_scores)
+    plain = metric_scores(q_rows, m, "cos_prenorm", kc.knn_scores_reference)
+    order = torch.sort(sc, dim=1, descending=True, stable=True).indices
+    key_of = {t: i for i, t in enumerate(every)}
+    err = 0.0
+    for qi, res in enumerate(got["retrieve"]):
+        keys = [key_of[d["text"]] for d in res]
+        require(keys == order[qi, :RAG_K].tolist(),
+                f"4m.a: retrieve {qi} after the restart differs from the "
+                "reference's sort")
+        err = max([err] + [abs(d["score"] - float(plain[qi, k]))
+                           for d, k in zip(res, keys)])
+    require(err <= KNN_TOL, f"4m.a: retrieve scores err {err}")
+    for qi, res in enumerate(first["retrieve"]):
+        want = [t for t in (every[k] for k in order[qi].tolist())
+                if key_of[t] < n_docs][:RAG_K]
+        require([d["text"] for d in res] == want,
+                f"4m.a: run 1's retrieve {qi} differs from the reference")
+    for text, res in zip(new_docs, got["top1_new"]):
+        require(len(res) == 1 and res[0]["text"] == text,
+                "4m.a: a file written after the restart is not its own "
+                "top-1")
+
+    def dense_answer(ctx, question):
+        lm = c.chat._lm
+        prompt = _prompt_text([{"role": "user",
+                                "content": qa._prompt(ctx, question)}])
+        ids = lm.encode_prompts([prompt], NEW_TOKENS)[0]
+        return lm._decode_out(dense_greedy(
+            torch, dec, lm.cfg, c.engine.params, ids, NEW_TOKENS,
+            device=s.device))
+
+    for i, q in enumerate(questions):
+        ctx = [d["text"] for d in got["context"][i]]
+        require(got["answers"][i] == dense_answer(ctx, q),
+                f"4m.a: answer {i} after the restart differs from the "
+                "dense path")
+
+    # the parsed documents' sink: each document once after the squash
+    net: dict = {}
+    with open(sink) as f:
+        for ln in f:
+            e = json.loads(ln)
+            net[e["text"]] = net.get(e["text"], 0) + e["diff"]
+    require(sorted(net.values()) == [1] * len(every)
+            and set(net) == set(every),
+            "4m.a: the parsed documents' sink does not hold each once")
+    replayed = sum(n for st, _seq, n in journal if "docs" in st)
+    line = dict(
+        docs=n_docs, new_files=n_new, ingest_s=first["ingest_s"],
+        recover_s=got["recover_s"], full_s=got["full_s"],
+        replayed_events=replayed,
+        replayed_events_per_s=replayed / got["recover_s"],
+        journal_bytes=jbytes, journal_records=len(journal),
+        object_cache_bytes=cache_bytes,
+        retrieve_p50_ms=statistics.median(got["retrieve_ms"]),
+        retrieve_p99_ms=p99(got["retrieve_ms"]),
+        retrieves=len(got["retrieve_ms"]), retrieve_scores_err=err,
+        index_query_batches=passes, knn_launches_gemm=gemm,
+        knn_launches_gemv=gemv, launches=launches)
+    return line, launches
+
+
+def ps_wordcount_rows(np, seed: int, n_rows: int, n_batches: int) -> list:
+    """Batches of csv rows ``(word, diff)``: a word of phase 4i's
+    20,000-word Zipf(1.1) vocabulary with diff 1, and in each batch after
+    the first ``DP_RETRACT`` of its rows retracting a live word (diff -1,
+    summed by the wordcount)."""
+    rng = np.random.default_rng(seed)
+    p = 1.0 / np.arange(1, DP_VOCAB + 1) ** DP_ZIPF
+    p /= p.sum()
+    per = n_rows // n_batches
+    live: list = []
+    batches = []
+    for b in range(n_batches):
+        n_ret = int(per * DP_RETRACT) if b else 0
+        words = [f"w{i:05d}" for i in rng.choice(DP_VOCAB, per - n_ret, p=p)]
+        gone = rng.choice(len(live), n_ret, replace=False).tolist()
+        batch = [(live[i], -1) for i in gone] + [(w, 1) for w in words]
+        for i in sorted(gone, reverse=True):
+            live.pop(i)
+        live.extend(words)
+        batches.append(batch)
+    return batches
+
+
+def ps_wordcount(torch, np, s) -> dict:
+    """(b): the wordcount under ``operator_persisting`` with snapshots
+    every ``PS_SNAPSHOT_MS`` and a json-lines sink, its csv written in
+    batches: once uninterrupted, once crashed mid-stream (a raise injected
+    after a journal commit) and restarted while the batches keep coming.
+    The squashed sinks must equal each other and the plain count, the
+    restart must fold a snapshot (the journal tail it replays shorter than
+    the journal, and not empty: the crashed record is in it) and no sink
+    row may be written twice."""
+    import pickle
+    import threading
+
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch import faults
+    from pathway_tpu_torch.engine import vectorize
+    from pathway_tpu_torch.internals import parse_graph as pg
+    from pathway_tpu_torch.parallel import mapreduce as mr
+    from pathway_tpu_torch.persistence import Backend
+
+    z = s.sizes
+    batches = ps_wordcount_rows(np, s.seed + 14, z["wc_rows"],
+                                z["wc_batches"])
+    want: dict = {}
+    for batch in batches:
+        for w, d in batch:
+            n, rows = want.get(w, (0, 0))
+            want[w] = (n + d, rows + 1)
+
+    WC = pw.schema_from_types(word=str, d=int)
+
+    def append(path, batch):
+        with open(path, "a") as f:
+            f.write("".join(f"{w},{d}\n" for w, d in batch))
+
+    def run(root, **kw):
+        pg.G.clear()
+        t = pw.io.csv.read(os.path.join(root, "w.csv"), schema=WC,
+                           mode="streaming")
+        x = t.select(word=t.word, d=t.d, x=t.d * 2 + 1)
+        counts = x.groupby(x.word).reduce(
+            x.word, n=pw.reducers.sum(x.d), rows=pw.reducers.count(),
+            xs=pw.reducers.sum(x.x))
+        pw.io.jsonlines.write(counts, os.path.join(root, "out.jsonl"))
+        t0 = time.perf_counter()
+        pw.run(device=s.device, autocommit_duration_ms=20,
+               persistence_config=pw.persistence.Config(
+                   Backend.filesystem(os.path.join(root, "ps")),
+                   persistence_mode="operator_persisting",
+                   snapshot_interval_ms=PS_SNAPSHOT_MS), **kw)
+        return time.perf_counter() - t0
+
+    def squash(root) -> tuple[dict, int]:
+        net: dict = {}
+        n_lines = 0
+        with open(os.path.join(root, "out.jsonl")) as f:
+            for ln in f:
+                e = json.loads(ln)
+                k = (e["word"], e["n"], e["rows"], e["xs"])
+                net[k] = net.get(k, 0) + e["diff"]
+                n_lines += 1
+        require(all(v in (0, 1) for v in net.values()),
+                "4m.b: a sink row was written twice")
+        return {k[0]: k[1:3] for k, v in net.items() if v}, n_lines
+
+    saved = (vectorize.DEVICE_THRESHOLD, mr._JIT_MIN_ELEMENTS)
+    vectorize.DEVICE_THRESHOLD = mr._JIT_MIN_ELEMENTS = PS_PIN
+    for st in (vectorize.STATS, mr.STATS):
+        st.update({k: type(v)() for k, v in st.items()})
+    try:
+        whole = os.path.join(s.root, "whole")
+        os.makedirs(whole)
+        with open(os.path.join(whole, "w.csv"), "w") as f:
+            f.write("word,d\n")
+        for batch in batches:
+            append(os.path.join(whole, "w.csv"), batch)
+        whole_s = run(whole, idle_stop_s=PS_WC_IDLE_S)
+        got_whole, _ = squash(whole)
+        vec_stats, mr_stats = dict(vectorize.STATS), dict(mr.STATS)
+
+        part = os.path.join(s.root, "stopped")
+        os.makedirs(part)
+        src = os.path.join(part, "w.csv")
+        with open(src, "w") as f:
+            f.write("word,d\n")
+        done = threading.Event()
+
+        def writer():
+            for batch in batches:
+                append(src, batch)
+                time.sleep(PS_WC_GAP_S)
+            done.set()
+
+        th = threading.Thread(target=writer, daemon=True)
+        th.start()
+        faults.install("persistence.commit", "raise", nth=PS_WC_CRASH_AT)
+        t0 = time.perf_counter()
+        try:
+            run(part, timeout_s=RAG_RUN_LIMIT_S)
+            require(False, "4m.b: run 1 did not crash")
+        except faults.InjectedFault:
+            pass
+        finally:
+            faults.clear()
+        run1_s = time.perf_counter() - t0
+        require(not done.is_set(), "4m.b: the stream ended before the crash")
+        be = Backend.filesystem(os.path.join(part, "ps"))
+        raw = be.get_metadata("opsnapshot_p0")
+        require(raw is not None, "4m.b: run 1 took no snapshot")
+        folded = pickle.loads(raw)["journal_seqs"]
+        records = journal_records(os.path.join(part, "ps"))
+        tail = [n for st, seq, n in records if seq > folded.get(st, -1)]
+        require(0 < len(tail) < len(records),
+                f"4m.b: a journal tail of {len(tail)} of {len(records)} "
+                "records")
+        _, lines_run1 = squash(part)
+        run2_s = run(part, idle_stop_s=PS_WC_IDLE_S)
+        th.join(30)
+        require(done.is_set(), "4m.b: the writer did not finish")
+        require(be.get_metadata("journal_trimmed") == b"1",
+                "4m.b: the restart did not trim the folded journal")
+        got_part, lines = squash(part)
+    finally:
+        vectorize.DEVICE_THRESHOLD, mr._JIT_MIN_ELEMENTS = saved
+        pg.G.clear()
+    require(got_whole == want, "4m.b: the uninterrupted sink differs from "
+            "the plain count")
+    require(got_part == got_whole, "4m.b: the restarted sink differs from "
+            "the uninterrupted run's")
+    return dict(
+        rows=z["wc_rows"], batches=z["wc_batches"], words=len(want),
+        snapshot_interval_ms=PS_SNAPSHOT_MS, whole_s=whole_s,
+        run1_s=run1_s, run2_s=run2_s, journal_records=len(records),
+        journal_events=sum(n for _st, _seq, n in records),
+        tail_records=len(tail), tail_events=sum(tail),
+        sink_lines_run1=lines_run1, sink_lines=lines,
+        rows_per_s_whole=z["wc_rows"] / whole_s,
+        tiers_whole=dict(vec=vec_stats, mapreduce=mr_stats))
+
+
+def phase4m(torch, np, dec, s) -> tuple[dict, dict]:
+    """``s``: the card line, the seed, the device, ``sizes``, the engine
+    sizes and the encoder and chat configurations.  Persistence on the
+    card: (a) the quickstart stopped and restarted, (b) operator snapshots
+    of a wordcount.  Returns the ``{"persistence": ...}`` line and the
+    launches of kernels #1-#3 in (a)'s run after the restart."""
+    import tempfile
+
+    from pathway_tpu_torch.obs import costdb, planner
+    from pathway_tpu_torch.xpacks.llm.embedders import (
+        SentenceTransformerEmbedder)
+    from pathway_tpu_torch.xpacks.llm.llms import TorchChat
+
+    t_phase = time.perf_counter()
+    s.root = tempfile.mkdtemp(prefix="pw_ps_")
+    c = types.SimpleNamespace(root=s.root)
+    # a fresh cost store: the chat's "auto" tier is the fused dense one
+    prev_db = os.environ.get("PW_COSTDB_PATH")
+    os.environ["PW_COSTDB_PATH"] = os.path.join(s.root, "costdb.json")
+    costdb.shutdown()
+    planner.invalidate_cache()
+    try:
+        c.emb = SentenceTransformerEmbedder(config=s.enc_cfg, seed=s.seed,
+                                            device=s.device,
+                                            device_resident=True)
+        c.chat = TorchChat(s.chat_cfg, seed=s.seed, max_new_tokens=NEW_TOKENS,
+                           device=s.device)
+        c.engine = c.chat._lm.paged_engine(**s.engine_sizes)
+        t0 = time.perf_counter()
+        quick, launches = ps_quickstart(torch, np, dec, s, c)
+        quick["phase_s"] = time.perf_counter() - t0
+        log(f"4m.a ok: {quick['docs']} files, ingest {quick['ingest_s']:.1f}s,"
+            f" recovered in {quick['recover_s']:.1f}s, retrieves and answers "
+            f"= the references; {quick['phase_s']:.1f}s")
+        t0 = time.perf_counter()
+        snaps = ps_wordcount(torch, np, s)
+        snaps["phase_s"] = time.perf_counter() - t0
+        log(f"4m.b ok: {snaps['rows']} rows, tail {snaps['tail_records']} of "
+            f"{snaps['journal_records']} records; {snaps['phase_s']:.1f}s")
+    finally:
+        os.environ.pop("PW_COSTDB_PATH", None)
+        if prev_db is not None:
+            os.environ["PW_COSTDB_PATH"] = prev_db
+        costdb.shutdown()
+        planner.invalidate_cache()
+    z = s.sizes
+    line = dict(
+        card=s.smi, quickstart=quick, snapshots=snaps,
+        reduced={"docs": [z["docs"], PS_FULL["docs"]],
+                 "wc_rows": [z["wc_rows"], PS_FULL["wc_rows"]]},
+        phase_s=time.perf_counter() - t_phase)
+    if line["phase_s"] > 60.0:
+        log(f"4m: the phase took {line['phase_s']:.1f}s, over its 60 s")
+    return line, launches
+
+
+def persistence_only(torch, np, dec, seed, engine_sizes, smi) -> int:
+    """``--persistence-only``: phase 4m alone after the build (the short
+    first call after a change to persistence)."""
+    line, _launches = phase4m(torch, np, dec, persistence_inputs(
+        torch, dec, smi, seed, engine_sizes))
+    print(json.dumps({"persistence": line}), flush=True)
+    log("--persistence-only: stopping after phase 4m")
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -6037,6 +6556,9 @@ def main() -> int:
     ap.add_argument("--rag-rest-only", action="store_true",
                     help="build the kernels, then run phase 4l (the RAG "
                          "xpack's remainder) alone; prints no result")
+    ap.add_argument("--persistence-only", action="store_true",
+                    help="build the kernels, then run phase 4m "
+                         "(persistence) alone; prints no result")
     ap.add_argument("--nexmark-events", type=int, default=NX_EVENTS,
                     help="phase 4k's event count (default %(default)s)")
     args = ap.parse_args()
@@ -6115,6 +6637,8 @@ def main() -> int:
                                  smi)
     if args.rag_rest_only:
         return rag_rest_only(torch, np, dec, args.seed, smi)
+    if args.persistence_only:
+        return persistence_only(torch, np, dec, args.seed, engine_sizes, smi)
 
     # phase 2: kernels against their plain versions
     g = torch.Generator().manual_seed(args.seed)
@@ -6643,6 +7167,16 @@ def main() -> int:
         f"tiers, {rest_line['slides']['pages']} slide pages, vector store, "
         f"MCP, rerankers and http read/write in {rest_line['phase_s']:.1f}s")
     print(json.dumps({"rag_rest": rest_line}), flush=True)
+
+    # phase 4m: persistence — the quickstart stopped and restarted, and
+    # operator snapshots of a wordcount, after every earlier measurement;
+    # its launches after the restart go on the kernels line
+    ps_line, ps_launches = phase4m(torch, np, dec, persistence_inputs(
+        torch, dec, smi, args.seed, engine_sizes))
+    log(f"phase 4m ok: recovered {ps_line['quickstart']['docs']} files in "
+        f"{ps_line['quickstart']['recover_s']:.1f}s, snapshots folded, "
+        f"sinks exactly once in {ps_line['phase_s']:.1f}s")
+    print(json.dumps({"persistence": ps_line}), flush=True)
     for k in kernels:
         if k["name"] in ("paged_attention", "paged_append_attend",
                          "flash_attention"):
@@ -6653,6 +7187,14 @@ def main() -> int:
             k["launches_rag_pipeline"] = rag_line["knn_launches_gemv"]
         if k["name"] in rest_launches:
             k["launches_rag_rest"] = rest_launches[k["name"]]
+        if k["name"] in ("paged_attention", "paged_append_attend"):
+            k["launches_persistence"] = ps_launches[k["name"]]
+        elif k["name"] == "knn_scores":
+            k["launches_persistence"] = ps_line["quickstart"][
+                "knn_launches_gemm"]
+        elif k["name"] == "knn_scores_q1":
+            k["launches_persistence"] = ps_line["quickstart"][
+                "knn_launches_gemv"]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({
         "rag": {

@@ -7,7 +7,9 @@ operators, ``debug``, ``run``, ``io.subscribe``, ``io.fs``, ``io.csv``,
 ``stdlib.indexing``'s ``DataIndex``, the windows, temporal joins,
 behaviors and sort of ``stdlib.temporal``, the stream and time
 operators, ``pw.udf`` with its sync, async and fully-async executors,
-``AsyncTransformer`` and ``pw.iterate``) runs its three device
+``AsyncTransformer``, ``pw.iterate`` and ``pw.persistence``: input
+journals, the replay modes, operator snapshots, the object cache and
+exactly-once file sinks) runs its three device
 programs — the vectorized expression tier, the segment reductions and
 the join membership (``engine/vectorize.py``, ``parallel/mapreduce.py``)
 — in PyTorch on the data plane's device.  The RAG pipeline
@@ -136,6 +138,7 @@ def declare_type(target_type, expr) -> ColumnExpression:
 # -- namespaces --------------------------------------------------------------
 from . import debug  # noqa: E402
 from . import io  # noqa: E402
+from . import persistence  # noqa: E402
 from . import stdlib  # noqa: E402
 from .internals import udfs  # noqa: E402
 from .internals.udfs import UDF, udf  # noqa: E402
@@ -167,6 +170,8 @@ from .stdlib.temporal import (  # noqa: E402
 from .stdlib.utils.async_transformer import AsyncTransformer  # noqa: E402
 from .internals.iterate import iterate, iteration_limit  # noqa: E402
 from .internals.config import set_license_key, set_monitoring_config  # noqa: E402
+from .internals.monitoring import MonitoringLevel  # noqa: E402
+from .persistence import PersistenceMode  # noqa: E402
 from .engine import time_ops as _time_ops  # noqa: E402
 
 _time_ops.install_table_methods()
@@ -217,5 +222,6 @@ __all__ = [
     "run_all", "indexing", "temporal", "ordered", "statistical", "stateful",
     "utils", "AsyncTransformer", "iterate", "iteration_limit", "window",
     "AsofJoinResult", "IntervalJoinResult", "WindowJoinResult",
-    "set_license_key", "set_monitoring_config",
+    "set_license_key", "set_monitoring_config", "persistence",
+    "PersistenceMode", "MonitoringLevel",
 ]

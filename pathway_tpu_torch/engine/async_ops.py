@@ -10,6 +10,12 @@ immediately with `Pending`; when the coroutine completes, the engine emits a
 retraction of the Pending row and an insertion of the resolved row at a
 later logical time.  This keeps the dataflow non-blocking while staying
 consistent (each key's row is revised exactly once per resolution).
+
+A completion is emitted only at a time later than its row's insertion, so
+every row shows ``PENDING`` at its own time, however fast its call
+returns.  The JAX operator also emits a completion that has finished by
+the flush of the insert's own time, at that time, where it cancels the
+``PENDING`` row before any consumer sees it.
 """
 
 from __future__ import annotations
@@ -53,7 +59,8 @@ class FullyAsyncRowwise(Operator):
         # completions are only accepted when their generation matches, so
         # retract-then-reinsert never resolves with a stale row's result
         self._gen_counter = 0
-        self._inflight: dict[Any, int] = {}  # key -> generation awaiting
+        # key -> (generation awaiting, logical time its PENDING row went out)
+        self._inflight: dict[Any, tuple[int, Any]] = {}
         self._resolved: dict[Any, tuple] = {}  # key -> emitted resolved row
 
     def process(self, port, updates, time):
@@ -82,8 +89,9 @@ class FullyAsyncRowwise(Operator):
                 async_args.append((fun, args, kwargs))
             with self._lock:
                 self._gen_counter += 1
-                self._inflight[key] = self._gen_counter
-            self._submit(key, self._gen_counter, pending_row, e, async_args)
+                gen = self._gen_counter
+                self._inflight[key] = (gen, time)
+            self._submit(key, gen, pending_row, e, async_args)
         self.emit(time, out)
 
     def _pending_row(self, e) -> tuple:
@@ -119,7 +127,7 @@ class FullyAsyncRowwise(Operator):
                 else:
                     new_vals.append(next(ri))
             with self._done:
-                if self._inflight.get(key) == gen:
+                if self._inflight.get(key, (None,))[0] == gen:
                     self._completions.append((key, gen, pending_row, tuple(new_vals)))
                 # else: retracted or superseded before resolution — drop
                 self._outstanding -= 1
@@ -131,12 +139,20 @@ class FullyAsyncRowwise(Operator):
         self._drain(time)
 
     def _drain(self, time):
+        """Emit, at ``time``, the completions of rows inserted before it;
+        a completion of a row inserted at ``time`` waits for a later one
+        (the streaming loop ticks while ``_completions`` is non-empty)."""
         with self._lock:
             comps, self._completions = self._completions, []
             out = []
-            for key, gen, old_row, new_row in comps:
-                if self._inflight.get(key) != gen:
+            for comp in comps:
+                key, gen, old_row, new_row = comp
+                inflight = self._inflight.get(key)
+                if inflight is None or inflight[0] != gen:
                     continue  # retracted/superseded since completion was queued
+                if inflight[1] >= time:
+                    self._completions.append(comp)
+                    continue
                 del self._inflight[key]
                 self._resolved[key] = new_row
                 out.append((key, old_row, -1))

@@ -21,7 +21,12 @@ writer (``io/http.py``).  A node kind that no module lowers raises at
 lowering, naming it.  Rowwise selects over async UDFs lower to the
 operators of ``engine/async_ops.py``; a run stays alive while their
 completions are in flight.  Live sources are stopped when a streaming
-run ends.
+run ends.  Under persistence (``persistence.attach_persistence``) the
+streaming loop takes an operator snapshot when one is due, after each
+iteration's sinks closed, and a paced journal backfill
+(``realtime_replay``) counts as activity for ``idle_stop_s``; a restored
+snapshot moves the scheduler's frontier, and the loop's first time
+follows it.
 """
 
 from __future__ import annotations
@@ -412,6 +417,9 @@ def register_lowering(kind: str):
 
 
 class GraphRunner:
+    #: set by ``persistence.attach_persistence`` when snapshots are on
+    _snapshot_mgr = None
+
     def __init__(self, sinks: list[pg.OpNode], terminate_on_error: bool = False,
                  device="cuda"):
         # resolved first: without a card the run raises before lowering
@@ -577,10 +585,17 @@ class GraphRunner:
             else:
                 _time.sleep(autocommit_ms / 1000.0)
             _close_finished_sinks()
+            if self._snapshot_mgr is not None:
+                self._snapshot_mgr.maybe_snapshot()
             now = _time.monotonic()
             if timeout_s is not None and now - start > timeout_s:
                 break
-            if idle_stop_s is not None and now - last_event > idle_stop_s:
+            if any(getattr(s, "replay_backfill_pending", False)
+                   for _o, s in live):
+                # waiting out a recorded gap of a paced journal backfill is
+                # activity, not idleness (timeout_s stays a hard cap)
+                last_event = now
+            elif idle_stop_s is not None and now - last_event > idle_stop_s:
                 break
         # graceful drain: flush buffered sink output
         for op in self.lg.scheduler.topo_order():

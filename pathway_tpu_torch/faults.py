@@ -1,11 +1,13 @@
-"""Fault-injection registry for the port's decode engine.
+"""Fault-injection registry for the port's decode engine and journal.
 
-The port's own copy of the part of ``pathway_tpu/faults.py`` the engine
-and its tests use: named fault points call :func:`fire`, and a fault
-installed at that point (:func:`install`) acts there.  Failure handling
+The port's own copy of the part of ``pathway_tpu/faults.py`` the engine,
+the persistence journal and their tests use: named fault points call
+:func:`fire`, and a fault installed at that point (:func:`install`, or
+the ``PW_FAULT`` environment variable) acts there.  Failure handling
 that only real failures exercise is failure handling that does not work.
 
-Fault points of ``kvcache/engine.py`` (the JAX package's names):
+Fault points (the JAX package's names), of ``kvcache/engine.py`` and of
+the journal append in ``persistence/__init__.py``:
 
 =============================  ==========================================
 ``engine.dispatch.step``       before a decode step's dispatch
@@ -18,7 +20,20 @@ Fault points of ``kvcache/engine.py`` (the JAX package's names):
 ``engine.sync``                inside the device->host pull of the ids
                                (on the watchdog's thread when one is on);
                                ``hang`` models a wedged device program
+``persistence.append``         a journal record is about to be written;
+                               ``kill`` here dies mid-ingest, ``raise``
+                               models a failing backend
+``persistence.commit``         the journal record landed; ``kill`` here
+                               dies after the commit, before its effects
+                               reach any sink
 =============================  ==========================================
+
+``PW_FAULT`` holds ``;``-separated specs ``point:action[:nth[:arg_ms]]``
+(``nth`` default 1), read at the first :func:`fire` or :func:`install`
+after the process starts or :func:`clear` runs, so a test can arm a
+fault inside a child process: ``PW_FAULT="persistence.commit:kill:2"``
+kills the process right after its second journal append.  A spec that
+does not parse raises.
 
 Actions: ``raise`` raises :class:`InjectedFault`; ``delay`` and ``hang``
 sleep ``arg_ms`` milliseconds; ``drop`` is returned to the caller, which
@@ -70,28 +85,53 @@ class FaultSpec:
         return self.nth == 0 or self.hits == self.nth
 
 
+def parse_spec(text: str) -> FaultSpec:
+    """``point:action[:nth[:arg_ms]]``, as ``PW_FAULT`` carries it."""
+    parts = text.strip().split(":")
+    if len(parts) < 2 or len(parts) > 4:
+        raise ValueError(
+            f"bad PW_FAULT spec {text!r}: want point:action[:nth[:arg_ms]]")
+    nth = int(parts[2]) if len(parts) > 2 and parts[2] else 1
+    arg_ms = float(parts[3]) if len(parts) > 3 and parts[3] else 0.0
+    return FaultSpec(parts[0], parts[1], nth, arg_ms)
+
+
 class FaultRegistry:
     def __init__(self):
         self._lock = threading.Lock()
         self._specs: list[FaultSpec] = []
+        self._env_loaded = False
+
+    def _load_env_locked(self) -> None:
+        if self._env_loaded:
+            return
+        self._env_loaded = True
+        for part in os.environ.get("PW_FAULT", "").split(";"):
+            if part.strip():
+                self._specs.append(parse_spec(part))
 
     def install(self, point: str, action: str, *, nth: int = 1,
                 arg_ms: float = 0.0) -> FaultSpec:
         spec = FaultSpec(point, action, nth, arg_ms)
         with self._lock:
+            self._load_env_locked()
             self._specs.append(spec)
         return spec
 
     def clear(self) -> None:
+        """Drop every spec; the next call reads ``PW_FAULT`` again."""
         with self._lock:
             self._specs = []
+            self._env_loaded = False
 
-    def fire(self, point: str) -> str | None:
+    def fire(self, point: str, **ctx) -> str | None:
         """Advance the counters of every spec at ``point`` and act on
         those that fire: ``raise`` raises, ``delay``/``hang`` sleep,
         ``drop`` is returned.  Returns None when nothing fired (or the
-        sleep's action name after a delay or hang)."""
+        sleep's action name after a delay or hang).  ``ctx`` (the JAX
+        call's keywords, as ``stream=``) goes on the recorder's event."""
         with self._lock:
+            self._load_env_locked()
             if not self._specs:
                 return None
             # every matching spec counts every hit, so two armed faults
@@ -103,9 +143,10 @@ class FaultRegistry:
         result = None
         for spec in triggered:
             obs.event("fault.injected", point=point, action=spec.action,
-                      nth=spec.nth)
-            logger.warning("fault injected: %s -> %s (hit %d)", point,
-                           spec.action, spec.hits)
+                      nth=spec.nth, **{k: str(v) for k, v in ctx.items()})
+            logger.warning("fault injected: %s -> %s (hit %d)%s", point,
+                           spec.action, spec.hits,
+                           f" ctx={ctx}" if ctx else "")
             if spec.action == "raise":
                 raise InjectedFault(
                     f"injected fault at {point} (hit {spec.hits})"
@@ -130,4 +171,4 @@ clear = _REGISTRY.clear
 fire = _REGISTRY.fire
 
 __all__ = ["FaultRegistry", "FaultSpec", "InjectedFault", "KILL_EXIT_CODE",
-           "clear", "fire", "install"]
+           "clear", "fire", "install", "parse_spec"]

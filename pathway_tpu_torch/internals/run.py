@@ -7,7 +7,11 @@ loop until ``timeout_s``, ``idle_stop_s`` or their sources finish.  The
 data plane runs on ``device`` (default ``"cuda"``; it raises without a
 card unless ``device="cpu"``).
 
-Monitoring, persistence, the HTTP metrics server and several threads or
+``persistence_config`` (``pw.persistence.Config``) journals the inputs
+and, when asked, snapshots the operators, and a restart replays them
+(``persistence.attach_persistence``, wired after the runner is built).
+Monitoring (any ``monitoring_level`` but ``None`` or
+``MonitoringLevel.NONE``), the HTTP metrics server and several threads or
 processes (``PATHWAY_THREADS`` / ``PATHWAY_PROCESSES``) are not ported:
 asking for one of them raises, naming it.
 """
@@ -20,17 +24,16 @@ from typing import Any
 
 from ..engine.runner import GraphRunner, has_live_sources
 from . import parse_graph as pg
+from .monitoring import MonitoringLevel
 
 
 def _refuse_unported(monitoring_level: Any, with_http_server: bool,
-                     persistence_config: Any, kwargs: dict) -> None:
+                     kwargs: dict) -> None:
     asked = []
-    if monitoring_level is not None:
+    if monitoring_level not in (None, MonitoringLevel.NONE):
         asked.append(f"monitoring_level={monitoring_level!r} (monitoring)")
     if with_http_server:
         asked.append("with_http_server=True (the HTTP metrics server)")
-    if persistence_config is not None:
-        asked.append("persistence_config (persistence)")
     for var in ("PATHWAY_THREADS", "PATHWAY_PROCESSES"):
         if int(os.environ.get(var, "1")) > 1:
             asked.append(f"{var}={os.environ[var]} (several workers)")
@@ -38,9 +41,8 @@ def _refuse_unported(monitoring_level: Any, with_http_server: bool,
         asked.append(f"options {sorted(kwargs)}")
     if asked:
         raise NotImplementedError(
-            "pw.run of this package runs one process without monitoring, "
-            "persistence or the HTTP server; not supported: "
-            + "; ".join(asked)
+            "pw.run of this package runs one process without monitoring "
+            "or the HTTP server; not supported: " + "; ".join(asked)
         )
 
 
@@ -59,8 +61,7 @@ def run(
     device="cuda",
     **kwargs: Any,
 ) -> None:
-    _refuse_unported(monitoring_level, with_http_server, persistence_config,
-                     kwargs)
+    _refuse_unported(monitoring_level, with_http_server, kwargs)
     sinks = list(pg.G.outputs)
     if not sinks:
         return
@@ -69,6 +70,10 @@ def run(
     global_error_log.clear()
     runner = GraphRunner(sinks, terminate_on_error=terminate_on_error,
                          device=device)
+    if persistence_config is not None:
+        from ..persistence import attach_persistence
+
+        attach_persistence(runner, persistence_config)
     if has_live_sources(sinks):
         runner.run_streaming(
             autocommit_ms=autocommit_duration_ms,

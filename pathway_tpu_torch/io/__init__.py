@@ -2,9 +2,11 @@
 (binary, plaintext, csv and json files, static or streaming), ``csv``
 and ``jsonlines`` (read and write), ``python`` (custom subjects) and
 ``http``: the serving half (``rest_connector`` and ``PathwayWebserver``)
-and the client connectors (``read`` and ``write``).  The message-queue,
-database and cloud connectors, persistence and input synchronization
-groups are not ported."""
+and the client connectors (``read`` and ``write``).  Under
+``pw.persistence`` the file sources journal their rows with their
+offsets and cache the files they read, and the file writers resume
+exactly once after an operator snapshot.  The message-queue, database
+and cloud connectors and input synchronization groups are not ported."""
 
 from . import csv, fs, http, jsonlines, python
 from ._subscribe import subscribe

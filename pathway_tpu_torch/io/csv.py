@@ -85,9 +85,11 @@ def read(
         events = []
         for f in sorted(files):
             events.extend(events_from_dicts(parse(f), schema, seed=f))
-        return make_input_table(schema, StaticDataSource(events), name="csv")
+        return make_input_table(schema, StaticDataSource(events), name="csv",
+                                persistent_id=kwargs.get("persistent_id"))
     source = FilePollingSource(path, parse, schema)
-    return make_input_table(schema, source, name="csv")
+    return make_input_table(schema, source, name="csv",
+                            persistent_id=kwargs.get("persistent_id"))
 
 
 def write(table: Table, filename: str, **kwargs) -> None:

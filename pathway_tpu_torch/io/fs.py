@@ -6,7 +6,10 @@ src/connectors/scanner/filesystem.rs).
 
 ``mode="static"`` reads what is there once; ``mode="streaming"`` polls
 the path and emits new files and new lines, retracting the rows of a
-deleted file.
+deleted file.  Under persistence a streamed file's bytes go to the object
+cache, and a file that vanished is parsed from there with the metadata
+captured when it was cached (``cached_metadata``).  ``persistent_id=``
+names the source for ``selective_persisting``.
 """
 
 from __future__ import annotations
@@ -64,14 +67,24 @@ def read(
     by_file = format in ("binary", "plaintext_by_file")
     sch = schema or _schema(dt.BYTES if binary else dt.STR, with_metadata)
 
-    def parse_file(p: str) -> list[dict]:
-        meta = _metadata_for(p) if with_metadata else None
+    def parse_file(p: str, data: bytes | None = None,
+                   cached_metadata: Json | None = None) -> list[dict]:
+        # data: the bytes already read (the object cache stores the same);
+        # cached_metadata: a vanished file's metadata, from the cache
+        meta = None
+        if with_metadata:
+            meta = _metadata_for(p) if os.path.exists(p) else cached_metadata
         if binary:
-            with open(p, "rb") as f:
-                rows = [{"data": f.read()}]
+            if data is None:
+                with open(p, "rb") as f:
+                    data = f.read()
+            rows = [{"data": data}]
         else:
-            with open(p, encoding="utf-8", errors="replace") as f:
-                text = f.read()
+            if data is not None:
+                text = data.decode("utf-8", errors="replace")
+            else:
+                with open(p, encoding="utf-8", errors="replace") as f:
+                    text = f.read()
             rows = ([{"data": text}] if by_file else
                     [{"data": line.rstrip("\n")} for line in text.splitlines()])
         if with_metadata:
@@ -88,11 +101,15 @@ def read(
         events = []
         for f in sorted(files):
             events.extend(events_from_dicts(parse_file(f), sch, seed=f))
-        return make_input_table(sch, StaticDataSource(events), name="fs")
+        return make_input_table(sch, StaticDataSource(events), name="fs",
+                                persistent_id=kwargs.get("persistent_id"))
     if mode != "streaming":
         raise ValueError(f"unknown mode {mode!r}")
-    return make_input_table(sch, FilePollingSource(path, parse_file, sch),
-                            name="fs")
+    source = FilePollingSource(path, parse_file, sch)
+    if with_metadata:
+        source.cache_metadata_fn = _metadata_for
+    return make_input_table(sch, source, name="fs",
+                            persistent_id=kwargs.get("persistent_id"))
 
 
 def write(table: Table, filename: str, format: str = "json", **kwargs) -> None:  # noqa: A002

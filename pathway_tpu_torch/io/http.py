@@ -757,6 +757,10 @@ class _RawText:
 class _RestSubject:
     """Bridges HTTP handler threads to the engine's query stream."""
 
+    # under persistence a restart serves only new requests: nothing
+    # journaled is re-emitted, so no prefix is skipped
+    deterministic_rerun = False
+
     def __init__(self, schema: SchemaMetaclass, delete_completed_queries: bool,
                  timeout_s: float, format: str = "custom",  # noqa: A002
                  request_validator=None, admission_controller=None,
@@ -977,9 +981,11 @@ def read(
     mid-message log line fires.
 
     `deterministic_rerun`: under persistence, whether a process restart
-    re-delivers the same byte stream from the start.  Kept as a flag; this
-    package has no persistence, so it has no effect (as in the JAX
-    package without a persistence config).
+    re-delivers the same byte stream from the start.  True makes the
+    source ``replays_from_scratch``: a restart replays the journal and
+    skips as many re-read rows of each key as the journal holds, so each
+    row arrives once.  False (the default) takes every row the endpoint
+    sends after a restart as new.
 
     A read that fails past its retries raises on the source's thread and
     ends the stream there; the run goes on with the rows delivered, as in
@@ -1163,6 +1169,7 @@ def read(
         _HttpStreamSubject(), schema=schema,
         autocommit_duration_ms=autocommit_duration_ms,
         name=f"http:{url}",
+        persistent_id=kwargs.get("persistent_id"),
     )
 
 

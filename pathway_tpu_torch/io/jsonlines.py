@@ -51,9 +51,12 @@ def read(
         events = []
         for f in sorted(files):
             events.extend(events_from_dicts(_parse_jsonl_file(f), schema, seed=f))
-        return make_input_table(schema, StaticDataSource(events), name="jsonlines")
+        return make_input_table(schema, StaticDataSource(events),
+                                name="jsonlines",
+                                persistent_id=kwargs.get("persistent_id"))
     source = FilePollingSource(path, _parse_jsonl_file, schema)
-    return make_input_table(schema, source, name="jsonlines")
+    return make_input_table(schema, source, name="jsonlines",
+                            persistent_id=kwargs.get("persistent_id"))
 
 
 def write(table: Table, filename: str, **kwargs) -> None:

@@ -15,7 +15,20 @@ from ._utils import coerce_value, make_input_table
 
 class ConnectorSubject:
     """Subclass and implement run(); call self.next(**values) / next_json /
-    next_str / next_bytes; the stream ends when run() returns."""
+    next_str / next_bytes; the stream ends when run() returns.
+
+    Persistence contract: ``deterministic_rerun`` is opt-in (default
+    False).  A subject whose run() re-emits the same event stream on a
+    restart (pure generators, file replays) may set it to True, and the
+    persistence layer then skips the already-journaled prefix instead of
+    ingesting it twice.  A broker- or push-style subject that delivers only
+    new events after a restart must leave it False: a prefix skip would
+    drop its first fresh events, where duplicates from a subject that is
+    deterministic but left at False are at least visible.  A subject with
+    real offsets implements seek() / get_offsets() instead; seek always
+    wins."""
+
+    deterministic_rerun = False
 
     _source: SubjectDataSource | None = None
     _colnames: list[str] = []
@@ -78,7 +91,8 @@ def read(
     source = SubjectDataSource(subject, colnames, pk_positions)
     subject._colnames = colnames
     subject._dtypes = dict(schema.dtypes())
-    return make_input_table(schema, source, name=name or "python")
+    return make_input_table(schema, source, name=name or "python",
+                            persistent_id=kwargs.get("persistent_id"))
 
 
 __all__ = ["ConnectorSubject", "read"]

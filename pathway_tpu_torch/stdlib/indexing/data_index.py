@@ -9,7 +9,7 @@ lower to one engine operator, ``ExternalIndexOperator``, that keeps an
 external_index.rs equivalent), registered with the runner's
 ``register_lowering``.
 
-Two things differ from the JAX package, neither in what is answered:
+Three things differ from the JAX package, the last in what is answered:
 
 - the indexed item (and the metadata) of each data row is computed once
   per ``DataIndex``, in one select over the data table, and read by
@@ -20,7 +20,15 @@ Two things differ from the JAX package, neither in what is answered:
   ``DeviceVec`` handles;
 - nothing is swallowed: a failing ``search_batch`` fails the run (the
   JAX operator retries each query with ``search``), and the index
-  pass's serve counters are recorded without a guard.
+  pass's serve counters are recorded without a guard;
+- an operator snapshot restores the index with the data rows: the durable
+  state of the JAX operator is ``DiffOutputOperator``'s (the input rows and
+  the last answers) and leaves its ``InnerIndex`` out, so a restored JAX
+  index starts empty and finds only the documents of the journal's tail.
+  ``restore_state`` here adds every restored data row to the fresh index,
+  on the index's device, in one ``add_batch`` where the index has one (a
+  ``DeviceVec`` in a snapshot pickles to numpy, so those rows go back to
+  the card), and the as-of-now answers not yet retracted are state too.
 """
 
 from __future__ import annotations
@@ -46,6 +54,8 @@ BATCH_MIN = 4
 
 class ExternalIndexOperator(DiffOutputOperator):
     """Port 0: queries, port 1: data."""
+
+    _STATE_ATTRS = ("state", "last_out", "emitted")
 
     def __init__(
         self,
@@ -77,15 +87,37 @@ class ExternalIndexOperator(DiffOutputOperator):
         self.query_batches: list[int] = []
 
     # -- index maintenance -------------------------------------------------
+    def _item(self, key, row):
+        """(item, metadata) of a data row; item None when it indexes
+        nothing."""
+        env = self.data_env.build(key, row)
+        item = self.data_item_fn(env)
+        if item is None or isinstance(item, Error):
+            return None, None
+        return item, (self.data_meta_fn(env) if self.data_meta_fn else None)
+
+    def restore_state(self, st) -> None:
+        super().restore_state(st)
+        keys, items, metas = [], [], []
+        for key, row in self.state[1].items():
+            item, meta = self._item(key, row)
+            if item is not None:
+                keys.append(key)
+                items.append(item)
+                metas.append(meta)
+        if hasattr(self.index, "add_batch"):
+            self.index.add_batch(keys, items, metas)
+        else:
+            for key, item, meta in zip(keys, items, metas):
+                self.index.add(key, item, meta)
+
     def pre_apply(self, port, key, row, diff):
         if port != 1:
             return
-        env = self.data_env.build(key, row)
         if diff > 0:
-            item = self.data_item_fn(env)
-            if item is None or isinstance(item, Error):
+            item, meta = self._item(key, row)
+            if item is None:
                 return
-            meta = self.data_meta_fn(env) if self.data_meta_fn else None
             self.index.add(key, item, meta)
         else:
             self.index.remove(key)

@@ -173,6 +173,31 @@ class BruteForceKnn(InnerIndex):
             self._dev_refs.pop(slot, None)
         self._invalidate()
 
+    def add_batch(self, keys: list, items: list, metadata: list) -> None:
+        """``add`` of many rows: host rows (array-likes, tensors) are
+        stacked and copied to the device in one transfer (an operator
+        snapshot's restore rebuilds the index so); ``DeviceVec`` rows
+        record their reference, as ``add`` does."""
+        host = [i for i, it in enumerate(items)
+                if not isinstance(it, DeviceVec)]
+        for i, it in enumerate(items):
+            if isinstance(it, DeviceVec):
+                self.add(keys[i], it, metadata[i])
+        if not host:
+            return
+        rows = np.stack([_host_vec(items[i]) for i in host])
+        self._ensure(rows.shape[1])
+        if rows.shape[1] != self.dim:
+            raise ValueError(
+                f"vector dim {rows.shape[1]} != index dim {self.dim}")
+        slots = [self._slot(keys[i], metadata[i]) for i in host]
+        for slot in slots:
+            self._dev_refs.pop(slot, None)
+        self.matrix[torch.tensor(slots, dtype=torch.int64,
+                                 device=self.device)] = (
+            torch.from_numpy(rows).to(self.device))
+        self._invalidate()
+
     def remove(self, key: int) -> None:
         """Drop ``key``; the last row (and its device reference) moves
         into its slot."""

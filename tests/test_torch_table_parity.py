@@ -381,8 +381,7 @@ def test_pw_run_batch_and_the_refused_options():
     tpw.run(device="cpu")
     assert sorted(k for k, add in rows if add) == [1, 2, 2, 3, 4]
     assert [k for k, add in rows if not add] == [1]
-    for kw, name in (({"persistence_config": object()}, "persistence"),
-                     ({"with_http_server": True}, "HTTP"),
+    for kw, name in (({"with_http_server": True}, "HTTP"),
                      ({"monitoring_level": "ALL"}, "monitoring")):
         with pytest.raises(NotImplementedError, match=name):
             tpw.run(device="cpu", **kw)
