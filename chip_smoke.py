@@ -308,6 +308,32 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    empty) and no sink row is written twice.  Printed as a ``{"persistence":
    ...}`` line (ingest s, time to recover, replayed events/s, journal
    bytes, retrieve p50 after the restart; ``reduced`` lists the cuts);
+4n. the core API's remainder (after phase 4m; no kernel on its path):
+   (a) TPC-H Q1, Q3 and Q6 at the validation parameters through
+   ``pw.sql`` over ``tpch_data``'s rows (scale factor ``tpch_sf``),
+   groups equal to the stdlib's ``sqlite3`` over the same rows and query
+   text, sums within 1e-9; (b) over an R-MAT graph (Graph500's A, B, C =
+   0.57, 0.19, 0.19, edge factor 16) ``stdlib.graphs.pagerank(steps=5)``
+   = the numpy integers of its fixed-point scheme and ``bellman_ford``
+   with integer weights in [1, 64] = scipy's ``dijkstra``, exactly;
+   ``louvain_communities(levels=2)`` over a planted partition (average
+   degree 16, 90% inside), its modularity at least 0.9 of the planted
+   one's; (c) ``pw.transformer``'s pointer-chasing tree sum over
+   a random tree = a plain recursion; (d) ``create_hmm_reducer`` over a
+   stream of observations of an 8-state HMM = numpy's Viterbi path; (e)
+   ``fuzzy_match_tables`` of names against one-edit copies; (f) the
+   native ``hash_rows`` on 1,048,576 rows shaped as ``_auto_keys``
+   shapes them = the Python mirror bit for bit (the mirror on the
+   first ``hash_rows_py``), and a no-key ``pw.io.jsonlines.read`` of
+   65,536 lines run on the card keyed exactly as the mirror keys it.
+   Parts (a)-(e) run on the device tier (both crossovers pinned to
+   ``CORE_PIN``) and with numpy pinned, their captures equal; the numpy
+   run sends no batch to the card, and the device runs of the TPC-H
+   queries, pagerank and the fuzzy join send at least one (Bellman-Ford,
+   Louvain, the transformer and the HMM take no vectorized plan: the row
+   path in both runs).  Printed as a ``{"core_api": ...}`` line (rows/s
+   a query and tier, each operator kind's ``busy_s``, each run's batches
+   by tier; ``reduced`` lists the cuts);
 5. print one ``{"kernels": [...]}`` line (launches on the main path,
    error against the plain version, kernel / plain / bound / library
    times at the main path's shapes: the median of 5 windows of 50
@@ -351,7 +377,11 @@ prints its line and no result; ``--temporal-only`` runs phase 4k alone
 (it builds no kernel) and prints its line and no result;
 ``--rag-rest-only`` runs phase 4l alone after the build and prints its
 line and no result; ``--persistence-only`` runs phase 4m alone after the
-build and prints its line and no result.
+build and prints its line and no result; ``--core-api-only`` runs phase
+4n alone (it builds no kernel) and prints its line and no result;
+``--core-graph-costs`` times the graph algorithms of phase 4n once at
+their full sizes (one body run of each ``iterate``; no kernel, no
+result).
 
 The last line of standard output is ``{"ok": true, "device": {...}}``.
 Exits non-zero, printing no result, when no CUDA device is present or
@@ -361,6 +391,8 @@ the package is not beside this script.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import datetime
 import itertools
 import json
 import math
@@ -3696,7 +3728,8 @@ def dataplane_run(torch, outs, pin: int, device="cuda",
     for st in (vectorize.STATS, mr.STATS):
         st.update({k: type(v)() for k, v in st.items()})
     try:
-        torch.cuda.synchronize()
+        if device != "cpu":
+            torch.cuda.synchronize()
         t0 = time.perf_counter()
         sinks = [t._materialize_capture() for t in outs]
         graph = runner.GraphRunner(sinks, device=device)
@@ -6529,6 +6562,891 @@ def persistence_only(torch, np, dec, seed, engine_sizes, smi) -> int:
     return 0
 
 
+# -- phase 4n: the core API's remainder on the card ------------------------
+#
+# pw.sql over TPC-H shapes, the graph algorithms over Graph500 shapes,
+# pw.transformer, the HMM reducer, the fuzzy join, and the native hash
+# tier.  The data-plane parts run twice, on the device tier and with numpy
+# pinned (as phase 4i), and each is held against its plain reference.
+
+
+def _tpch_day(y: int, m: int, d: int) -> int:
+    """A date as int days since 1970-01-01 (the rows' date columns)."""
+    return (datetime.date(y, m, d) - datetime.date(1970, 1, 1)).days
+
+
+# TPC-H v3 §4.2.2-4.2.3: STARTDATE, CURRENTDATE, ENDDATE
+TPCH_START, TPCH_CURRENT, TPCH_END = (
+    _tpch_day(1992, 1, 1), _tpch_day(1995, 6, 17), _tpch_day(1998, 12, 31))
+TPCH_SEGMENTS = ("AUTOMOBILE", "BUILDING", "FURNITURE", "HOUSEHOLD",
+                 "MACHINERY")
+# the columns the three queries read, with their types (dates int days,
+# decimals float64)
+TPCH_COLUMNS = {
+    "customer": (("c_custkey", int), ("c_mktsegment", str)),
+    "orders": (("o_orderkey", int), ("o_custkey", int),
+               ("o_orderdate", int), ("o_shippriority", int)),
+    "lineitem": (("l_orderkey", int), ("l_quantity", float),
+                 ("l_extendedprice", float), ("l_discount", float),
+                 ("l_tax", float), ("l_returnflag", str),
+                 ("l_linestatus", str), ("l_shipdate", int)),
+}
+# the validation parameters (§2.4.1.3, §2.4.3.3, §2.4.6.3): Q1 DELTA 90,
+# Q3 SEGMENT BUILDING and DATE 1995-03-15, Q6 DATE 1994-01-01, DISCOUNT
+# 0.06, QUANTITY 24.  ORDER BY / LIMIT dropped (the dialect's tables are
+# unordered; whole groups are compared); an aggregate over an expression
+# reads it from a subquery; Q3's predicates sit in CTEs before its joins
+_Q1_DATE = _tpch_day(1998, 12, 1) - 90
+_Q3_DATE = _tpch_day(1995, 3, 15)
+_Q6_DATE, _Q6_END = _tpch_day(1994, 1, 1), _tpch_day(1995, 1, 1)
+TPCH_QUERIES = {
+    "q1": (
+        "SELECT l_returnflag, l_linestatus, SUM(l_quantity) AS sum_qty, "
+        "SUM(l_extendedprice) AS sum_base_price, SUM(disc_price) AS "
+        "sum_disc_price, SUM(charge) AS sum_charge, AVG(l_quantity) AS "
+        "avg_qty, AVG(l_extendedprice) AS avg_price, AVG(l_discount) AS "
+        "avg_disc, COUNT(*) AS count_order FROM (SELECT l_returnflag, "
+        "l_linestatus, l_quantity, l_extendedprice, l_discount, "
+        "l_extendedprice * (1 - l_discount) AS disc_price, "
+        "l_extendedprice * (1 - l_discount) * (1 + l_tax) AS charge FROM "
+        f"lineitem WHERE l_shipdate <= {_Q1_DATE}) q "
+        "GROUP BY l_returnflag, l_linestatus"),
+    "q3": (
+        "WITH c AS (SELECT c_custkey FROM customer WHERE c_mktsegment = "
+        "'BUILDING'), o AS (SELECT o_orderkey, o_custkey, o_orderdate, "
+        f"o_shippriority FROM orders WHERE o_orderdate < {_Q3_DATE}), "
+        "l AS (SELECT l_orderkey, l_extendedprice * (1 - l_discount) AS rev "
+        f"FROM lineitem WHERE l_shipdate > {_Q3_DATE}) "
+        "SELECT l_orderkey, SUM(rev) AS revenue, o_orderdate, o_shippriority "
+        "FROM c JOIN o ON c.c_custkey = o.o_custkey "
+        "JOIN l ON o.o_orderkey = l.l_orderkey "
+        "GROUP BY l_orderkey, o_orderdate, o_shippriority"),
+    "q6": (
+        "SELECT SUM(x) AS revenue FROM (SELECT l_extendedprice * l_discount "
+        f"AS x FROM lineitem WHERE l_shipdate >= {_Q6_DATE} AND "
+        f"l_shipdate < {_Q6_END} AND l_discount BETWEEN 0.05 AND 0.07 AND "
+        "l_quantity < 24) q"),
+}
+# the tables each query reads (its rows/s counts their rows)
+TPCH_READS = {"q1": ("lineitem",), "q3": ("customer", "orders", "lineitem"),
+              "q6": ("lineitem",)}
+
+
+def tpch_data(np, seed: int, sf: float) -> dict:
+    """The rows of ``customer``, ``orders`` and ``lineitem`` at scale
+    factor ``sf`` (TPC-H v3 §4.2.3), as lists of tuples in
+    ``TPCH_COLUMNS``' order: sparse order keys (8 of every 32), an
+    order's customer never a multiple of 3, 1-7 lines an order, quantity
+    1-50, the part's retail price, discount 0-0.10, tax 0-0.08, ship date
+    1-121 days after the order, receipt 1-30 after shipping, return flag
+    R/A when received by CURRENTDATE else N, line status O when shipped
+    after it else F."""
+    rng = np.random.default_rng(seed)
+    n_cust = max(int(round(150_000 * sf)), 3)
+    n_ord = max(int(round(1_500_000 * sf)), 8)
+    n_part = max(int(round(200_000 * sf)), 1)
+    seg = rng.integers(0, len(TPCH_SEGMENTS), n_cust)
+    customer = list(zip(range(1, n_cust + 1),
+                        [TPCH_SEGMENTS[i] for i in seg.tolist()]))
+    i = np.arange(n_ord, dtype=np.int64)
+    okey = (i // 8) * 32 + (i % 8) + 1
+    cands = np.arange(1, n_cust + 1, dtype=np.int64)
+    cands = cands[cands % 3 != 0]
+    ocust = cands[rng.integers(0, len(cands), n_ord)]
+    odate = TPCH_START + rng.integers(0, TPCH_END - 151 - TPCH_START + 1,
+                                      n_ord)
+    orders = list(zip(okey.tolist(), ocust.tolist(), odate.tolist(),
+                      [0] * n_ord))
+    lines = rng.integers(1, 8, n_ord)
+    lok = np.repeat(okey, lines)
+    n = len(lok)
+    qty = rng.integers(1, 51, n).astype(np.float64)
+    pk = rng.integers(1, n_part + 1, n)
+    retail = (90000 + (pk // 10) % 20001 + 100 * (pk % 1000)) / 100.0
+    price = np.round(qty * retail, 2)
+    disc = rng.integers(0, 11, n) / 100.0
+    tax = rng.integers(0, 9, n) / 100.0
+    ship = np.repeat(odate, lines) + rng.integers(1, 122, n)
+    receipt = ship + rng.integers(1, 31, n)
+    flag = np.where(receipt <= TPCH_CURRENT,
+                    np.where(rng.random(n) < 0.5, "R", "A"), "N")
+    status = np.where(ship > TPCH_CURRENT, "O", "F")
+    lineitem = list(zip(lok.tolist(), qty.tolist(), price.tolist(),
+                        disc.tolist(), tax.tolist(), flag.tolist(),
+                        status.tolist(), ship.tolist()))
+    return {"customer": customer, "orders": orders, "lineitem": lineitem}
+
+
+def tpch_tables(pw, data: dict, names=None) -> dict:
+    """The port's (or the JAX package's) static tables of ``data``."""
+    out = {}
+    for name in names or TPCH_COLUMNS:
+        schema = pw.schema_from_types(**dict(TPCH_COLUMNS[name]))
+        out[name] = pw.debug.table_from_rows(schema, data[name])
+    return out
+
+
+def tpch_sqlite_db(data: dict):
+    """The plain reference: the same rows in an in-memory ``sqlite3``."""
+    import sqlite3
+
+    con = sqlite3.connect(":memory:")
+    kinds = {int: "INTEGER", float: "REAL", str: "TEXT"}
+    for name, cols in TPCH_COLUMNS.items():
+        con.execute(f"CREATE TABLE {name} (" + ", ".join(
+            f"{c} {kinds[t]}" for c, t in cols) + ")")
+        con.executemany(f"INSERT INTO {name} VALUES ("
+                        + ", ".join("?" * len(cols)) + ")", data[name])
+    return con
+
+
+def tpch_sqlite(data: dict, text: str, con=None) -> list:
+    con = con or tpch_sqlite_db(data)
+    return [tuple(r) for r in con.execute(text).fetchall()]
+
+
+def tpch_matches(got: list, want: list, rel: float) -> tuple[bool, str]:
+    """Rows equal as multisets: every non-float value exactly, floats
+    within ``rel`` (sums over another order of rows)."""
+    def split(r):
+        return (tuple(v for v in r if not isinstance(v, float)),
+                tuple(v for v in r if isinstance(v, float)))
+
+    g, w = sorted(map(split, got)), sorted(map(split, want))
+    if len(g) != len(w):
+        return False, f"{len(g)} groups, the reference {len(w)}"
+    for (gk, gf), (wk, wf) in zip(g, w):
+        if gk != wk or len(gf) != len(wf):
+            return False, f"group {gk} against {wk}"
+        for x, y in zip(gf, wf):
+            if abs(x - y) > rel * max(abs(x), abs(y)):
+                return False, f"group {gk}: {x!r} against {y!r}"
+    return True, ""
+
+
+def core_tiers(torch, outs, s) -> tuple[dict, dict]:
+    """``outs`` run on the device tier (both crossovers pinned to
+    ``s.sizes["pin"]``) and with numpy pinned: both ``dataplane_run``s
+    (``_check_tiers`` holds them to each other)."""
+    dev = dataplane_run(torch, outs, s.sizes["pin"], device=s.device)
+    npy = dataplane_run(torch, outs, DP_NEVER, device=s.device)
+    return dev, npy
+
+
+def _tier_counts(run) -> dict:
+    """A run's batches by tier: the vectorized plans' device, numpy and
+    row-path batches, and the map-reduce programs' device calls."""
+    v, m = run["vec"], run["mapreduce"]
+    return dict(device=v["device_batches"], numpy=v["np_batches"],
+                row=v["row_batches"],
+                mapreduce_device=m["segment_device"] + m["member_device"])
+
+
+def _check_tiers(dev, npy, what: str, on_card: bool,
+                 rel: float = 1e-9) -> str:
+    """Hold the two runs' captures to each other, and their tiers to the
+    part's: the numpy run sends no batch to the card, and the device run
+    of a part ``on_card`` sends at least one.  (A part whose operators
+    take no vectorized plan, as pointer columns, a Python transformer or
+    a stateful reducer do, runs the row path in both.)  Returns the
+    device run's counts as text for the part's log line."""
+    require(all(float_sums_close(a, b, rel)
+                for a, b in zip(dev["caps"], npy["caps"])),
+            f"4n: {what}: the device and numpy runs' captures differ")
+    d, n = _tier_counts(dev), _tier_counts(npy)
+    require(n["device"] == 0 and n["mapreduce_device"] == 0,
+            f"4n: {what}: the numpy run reached the card {n}")
+    require(not on_card or d["device"] + d["mapreduce_device"] > 0,
+            f"4n: {what}: the device run sent no batch to the card {d}")
+    return (f"batches device {d['device']} + {d['mapreduce_device']}, "
+            f"numpy {d['numpy']}, row {d['row']}")
+
+
+def _run_line(run, rows: int) -> dict:
+    return dict(wall_s=run["wall_s"], rows_per_s=rows / run["wall_s"],
+                op_busy_s=run["op_busy_s"], tiers=_tier_counts(run))
+
+
+def core_sql(torch, np, s) -> dict:
+    """(a) TPC-H Q1, Q3 and Q6 through ``pw.sql`` on both tiers, each
+    against ``sqlite3`` over the same rows and query text."""
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch.internals import parse_graph as pg
+
+    z = s.sizes
+    t0 = time.perf_counter()
+    data = tpch_data(np, s.seed, z["tpch_sf"])
+    out = {"sf": z["tpch_sf"],
+           "rows": {k: len(v) for k, v in data.items()},
+           "gen_s": time.perf_counter() - t0}
+    t0 = time.perf_counter()
+    con = tpch_sqlite_db(data)
+    out["sqlite_load_s"] = time.perf_counter() - t0
+    out["queries"] = {}
+    for q, text in TPCH_QUERIES.items():
+        t0 = time.perf_counter()
+        want = tpch_sqlite(data, text, con)
+        sqlite_s = time.perf_counter() - t0
+        pg.G.clear()
+        table = pw.sql(text, **tpch_tables(pw, data, TPCH_READS[q]))
+        dev, npy = core_tiers(torch, [table], s)
+        tiers = _check_tiers(dev, npy, f"TPC-H {q}", on_card=True)
+        got = list(dev["caps"][0].values())
+        ok, why = tpch_matches(got, want, 1e-9)
+        require(ok and len(want) > 0, f"4n: TPC-H {q} against sqlite3: {why}")
+        rows = sum(len(data[t]) for t in TPCH_READS[q])
+        out["queries"][q] = dict(
+            groups=len(got), input_rows=rows, sqlite_s=sqlite_s,
+            device=_run_line(dev, rows), numpy=_run_line(npy, rows),
+            device_ms=dev["vec"]["device_ms"] + dev["mapreduce"]["device_ms"])
+        log(f"4n.a {q}: {len(got)} groups = sqlite3; "
+            f"{rows / dev['wall_s']:.0f} / {rows / npy['wall_s']:.0f} rows/s "
+            f"(device / numpy); {tiers}")
+    con.close()
+    return out
+
+
+def rmat_edges(np, seed: int, scale: int, edge_factor: int,
+               abc=(0.57, 0.19, 0.19)):
+    """Graph500's R-MAT generator: ``edge_factor << scale`` directed
+    edges over ``1 << scale`` vertices, each endpoint bit chosen by the
+    quadrant probabilities A, B, C (D the rest), the labels permuted;
+    self-loops and duplicates dropped.  (n_edges generated, (m, 2)
+    int64 array)."""
+    rng = np.random.default_rng(seed)
+    m = edge_factor << scale
+    a, b, c = abc
+    u = np.zeros(m, np.int64)
+    v = np.zeros(m, np.int64)
+    for bit in range(scale):
+        r = rng.random(m)
+        u |= (r >= a + b).astype(np.int64) << bit
+        v |= (((r >= a) & (r < a + b)) | (r >= a + b + c)).astype(
+            np.int64) << bit
+    perm = rng.permutation(1 << scale)
+    u, v = perm[u], perm[v]
+    keep = u != v
+    return m, np.unique(np.stack([u[keep], v[keep]], 1), axis=0)
+
+
+def pagerank_reference(np, pairs, steps: int) -> dict:
+    """The fixed-point scheme of ``stdlib.graphs.pagerank`` in numpy
+    integers: 6,000 a vertex, each step a vertex sends rank*5 //
+    (degree*6) along each out-edge, a vertex with in-edges gets their sum
+    plus 1,000, one without gets 1,000."""
+    u, v = pairs[:, 0], pairs[:, 1]
+    verts = np.unique(np.concatenate([u, v]))
+    n = int(verts.max()) + 1
+    deg = np.bincount(u, minlength=n).astype(np.int64)
+    has_in = np.bincount(v, minlength=n) > 0
+    rank = np.full(n, 6000, np.int64)
+    for _ in range(steps):
+        flow = np.where(deg > 0, (rank * 5) // np.maximum(deg * 6, 1), 0)
+        inflow = np.zeros(n, np.int64)
+        np.add.at(inflow, v, flow[u])
+        rank = np.where(has_in, inflow + 1000, 1000)
+    return {int(x): int(rank[x]) for x in verts}
+
+
+def planted_partition(np, seed: int, n: int, groups: int, degree: int,
+                      inside: float):
+    """``n * degree // 2`` undirected edges over ``n`` vertices in
+    ``groups`` equal groups, a share ``inside`` of them within a group;
+    duplicates and self-loops dropped.  (group of each vertex, (m, 2)
+    pairs with u < v)."""
+    rng = np.random.default_rng(seed)
+    size = n // groups
+    m = n * degree // 2
+    n_in = int(m * inside)
+    g = rng.integers(0, groups, n_in)
+    a = g * size + rng.integers(0, size, n_in)
+    b = g * size + rng.integers(0, size, n_in)
+    x = rng.integers(0, n, 4 * (m - n_in))
+    y = rng.integers(0, n, 4 * (m - n_in))
+    cross = (x // size) != (y // size)
+    x, y = x[cross][: m - n_in], y[cross][: m - n_in]
+    u = np.concatenate([a, x])
+    v = np.concatenate([b, y])
+    keep = u != v
+    pairs = np.unique(np.stack([np.minimum(u, v), np.maximum(u, v)], 1)[keep],
+                      axis=0)
+    return np.arange(n) // size, pairs
+
+
+def modularity(np, pairs, label) -> float:
+    """Newman's modularity of ``label`` over undirected ``pairs``."""
+    m = len(pairs)
+    lu, lv = label[pairs[:, 0]], label[pairs[:, 1]]
+    inside = np.bincount(lu[lu == lv], minlength=label.max() + 1)
+    deg = np.bincount(pairs.ravel(), minlength=len(label))
+    dsum = np.bincount(label, weights=deg, minlength=label.max() + 1)
+    return float((inside / m - (dsum / (2 * m)) ** 2).sum())
+
+
+def _vertex_tables(pw, n: int, source: int | None = None):
+    class V(pw.Schema):
+        n: int = pw.column_definition(primary_key=True)
+        is_source: bool
+
+    return pw.debug.table_from_rows(V, [(i, i == source) for i in range(n)])
+
+
+def _edge_table(pw, pairs, weights=None):
+    class E(pw.Schema):
+        ui: int
+        vi: int
+        w: float
+
+    w = weights if weights is not None else [1.0] * len(pairs)
+    e = pw.debug.table_from_rows(
+        E, list(zip(pairs[:, 0].tolist(), pairs[:, 1].tolist(), w)))
+    return e.select(u=e.pointer_from(e.ui), v=e.pointer_from(e.vi),
+                    dist=e.w, weight=e.w)
+
+
+def core_graphs(torch, np, s) -> dict:
+    """(b) pagerank and Bellman-Ford over an R-MAT graph, Louvain over a
+    planted partition."""
+    import scipy.sparse
+    import scipy.sparse.csgraph
+
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch.internals import parse_graph as pg
+    from pathway_tpu_torch.internals.value import ref_scalar
+    from pathway_tpu_torch.stdlib import graphs
+
+    z = s.sizes
+    n_gen, pairs = rmat_edges(np, s.seed, z["rmat_scale"], 16)
+    n_v = 1 << z["rmat_scale"]
+    out = {"rmat_scale": z["rmat_scale"], "edges_generated": n_gen,
+           "edges": len(pairs)}
+    # pagerank: exactly the numpy integers of the same scheme
+    pg.G.clear()
+    ranks = graphs.pagerank(_edge_table(pw, pairs), steps=5)
+    dev, npy = core_tiers(torch, [ranks], s)
+    tiers = _check_tiers(dev, npy, "pagerank", on_card=True, rel=0.0)
+    want = pagerank_reference(np, pairs, 5)
+    got = dev["caps"][0]
+    require(got == {ref_scalar(x): (r,) for x, r in want.items()},
+            "4n: pagerank differs from the numpy fixed-point reference")
+    out["pagerank"] = dict(vertices=len(got), device=_run_line(
+        dev, len(pairs)), numpy=_run_line(npy, len(pairs)))
+    log(f"4n.b pagerank: {len(got)} vertices = numpy; {tiers}")
+    # Bellman-Ford from the vertex of most out-edges, integer weights
+    rng = np.random.default_rng(s.seed + 1)
+    weights = rng.integers(1, 65, len(pairs)).astype(np.float64)
+    src = int(np.bincount(pairs[:, 0]).argmax())
+    pg.G.clear()
+    dist = graphs.bellman_ford(_vertex_tables(pw, n_v, src),
+                               _edge_table(pw, pairs, weights.tolist()))
+    dev, npy = core_tiers(torch, [dist], s)
+    tiers = _check_tiers(dev, npy, "bellman_ford", on_card=False, rel=0.0)
+    csr = scipy.sparse.csr_matrix((weights, (pairs[:, 0], pairs[:, 1])),
+                                  shape=(n_v, n_v))
+    ref = scipy.sparse.csgraph.dijkstra(csr, directed=True, indices=src)
+    got = dev["caps"][0]
+    require(got == {ref_scalar(i): (float(ref[i]),) for i in range(n_v)},
+            "4n: bellman_ford differs from scipy's dijkstra")
+    out["bellman_ford"] = dict(
+        source=src, reachable=int(np.isfinite(ref).sum()),
+        device=_run_line(dev, len(pairs)), numpy=_run_line(npy, len(pairs)))
+    log(f"4n.b bellman_ford: {int(np.isfinite(ref).sum())} reachable = "
+        f"dijkstra; {tiers}")
+    # Louvain, two levels, over the planted partition (both directions)
+    planted, und = planted_partition(np, s.seed + 2, z["louvain_n"],
+                                     z["louvain_groups"], 16, 0.9)
+    sym = np.concatenate([und, und[:, ::-1]])
+    pg.G.clear()
+    comm = graphs.louvain_communities(
+        _vertex_tables(pw, z["louvain_n"]), _edge_table(pw, sym), levels=2,
+        iteration_limit=z["louvain_iterations"])
+    dev, npy = core_tiers(torch, [comm], s)
+    tiers = _check_tiers(dev, npy, "louvain_communities", on_card=False,
+                         rel=0.0)
+    got = dev["caps"][0]
+    require(len(got) == z["louvain_n"], f"4n: louvain: {len(got)} vertices")
+    names = {}
+    label = np.empty(z["louvain_n"], np.int64)
+    for i in range(z["louvain_n"]):
+        c = got[ref_scalar(i)][0]
+        label[i] = names.setdefault(c, len(names))
+    q, q_planted = modularity(np, und, label), modularity(np, und, planted)
+    require(q >= 0.9 * q_planted,
+            f"4n: louvain: modularity {q:.4f}, the planted {q_planted:.4f}")
+    out["louvain"] = dict(
+        vertices=z["louvain_n"], groups=z["louvain_groups"], edges=len(und),
+        communities=len(names), modularity=q, modularity_planted=q_planted,
+        device=_run_line(dev, len(sym)), numpy=_run_line(npy, len(sym)))
+    log(f"4n.b louvain: {len(names)} communities, modularity {q:.4f} "
+        f"(planted {q_planted:.4f}); {tiers}")
+    return out
+
+
+def random_tree(np, seed: int, n: int) -> list:
+    """``(n, val, left, right)`` rows of a random binary tree: each node
+    after the root takes a free child slot chosen uniformly."""
+    rng = np.random.default_rng(seed)
+    vals = rng.integers(1, 100, n).tolist()
+    kids = [[None, None] for _ in range(n)]
+    slots = [(0, 0), (0, 1)]
+    for i in range(1, n):
+        j = int(rng.integers(0, len(slots)))
+        slots[j], slots[-1] = slots[-1], slots[j]
+        p, side = slots.pop()
+        kids[p][side] = i
+        slots.extend([(i, 0), (i, 1)])
+    return [(i, vals[i], kids[i][0], kids[i][1]) for i in range(n)]
+
+
+def tree_sums(rows) -> dict:
+    """Each node's subtree sum, children before parents (no recursion)."""
+    total = {}
+    order = []
+    stack = [0]
+    while stack:
+        i = stack.pop()
+        order.append(i)
+        stack.extend(c for c in rows[i][2:] if c is not None)
+    for i in reversed(order):
+        total[i] = rows[i][1] + sum(total[c] for c in rows[i][2:]
+                                    if c is not None)
+    return total
+
+
+def tree_sum_table(pw, rows):
+    """``tests/test_transformers.py``'s pointer-chasing tree sum."""
+    class T(pw.Schema):
+        n: int = pw.column_definition(primary_key=True)
+        val: int
+        left: int | None
+        right: int | None
+
+    t = pw.debug.table_from_rows(T, rows)
+    t2 = t.select(
+        val=t.val,
+        left=pw.if_else(t.left.is_none(), None, t.pointer_from(t.left)),
+        right=pw.if_else(t.right.is_none(), None, t.pointer_from(t.right)))
+
+    @pw.transformer
+    class tree_sum:
+        class tree(pw.ClassArg):
+            # the annotations spelled out: this module's are strings
+            __annotations__ = {"val": pw.input_attribute,
+                               "left": pw.input_attribute,
+                               "right": pw.input_attribute}
+
+            @pw.output_attribute
+            def total(self) -> int:
+                s = self.val
+                if self.left is not None:
+                    s += self.transformer.tree[self.left].total
+                if self.right is not None:
+                    s += self.transformer.tree[self.right].total
+                return s
+
+    return tree_sum(tree=t2).tree
+
+
+def core_transformer(torch, np, s) -> dict:
+    """(c) ``pw.transformer``'s tree sum against a plain recursion."""
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch.internals import parse_graph as pg
+    from pathway_tpu_torch.internals.value import ref_scalar
+
+    n = s.sizes["tree_nodes"]
+    rows = random_tree(np, s.seed + 3, n)
+    pg.G.clear()
+    dev, npy = core_tiers(torch, [tree_sum_table(pw, rows)], s)
+    tiers = _check_tiers(dev, npy, "transformer", on_card=False, rel=0.0)
+    want = tree_sums(rows)
+    require(dev["caps"][0] == {ref_scalar(i): (want[i],) for i in range(n)},
+            "4n: the transformer's tree sums differ from the recursion")
+    log(f"4n.c transformer: {n} subtree sums = the recursion; {tiers}")
+    return dict(nodes=n, root_sum=want[0], device=_run_line(dev, n),
+                numpy=_run_line(npy, n))
+
+
+def hmm_case(np, seed: int, n_states: int, n_obs: int, n_symbols: int = 16):
+    """A random HMM (log transition and emission matrices, every state a
+    start) and ``n_obs`` observations sampled from it."""
+    rng = np.random.default_rng(seed)
+    trans = rng.dirichlet(np.ones(n_states) * 0.5, n_states)
+    emis = rng.dirichlet(np.ones(n_symbols) * 0.5, n_states)
+    state = int(rng.integers(n_states))
+    obs = []
+    for _ in range(n_obs):
+        obs.append(int(rng.choice(n_symbols, p=emis[state])))
+        state = int(rng.choice(n_states, p=trans[state]))
+    return np.log(trans), np.log(emis), obs
+
+
+def viterbi(np, log_trans, log_emis, obs) -> tuple:
+    """The most likely state path, every state a start (no prior).  An
+    exact tie between two predecessors goes to the higher state, as the
+    reducer orders its (cost, state) candidates; the last state is the
+    first of the highest."""
+    n = len(log_trans)
+    ppb = log_emis[:, obs[0]].copy()
+    back = []
+    for o in obs[1:]:
+        cand = ppb[:, None] + log_trans  # (src, dst)
+        bp = n - 1 - cand[::-1].argmax(0)
+        ppb = cand[bp, np.arange(len(ppb))] + log_emis[:, o]
+        back.append(bp)
+    path = [int(ppb.argmax())]
+    for bp in reversed(back):
+        path.append(int(bp[path[-1]]))
+    return tuple(f"s{i}" for i in reversed(path))
+
+
+def core_hmm(torch, np, s) -> dict:
+    """(d) ``create_hmm_reducer`` over a stream of observations, one a
+    time, against a numpy Viterbi."""
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch.internals import parse_graph as pg
+    from pathway_tpu_torch.stdlib.ml.hmm import create_hmm_reducer
+
+    n_states, n_obs = s.sizes["hmm_states"], s.sizes["hmm_obs"]
+    lt, le, obs = hmm_case(np, s.seed + 4, n_states, n_obs)
+    spec = {
+        "states": {f"s{i}": (lambda o, i=i: float(le[i, o]))
+                   for i in range(n_states)},
+        "transitions": {(f"s{a}", f"s{b}"): float(lt[a, b])
+                        for a in range(n_states) for b in range(n_states)},
+        "start": [f"s{i}" for i in range(n_states)],
+    }
+
+    class O(pw.Schema):
+        observation: int
+
+    pg.G.clear()
+    t = pw.debug.table_from_rows(
+        O, [(o, 2 * (i + 1), 1) for i, o in enumerate(obs)], is_stream=True)
+    decoded = t.reduce(path=create_hmm_reducer(spec)(t.observation))
+    dev, npy = core_tiers(torch, [decoded], s)
+    tiers = _check_tiers(dev, npy, "hmm", on_card=False, rel=0.0)
+    [(path,)] = dev["caps"][0].values()
+    want = viterbi(np, lt, le, obs)
+    require(path == want, "4n: the HMM's path differs from numpy's Viterbi")
+    log(f"4n.d hmm: {n_states} states x {n_obs} observations = Viterbi; "
+        f"{tiers}")
+    return dict(states=n_states, observations=n_obs,
+                device=_run_line(dev, n_obs), numpy=_run_line(npy, n_obs))
+
+
+def fuzzy_names(np, seed: int, n: int, vocab: int = 4096):
+    """``n`` two-word names from a seeded vocabulary of ``vocab`` words,
+    and each with one edit (a letter of one word substituted)."""
+    rng = np.random.default_rng(seed)
+    letters = np.array(list("abcdefghijklmnopqrstuvwxyz"))
+    words = sorted({"".join(rng.choice(letters, int(rng.integers(4, 9))))
+                    for _ in range(vocab)})
+    idx = rng.choice(len(words), (n, 2))
+    left = [f"{words[a]} {words[b]}" for a, b in idx.tolist()]
+    right = []
+    for name in left:
+        pos = int(rng.integers(len(name)))
+        while name[pos] == " ":
+            pos = int(rng.integers(len(name)))
+        right.append(name[:pos] + str(rng.choice(letters)) + name[pos + 1:])
+    return left, right
+
+
+def core_fuzzy(torch, np, s) -> dict:
+    """(e) ``fuzzy_match_tables`` of names against their one-edit copies:
+    both tiers equal; the matched pairs and how many are a name's own
+    copy."""
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch.internals import parse_graph as pg
+    from pathway_tpu_torch.stdlib.ml.smart_table_ops import fuzzy_match_tables
+
+    n = s.sizes["fuzzy_names"]
+    left, right = fuzzy_names(np, s.seed + 5, n)
+
+    class N(pw.Schema):
+        i: int = pw.column_definition(primary_key=True)
+        name: str
+
+    pg.G.clear()
+    lt = pw.debug.table_from_rows(N, list(enumerate(left)))
+    rt = pw.debug.table_from_rows(N, list(enumerate(right)))
+    res = fuzzy_match_tables(lt.select(name=lt.name), rt.select(name=rt.name))
+    pairs = res.select(li=lt.ix(res.left).i, ri=rt.ix(res.right).i,
+                       weight=res.weight)
+    dev, npy = core_tiers(torch, [pairs], s)
+    tiers = _check_tiers(dev, npy, "fuzzy_match_tables", on_card=True,
+                         rel=0.0)
+    got = list(dev["caps"][0].values())
+    require(len(got) > 0, "4n: fuzzy_match_tables matched nothing")
+    own = sum(1 for li, ri, _w in got if li == ri)
+    log(f"4n.e fuzzy: {len(got)} pairs matched, {own} a name's own copy; "
+        f"{tiers}")
+    return dict(names=n, pairs=len(got), own_copy=own,
+                device=_run_line(dev, 2 * n), numpy=_run_line(npy, 2 * n))
+
+
+def core_native(torch, np, s) -> dict:
+    """(f) the compiled hash against its Python mirror on rows shaped as
+    ``io._utils._auto_keys`` shapes them, and a no-key jsonlines file read
+    on the card keyed exactly as the mirror keys it."""
+    import tempfile
+
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch import native
+    from pathway_tpu_torch.engine.runner import run_tables
+    from pathway_tpu_torch.internals import parse_graph as pg
+    from pathway_tpu_torch.internals.value import Pointer
+
+    z = s.sizes
+    n, n_py = z["hash_rows"], z["hash_rows_py"]
+    rng = np.random.default_rng(s.seed + 6)
+    ints = rng.integers(-(1 << 40), 1 << 40, n).tolist()
+    seed_col = "/data/events/part-00000.jsonl"
+    # repr(sorted({"a": a, "b": f"w{a % 997}"}.items())), spelled out:
+    # building a million dicts to repr them took seconds of the phase
+    payloads = [f"[('a', {a}), ('b', 'w{a % 997}')]" for a in ints]
+    require(payloads[0] == repr(sorted({"a": ints[0],
+                                        "b": f"w{ints[0] % 997}"}.items())),
+            "4n: the payloads are not shaped as _auto_keys shapes them")
+    cols = [np.arange(n, dtype=np.int64), [seed_col] * n, payloads]
+    t0 = time.perf_counter()
+    got = native.hash_rows(cols)
+    native_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    want = native._py_hash_rows([c[:n_py] for c in cols])
+    py_s = time.perf_counter() - t0
+    require(list(got[:n_py]) == list(want),
+            "4n: the compiled hash_rows differs from the Python mirror")
+    out = dict(rows=n, rows_checked=n_py, native_rows_per_s=n / native_s,
+               py_rows_per_s=n_py / py_s, library=str(native.lib_path().name))
+    log(f"4n.f hash_rows: {n / native_s:.0f} rows/s compiled, "
+        f"{n_py / py_s:.0f} the mirror; {n_py} rows bit-equal")
+    # a no-key jsonlines read run on the card
+    lines = z["jsonl_lines"]
+    path = os.path.join(tempfile.mkdtemp(prefix="pw_core_"), "events.jsonl")
+    vals = rng.integers(0, 1 << 30, lines).tolist()
+    with open(path, "w", encoding="utf-8") as f:
+        for i, v in enumerate(vals):
+            f.write(json.dumps({"k": i % 251, "v": v, "w": f"x{v % 89}"})
+                    + "\n")
+
+    class J(pw.Schema):
+        k: int
+        v: int
+        w: str
+
+    pg.G.clear()
+    t = pw.io.jsonlines.read(path, schema=J, mode="static")
+    t0 = time.perf_counter()
+    [cap] = run_tables(t, device=s.device)
+    read_s = time.perf_counter() - t0
+    pg.G.clear()
+    with open(path, encoding="utf-8") as f:
+        dicts = [json.loads(ln) for ln in f]
+    mirror = native._py_hash_rows([
+        np.arange(lines, dtype=np.int64), [path] * lines,
+        [repr(sorted(d.items(), key=lambda kv: str(kv[0]))) for d in dicts]])
+    state = cap.squash()
+    require(state == {Pointer(int(h)): (d["k"], d["v"], d["w"])
+                      for h, d in zip(mirror, dicts)},
+            "4n: the jsonlines rows' keys differ from the mirror's")
+    out["jsonlines"] = dict(lines=lines, read_s=read_s,
+                            rows_per_s=lines / read_s)
+    log(f"4n.f jsonlines: {lines} rows keyed as the mirror keys them")
+    return out
+
+
+# phase 4n's sizes at full scale: TPC-H scale factor 0.1, R-MAT scale 14
+# (edge factor 16), a planted partition of 4,096 vertices in 64 groups
+# (Louvain's default 20 iterations a level), a 16,384-node tree, 4,096
+# observations of an 8-state HMM, 2,048 x 2,048 names, 1,048,576 hashed
+# rows (all through the mirror too) and a 65,536-line jsonlines file
+CORE_FULL = dict(tpch_sf=0.1, rmat_scale=14, louvain_n=4096,
+                 louvain_groups=64, louvain_iterations=20, tree_nodes=16384,
+                 hmm_states=8, hmm_obs=4096, fuzzy_names=2048,
+                 hash_rows=1 << 20, hash_rows_py=1 << 20, jsonl_lines=65536)
+# the cuts that bring the phase toward its minute on the card's host
+# (each listed in the line's ``reduced``; 102.4 s at SF 0.03, R-MAT scale
+# 10 and 4,096 observations): ``iterate`` re-runs its whole body as one
+# batch at every iteration (the graphs' bodies on the row path), Louvain's
+# second level re-runs the first level's iterate at every iteration of
+# its own and costs more than linearly in vertices, the HMM traces its
+# whole path back at every observation, and the mirror hashes ~25,000
+# rows/s.
+# ``--core-graph-costs`` times the graphs once at their full sizes
+CORE_CUT = dict(tpch_sf=0.03, rmat_scale=10, louvain_n=128, louvain_groups=4,
+                hmm_obs=2048, hash_rows_py=1 << 16)
+# both crossovers of the device run: a batch of 256 rows and more goes to
+# the card.  Pagerank's vertex batches hold ~900 rows at R-MAT scale 10;
+# phase 4i's 65,536 would send none of them, nor Q3's orders or the
+# fuzzy join's batches
+CORE_PIN = 256
+
+
+def core_sizes(scale: int = 1) -> dict:
+    """Phase 4n's sizes (``CORE_FULL`` with ``CORE_CUT``) and its ``pin``,
+    every count divided by ``scale`` (the CPU test runs it small; the pin
+    no lower than the vectorized plans' least batch, R-MAT's scale no
+    lower than 7, where pagerank's vertex batches still reach that)."""
+    z = dict(CORE_FULL, **CORE_CUT, pin=CORE_PIN)
+    if scale > 1:
+        z.update(tpch_sf=z["tpch_sf"] / scale,
+                 pin=max(CORE_PIN // scale, 32),
+                 rmat_scale=max(z["rmat_scale"] - scale.bit_length() + 1, 7),
+                 louvain_n=max(z["louvain_n"] // scale, 32),
+                 tree_nodes=z["tree_nodes"] // scale,
+                 hmm_obs=z["hmm_obs"] // scale,
+                 fuzzy_names=z["fuzzy_names"] // scale,
+                 hash_rows=z["hash_rows"] // scale,
+                 hash_rows_py=z["hash_rows_py"] // scale,
+                 jsonl_lines=z["jsonl_lines"] // scale)
+    return z
+
+
+def core_warmup(torch, np, device) -> float:
+    """One small select and filter on the device tier before the timed
+    parts: the observatory costs a program's first call (its FLOP
+    counter's first use takes seconds), which would else land in the
+    first query's device run."""
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch.internals import parse_graph as pg
+
+    t0 = time.perf_counter()
+    pg.G.clear()
+    schema = pw.schema_from_types(a=int, b=float)
+    rows = [(i, i * 0.5) for i in range(DP_CROSSOVER)]
+    t = pw.debug.table_from_rows(schema, rows)
+    out = t.filter(t.a <= 1000).select(c=t.b * (1 - t.b))
+    dataplane_run(torch, [out], 64, device=device)
+    return time.perf_counter() - t0
+
+
+@contextlib.contextmanager
+def _fresh_costdb():
+    """A fresh, throwaway cost database for the block (the planner's
+    crossovers at their defaults), the caller's restored after it."""
+    import tempfile
+
+    from pathway_tpu_torch.internals import parse_graph as pg
+    from pathway_tpu_torch.obs import costdb, planner
+
+    prev = os.environ.get("PW_COSTDB_PATH")
+    os.environ["PW_COSTDB_PATH"] = os.path.join(
+        tempfile.mkdtemp(prefix="pw_core_"), "costdb.json")
+    costdb.shutdown()
+    planner.invalidate_cache()
+    try:
+        yield
+    finally:
+        pg.G.clear()
+        costdb.shutdown()
+        planner.invalidate_cache()
+        if prev is None:
+            os.environ.pop("PW_COSTDB_PATH", None)
+        else:
+            os.environ["PW_COSTDB_PATH"] = prev
+
+
+def phase4n(torch, np, s) -> dict:
+    """``s``: the card line, the seed, the device and ``sizes``.  Returns
+    the ``{"core_api": ...}`` line."""
+    t_phase = time.perf_counter()
+    line = {"card": s.smi, "pin_device": s.sizes["pin"]}
+    with _fresh_costdb():
+        line["warmup_s"] = core_warmup(torch, np, s.device)
+        for part, fn in (("sql", core_sql), ("graphs", core_graphs),
+                         ("transformer", core_transformer),
+                         ("hmm", core_hmm), ("fuzzy", core_fuzzy),
+                         ("native", core_native)):
+            t0 = time.perf_counter()
+            line[part] = fn(torch, np, s)
+            line[part]["part_s"] = time.perf_counter() - t0
+    z = s.sizes
+    line["reduced"] = {k: [z[k], CORE_FULL[k]] for k in CORE_FULL
+                       if z[k] != CORE_FULL[k]}
+    line["phase_s"] = time.perf_counter() - t_phase
+    if line["phase_s"] > 60.0:
+        log(f"4n: the phase took {line['phase_s']:.1f}s, over its 60 s")
+    return line
+
+
+def core_api_only(torch, np, seed, smi) -> int:
+    """``--core-api-only``: phase 4n alone (it builds no kernel), printing
+    its line and no result.  The card's context is made first, as the
+    earlier phases make it in the full run."""
+    torch.ones(1, device="cuda").add_(1)
+    torch.cuda.synchronize()
+    line = phase4n(torch, np, types.SimpleNamespace(
+        smi=smi, seed=seed, device="cuda", sizes=core_sizes()))
+    print(json.dumps({"core_api": line}), flush=True)
+    log("--core-api-only: stopping after phase 4n")
+    return 0
+
+
+def core_graph_costs(torch, np, seed, smi, device="cuda",
+                     sizes=None) -> dict:
+    """``--core-graph-costs``: phase 4n's graph algorithms on the device
+    tier at ``sizes`` (``CORE_FULL``'s), each built and run once and timed:
+    ``pagerank(steps=5)`` whole, and ``bellman_ford``, ``louvain_level``
+    and ``louvain_communities(levels=2)`` with every ``iterate`` limited
+    to one body run (the cost of an iteration at that size, which the
+    cuts of ``CORE_CUT`` avoid).  Returns the ``{"core_graph_costs":
+    ...}`` line; it checks the outputs' sizes only."""
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch.internals import iterate as it
+    from pathway_tpu_torch.internals import parse_graph as pg
+    from pathway_tpu_torch.stdlib import graphs
+
+    if device != "cpu":
+        torch.ones(1, device=device).add_(1)
+        torch.cuda.synchronize()
+    z = sizes or CORE_FULL
+    _n_gen, pairs = rmat_edges(np, seed, z["rmat_scale"], 16)
+    n_v = 1 << z["rmat_scale"]
+    weights = np.random.default_rng(seed + 1).integers(
+        1, 65, len(pairs)).astype(np.float64).tolist()
+    src = int(np.bincount(pairs[:, 0]).argmax())
+    _planted, und = planted_partition(np, seed + 2, z["louvain_n"],
+                                      z["louvain_groups"], 16, 0.9)
+    sym = np.concatenate([und, und[:, ::-1]])
+    line = {"card": smi, "pin_device": CORE_PIN,
+            "rmat_scale": z["rmat_scale"], "edges": len(pairs),
+            "louvain_n": z["louvain_n"], "louvain_groups": z["louvain_groups"],
+            "louvain_edges": len(sym), "iterations": 1}
+    builds = (
+        ("pagerank", n_v,
+         lambda: graphs.pagerank(_edge_table(pw, pairs), steps=5)),
+        ("bellman_ford", n_v,
+         lambda: graphs.bellman_ford(_vertex_tables(pw, n_v, src),
+                                     _edge_table(pw, pairs, weights))),
+        ("louvain_level", z["louvain_n"],
+         lambda: graphs.louvain_level(_vertex_tables(pw, z["louvain_n"]),
+                                      _edge_table(pw, sym), 1)),
+        ("louvain_communities", z["louvain_n"],
+         lambda: graphs.louvain_communities(
+             _vertex_tables(pw, z["louvain_n"]), _edge_table(pw, sym),
+             levels=2, iteration_limit=1)),
+    )
+    saved = it._DEFAULT_LIMIT
+    with _fresh_costdb():
+        for name, most, build in builds:
+            pg.G.clear()
+            it._DEFAULT_LIMIT = 1  # bellman_ford's iterate takes no limit
+            try:
+                table = build()
+            finally:
+                it._DEFAULT_LIMIT = saved
+            run = dataplane_run(torch, [table], CORE_PIN, device=device)
+            rows = len(run["caps"][0])
+            require(0 < rows <= most, f"--core-graph-costs: {name} {rows}")
+            line[name] = dict(rows=rows, wall_s=run["wall_s"],
+                              op_busy_s=run["op_busy_s"],
+                              tiers=_tier_counts(run))
+            log(f"{name}: {run['wall_s']:.1f}s for {rows} rows")
+    return line
+
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -6559,6 +7477,14 @@ def main() -> int:
     ap.add_argument("--persistence-only", action="store_true",
                     help="build the kernels, then run phase 4m "
                          "(persistence) alone; prints no result")
+    ap.add_argument("--core-api-only", action="store_true",
+                    help="run phase 4n (pw.sql, graphs, transformer, HMM, "
+                         "fuzzy join, the native hash) alone, without "
+                         "building the kernels; prints no result")
+    ap.add_argument("--core-graph-costs", action="store_true",
+                    help="time phase 4n's graph algorithms once at their "
+                         "full sizes (one iteration of each iterate), "
+                         "without building the kernels; prints no result")
     ap.add_argument("--nexmark-events", type=int, default=NX_EVENTS,
                     help="phase 4k's event count (default %(default)s)")
     args = ap.parse_args()
@@ -6610,6 +7536,13 @@ def main() -> int:
         return dataplane_only(torch, np, args.seed, smi)
     if args.temporal_only:
         return temporal_only(torch, np, args.seed, smi, args.nexmark_events)
+    if args.core_api_only:
+        return core_api_only(torch, np, args.seed, smi)
+    if args.core_graph_costs:
+        line = core_graph_costs(torch, np, args.seed, smi)
+        print(json.dumps({"core_graph_costs": line}), flush=True)
+        log("--core-graph-costs: stopping")
+        return 0
     t0 = time.perf_counter()
     build_logs = _cuda.build_all()
     log(f"built kernels in {time.perf_counter() - t0:.1f}s")
@@ -7177,6 +8110,14 @@ def main() -> int:
         f"{ps_line['quickstart']['recover_s']:.1f}s, snapshots folded, "
         f"sinks exactly once in {ps_line['phase_s']:.1f}s")
     print(json.dumps({"persistence": ps_line}), flush=True)
+
+    # phase 4n: the core API's remainder (no kernel on its path), last
+    core_line = phase4n(torch, np, types.SimpleNamespace(
+        smi=smi, seed=args.seed, device="cuda", sizes=core_sizes()))
+    log(f"phase 4n ok: TPC-H = sqlite3, graphs, transformer and HMM = "
+        f"their references, the native hash = its mirror in "
+        f"{core_line['phase_s']:.1f}s")
+    print(json.dumps({"core_api": core_line}), flush=True)
     for k in kernels:
         if k["name"] in ("paged_attention", "paged_append_attend",
                          "flash_attention"):

@@ -9,10 +9,12 @@ behaviors and sort of ``stdlib.temporal``, the stream and time
 operators, ``pw.udf`` with its sync, async and fully-async executors,
 ``AsyncTransformer``, ``pw.iterate`` and ``pw.persistence``: input
 journals, the replay modes, operator snapshots, the object cache and
-exactly-once file sinks) runs its three device
-programs — the vectorized expression tier, the segment reductions and
-the join membership (``engine/vectorize.py``, ``parallel/mapreduce.py``)
-— in PyTorch on the data plane's device.  The RAG pipeline
+exactly-once file sinks; ``pw.sql``, ``pw.transformer``, the universe
+promises, ``pw.load_yaml``, ``LiveTable``, ``stdlib.graphs``, the HMM
+reducer and the fuzzy join, ``pw.demo`` and the compat names) runs its
+three device programs — the vectorized expression tier, the segment
+reductions and the join membership (``engine/vectorize.py``,
+``parallel/mapreduce.py``) — in PyTorch on the data plane's device.  The RAG pipeline
 (``xpacks.llm``: the document store, the question answerers and their
 REST servers) runs through that data plane.
 
@@ -26,6 +28,12 @@ CPU) and the retrieval half (``models.encoder.TorchEncoder`` plus
 ``stdlib.indexing.inner_index.BruteForceKnn``) run on one NVIDIA H100.
 The four TPU kernels on that path are hand-written CUDA kernels under
 ``csrc/``, built with ``nvcc`` at first launch (``ops/_cuda.py``).
+
+Row keys come from ``native/``: the JAX package's C++ hash source,
+built with ``g++`` at first use, so a file read without a primary key
+keys its rows as the JAX package does.  ``viz`` (and ``Table.show`` /
+``plot`` / ``live_show``) is not ported: ``pw.viz`` raises naming the
+ROADMAP item.
 
 The package imports ``torch`` and nothing of JAX or ``pathway_tpu``;
 module layout follows ``pathway_tpu`` so each module's counterpart is
@@ -135,14 +143,22 @@ def declare_type(target_type, expr) -> ColumnExpression:
     return e
 
 
+def assert_table_has_schema(table: Table, schema, *, allow_superset: bool = True) -> None:
+    for name, cd in schema.columns().items():
+        if name not in table.column_names():
+            raise AssertionError(f"missing column {name!r}")
+
+
 # -- namespaces --------------------------------------------------------------
 from . import debug  # noqa: E402
+from . import demo  # noqa: E402
+from . import faults  # noqa: E402
 from . import io  # noqa: E402
 from . import persistence  # noqa: E402
 from . import stdlib  # noqa: E402
 from .internals import udfs  # noqa: E402
 from .internals.udfs import UDF, udf  # noqa: E402
-from .stdlib import indexing, ordered, stateful, statistical, temporal, utils  # noqa: E402
+from .stdlib import indexing, ml, ordered, stateful, statistical, temporal, utils  # noqa: E402
 from .stdlib.temporal import (  # noqa: E402
     asof_join,
     asof_join_left,
@@ -169,6 +185,13 @@ from .stdlib.temporal import (  # noqa: E402
 )
 from .stdlib.utils.async_transformer import AsyncTransformer  # noqa: E402
 from .internals.iterate import iterate, iteration_limit  # noqa: E402
+from .internals.row_transformer import (  # noqa: E402
+    ClassArg,
+    input_attribute,
+    method,
+    output_attribute,
+    transformer,
+)
 from .internals.config import set_license_key, set_monitoring_config  # noqa: E402
 from .internals.monitoring import MonitoringLevel  # noqa: E402
 from .persistence import PersistenceMode  # noqa: E402
@@ -178,6 +201,8 @@ _time_ops.install_table_methods()
 from .engine import stream_ops as _stream_ops  # noqa: E402
 
 _stream_ops.install_table_methods()
+from .internals.sql import sql  # noqa: E402
+from .internals.yaml_loader import load_yaml  # noqa: E402
 
 # temporal join/window methods grafted onto Table (reference:
 # python/pathway/__init__.py:185-214)
@@ -203,7 +228,38 @@ Table.diff = ordered.diff
 Table.interpolate = statistical.interpolate
 Table.sort = temporal.sort
 
+from .internals import universes  # noqa: E402
+from .internals.interactive import LiveTable, enable_interactive_mode  # noqa: E402
+from .internals.compat import (  # noqa: E402
+    BaseCustomAccumulator,
+    DateTimeNaive,
+    DateTimeUtc,
+    Duration,
+    GroupedJoinResult,
+    Joinable,
+    OuterJoinResult,
+    PyObjectWrapper,
+    SchemaProperties,
+    TableLike,
+    TableSlice,
+    Type,
+    global_error_log,
+    groupby,
+    iterate_universe,
+    join,
+    join_inner,
+    join_left,
+    join_outer,
+    join_right,
+    local_error_log,
+    pandas_transformer,
+    schema_builder,
+    schema_from_csv,
+    table_transformer,
+    wrap_py_object,
+)
 from .internals import udfs as asynchronous  # noqa: E402  (reference alias)
+from .stdlib import graphs  # noqa: E402
 from .stdlib.temporal import _window as window  # noqa: E402
 from .stdlib.temporal._asof_join import AsofJoinResult  # noqa: E402
 from .stdlib.temporal._interval_join import IntervalJoinResult  # noqa: E402
@@ -223,5 +279,28 @@ __all__ = [
     "utils", "AsyncTransformer", "iterate", "iteration_limit", "window",
     "AsofJoinResult", "IntervalJoinResult", "WindowJoinResult",
     "set_license_key", "set_monitoring_config", "persistence",
-    "PersistenceMode", "MonitoringLevel",
+    "PersistenceMode", "MonitoringLevel", "demo", "ml", "graphs", "sql",
+    "load_yaml", "transformer", "ClassArg", "input_attribute",
+    "output_attribute", "method", "universes", "LiveTable",
+    "enable_interactive_mode", "assert_table_has_schema",
+    "BaseCustomAccumulator", "DateTimeNaive", "DateTimeUtc", "Duration",
+    "GroupedJoinResult", "Joinable", "OuterJoinResult", "PyObjectWrapper",
+    "SchemaProperties", "TableLike", "TableSlice", "Type",
+    "global_error_log", "groupby", "iterate_universe", "join", "join_inner",
+    "join_left", "join_outer", "join_right", "local_error_log",
+    "pandas_transformer", "schema_builder", "schema_from_csv",
+    "table_transformer", "wrap_py_object",
 ]
+
+# names of the JAX package the port does not have yet, with the ROADMAP
+# item that ports them
+_NOT_PORTED = {
+    "viz": "stdlib/viz (ROADMAP queue A item 7)",
+}
+
+
+def __getattr__(name: str):
+    if name in _NOT_PORTED:
+        raise AttributeError(
+            f"pathway_tpu_torch.{name} is not ported yet: {_NOT_PORTED[name]}")
+    raise AttributeError(f"module 'pathway_tpu_torch' has no attribute {name!r}")

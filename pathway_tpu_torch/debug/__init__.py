@@ -4,7 +4,8 @@ Reference: python/pathway/debug/__init__.py — table_from_markdown :446,
 compute_and_print :222, compute_and_print_update_stream :250,
 StreamGenerator :508.  The functions that run the graph take the data
 plane's ``device`` (default ``"cuda"``: they raise without a card unless
-``device="cpu"``).  The parquet helpers are not ported.
+``device="cpu"``).  ``table_from_parquet`` / ``table_to_parquet`` import
+pandas (and its parquet engine) when called.
 """
 
 from __future__ import annotations
@@ -18,7 +19,22 @@ from ..internals import parse_graph as pg
 from ..internals.datasource import StaticDataSource, rows_to_events
 from ..internals.schema import SchemaMetaclass, schema_from_types
 from ..internals.table import Table, Universe
-from ..internals.value import Pointer, auto_row_keys, ref_scalar
+from ..internals.value import (
+    Pointer,
+    auto_row_keys,
+    ref_scalar,
+    ref_scalar_batch_rows,
+)
+
+
+def _batch_pk_keys(rows, pk_idx):
+    """Primary-key keys through the native blake2b tier (bit-identical to
+    per-row ref_scalar); None when a key column's type is outside the
+    tier's (the caller keys per row)."""
+    return ref_scalar_batch_rows(
+        [[r[i] for i in pk_idx] for r in rows], len(pk_idx)
+    )
+
 
 __all__ = [
     "table_from_markdown",
@@ -26,6 +42,8 @@ __all__ = [
     "table_from_pandas",
     "table_to_pandas",
     "table_to_dicts",
+    "table_from_parquet",
+    "table_to_parquet",
     "compute_and_print",
     "compute_and_print_update_stream",
     "StreamGenerator",
@@ -176,7 +194,9 @@ def table_from_rows(
         n = len(rows)
         if pk:
             pk_idx = [colnames.index(c) for c in pk]
-            keys = [ref_scalar(*[r[i] for i in pk_idx]) for r in rows]
+            keys = _batch_pk_keys(rows, pk_idx)
+            if keys is None:
+                keys = [ref_scalar(*[r[i] for i in pk_idx]) for r in rows]
         else:
             # same auto-key scheme as the event path below and markdown
             # tables, so static/streamed tables over the same ordinal rows
@@ -250,6 +270,22 @@ def table_to_dicts(table: Table, *, device="cuda"):
         for i, name in enumerate(cap.column_names)
     }
     return keys, columns
+
+
+def table_from_parquet(path, id_from: list[str] | None = None,
+                       schema=None) -> Table:
+    """Static table from a parquet file (reference: debug/table_from_parquet)."""
+    import pandas as pd
+
+    return table_from_pandas(pd.read_parquet(path), id_from=id_from,
+                             schema=schema)
+
+
+def table_to_parquet(table: Table, filename, *, device="cuda") -> None:
+    """Run the graph and write the table's final state to parquet
+    (reference: debug/table_to_parquet)."""
+    df = table_to_pandas(table, include_id=False, device=device)
+    df.to_parquet(filename)
 
 
 def table_to_pandas(table: Table, include_id: bool = True, *, device="cuda"):

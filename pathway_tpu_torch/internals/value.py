@@ -6,9 +6,11 @@ derivation (``ref_scalar``, ``ref_pair``, ``auto_row_keys``, ...) must
 stay byte-identical to it: token ids of the hash tokenizer and the row
 keys of a ``pw.Table`` are equal in both packages only while they are.
 
-The JAX package hashes key columns through an optional native tier
-(``pathway_tpu/native``); its results are bit-identical to the Python
-code below, which is what the port runs.
+Batched keys (``ref_scalar_batch``, ``ref_scalar_batch_rows``) and the
+fill of ``auto_row_keys`` go through the native hash tier
+(``pathway_tpu_torch/native``), as in the JAX package; its results are
+bit-identical to the per-row Python code below.  A column type the tier
+does not take keys per row.
 """
 
 from __future__ import annotations
@@ -110,6 +112,60 @@ def ref_pair(a: int, b: int) -> Pointer:
     return ref_scalar(a, b)
 
 
+def _hashes_to_pointers(his, los) -> list[Pointer]:
+    """(hi, lo) uint64 arrays -> Pointer list (packed bytes +
+    ``from_bytes``)."""
+    import numpy as np
+
+    arr = np.empty((len(his), 2), dtype="<u8")
+    arr[:, 0] = los
+    arr[:, 1] = his
+    buf = arr.tobytes()
+    frm = int.from_bytes
+    return [Pointer(frm(buf[i: i + 16], "little"))
+            for i in range(0, len(buf), 16)]
+
+
+def ref_scalar_batch_rows(key_rows: list, n_cols: int) -> list[Pointer] | None:
+    """Batched ``ref_scalar(*row)`` over per-row key-value sequences when
+    every column is uniformly int/float/str: the one typed-column
+    dispatch, shared by debug tables and connector ingest.  None when a
+    column's type is outside that set (or an int does not fit 64 bits):
+    the caller keys per row."""
+    if not key_rows:
+        return None
+    import numpy as np
+
+    cols: list = []
+    for j in range(n_cols):
+        vals = [kv[j] for kv in key_rows]
+        if all(type(v) is int for v in vals):
+            try:
+                cols.append(np.asarray(vals, np.int64))
+            except OverflowError:
+                return None
+        elif all(type(v) is float for v in vals):
+            cols.append(np.asarray(vals, np.float64))
+        elif all(type(v) is str for v in vals):
+            cols.append(vals)
+        else:
+            return None
+    return ref_scalar_batch(cols)
+
+
+def ref_scalar_batch(columns: list) -> list[Pointer] | None:
+    """Batched ``ref_scalar`` over typed key columns (int64/float64
+    ndarrays or list[str]) through the native blake2b tier, bit-identical
+    to per-row ``ref_scalar``.  None when a column's type is outside that
+    set."""
+    from ..native import ref_scalar_rows_hashes
+
+    hashed = ref_scalar_rows_hashes(columns)
+    if hashed is None:
+        return None
+    return _hashes_to_pointers(*hashed)
+
+
 def ref_scalar_with_instance(values: Iterable[Any], instance: Any) -> Pointer:
     return Pointer(hash_values(tuple(values), ("#instance", instance))
                    & _MASK128)
@@ -162,8 +218,18 @@ def release_auto_key_cache() -> int:
 
 
 def _auto_keys_range(start: int, stop: int) -> list[Pointer]:
-    """``ref_scalar("#row", i)`` for ``start <= i < stop``, with
-    ``_ser("#row") + _ser(i)`` inlined (identical bytes)."""
+    """``ref_scalar("#row", i)`` for ``start <= i < stop`` through the
+    native tier."""
+    if stop <= start:
+        return []
+    from ..native import auto_row_keys_hashes
+
+    return _hashes_to_pointers(*auto_row_keys_hashes(start, stop - start))
+
+
+def _py_auto_keys_range(start: int, stop: int) -> list[Pointer]:
+    """The plain version of ``_auto_keys_range``: ``_ser("#row") +
+    _ser(i)`` inlined (identical bytes) into blake2b."""
     prefix = b"S" + (4).to_bytes(8, "little") + b"#row" + b"I"
     blake2b = hashlib.blake2b
     frm = int.from_bytes

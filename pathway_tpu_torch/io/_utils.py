@@ -30,7 +30,13 @@ from ..internals import parse_graph as pg
 from ..internals.datasource import DataSource, StaticDataSource
 from ..internals.schema import SchemaMetaclass
 from ..internals.table import Table, Universe
-from ..internals.value import ERROR, Json, ref_scalar
+from ..internals.value import (
+    ERROR,
+    Json,
+    Pointer,
+    ref_scalar,
+    ref_scalar_batch_rows,
+)
 
 # a file that fails to parse this many times at one mtime is skipped
 # until it changes (a file mid-write fails once or twice)
@@ -82,26 +88,48 @@ def events_from_dicts(
     seed: str = "io", start_index: int = 0,
 ) -> list:
     """Input events for ``dicts[start_index:]``.  With a primary key a row's
-    key hashes its coerced key values; without one it hashes ``seed``,
-    the row's global index and its content, so a resumed read of a
-    growing file keys its old rows as before."""
+    key hashes its coerced key values (``ref_scalar``, batched through the
+    native tier); without one it is the native ``hash_rows`` of the row's
+    global index, ``seed`` and its content (``_auto_keys``), so a resumed
+    read of a growing file keys its old rows as before.  Both are the JAX
+    package's keys bit for bit."""
     colnames = schema.column_names()
     dtypes = schema.dtypes()
     pk = schema.primary_key_columns()
-    pk_idx = [colnames.index(c) for c in pk] if pk else None
-    events = []
-    for i, d in enumerate(list(dicts)[start_index:], start_index):
-        row = tuple(coerce_value(d.get(c), dtypes[c]) for c in colnames)
-        if pk_idx:
-            # an unparseable key value keys by its raw value, so distinct
-            # bad rows never collapse onto the ERROR sentinel's key
-            key = ref_scalar(*[row[j] if row[j] is not ERROR
-                               else d.get(colnames[j]) for j in pk_idx])
-        else:
-            key = ref_scalar(seed, i, repr(sorted(d.items(),
-                                                  key=lambda kv: str(kv[0]))))
-        events.append((time, key, row, 1))
-    return events
+    dicts = list(dicts)[start_index:]
+    rows = [tuple(coerce_value(d.get(c), dtypes[c]) for c in colnames)
+            for d in dicts]
+    if pk:
+        # an unparseable key value keys by its raw value, so distinct bad
+        # rows never collapse onto the ERROR sentinel's key
+        pk_idx = [colnames.index(c) for c in pk]
+        kval_rows = [[row[j] if row[j] is not ERROR else d.get(colnames[j])
+                      for j in pk_idx] for d, row in zip(dicts, rows)]
+        keys = ref_scalar_batch_rows(kval_rows, len(pk_idx))
+        if keys is None:
+            keys = [ref_scalar(*kv) for kv in kval_rows]
+    else:
+        keys = _auto_keys(dicts, seed, start_index)
+    return [(time, key, row, 1) for key, row in zip(keys, rows)]
+
+
+def _auto_keys(dicts: list[dict], seed: str, start_index: int = 0) -> list:
+    """Keys of rows without a primary key: ``hash_rows`` over (global
+    index, ``seed``, the row's sorted items' ``repr``), as the JAX
+    package's ``io/_utils._auto_keys``."""
+    n = len(dicts)
+    if n == 0:
+        return []
+    import numpy as np
+
+    from .. import native
+
+    payloads = [repr(sorted(d.items(), key=lambda kv: str(kv[0])))
+                for d in dicts]
+    hashed = native.hash_rows(
+        [np.arange(start_index, start_index + n, dtype=np.int64),
+         [seed] * n, payloads])
+    return [Pointer(int(h)) for h in hashed]
 
 
 class FilePollingSource(DataSource):

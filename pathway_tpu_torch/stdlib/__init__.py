@@ -1,9 +1,8 @@
-"""The port of ``pathway_tpu/stdlib``: indexing, ml (``KNNIndex`` and the
-kNN LSH classifier), temporal, ordered, statistical, stateful and utils.
-``graphs``, ``viz`` and ml's ``hmm``, ``smart_table_ops``, ``datasets``
-and ``utils`` are not ported."""
+"""The port of ``pathway_tpu/stdlib``: graphs, indexing, ml, temporal,
+ordered, statistical, stateful and utils.  ``viz`` is not ported
+(ROADMAP queue A item 7)."""
 
-from . import indexing, ml, ordered, stateful, statistical, temporal, utils
+from . import graphs, indexing, ml, ordered, stateful, statistical, temporal, utils
 
-__all__ = ["indexing", "ml", "ordered", "stateful", "statistical", "temporal",
-           "utils"]
+__all__ = ["temporal", "indexing", "ml", "graphs", "statistical", "ordered",
+           "stateful", "utils"]

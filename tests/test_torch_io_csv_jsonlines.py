@@ -2,11 +2,10 @@
 package's: static reads, streaming reads in ``pw.run``, both writers and
 ``io.fs.read(format="csv"|"json")``, and the README quickstart.
 
-Reads of a schema with a primary key give the JAX package's captures key
-for key.  Without a primary key a row's key hashes the file, its index
-and its content: the port hashes them with ``ref_scalar``, the JAX
-package with its native hash tier (not copied), so those captures are
-compared by value.  The writers' files are compared line for line, as
+Static reads give the JAX package's captures key for key, with a primary
+key (a row's key hashes its coerced key values) and without one (a row's
+key is the native ``hash_rows`` of its file, index and content, in both
+packages).  The writers' files are compared line for line, as
 multisets.  The streaming cases wait on events their subscribers set,
 with bounded waits, and end by their idle window.
 """
@@ -93,11 +92,7 @@ def test_static_read_gives_the_jax_rows(inputs, fmt, pk, via_fs):
     want = _read("jax", fmt, path, pk, via_fs)
     got = _read("torch", fmt, path, pk, via_fs)
     assert len(got) == len(ROWS)
-    if pk:
-        assert got == want
-    else:
-        assert collections.Counter(got.values()) == collections.Counter(
-            want.values())
+    assert got == want
 
 
 def test_csv_settings_give_the_jax_rows(tmp_path):
@@ -228,3 +223,70 @@ def test_streaming_jsonlines_read_sees_an_appended_file(tmp_path):
     tpg.G.clear()
     assert got_second.is_set()
     assert seen == [(1, "a", True), (2, "b", True)]
+
+
+# -- rows without a primary key: the JAX package's keys ------------------------
+
+def test_no_key_jsonlines_read_gives_the_jax_packages_keys(inputs):
+    """Each row's key is ``hash_rows([index, file, content])`` in both
+    packages (``io/_utils._auto_keys``), so the captures are equal key
+    for key, not only by value."""
+    want = _read("jax", "json", inputs / "json", pk=False)
+    got = _read("torch", "json", inputs / "json", pk=False)
+    assert set(got) == set(want) and len(got) == len(ROWS)
+    assert got == want
+
+
+def _stream_keys(pkg, path, store=None) -> dict:
+    """A streaming no-key jsonlines read of ``path`` (under persistence
+    in ``store`` when given): the net (key -> row) its subscriber saw."""
+    pw, _runner, pg = PKGS[pkg]
+    pg.G.clear()
+    net: dict = {}
+
+    def on_change(key, row, time, is_addition):
+        if is_addition:
+            net[key] = (row["k"], row["word"], row["x"])
+        else:
+            net.pop(key, None)
+
+    t = pw.io.jsonlines.read(str(path), schema=_schema(pw, False),
+                             mode="streaming")
+    pw.io.subscribe(t, on_change=on_change)
+    kw = dict(idle_stop_s=1.0, timeout_s=20.0,
+              monitoring_level=pw.MonitoringLevel.NONE)
+    if store is not None:
+        kw["persistence_config"] = pw.persistence.Config(
+            pw.persistence.Backend.filesystem(str(store)))
+    if pkg == "torch":
+        kw["device"] = "cpu"
+    try:
+        pw.run(**kw)
+    finally:
+        pg.G.clear()
+    return net
+
+
+def test_a_jax_journal_over_no_key_files_replays_in_the_port_key_for_key(
+        tmp_path):
+    """The JAX package journals a no-key read; the port restarts over the
+    same storage after the file grew: the journal's rows come back with
+    the JAX package's keys, and the new rows get the keys the JAX package
+    gives them at their index."""
+    src = tmp_path / "events.jsonl"
+    store = tmp_path / "store"
+
+    def lines(rows):
+        return "".join(json.dumps({"k": k, "word": w, "x": x}) + "\n"
+                       for k, w, x in rows)
+
+    src.write_text(lines(ROWS[:3]))
+    first = _stream_keys("jax", src, store)
+    assert len(first) == 3
+    with open(src, "a") as f:
+        f.write(lines(ROWS[3:] + [(5, "alpha", 0.5)]))
+    restarted = _stream_keys("torch", src, store)
+    fresh = _stream_keys("jax", src)
+    assert len(fresh) == 5
+    assert restarted == fresh
+    assert {k: restarted[k] for k in first} == first

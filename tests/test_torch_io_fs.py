@@ -2,7 +2,7 @@
 source's streaming mode in the port's ``pw.run``.
 
 Static mode: the same ``tmp_path`` files read by both packages give the
-same rows (the metadata's times masked), for ``binary``, ``plaintext``
+same rows key for key (the metadata's times masked), for ``binary``, ``plaintext``
 and ``plaintext_by_file``, with and without ``with_metadata``, and for
 ``csv`` and ``json`` with a schema.
 Streaming mode: a file written while the run is live appears, and a
@@ -44,15 +44,16 @@ def files(tmp_path):
 
 
 def _rows(cap) -> list:
+    """(key, row) pairs, the metadata's times masked: keys compared too."""
     out = []
-    for row in cap.squash().values():
+    for key, row in cap.squash().items():
         row = list(row)
         if len(row) > 1:
             meta = dict(row[1].value)
             for t in TIMES:
                 assert isinstance(meta.pop(t), int)
             row[1] = meta
-        out.append(tuple(row))
+        out.append((key, tuple(row)))
     return sorted(out, key=repr)
 
 

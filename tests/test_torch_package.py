@@ -120,6 +120,26 @@ def test_the_guard_covers_the_rag_remainder_modules():
         assert f"pathway_tpu_torch.{name}" in _modules()
 
 
+def test_the_guard_covers_the_core_api_modules():
+    """... and the core API's pure-Python remainder and the native hash
+    tier."""
+    for name in ("native", "internals.sql", "internals.universes",
+                 "internals.compat", "internals.row_transformer",
+                 "internals.yaml_loader", "internals.interactive",
+                 "stdlib.graphs", "stdlib.ml.hmm", "stdlib.ml.smart_table_ops",
+                 "stdlib.ml.utils", "stdlib.ml.datasets", "demo"):
+        assert f"pathway_tpu_torch.{name}" in _modules()
+
+
+def test_every_name_of_the_jax_packages_all_resolves():
+    import pathway_tpu as jpw
+
+    missing = [n for n in jpw.__all__ if not hasattr(pathway_tpu_torch, n)]
+    assert missing == []
+    assert all(hasattr(pathway_tpu_torch, n)
+               for n in pathway_tpu_torch.__all__)
+
+
 def test_import_initialises_no_cuda():
     code = (
         "import torch, pathway_tpu_torch as pw\n"
@@ -228,8 +248,15 @@ def _entry_points():
     from pathway_tpu_torch.xpacks.llm.rerankers import EncoderReranker
     from pathway_tpu_torch.xpacks.llm.vector_store import VectorStoreServer
 
+    def live_snapshot():
+        pw.enable_interactive_mode()
+        return table().live().snapshot()
+
     codes = np.zeros(4, np.int32)
     return {
+        "LiveTable.snapshot": live_snapshot,
+        "table_to_parquet": lambda: pw.debug.table_to_parquet(
+            table(), "/dev/null"),
         "VectorStoreServer": lambda: VectorStoreServer(docs()),
         "EncoderReranker": lambda: EncoderReranker(),
         "KNNIndex": lambda: KNNIndex(docs().data, docs()),
@@ -278,7 +305,7 @@ def _entry_points():
     "table_to_pandas", "segment_sum", "hash_join_membership",
     "calibrate_mapreduce", "DocumentStore", "BruteForceKnnFactory.build_index",
     "QARestServer.run", "pw.run(io.fs.read)", "VectorStoreServer",
-    "EncoderReranker", "KNNIndex",
+    "EncoderReranker", "KNNIndex", "LiveTable.snapshot", "table_to_parquet",
 ])
 def test_entry_point_without_a_card_raises(name, monkeypatch):
     # decided inside the test: the default device is the card, and a
@@ -303,6 +330,15 @@ def test_chip_smoke_fails_without_a_card_or_the_package(tmp_path):
                              text=True, timeout=120)
         assert out.returncode != 0
         assert '"ok"' not in out.stdout
+
+
+def test_chip_smoke_core_api_only_fails_without_a_card():
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    out = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"),
+                          "--core-api-only"], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout and "core_api" not in out.stdout
 
 
 @pytest.mark.parametrize("call", ["tp_mesh()", "tp_mesh(2)",

@@ -142,6 +142,18 @@ class S(pw.Schema):
 
 def appender():
     time.sleep(0.8)
+    # the first batch's counts reach the sink before the append, so the
+    # appended rows are a second scan's and a second commit's however
+    # slowly the run started
+    deadline = time.monotonic() + 30
+    while time.monotonic() < deadline:
+        try:
+            with open(out) as f:
+                if f.read().strip():
+                    break
+        except OSError:
+            pass
+        time.sleep(0.05)
     with open(src) as f:
         if "gamma" in f.read():
             return  # appended by an earlier incarnation

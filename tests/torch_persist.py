@@ -4,9 +4,11 @@ storage under ``tmp_path``, and the outcomes compared.
 
 ``run(pkg, ...)`` is ``pw.run`` of that package (the port's on the CPU);
 ``journal_events`` reads a backend's input journals back as a multiset
-of (row, diff): file rows without a primary key are keyed by each
-package's own hash (``tests/test_torch_io_csv_jsonlines.py``), so
-journals compare by value.  ``squash_jsonl`` nets a JSON-lines sink.
+of (row, diff): a file row without a primary key is keyed by its file's
+path, among others (``io/_utils._auto_keys``), and each package reads
+its own copy under its own root, so journals compare by value (the keys
+of one file are equal in both packages:
+``tests/test_torch_io_csv_jsonlines.py``).  ``squash_jsonl`` nets a JSON-lines sink.
 """
 
 from __future__ import annotations
