@@ -3,7 +3,10 @@ serving path.
 
 The data plane (``pw.Table``, expressions, the dataflow runner and its
 operators, ``debug``, ``run``, ``io.subscribe``, ``io.fs``, ``io.csv``,
-``io.jsonlines``, ``io.python`` and ``io.http``'s REST connector,
+``io.jsonlines``, ``io.python``, ``io.http``'s REST connector, the
+streaming sources and sinks (``io.kafka``, ``nats``, ``mqtt``,
+``rabbitmq``, ``kinesis``, ``pubsub``), ``io.s3``, ``io.sqlite``, input
+synchronization groups,
 ``stdlib.indexing``'s ``DataIndex``, the windows, temporal joins,
 behaviors and sort of ``stdlib.temporal``, the stream and time
 operators, ``pw.udf`` with its sync, async and fully-async executors,

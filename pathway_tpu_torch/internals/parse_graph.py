@@ -41,6 +41,9 @@ class ParseGraph:
     def __init__(self) -> None:
         self.nodes: list[OpNode] = []
         self.outputs: list[OpNode] = []  # sinks registered for pw.run()
+        # input synchronization groups registered for pw.run()
+        # (io/_synchronization.py)
+        self.sync_groups: list = []
 
     def add(self, node: OpNode) -> OpNode:
         self.nodes.append(node)
@@ -54,6 +57,7 @@ class ParseGraph:
     def clear(self) -> None:
         self.nodes.clear()
         self.outputs.clear()
+        self.sync_groups.clear()
 
 
 G = ParseGraph()

@@ -3,9 +3,10 @@
 The port of ``pathway_tpu/internals/run.py`` (reference:
 python/pathway/internals/run.py:13) for one process: batch graphs
 execute to completion; graphs with live sources run the streaming poll
-loop until ``timeout_s``, ``idle_stop_s`` or their sources finish.  The
-data plane runs on ``device`` (default ``"cuda"``; it raises without a
-card unless ``device="cpu"``).
+loop until ``timeout_s``, ``idle_stop_s`` or their sources finish.
+Sources in an input synchronization group are gated before lowering
+(``io/_synchronization.py``).  The data plane runs on ``device``
+(default ``"cuda"``; it raises without a card unless ``device="cpu"``).
 
 ``persistence_config`` (``pw.persistence.Config``) journals the inputs
 and, when asked, snapshots the operators, and a restart replays them
@@ -65,6 +66,9 @@ def run(
     sinks = list(pg.G.outputs)
     if not sinks:
         return
+    from ..io._synchronization import apply_synchronization_groups
+
+    apply_synchronization_groups()
     from ..engine.telemetry import global_error_log
 
     global_error_log.clear()

@@ -1,24 +1,93 @@
 """Connectors (the port of ``pathway_tpu/io``): ``subscribe``, ``fs``
 (binary, plaintext, csv and json files, static or streaming), ``csv``
-and ``jsonlines`` (read and write), ``python`` (custom subjects) and
-``http``: the serving half (``rest_connector`` and ``PathwayWebserver``)
-and the client connectors (``read`` and ``write``).  Under
-``pw.persistence`` the file sources journal their rows with their
-offsets and cache the files they read, and the file writers resume
-exactly once after an operator snapshot.  The message-queue, database
-and cloud connectors and input synchronization groups are not ported."""
+and ``jsonlines`` (read and write), ``python`` (custom subjects),
+``http`` (the serving half and the client connectors), the streaming
+sources and sinks (``kafka`` with json, bson, avro through the schema
+registry, plaintext, raw and debezium messages; ``nats``, ``mqtt`` and
+``rabbitmq`` over their wire protocols; ``kinesis`` over SigV4-signed
+calls; ``pubsub`` over an injected publisher), ``s3`` (and its aliases
+``s3_csv`` and ``minio``), ``sqlite``, the aliases ``plaintext``,
+``redpanda``, ``debezium``, ``null`` and ``logstash``, and input
+synchronization groups.  Under ``pw.persistence`` the file, Kafka,
+Kinesis and S3 sources journal their rows with their offsets.  The
+lake, database, vector-store and document connectors are not ported.
+"""
 
-from . import csv, fs, http, jsonlines, python
+from __future__ import annotations
+
+import sys
+import types
+
+from . import (
+    csv, fs, http, jsonlines, kafka, kinesis, mqtt, nats, pubsub, python,
+    rabbitmq, s3, sqlite,
+)
+from ._schema_registry import SchemaRegistryHeader, SchemaRegistrySettings
 from ._subscribe import subscribe
+from ._synchronization import register_input_synchronization_group
 from .csv import CsvParserSettings
 
 
-def register_input_synchronization_group(*columns, max_difference,
-                                         name: str = "default") -> None:
-    """Input synchronization groups are not ported: raises."""
-    raise NotImplementedError(
-        "input synchronization groups are not supported by this package")
+def _alias(name: str, **attrs) -> types.ModuleType:
+    """A module ``pathway_tpu_torch.io.<name>`` holding ``attrs``."""
+    mod = types.ModuleType(f"{__name__}.{name}")
+    for k, v in attrs.items():
+        setattr(mod, k, v)
+    sys.modules[mod.__name__] = mod
+    return mod
 
 
-__all__ = ["CsvParserSettings", "csv", "fs", "http", "jsonlines", "python",
-           "subscribe", "register_input_synchronization_group"]
+def _plaintext_read(path: str, *, mode: str = "streaming", **kwargs):
+    return fs.read(path, format="plaintext", mode=mode, **kwargs)
+
+
+plaintext = _alias("plaintext", read=_plaintext_read)
+s3_csv = _alias("s3_csv",
+                read=lambda path, **kw: s3.read(path, format="csv", **kw),
+                write=s3.write)
+
+
+class MinIOSettings(s3.AwsS3Settings):
+    """Reference parity: pw.io.minio.MinIOSettings (endpoint-based S3)."""
+
+    def __init__(self, endpoint=None, bucket_name=None, access_key=None,
+                 secret_access_key=None, *, with_path_style=True, **kw):
+        ep = endpoint
+        if ep and not str(ep).startswith(("http://", "https://")):
+            ep = f"https://{ep}"
+        super().__init__(
+            bucket_name=bucket_name, access_key=access_key,
+            secret_access_key=secret_access_key, endpoint=ep,
+            with_path_style=with_path_style, **kw,
+        )
+
+
+minio = _alias(
+    "minio", MinIOSettings=MinIOSettings,
+    read=lambda path, *, minio_settings=None, **kw: s3.read(
+        path, aws_s3_settings=minio_settings, **kw),
+    write=lambda table, path, *, minio_settings=None, **kw: s3.write(
+        table, path, aws_s3_settings=minio_settings, **kw))
+redpanda = kafka
+
+
+def _debezium_read(rdkafka_settings, topic_name=None, *, schema=None, **kw):
+    kw.pop("format", None)
+    return kafka.read(rdkafka_settings, topic_name, schema=schema,
+                      format="debezium", **kw)
+
+
+debezium = _alias("debezium", read=_debezium_read)
+null = _alias("null", write=lambda table, **kwargs: None)
+# logstash's HTTP input plugin takes plain JSON POSTs
+logstash = _alias("logstash",
+                  write=lambda table, endpoint, **kw: http.write(
+                      table, endpoint, **kw))
+
+# the JAX package's list, less the connectors this package does not port
+__all__ = [
+    "csv", "fs", "jsonlines", "kafka", "python", "http", "plaintext",
+    "subscribe", "register_input_synchronization_group", "s3", "minio",
+    "nats", "mqtt", "rabbitmq", "kinesis", "redpanda", "debezium", "null",
+    "pubsub", "sqlite", "logstash",
+]

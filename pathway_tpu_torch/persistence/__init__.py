@@ -7,9 +7,10 @@ input-event journaling with offset frontiers (connector resume),
 operator snapshots (``snapshots.py``, restored ahead of journal replay),
 ``CachedObjectStorage`` for vanished origins, the seven modes of
 ``PersistenceMode`` and deterministic-rerun prefix skipping for opt-in
-from-scratch sources, over the filesystem and in-memory backends.  The
-object-store backends (``Backend.s3`` / ``Backend.azure``) come with
-``io.s3`` and raise until then.  The journal is pure Python and pickle:
+from-scratch sources, over the filesystem, in-memory and object-store
+backends (``Backend.s3`` / ``Backend.azure``: one object a journal
+record, ``{stream}/{seq:012d}``, through ``io.s3``'s client seam, the
+JAX package's layout).  The journal is pure Python and pickle:
 nothing of it runs on the card, but a restart replays the journal
 through the data plane on the run's device, so an index on the card is
 rebuilt there.
@@ -19,6 +20,7 @@ from __future__ import annotations
 
 import dataclasses
 import enum
+import json
 import logging
 import os
 import pickle
@@ -51,19 +53,12 @@ class Backend:
         return FilesystemBackend(path)
 
     @classmethod
-    def s3(cls, root_path: str, bucket_settings: Any = None):
-        """Object-store journals wait for the ``io.s3`` connector."""
-        raise NotImplementedError(
-            "Backend.s3 needs the io.s3 connector, which this package does "
-            "not have yet; use Backend.filesystem")
+    def s3(cls, root_path: str, bucket_settings: Any = None) -> "S3Backend":
+        return S3Backend(root_path, bucket_settings)
 
     @classmethod
-    def azure(cls, root_path: str, account_settings: Any = None):
-        """Azure Blob journals ride the S3 backend's layout: they wait for
-        the ``io.s3`` connector too."""
-        raise NotImplementedError(
-            "Backend.azure needs the io.s3 connector, which this package "
-            "does not have yet; use Backend.filesystem")
+    def azure(cls, root_path: str, account_settings: Any = None) -> "AzureBackend":
+        return AzureBackend(root_path, account_settings)
 
     @classmethod
     def mock(cls, events: Any = None) -> "MockBackend":
@@ -150,6 +145,208 @@ class FilesystemBackend(Backend):
             return None
         with open(p, "rb") as f:
             return f.read()
+
+
+class S3Backend(Backend):
+    """Journal/metadata over an object store (reference:
+    src/persistence/backends/s3.rs).  Objects have no append, so each
+    journal record is its own object `{stream}/{seq:012d}`.  The client
+    comes from AwsS3Settings' seam (boto3 or an injected fake).
+
+    `replace_all` is atomic, as the filesystem backend's rename is: a
+    stream that has been replaced carries a live range in the object
+    `meta/live/{stream}`, `{"first": F, "end": E}`, and only records with
+    F <= seq (< E, while E is set) are read.  A replacement freezes the
+    range at the stream's end, writes the new records past it, moves the
+    range onto them with one put and only then deletes the old records; a
+    crash before that put leaves the old records live, one after it the
+    new.  The next append deletes the records a crash left outside the
+    range.  A stream with no range object reads every record, so journals
+    the JAX package wrote replay unchanged."""
+
+    def __init__(self, root_path: str, bucket_settings: Any = None):
+        from ..io.s3 import AwsS3Settings, resolve_path
+
+        self.settings = bucket_settings or AwsS3Settings()
+        self.bucket, prefix = resolve_path(root_path, self.settings)
+        self.prefix = prefix.rstrip("/")
+        self._client = None
+        self._next_seq: dict[str, int] = {}
+
+    def _c(self):
+        if self._client is None:
+            self._client = self.settings.make_client()
+        return self._client
+
+    def _skey(self, stream: str) -> str:
+        safe = stream.replace("/", "_")
+        return f"{self.prefix}/streams/{safe}"
+
+    def _list(self, key_prefix: str) -> list[str]:
+        from ..io.s3 import list_keys_paginated
+
+        return list_keys_paginated(self._c(), self.bucket, key_prefix)
+
+    def _records(self, stream: str) -> list[tuple[int, str]]:
+        """(seq, key) of every record object of the stream, in order."""
+        base = self._skey(stream) + "/"
+        return [(int(k.rsplit("/", 1)[1]), k) for k in self._list(base)]
+
+    def _live(self, stream: str) -> tuple[int, int | None]:
+        raw = self.get_metadata(f"live/{stream.replace('/', '_')}")
+        if raw is None:
+            return 0, None
+        live = json.loads(raw)
+        return int(live["first"]), live["end"]
+
+    def _put_live(self, stream: str, first: int, end: int | None) -> None:
+        self.put_metadata(f"live/{stream.replace('/', '_')}",
+                          json.dumps({"first": first, "end": end}).encode())
+
+    def _delete(self, keys) -> None:
+        for key in keys:
+            self._c().delete_object(Bucket=self.bucket, Key=key)
+
+    def append(self, stream: str, record: bytes) -> None:
+        base = self._skey(stream)
+        seq = self._next_seq.get(stream)
+        if seq is None:
+            first, end = self._live(stream)
+            records = self._records(stream)
+            # a replacement that crashed leaves records outside the live
+            # range: those past a frozen end would become live with the
+            # next append, so they go (and the range opens) first
+            if end is not None:
+                self._delete(k for s, k in records if s >= end)
+                self._put_live(stream, first, None)
+                records = [(s, k) for s, k in records if s < end]
+            self._delete(k for s, k in records if s < first)
+            seq = max([first] + [s + 1 for s, _k in records])
+        self._next_seq[stream] = seq + 1
+        self._c().put_object(
+            Bucket=self.bucket, Key=f"{base}/{seq:012d}", Body=record
+        )
+
+    def read_all(self, stream: str) -> list[bytes]:
+        first, end = self._live(stream)
+        out = []
+        for seq, key in self._records(stream):
+            if seq < first or (end is not None and seq >= end):
+                continue
+            resp = self._c().get_object(Bucket=self.bucket, Key=key)
+            out.append(resp["Body"].read())
+        return out
+
+    def replace_all(self, stream: str, records: list[bytes]) -> None:
+        base = self._skey(stream)
+        first, end = self._live(stream)
+        old = self._records(stream)
+        start = max([first] + [s + 1 for s, _k in old])
+        if end is None:
+            end = start
+        # freeze the live range: the records written below stay unread
+        # until the put that moves the range onto them
+        self._put_live(stream, first, end)
+        for i, rec in enumerate(records):
+            self._c().put_object(
+                Bucket=self.bucket, Key=f"{base}/{start + i:012d}", Body=rec
+            )
+        self._put_live(stream, start, None)
+        self._next_seq[stream] = start + len(records)
+        self._delete(k for s, k in old)
+
+    def list_streams(self, prefix: str) -> list[str]:
+        base = f"{self.prefix}/streams/"
+        safe = prefix.replace("/", "_")
+        names = set()
+        for key in self._list(base + safe):
+            rest = key[len(base):]
+            names.add(rest.rsplit("/", 1)[0])
+        return sorted(names)
+
+    def put_metadata(self, key: str, value: bytes) -> None:
+        self._c().put_object(
+            Bucket=self.bucket, Key=f"{self.prefix}/meta/{key}", Body=value
+        )
+
+    def get_metadata(self, key: str) -> bytes | None:
+        try:
+            resp = self._c().get_object(
+                Bucket=self.bucket, Key=f"{self.prefix}/meta/{key}"
+            )
+            return resp["Body"].read()
+        except Exception as exc:
+            if _is_missing_key_error(exc):
+                return None
+            # transient errors must NOT read as "no metadata" — the
+            # journal-format heuristic would mistake an existing journal
+            # for v1 and destroy it
+            raise
+
+
+class AzureBackend(S3Backend):
+    """Azure Blob persistence (reference: src/persistence/backends/azure.rs)
+    — the S3Backend object-per-record layout over an azure-storage-blob
+    container client adapted to the same list/get/put/delete verbs.
+    `account_settings` may carry `_client` (S3-verb fake) for tests or
+    `container_client` (a real azure ContainerClient) wrapped below."""
+
+    def __init__(self, root_path: str, account_settings: Any = None):
+        cc = getattr(account_settings, "container_client", None)
+        if cc is not None:
+            from ..io.s3 import AwsS3Settings
+
+            account_settings = AwsS3Settings(
+                bucket_name=getattr(account_settings, "container", "azure"),
+                _client=_AzureS3Adapter(cc),
+            )
+        super().__init__(root_path, account_settings)
+
+
+class _AzureS3Adapter:
+    """azure ContainerClient -> the S3 verbs the backend speaks."""
+
+    def __init__(self, container_client):
+        self.cc = container_client
+
+    def list_objects_v2(self, Bucket, Prefix="", **_kw):
+        names = [
+            {"Key": b.name} for b in self.cc.list_blobs(name_starts_with=Prefix)
+        ]
+        return {"Contents": names, "IsTruncated": False}
+
+    def get_object(self, Bucket, Key):
+        import io as _io3
+
+        data = self.cc.download_blob(Key).readall()
+        return {"Body": _io3.BytesIO(data)}
+
+    def put_object(self, Bucket, Key, Body):
+        self.cc.upload_blob(Key, Body, overwrite=True)
+
+    def delete_object(self, Bucket, Key):
+        try:
+            self.cc.delete_blob(Key)
+        except Exception as exc:
+            # delete is idempotent for MISSING blobs only; a transient
+            # failure leaving stale journal objects must surface (replay
+            # would otherwise apply ghost records)
+            if type(exc).__name__ not in ("ResourceNotFoundError", "KeyError"):
+                raise
+
+
+def _is_missing_key_error(exc: Exception) -> bool:
+    if isinstance(exc, KeyError):
+        return True  # in-process fakes raise KeyError for absent objects
+    code = ""
+    resp = getattr(exc, "response", None)
+    if isinstance(resp, dict):
+        code = str(resp.get("Error", {}).get("Code", ""))
+    name = type(exc).__name__
+    # azure-core raises ResourceNotFoundError for a blob that is not there
+    return code in ("NoSuchKey", "404", "NotFound") or name in (
+        "NoSuchKey", "NotFound", "ResourceNotFoundError",
+    )
 
 
 class MockBackend(Backend):
@@ -404,7 +601,12 @@ def attach_persistence(runner, config: Config) -> None:
                     else:
                         for k, v in offsets.items():
                             cur = last_offsets.get(k)
-                            last_offsets[k] = v if cur is None else max(cur, v)
+                            # positions keep their largest value; a dict is
+                            # a source's state beside them (a synchronization
+                            # gate's parked events): the later record's
+                            last_offsets[k] = (
+                                v if cur is None or isinstance(v, dict)
+                                else max(cur, v))
             if rs == write_stream:
                 # never regress below the snapshot watermark: a trimmed-empty
                 # stream must not reissue already-folded sequence numbers

@@ -131,6 +131,58 @@ def test_the_guard_covers_the_core_api_modules():
         assert f"pathway_tpu_torch.{name}" in _modules()
 
 
+def test_the_guard_covers_the_streaming_source_modules():
+    """... and the streaming sources: the codecs, the registry client, the
+    message-queue and cloud connectors, sqlite and synchronization."""
+    for name in ("io._synchronization", "io._avro", "io._bson",
+                 "io._schema_registry", "io.kafka", "io.nats", "io.mqtt",
+                 "io.rabbitmq", "io._aws", "io.kinesis", "io.pubsub",
+                 "io.s3", "io.sqlite"):
+        assert f"pathway_tpu_torch.{name}" in _modules()
+
+
+# the JAX package's connectors this package does not port yet (ROADMAP
+# queue A, item 3): lakes, databases, vector stores, documents and apps
+QUEUED_CONNECTORS = [
+    "gdrive", "postgres", "mysql", "mongodb", "elasticsearch", "deltalake",
+    "iceberg", "dynamodb", "bigquery", "airbyte", "sharepoint",
+    "clickhouse", "questdb", "pinecone", "qdrant", "chroma", "weaviate",
+    "milvus", "leann", "slack", "duckdb", "mssql", "pyfilesystem",
+]
+
+
+def test_the_io_surface_is_the_jax_packages_less_the_queued_connectors():
+    import pathway_tpu as jpw
+
+    want = [n for n in jpw.io.__all__ if n not in QUEUED_CONNECTORS]
+    assert pathway_tpu_torch.io.__all__ == want
+    assert all(hasattr(pathway_tpu_torch.io, n) for n in want)
+    assert not any(hasattr(pathway_tpu_torch.io, n)
+                   for n in QUEUED_CONNECTORS)
+    for name in ("SchemaRegistrySettings", "SchemaRegistryHeader",
+                 "CsvParserSettings"):
+        assert hasattr(pathway_tpu_torch.io, name)
+    for alias in ("plaintext", "s3_csv", "minio", "debezium", "null",
+                  "logstash"):
+        mod = sys.modules[f"pathway_tpu_torch.io.{alias}"]
+        assert getattr(pathway_tpu_torch.io, alias) is mod
+
+
+def test_importing_io_loads_neither_jax_nor_the_jax_package():
+    code = (
+        "import sys\n"
+        "import pathway_tpu_torch.io as io\n"
+        "assert io.kafka and io.s3 and io.register_input_synchronization_group\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' "
+        "or m.startswith('jax.') or m == 'pathway_tpu' "
+        "or m.startswith('pathway_tpu.'))\n"
+        "assert not bad, bad\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
 def test_every_name_of_the_jax_packages_all_resolves():
     import pathway_tpu as jpw
 
@@ -244,6 +296,13 @@ def _entry_points():
                         on_change=lambda **kw: None)
         pw.run(timeout_s=1.0)
 
+    def kafka_run():
+        pg.G.clear()
+        pw.io.subscribe(pw.io.kafka.read({"_consumer": object()}, "t",
+                                         format="plaintext"),
+                        on_change=lambda **kw: None)
+        pw.run(timeout_s=1.0)
+
     from pathway_tpu_torch.stdlib.ml import KNNIndex
     from pathway_tpu_torch.xpacks.llm.rerankers import EncoderReranker
     from pathway_tpu_torch.xpacks.llm.vector_store import VectorStoreServer
@@ -265,6 +324,7 @@ def _entry_points():
             dimensions=8).build_index(docs().data, docs()),
         "QARestServer.run": qa_server_run,
         "pw.run(io.fs.read)": fs_run,
+        "pw.run(io.kafka.read)": kafka_run,
         "run_tables": lambda: run_tables(table()),
         "GraphRunner": lambda: GraphRunner([table()._materialize_capture()]),
         "pw.run": run,
@@ -304,7 +364,8 @@ def _entry_points():
     "run_tables", "GraphRunner", "pw.run", "compute_and_print",
     "table_to_pandas", "segment_sum", "hash_join_membership",
     "calibrate_mapreduce", "DocumentStore", "BruteForceKnnFactory.build_index",
-    "QARestServer.run", "pw.run(io.fs.read)", "VectorStoreServer",
+    "QARestServer.run", "pw.run(io.fs.read)", "pw.run(io.kafka.read)",
+    "VectorStoreServer",
     "EncoderReranker", "KNNIndex", "LiveTable.snapshot", "table_to_parquet",
 ])
 def test_entry_point_without_a_card_raises(name, monkeypatch):
@@ -339,6 +400,15 @@ def test_chip_smoke_core_api_only_fails_without_a_card():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode != 0
     assert '"ok"' not in out.stdout and "core_api" not in out.stdout
+
+
+def test_chip_smoke_queues_only_fails_without_a_card():
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    out = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"),
+                          "--queues-only"], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout and "queues" not in out.stdout
 
 
 @pytest.mark.parametrize("call", ["tp_mesh()", "tp_mesh(2)",

@@ -352,10 +352,24 @@ def test_static_table_journal_replays_once(tmp_path):
 
 
 def test_object_store_backends_wait_for_io_s3():
+    """The object-store backends came with ``io.s3``: both build over its
+    client seam and keep a journal record an object
+    (``tests/test_torch_io_cloud.py`` holds them to the JAX package's)."""
+    import chip_smoke
+    from pathway_tpu_torch.persistence import AzureBackend, S3Backend
+
     pw, _pg = PKGS["torch"]
-    for make in (pw.persistence.Backend.s3, pw.persistence.Backend.azure):
-        with pytest.raises(NotImplementedError, match="io.s3"):
-            make("s3://bucket/root")
+    client = chip_smoke.MemS3()
+    settings = pw.io.s3.AwsS3Settings(_client=client)
+    s3 = pw.persistence.Backend.s3("s3://bucket/main", settings)
+    azure = pw.persistence.Backend.azure("s3://bucket/az", settings)
+    assert type(s3) is S3Backend and type(azure) is AzureBackend
+    for be in (s3, azure):
+        be.append("input_0", b"r0")
+        assert be.read_all("input_0") == [b"r0"]
+    assert sorted(k for _b, k in client.objects) == [
+        "az/streams/input_0/000000000000",
+        "main/streams/input_0/000000000000"]
 
 
 def test_an_unreadable_journal_stamp_raises(tmp_path):

@@ -141,7 +141,6 @@ class S(pw.Schema):
     word: str
 
 def appender():
-    time.sleep(0.8)
     # the first batch's counts reach the sink before the append, so the
     # appended rows are a second scan's and a second commit's however
     # slowly the run started
@@ -164,7 +163,7 @@ threading.Thread(target=appender, daemon=True).start()
 t = pw.io.csv.read(src, schema=S, mode="streaming")
 counts = t.groupby(t.word).reduce(t.word, c=pw.reducers.count())
 pw.io.jsonlines.write(counts, out)
-pw.run(device="cpu", idle_stop_s=1.2, autocommit_duration_ms=20,
+pw.run(device="cpu", idle_stop_s=2.0, autocommit_duration_ms=20,
        persistence_config=pw.persistence.Config(
            pw.persistence.Backend.filesystem(store)))
 """
