@@ -33,7 +33,8 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    (within ``CQ_GRAPH_TOL``) and stay above 0.995 cosine to the f32
    encoder;
 4. generation: RAG prompts built from the retrieved documents go through
-   the paged engine at GPT-2-small width — in f32 the greedy tokens must
+   the paged engine at GPT-2-small width (``GEN_LAYERS``, 6 of its 12
+   layers, as in every generation phase) — in f32 the greedy tokens must
    equal the port's dense plain path (einsum prefill + decode_step), then
    the same requests run in bf16 through ``TorchDecoderLM.generate_batch``;
 4b. single-stream generation and whole-bucket prefill: in f32,
@@ -359,6 +360,36 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    (events/s a tier, Q7's lag from a bid published to its row at NATS,
    messages/s a protocol, the registry's requests, recovery s beside run
    1's ingest, the journal's objects and bytes, ``phase_s``);
+4p. several workers and processes, and monitoring (after phase 4o; no
+   kernel on its path): (a) phase 4i's wordcount, 131,072 updates in two
+   batches written as json-lines files (5% retracting, as a weight), its
+   join with the 4,096-row dimension table and two json-lines sinks, run
+   three ways — in this process, with ``PATHWAY_THREADS=4`` and under
+   ``python -m pathway_tpu_torch spawn --processes 2 --threads 2``, every
+   process on ``cuda:0`` — with both crossovers pinned to ``CL_PIN``
+   (4,096, under a shard's share of a batch): the three sinks = a plain
+   Python count, and every process sent at least one batch to the card;
+   (b) under the same supervisor, after (a), the program streaming on
+   the 2 x 2 cluster over a quarter of the stream under
+   ``Backend.filesystem``,
+   process 1 killed at its third exchange mark of (b) (the fault armed
+   by ``faults.install`` once (a) is done) and the cluster relaunched by
+   ``spawn --restart 2``, the relaunch running (b) alone: the fault
+   fired once, the sinks = the plain count, no row written twice; (c)
+   the single-process program streaming over (b)'s quarter, without, then
+   with ``with_http_server=True``, ``MonitoringLevel.ALL`` (the progress
+   reporter every 0.25 s, its prints captured, one line at least),
+   ``PATHWAY_MONITORING_SERVER`` at a collector double on 127.0.0.1 and
+   ``PATHWAY_DETAILED_METRICS_DIR``: ``/metrics`` scraped three times or
+   more during the run, its counters never falling, the sinks' row count
+   = the sink operators' last scraped rows, the collector holding
+   ``pathway.graph_build`` and ``pathway.run`` spans and a
+   ``/v1/metrics`` post, the recorder's database rows.  Printed as a
+   ``{"cluster": ...}`` line (rows/s a shape, the spawned processes'
+   run s, the time from the launch to the last formed mesh, the fabric's
+   bytes, frames and mark waits, device batches a process, the shared
+   cost store's keys and kept observations; the kill's recovery s;
+   rows/s without and with monitoring; ``phase_s``);
 5. print one ``{"kernels": [...]}`` line (launches on the main path,
    error against the plain version, kernel / plain / bound / library
    times at the main path's shapes: the median of 5 windows of 50
@@ -405,7 +436,8 @@ line and no result; ``--persistence-only`` runs phase 4m alone after the
 build and prints its line and no result; ``--core-api-only`` runs phase
 4n alone (it builds no kernel) and prints its line and no result;
 ``--queues-only`` runs phase 4o alone (it builds no kernel) and prints
-its line and no result;
+its line and no result; ``--cluster-only`` runs phase 4p alone (it
+builds no kernel) and prints its line and no result;
 ``--core-graph-costs`` times the graph algorithms of phase 4n once at
 their full sizes (one body run of each ``iterate``; no kernel, no
 result).
@@ -421,6 +453,7 @@ import argparse
 import collections
 import contextlib
 import datetime
+import functools
 import itertools
 import json
 import math
@@ -448,6 +481,13 @@ CQ_GRAPH_TOL = 0.0
 
 GPT2_SMALL = dict(vocab_size=50257, d_model=768, n_layers=12, n_heads=12,
                   d_ff=3072, max_len=1024, act="gelu_tanh", ln_eps=1e-5)
+# the decoder the generation phases run (4-4f, 4j, 4l, 4m): GPT-2 small's
+# widths at 6 of its 12 layers, cut to keep the whole script near 720 s
+# once phase 4p came.  Every check there is a token identity or a
+# per-layer shape, which hold at any depth; each layer launches each
+# kernel once a round, so the main path's launches halve
+GEN_LAYERS = 6
+GPT2_GEN = dict(GPT2_SMALL, n_layers=GEN_LAYERS)
 # the main path's sizes: documents indexed, queries searched, RAG prompts
 # and greedy tokens generated for each
 N_DOCS, N_QUERIES, N_PROMPTS, NEW_TOKENS = 16384, 64, 8, 32
@@ -2724,8 +2764,8 @@ def obs_only(torch, np, dec, seed, engine_sizes, smi, PagedDecodeEngine,
     lengths, after checking its f32 tokens against the dense plain path
     (the short first call after a change to the observatory)."""
     rng = np.random.default_rng(seed)
-    cfg32 = dec.DecoderConfig(**GPT2_SMALL, dtype=torch.float32)
-    cfg16 = dec.DecoderConfig(**GPT2_SMALL)
+    cfg32 = dec.DecoderConfig(**GPT2_GEN, dtype=torch.float32)
+    cfg16 = dec.DecoderConfig(**GPT2_GEN)
     params32 = dec.TorchDecoderLM(cfg32, seed=seed, device="cuda").params
     reqs = [([int(t) for t in rng.integers(4, cfg32.vocab_size, n)],
              NEW_TOKENS) for n in np.linspace(100, 600, N_PROMPTS).astype(int)]
@@ -4176,12 +4216,12 @@ def phase4j(torch, np, dec, s) -> tuple[dict, dict]:
     emb = SentenceTransformerEmbedder(config=EncoderConfig(**MINILM),
                                       seed=s.seed, device="cuda")
     require(emb.device_resident, "4j: the embedder is device-resident")
-    cfg32 = dec.DecoderConfig(**GPT2_SMALL, dtype=torch.float32)
+    cfg32 = dec.DecoderConfig(**GPT2_GEN, dtype=torch.float32)
     c.chat = TorchChat(cfg32, seed=s.seed, max_new_tokens=NEW_TOKENS,
                        device="cuda")
     lm32 = c.chat._lm
     eng32 = lm32.paged_engine(**s.engine_sizes)
-    c.lm16 = dec.TorchDecoderLM(dec.DecoderConfig(**GPT2_SMALL),
+    c.lm16 = dec.TorchDecoderLM(dec.DecoderConfig(**GPT2_GEN),
                                 params=lm32.params, device="cuda")
     c.lm16.paged_engine(**s.engine_sizes)
 
@@ -4374,6 +4414,11 @@ NX_ITERATE_EVENTS = 8_192
 # NX_EVENTS) to 64 to keep the phase near its minute; the fully-async
 # executor embeds 47-58 rows/s on the card's host (PERF.md)
 NX_ASYNC_ROWS = 64
+# the streamed run's idle stop: a batch is written once the last one's
+# rows entered, then waits for the source's next scan (every 0.5 s, on
+# its own thread) while the dataflow still works on the last one; at
+# 1.0 s a loaded host could end the run between two batches
+NX_STREAM_IDLE_S = 2.0
 NX_ASYNC_TOL = 1e-5
 NX_CITIES = ("Phoenix", "Los Angeles", "San Francisco", "Boise", "Portland",
              "Bend", "Redmond", "Seattle", "Kent", "Cheyenne")
@@ -4935,9 +4980,9 @@ def nexmark_streaming(ev, want: dict, device="cuda") -> dict:
         th = threading.Thread(target=writer, daemon=True)
         t0 = time.perf_counter()
         th.start()
-        # the run ends 1 s (two scans of the file source) after the last
-        # batch's rows were processed
-        pw.run(device=device, timeout_s=300.0, idle_stop_s=1.0)
+        # the run ends NX_STREAM_IDLE_S after the last batch's rows were
+        # processed
+        pw.run(device=device, timeout_s=300.0, idle_stop_s=NX_STREAM_IDLE_S)
         th.join(timeout=10)
         require(len(st["lag"]) == NX_BATCHES,
                 f"4k: {len(st['lag'])} of {NX_BATCHES} streamed batches "
@@ -6102,7 +6147,7 @@ def rag_rest_inputs(torch, dec, smi, seed, device="cuda", scale: int = 1,
         smi=smi, seed=seed, device=device, sizes=rag_rest_sizes(scale),
         enc_cfg=enc_cfg or EncoderConfig(**MINILM, dtype=torch.float32),
         clip_cfg=clip_cfg or ClipConfig(dtype=torch.float32),
-        chat_cfg=chat_cfg or dec.DecoderConfig(**GPT2_SMALL,
+        chat_cfg=chat_cfg or dec.DecoderConfig(**GPT2_GEN,
                                                dtype=torch.float32),
         llm_min_tokens=llm_min_tokens)
 
@@ -6167,7 +6212,7 @@ def persistence_inputs(torch, dec, smi, seed, engine_sizes, device="cuda",
         smi=smi, seed=seed, device=device, engine_sizes=engine_sizes,
         sizes=persistence_sizes(scale),
         enc_cfg=enc_cfg or EncoderConfig(**MINILM),
-        chat_cfg=chat_cfg or dec.DecoderConfig(**GPT2_SMALL,
+        chat_cfg=chat_cfg or dec.DecoderConfig(**GPT2_GEN,
                                                dtype=torch.float32))
 
 
@@ -8666,6 +8711,675 @@ def queues_only(torch, np, seed, smi) -> int:
     return 0
 
 
+# -- phase 4p: several workers and processes -----------------------------------
+
+# phase 4i's wordcount: 131,072 updates of its Zipf(1.1) stream over 20,000
+# words in two batches, 5% of the second retracting (a weight d = -1, summed
+# by the reducers, since a json-lines file carries no diff), each batch
+# written as CL_FILES json-lines files so a streaming scan spreads over the
+# processes; joined with 4i's 4,096-row dimension table (a json-lines file)
+CL_ROWS, CL_FILES = 1 << 17, 4
+# (b) and (c) read the first file of each batch's 4: a quarter of the
+# stream (cut from the whole, then from half, for the phase's time)
+CL_KILL_FILES = 1
+# both crossovers of every run, below a shard's share of a batch (4i's
+# 65,536 pin would send a 2 x 2 cluster's ~32,768-row shard batches to
+# numpy)
+CL_PIN = 4096
+CL_THREADS, CL_PROCS = 4, 2
+# (b): pid 1 dies at its third exchange mark of (b) (point, action, nth,
+# pid, as ``faults.install`` takes them); the supervisor relaunches
+CL_FAULT = ("fabric.mark", "kill", 3, 1)
+CL_RESTART = 2
+CL_IDLE_S = 1.0      # a streaming run ends this long after its last row
+CL_LIMIT_S = 300.0   # every run's timeout_s, a bound it never reaches
+CL_SCRAPE_S = 0.05   # (c): /metrics is read this often during a run
+CL_PROGRESS_S = 0.25  # (c): the progress reporter prints this often
+CL_TURNS = (False, True)  # (c): the runs without and with monitoring
+CL_SPAWN_LIMIT_S = 240
+
+
+def cluster_data(np, root: str, seed: int, n_rows: int) -> dict:
+    """Write the stream's batches and the dimension table as json-lines
+    files under ``root``: every file in ``events/``, and the first
+    ``CL_KILL_FILES`` files of each batch (a quarter of the stream, its
+    retractions included) in ``part/`` for (b) and (c).  Returns their
+    paths and
+    the plain Python count of both sinks over each (``counts``: word ->
+    (n, s, rows); ``cats``: category -> (n, s))."""
+    rows, dim = dataplane_stream(np, seed, n_rows)
+    cat_of = dict(dim)
+    by_t: dict = {}
+    for _rid, word, a, _b, t, d in rows:
+        by_t.setdefault(t, []).append((word, a, d))
+    out = dict(dim=os.path.join(root, "dim.jsonl"), rows=len(rows))
+    with open(out["dim"], "w") as fh:
+        fh.write("".join(json.dumps({"k": k, "cat": c}) + "\n"
+                         for k, c in dim))
+    for name, n_files in (("events", CL_FILES), ("part", CL_KILL_FILES)):
+        src = os.path.join(root, name)
+        os.makedirs(src)
+        counts: dict = {}
+        cats: dict = {}
+        n = 0
+        for bi, t in enumerate(sorted(by_t)):
+            batch = by_t[t]
+            per = -(-len(batch) // CL_FILES)
+            for f in range(n_files):
+                part = batch[f * per:(f + 1) * per]
+                n += len(part)
+                with open(os.path.join(src, f"b{bi}_{f}.jsonl"), "w") as fh:
+                    fh.write("".join(
+                        json.dumps({"word": w, "a": a, "d": d}) + "\n"
+                        for w, a, d in part))
+                for w, a, d in part:
+                    x = a * 2 + 1
+                    if x <= 1000:
+                        continue
+                    c = counts.get(w, (0, 0, 0))
+                    counts[w] = (c[0] + d, c[1] + x * d, c[2] + 1)
+                    if a in cat_of:
+                        c = cats.get(cat_of[a], (0, 0))
+                        cats[cat_of[a]] = (c[0] + d, c[1] + x * d)
+        out[name] = dict(src=src, dim=out["dim"], rows=n, counts=counts,
+                         cats=cats)
+    return out
+
+
+def cluster_program(pw, data: dict, out_dir: str, mode: str) -> None:
+    """The wordcount over ``data``'s files (``mode``: "static" or
+    "streaming"): select -> filter -> groupby(word) with sum/sum/count,
+    and the filtered rows joined on their int with the dimension table,
+    then grouped by its category; both sinks json-lines files in
+    ``out_dir``."""
+    t = pw.io.jsonlines.read(data["src"], mode=mode,
+                             schema=pw.schema_from_types(word=str, a=int,
+                                                         d=int))
+    dim = pw.io.jsonlines.read(data["dim"], mode="static",
+                               schema=pw.schema_from_types(k=int, cat=str))
+    # w = x * d through a float cast, the same values (|w| < 2^14, exact
+    # in float32 and in float64 sums): the vectorized tiers bound every
+    # int column by 2^44, so an int product of two columns would send the
+    # whole select to the row interpreter, as 4i notes
+    s = t.select(word=t.word, a=t.a, d=t.d, x=t.a * 2 + 1,
+                 w=pw.cast(float, t.a * 2 + 1) * t.d)
+    f = s.filter(s.x > 1000)
+    counts = f.groupby(f.word).reduce(
+        f.word, n=pw.reducers.sum(f.d), s=pw.reducers.sum(f.w),
+        rows=pw.reducers.count())
+    j = f.join(dim, f.a == dim.k).select(cat=pw.right.cat, d=pw.left.d,
+                                         w=pw.left.w)
+    by_cat = j.groupby(j.cat).reduce(j.cat, n=pw.reducers.sum(j.d),
+                                     s=pw.reducers.sum(j.w))
+    pw.io.jsonlines.write(counts, os.path.join(out_dir, "counts.jsonl"))
+    pw.io.jsonlines.write(by_cat, os.path.join(out_dir, "cats.jsonl"))
+
+
+def cluster_sinks(out_dir: str) -> tuple[dict, dict, int]:
+    """Both sinks squashed (each row written once at most) and their
+    line count."""
+    got = []
+    lines = 0
+    for name, cols in (("counts.jsonl", ("word", "n", "s", "rows")),
+                       ("cats.jsonl", ("cat", "n", "s"))):
+        net: dict = {}
+        with open(os.path.join(out_dir, name)) as fh:
+            for ln in fh:
+                e = json.loads(ln)
+                k = tuple(e[c] for c in cols)
+                net[k] = net.get(k, 0) + e["diff"]
+                lines += 1
+        require(all(v in (0, 1) for v in net.values()),
+                f"4p: a row of {name} was written twice")
+        got.append({k[0]: k[1:] for k, v in net.items() if v})
+    return got[0], got[1], lines
+
+
+def _pins(pin: int) -> tuple:
+    from pathway_tpu_torch.engine import vectorize
+    from pathway_tpu_torch.parallel import mapreduce as mr
+
+    saved = (vectorize.DEVICE_THRESHOLD, mr._JIT_MIN_ELEMENTS)
+    vectorize.DEVICE_THRESHOLD = mr._JIT_MIN_ELEMENTS = pin
+    for st in (vectorize.STATS, mr.STATS):
+        st.update({k: type(v)() for k, v in st.items()})
+    return saved
+
+
+def _unpin(saved: tuple) -> None:
+    from pathway_tpu_torch.engine import vectorize
+    from pathway_tpu_torch.parallel import mapreduce as mr
+
+    vectorize.DEVICE_THRESHOLD, mr._JIT_MIN_ELEMENTS = saved
+
+
+def _device_batches() -> dict:
+    from pathway_tpu_torch.engine import vectorize
+    from pathway_tpu_torch.parallel import mapreduce as mr
+
+    return dict(vecplan=vectorize.STATS["device_batches"],
+                segment=mr.STATS["segment_device"],
+                member=mr.STATS["member_device"],
+                numpy=vectorize.STATS["np_batches"])
+
+
+def cluster_child(spec: dict, t_script: float) -> None:
+    """One spawned process of (a) and (b), both crossovers pinned: (a) the
+    static program on ``spec``'s device, timed, then this process's
+    batches by tier and its view of the cost store written to its stats
+    directory; then (b) the program streaming under
+    ``Backend.filesystem`` with ``spec["fault"]`` armed, so process 1
+    dies at its third exchange mark of (b).  The relaunched incarnation
+    (the fault's stamp exists) runs (b) alone, resuming from the
+    journal, and writes (b)'s stats."""
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch import faults
+    from pathway_tpu_torch.internals import parse_graph as pg
+    from pathway_tpu_torch.obs import costdb
+
+    pid = int(os.environ.get("PATHWAY_PROCESS_ID", "0"))
+    stamps = spec["stamps"]
+    relaunched = os.path.isdir(stamps) and any(
+        f.endswith(".fired") for f in os.listdir(stamps))
+    _pins(spec["pin"])
+    if not relaunched:
+        a = spec["a"]
+        os.environ["PW_FABRIC_STATS_DIR"] = a["fabric_dir"]
+        cluster_program(pw, a["data"], a["out"], "static")
+        t0 = time.perf_counter()
+        pw.run(device=spec["device"])
+        run_s = time.perf_counter() - t0
+        t_end = time.time()
+        # every process writes the shared cost store: a key of its own and
+        # a key both write (the data plane's own records are the segment
+        # and membership programs', which a shard's row lists do not
+        # reach)
+        db = costdb.default_db()
+        db.observe("pw.cluster.probe", f"p{pid}", ms=run_s * 1e3)
+        db.observe("pw.cluster.probe", "shared", ms=run_s * 1e3)
+        costdb.shutdown()
+        observed = {k: e.get("n", 0) for k, e in db._entries.items()}
+        with open(os.path.join(a["stats_dir"], f"proc_{pid}.json"),
+                  "w") as fh:
+            json.dump(dict(pid=pid, run_s=run_s, t_script=t_script,
+                           t_end=t_end, device_batches=_device_batches(),
+                           costdb_observed=observed), fh)
+        pg.G.clear()
+        point, action, nth, fault_pid = spec["fault"]
+        faults.install(point, action, nth=nth, pid=fault_pid)
+    b = spec["b"]
+    os.environ["PW_FABRIC_STATS_DIR"] = b["fabric_dir"]
+    cluster_program(pw, b["data"], b["out"], "streaming")
+    t0 = time.perf_counter()
+    pw.run(device=spec["device"], idle_stop_s=CL_IDLE_S,
+           timeout_s=CL_LIMIT_S, autocommit_duration_ms=20,
+           persistence_config=pw.persistence.Config(
+               pw.persistence.Backend.filesystem(b["pstore"])))
+    with open(os.path.join(b["stats_dir"], f"proc_{pid}.json"), "w") as fh:
+        json.dump(dict(pid=pid, run_s=time.perf_counter() - t0,
+                       t_script=t_script), fh)
+
+
+def fabric_ports(n: int) -> int:
+    """A bindable block of ``n`` ports in 21000-28000 (the fabric listens
+    on first_port + pid)."""
+    import random
+    import socket
+
+    rng = random.Random()
+    for _ in range(64):
+        base = 21000 + rng.randrange(0, 6800)
+        try:
+            for i in range(n):
+                with socket.socket() as sock:
+                    sock.bind(("127.0.0.1", base + i))
+            return base
+        except OSError:
+            continue
+    raise RuntimeError("4p: no bindable port block in 21000-28000")
+
+
+def cluster_spawn(spec: dict, root: str) -> dict:
+    """``python -m pathway_tpu_torch spawn --restart`` of ``spec``'s (a)
+    and (b) over ``CL_PROCS`` x ``CL_THREADS`` workers: the launch time,
+    the supervisor's wall, its stderr, and for (a) and (b) each process's
+    stats with its fabric's counters (of (a)'s run, and of (b)'s
+    relaunched run)."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    work = os.path.join(root, "spawned")
+    parts = {}
+    for name in ("a", "b"):
+        part = dict(spec[name], stats_dir=os.path.join(work, name, "stats"),
+                    fabric_dir=os.path.join(work, name, "fabric"))
+        os.makedirs(part["stats_dir"])
+        os.makedirs(part["out"], exist_ok=True)
+        parts[name] = part
+    spec = dict(spec, **parts)
+    script = os.path.join(work, "child.py")
+    with open(script, "w") as fh:
+        fh.write("import sys, time\nT0 = time.time()\n"
+                 f"sys.path.insert(0, {here!r})\nimport chip_smoke\n"
+                 f"chip_smoke.cluster_child({spec!r}, T0)\n")
+    env = dict(os.environ)
+    env.update(PYTHONPATH=here, PW_FAULT_STAMP_DIR=spec["stamps"],
+               PW_COSTDB_PATH=os.path.join(work, "costdb.json"),
+               PW_FABRIC_WAIT_TIMEOUT_S="30", PW_FABRIC_HEARTBEAT_S="0.5",
+               PW_FABRIC_PEER_TIMEOUT_S="5")
+    res = None
+    for _attempt in range(3):
+        cmd = [sys.executable, "-m", "pathway_tpu_torch", "spawn",
+               "--processes", str(CL_PROCS), "--threads", str(CL_THREADS),
+               "--first-port", str(fabric_ports(CL_PROCS)),
+               "--restart", str(CL_RESTART), "--", sys.executable, script]
+        t_launch = time.time()
+        res = subprocess.run(cmd, env=env, capture_output=True, text=True,
+                             timeout=CL_SPAWN_LIMIT_S)
+        wall_s = time.time() - t_launch
+        flake = any(m in res.stderr for m in (
+            "cannot reach peer", "peers connected", "cannot bind fabric"))
+        if res.returncode == 0 or not flake:
+            break
+        log("4p: the mesh did not form, relaunching")
+    require(res.returncode == 0,
+            f"4p: spawn exited {res.returncode}: {res.stderr[-3000:]}")
+    out = dict(wall_s=wall_s, t_launch=t_launch, stderr=res.stderr)
+    for name, part in parts.items():
+        procs = {}
+        for pid in range(CL_PROCS):
+            with open(os.path.join(part["stats_dir"],
+                                   f"proc_{pid}.json")) as fh:
+                procs[pid] = json.load(fh)
+            with open(os.path.join(part["fabric_dir"],
+                                   f"fabric_{pid}.json")) as fh:
+                procs[pid]["fabric"] = json.load(fh)
+        out[name] = procs
+    out["stored"] = {}
+    if os.path.exists(os.path.join(work, "costdb.json")):
+        with open(os.path.join(work, "costdb.json")) as fh:
+            out["stored"] = json.load(fh)["entries"]
+    return out
+
+
+def cluster_in_process(torch, data: dict, root: str, name: str,
+                       threads: int, device: str) -> dict:
+    """The program in this process over ``threads`` local shards."""
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch.internals import parse_graph as pg
+    from pathway_tpu_torch.internals.config import pathway_config
+
+    out = os.path.join(root, name)
+    os.makedirs(out)
+    saved, old = _pins(CL_PIN), pathway_config.threads
+    pathway_config.threads = threads
+    try:
+        pg.G.clear()
+        cluster_program(pw, data, out, "static")
+        if device != "cpu":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pw.run(device=device)
+        wall = time.perf_counter() - t0
+        tiers = _device_batches()
+    finally:
+        pg.G.clear()
+        pathway_config.threads = old
+        _unpin(saved)
+    return dict(out=out, wall_s=wall, device_batches=tiers)
+
+
+def _collector():
+    """An OTLP/HTTP collector double on 127.0.0.1: (server, received)."""
+    import threading
+    from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+    received: list = []
+
+    class H(BaseHTTPRequestHandler):
+        def log_message(self, *a):
+            pass
+
+        def do_POST(self):
+            n = int(self.headers.get("Content-Length", 0))
+            received.append((self.path, json.loads(self.rfile.read(n))))
+            self.send_response(200)
+            self.end_headers()
+            self.wfile.write(b"{}")
+
+    srv = ThreadingHTTPServer(("127.0.0.1", 0), H)
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    return srv, received
+
+
+def _scrape(port: int) -> dict | None:
+    """``/metrics``'s operator row counters: {(operator, id, dir): n}."""
+    import urllib.request
+
+    try:
+        text = urllib.request.urlopen(
+            f"http://127.0.0.1:{port}/metrics", timeout=2).read().decode()
+    except OSError:
+        return None
+    got = {}
+    for ln in text.splitlines():
+        if ln.startswith("pathway_operator_rows_total{"):
+            labels, val = ln[len("pathway_operator_rows_total{"):].split("} ")
+            kv = dict(p.split("=", 1) for p in labels.split(","))
+            got[(kv["operator"].strip('"'), kv["id"].strip('"'),
+                 kv["direction"].strip('"'))] = int(val)
+    return got
+
+
+def cluster_monitored(torch, data: dict, root: str, name: str, device: str,
+                      monitor: bool, metrics_port: int) -> dict:
+    """(c): the single-process program streaming; with ``monitor`` the
+    metrics server (scraped every ``CL_SCRAPE_S`` from a thread), the
+    progress reporter at ``MonitoringLevel.ALL`` (every
+    ``CL_PROGRESS_S``, its prints captured and counted),
+    the OTLP export to a collector double and the detailed-metrics
+    recorder."""
+    import io
+    import sqlite3
+    import threading
+
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch.engine import telemetry
+    from pathway_tpu_torch.internals import parse_graph as pg
+
+    out = os.path.join(root, name)
+    os.makedirs(out)
+    rec_dir = os.path.join(out, "metrics")
+    srv = received = None
+    scrapes: list = []
+    stop = threading.Event()
+    env_saved = {k: os.environ.get(k) for k in (
+        "PATHWAY_MONITORING_SERVER", "PATHWAY_DETAILED_METRICS_DIR")}
+    port_saved = telemetry.METRICS_PORT
+    reporter_saved = telemetry.ProgressReporter
+    if monitor:
+        # pw.run builds its reporter at the package's 10 s; a run here
+        # lasts a few seconds
+        telemetry.ProgressReporter = functools.partial(
+            reporter_saved, interval_s=CL_PROGRESS_S)
+        srv, received = _collector()
+        os.environ["PATHWAY_MONITORING_SERVER"] = (
+            f"http://127.0.0.1:{srv.server_port}")
+        os.environ["PATHWAY_DETAILED_METRICS_DIR"] = rec_dir
+        telemetry.METRICS_PORT = metrics_port
+
+    def scraper():
+        while not stop.wait(CL_SCRAPE_S):
+            got = _scrape(metrics_port)
+            if got is not None:
+                scrapes.append(got)
+
+    saved = _pins(CL_PIN)
+    th = threading.Thread(target=scraper, daemon=True)
+    printed = io.StringIO()
+    try:
+        pg.G.clear()
+        cluster_program(pw, data, out, "streaming")
+        if monitor:
+            th.start()
+        if device != "cpu":
+            torch.cuda.synchronize()
+        t0, t_wall = time.perf_counter(), time.time()
+        with contextlib.redirect_stdout(printed):
+            pw.run(device=device, idle_stop_s=CL_IDLE_S,
+                   timeout_s=CL_LIMIT_S, autocommit_duration_ms=20,
+                   with_http_server=monitor,
+                   monitoring_level=(pw.MonitoringLevel.ALL if monitor
+                                     else None))
+        wall = time.perf_counter() - t0
+        tiers = _device_batches()
+    finally:
+        stop.set()
+        if monitor:
+            th.join(5)
+            srv.shutdown()
+            srv.server_close()
+        telemetry.METRICS_PORT = port_saved
+        telemetry.ProgressReporter = reporter_saved
+        for k, v in env_saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        pg.G.clear()
+        _unpin(saved)
+    # rows/s to the sinks' last write (the run then idles CL_IDLE_S)
+    last = max(os.path.getmtime(os.path.join(out, f))
+               for f in ("counts.jsonl", "cats.jsonl"))
+    line = dict(wall_s=wall, rows_per_s=data["rows"] / (last - t_wall),
+                device_batches=tiers)
+    counts, cats, lines = cluster_sinks(out)
+    require(counts == data["counts"] and cats == data["cats"],
+            f"4p.c: the {name} run's sinks differ from the plain count")
+    if not monitor:
+        return line
+    require(len(scrapes) >= 3,
+            f"4p.c: /metrics was scraped {len(scrapes)} times in the run")
+    for a, b in zip(scrapes, scrapes[1:]):
+        require(all(b.get(k, -1) >= v for k, v in a.items()),
+                "4p.c: a /metrics counter fell between two scrapes")
+    final = scrapes[-1]
+    sink_rows = sum(v for (op, _id, d), v in final.items()
+                    if op == "output" and d == "in")
+    require(sink_rows == lines,
+            f"4p.c: /metrics counted {sink_rows} sink rows, the sinks hold "
+            f"{lines} lines")
+    traces = [s["name"] for p, b in received if p == "/v1/traces"
+              for rs in b["resourceSpans"] for ss in rs["scopeSpans"]
+              for s in ss["spans"]]
+    require({"pathway.graph_build", "pathway.run"} <= set(traces),
+            f"4p.c: the collector's spans {sorted(set(traces))[:8]}")
+    require(any(p == "/v1/metrics" for p, _b in received),
+            "4p.c: the collector received no /v1/metrics")
+    dbs = [f for f in os.listdir(rec_dir) if f.startswith("metrics_")]
+    require(len(dbs) == 1, f"4p.c: recorder databases {dbs}")
+    con = sqlite3.connect(os.path.join(rec_dir, dbs[0]))
+    try:
+        n_rec = con.execute("SELECT COUNT(*) FROM Metrics").fetchone()[0]
+        n_agg = con.execute("SELECT COUNT(*) FROM MetricsAgg").fetchone()[0]
+    finally:
+        con.close()
+    require(n_rec > 0 and n_agg > 0, "4p.c: the recorder's database is empty")
+    progress = printed.getvalue().count("[pathway-tpu] frontier=")
+    require(progress >= 1, "4p.c: the progress reporter printed no line")
+    line.update(scrapes=len(scrapes), sink_rows=sink_rows,
+                otlp_posts={p: sum(1 for q, _b in received if q == p)
+                            for p in ("/v1/traces", "/v1/metrics")},
+                recorder_rows=n_rec, recorder_agg_rows=n_agg,
+                progress_lines=progress)
+    return line
+
+
+def phase4p(torch, np, s) -> dict:
+    """``s``: the card line, the seed, the device, ``rows`` and
+    ``metrics_port``.  (a) the wordcount in this process, with
+    ``PATHWAY_THREADS=4`` and under ``spawn -n 2 -t 2``: the three
+    sinks = the plain count, every process sent batches to the card;
+    (b) under the same supervisor, the 2 x 2 cluster streaming a quarter
+    of the stream under ``Backend.filesystem``, pid 1 killed at its third
+    exchange mark and relaunched by ``--restart``: the fault fired once,
+    the sinks = the plain count; (c) the single-process program
+    streaming that quarter without and with the metrics server, the
+    progress reporter, the OTLP export and the recorder, in turns.
+    Returns the ``{"cluster": ...}`` line."""
+    import shutil
+    import tempfile
+
+    from pathway_tpu_torch.obs import costdb, planner
+
+    t_p = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="pw_cluster_")
+    on_card = s.device != "cpu"
+    prev = os.environ.get("PW_COSTDB_PATH")
+    os.environ["PW_COSTDB_PATH"] = os.path.join(root, "costdb.json")
+    costdb.shutdown()
+    planner.invalidate_cache()
+    try:
+        both = cluster_data(np, root, s.seed + 16, s.rows)
+        data, part = both["events"], both["part"]
+        want = (data["counts"], data["cats"])
+        out = {"card": s.smi, "rows": data["rows"], "files": 2 * CL_FILES,
+               "words": len(data["counts"]), "pin": CL_PIN,
+               "processes": CL_PROCS, "threads": CL_THREADS,
+               "reduced": {"rows": [data["rows"], DP_ROWS_FULL],
+                           "kill_rows": [part["rows"], data["rows"]],
+                           "monitoring_rows": [part["rows"], data["rows"]],
+                           "monitoring_runs_each": [
+                               sum(1 for m in CL_TURNS if m), 2]}}
+
+        # (a) one program, three shapes
+        shapes = {}
+        for name, threads in (("single", 1), ("threads", CL_THREADS)):
+            r = cluster_in_process(torch, data, root, name, threads,
+                                   s.device)
+            require(cluster_sinks(r["out"])[:2] == want,
+                    f"4p.a: the {name} run's sinks differ from the plain "
+                    "count")
+            require(not on_card or r["device_batches"]["vecplan"] > 0,
+                    f"4p.a: the {name} run sent no batch to the card "
+                    f"{r['device_batches']}")
+            shapes[name] = dict(wall_s=r["wall_s"],
+                                rows_per_s=data["rows"] / r["wall_s"],
+                                device_batches=r["device_batches"])
+        # (a)'s spawned shape and (b) under one supervisor: each process
+        # runs (a), then (b) with the kill armed; the relaunch runs (b)
+        stamps = os.path.join(root, "stamps")
+        spec = dict(
+            pin=CL_PIN, device=s.device, stamps=stamps,
+            fault=CL_FAULT,
+            a=dict(data={k: data[k] for k in ("src", "dim")},
+                   out=os.path.join(root, "spawned_a")),
+            b=dict(data={k: part[k] for k in ("src", "dim")},
+                   out=os.path.join(root, "killed"),
+                   pstore=os.path.join(root, "pstore")))
+        sp = cluster_spawn(spec, root)
+        require(cluster_sinks(spec["a"]["out"])[:2] == want,
+                "4p.a: the spawned cluster's sinks differ from the plain "
+                "count")
+        procs = sp["a"]
+        for pid, p in procs.items():
+            require(not on_card or p["device_batches"]["vecplan"] > 0,
+                    f"4p.a: process {pid} sent no batch to the card "
+                    f"{p['device_batches']}")
+        fab = {pid: p["fabric"] for pid, p in procs.items()}
+        # the cost store both processes wrote: whole, and how many of
+        # their observations survived (a key both wrote keeps the last
+        # flush's)
+        observed: dict = {}
+        for p in procs.values():
+            for k, n in p["costdb_observed"].items():
+                observed[k] = observed.get(k, 0) + n
+        require(set(observed) <= set(sp["stored"])
+                and sum(k.startswith("pw.cluster.probe|p") for k in
+                        sp["stored"]) == CL_PROCS,
+                "4p.a: the shared cost store lost a process's key")
+        shared = [e for k, e in sp["stored"].items()
+                  if k.startswith("pw.cluster.probe|shared|")]
+        # (a)'s wall: the launch to its last process's end of (a)
+        wall_a = max(p["t_end"] for p in procs.values()) - sp["t_launch"]
+        shapes["spawned"] = dict(
+            wall_s=wall_a, rows_per_s=data["rows"] / wall_a,
+            run_s={pid: p["run_s"] for pid, p in procs.items()},
+            rows_per_s_run=data["rows"] / max(
+                p["run_s"] for p in procs.values()),
+            mesh_s=max(f["formed_unix"] for f in fab.values())
+            - sp["t_launch"],
+            connect_s={pid: f["connect_s"] for pid, f in fab.items()},
+            import_s={pid: p["fabric"]["formed_unix"] - p["t_script"]
+                      - p["fabric"]["connect_s"]
+                      for pid, p in procs.items()},
+            device_batches={pid: p["device_batches"]
+                            for pid, p in procs.items()},
+            fabric_bytes=sum(f["send_bytes"] for f in fab.values()),
+            fabric_frames=sum(f["send_count"] for f in fab.values()),
+            data_frames=sum(f["data_msgs_out"] for f in fab.values()),
+            host_copies=sum(f["host_copies"] for f in fab.values()),
+            wait_marks_s={pid: f["wait_marks_s"] for pid, f in fab.items()},
+            compute_s={pid: f["compute_s"] for pid, f in fab.items()},
+            costdb_keys=len(sp["stored"]),
+            costdb_observations=sum(observed.values()),
+            costdb_observations_kept=sum(
+                sp["stored"][k].get("n", 0) for k in observed),
+            costdb_shared_key_n=shared[0]["n"] if shared else None)
+        out["shapes"] = shapes
+        log(f"4p.a ok: {shapes['single']['rows_per_s']:.0f} / "
+            f"{shapes['threads']['rows_per_s']:.0f} / "
+            f"{shapes['spawned']['rows_per_s']:.0f} rows/s, mesh "
+            f"{shapes['spawned']['mesh_s']:.1f}s, fabric "
+            f"{shapes['spawned']['fabric_bytes']} bytes")
+
+        # (b) exactly once across a kill
+        fired = [f for f in os.listdir(stamps) if f.endswith(".fired")]
+        require(len(fired) == 1 and "fault.injected kill" in sp["stderr"],
+                f"4p.b: the fault fired {len(fired)} times")
+        require(cluster_sinks(spec["b"]["out"])[:2] == (part["counts"],
+                                                        part["cats"]),
+                "4p.b: the recovered sinks differ from the plain count")
+        with open(os.path.join(stamps, fired[0])) as fh:
+            t_kill = float(fh.read().split("ts=")[1])
+        t_end = sp["t_launch"] + sp["wall_s"]
+        # the relaunched incarnation wrote (b)'s stats (the killed one
+        # never reached its end)
+        out["kill"] = dict(
+            fault=":".join(map(str, CL_FAULT)),
+            rows=part["rows"], wall_s=sp["wall_s"],
+            kill_after_a_s=t_kill - sp["t_launch"] - wall_a,
+            remesh_s=max(p["fabric"]["formed_unix"]
+                         for p in sp["b"].values()) - t_kill,
+            recovery_s=t_end - t_kill,
+            relaunch_run_s={pid: p["run_s"]
+                            for pid, p in sp["b"].items()})
+        log(f"4p.b ok: killed at {out['kill']['fault']}, recovered in "
+            f"{out['kill']['recovery_s']:.1f}s, sinks exactly once")
+
+        # (c) monitoring: without, then with (one turn each, on (b)'s
+        # quarter of the stream: the phase's time)
+        runs = {"plain": [], "monitored": []}
+        for i, monitor in enumerate(CL_TURNS):
+            key = "monitored" if monitor else "plain"
+            runs[key].append(cluster_monitored(
+                torch, part, root, f"c{i}", s.device, monitor,
+                s.metrics_port))
+        out["monitoring"] = dict(
+            rows_per_s_plain=[r["rows_per_s"] for r in runs["plain"]],
+            rows_per_s_monitored=[r["rows_per_s"]
+                                  for r in runs["monitored"]],
+            runs=runs)
+        log(f"4p.c ok: {runs['monitored'][-1]['scrapes']} scrapes, OTLP "
+            f"{runs['monitored'][-1]['otlp_posts']}, rows/s "
+            f"{out['monitoring']['rows_per_s_plain']} plain against "
+            f"{out['monitoring']['rows_per_s_monitored']} monitored")
+    finally:
+        costdb.shutdown()
+        planner.invalidate_cache()
+        if prev is None:
+            os.environ.pop("PW_COSTDB_PATH", None)
+        else:
+            os.environ["PW_COSTDB_PATH"] = prev
+        shutil.rmtree(root, ignore_errors=True)
+    out["phase_s"] = time.perf_counter() - t_p
+    if out["phase_s"] > 50.0:
+        log(f"4p: the phase took {out['phase_s']:.1f}s, over its 50 s")
+    return out
+
+
+def cluster_only(torch, np, seed, smi) -> int:
+    """``--cluster-only``: phase 4p alone (it builds no kernel), printing
+    its line and no result.  The card's context is made first, as the
+    earlier phases make it in the full run."""
+    torch.ones(1, device="cuda").add_(1)
+    torch.cuda.synchronize()
+    line = phase4p(torch, np, types.SimpleNamespace(
+        smi=smi, seed=seed, device="cuda", rows=CL_ROWS,
+        metrics_port=free_port()))
+    print(json.dumps({"cluster": line}), flush=True)
+    log("--cluster-only: stopping after phase 4p")
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -8708,6 +9422,10 @@ def main() -> int:
                     help="run phase 4o (the streaming sources over the "
                          "wire) alone, without building the kernels; "
                          "prints no result")
+    ap.add_argument("--cluster-only", action="store_true",
+                    help="run phase 4p (several workers and processes) "
+                         "alone, without building the kernels; prints no "
+                         "result")
     ap.add_argument("--nexmark-events", type=int, default=NX_EVENTS,
                     help="phase 4k's event count (default %(default)s)")
     args = ap.parse_args()
@@ -8763,6 +9481,8 @@ def main() -> int:
         return core_api_only(torch, np, args.seed, smi)
     if args.queues_only:
         return queues_only(torch, np, args.seed, smi)
+    if args.cluster_only:
+        return cluster_only(torch, np, args.seed, smi)
     if args.core_graph_costs:
         line = core_graph_costs(torch, np, args.seed, smi)
         print(json.dumps({"core_graph_costs": line}), flush=True)
@@ -9011,7 +9731,7 @@ def main() -> int:
         f"on both routes; {retrieval}")
 
     # phase 4: generation
-    cfg32 = dec.DecoderConfig(**GPT2_SMALL,
+    cfg32 = dec.DecoderConfig(**GPT2_GEN,
                               dtype=torch.float32)
     lm32 = dec.TorchDecoderLM(cfg32, seed=args.seed, device="cuda")
     system = ("answer the question using only the context below . "
@@ -9074,7 +9794,7 @@ def main() -> int:
         f"engine match the dense path for {len(dense)} prompts; engine "
         f"rounds {whole32.rounds}, launches {whole_launches}")
 
-    cfg16 = dec.DecoderConfig(**GPT2_SMALL)
+    cfg16 = dec.DecoderConfig(**GPT2_GEN)
     lm16 = dec.TorchDecoderLM(cfg16, params=lm32.params, device="cuda")
     # phase 4c, f32: sampling, restart, watchdog, speculation, sampled
     # whole-bucket admission, each token-identical where it must be
@@ -9351,6 +10071,16 @@ def main() -> int:
         f"{queues_line['wire']['device']['events_per_s']:.0f} events/s, the "
         f"S3-journalled restart in {queues_line['phase_s']:.1f}s")
     print(json.dumps({"queues": queues_line}), flush=True)
+
+    # phase 4p: several workers and processes, monitoring (no kernel on
+    # its path), last
+    cluster_line = phase4p(torch, np, types.SimpleNamespace(
+        smi=smi, seed=args.seed, device="cuda", rows=CL_ROWS,
+        metrics_port=free_port()))
+    log(f"phase 4p ok: three shapes equal, the kill recovered in "
+        f"{cluster_line['kill']['recovery_s']:.1f}s, metrics scraped in "
+        f"{cluster_line['phase_s']:.1f}s")
+    print(json.dumps({"cluster": cluster_line}), flush=True)
     for k in kernels:
         if k["name"] in ("paged_attention", "paged_append_attend",
                          "flash_attention"):
@@ -9382,7 +10112,9 @@ def main() -> int:
             "single_stream_ttft_p50_ms": statistics.median(ttft),
             "prompt_tokens": [len(r[0]) for r in reqs],
             "bf16_f32_token_agreement": agree,
-            "decoder_layers": GPT2_SMALL["n_layers"],
+            "decoder_layers": GEN_LAYERS,
+            "reduced": {"decoder_layers": [GEN_LAYERS,
+                                           GPT2_SMALL["n_layers"]]},
             "wall_s": time.perf_counter() - t_start,
         }
     }), flush=True)

@@ -14,7 +14,10 @@ operators, ``pw.udf`` with its sync, async and fully-async executors,
 journals, the replay modes, operator snapshots, the object cache and
 exactly-once file sinks; ``pw.sql``, ``pw.transformer``, the universe
 promises, ``pw.load_yaml``, ``LiveTable``, ``stdlib.graphs``, the HMM
-reducer and the fuzzy join, ``pw.demo`` and the compat names) runs its
+reducer and the fuzzy join, ``pw.demo`` and the compat names, several
+workers and processes — ``PATHWAY_THREADS`` shards and ``python -m
+pathway_tpu_torch spawn`` clusters — with ``pw.run``'s monitoring, its
+``/metrics`` server, OTLP export and the web dashboard) runs its
 three device programs — the vectorized expression tier, the segment
 reductions and the join membership (``engine/vectorize.py``,
 ``parallel/mapreduce.py``) — in PyTorch on the data plane's device.  The RAG pipeline

@@ -24,13 +24,20 @@ completions are in flight.  Live sources are stopped when a streaming
 run ends.  Under persistence (``persistence.attach_persistence``) the
 streaming loop takes an operator snapshot when one is due, after each
 iteration's sinks closed, and a paced journal backfill
-(``realtime_replay``) counts as activity for ``idle_stop_s``; a restored
+(``realtime_replay``) or a file source reading new files counts as
+activity for ``idle_stop_s``; a restored
 snapshot moves the scheduler's frontier, and the loop's first time
-follows it.
+follows it.  With ``PATHWAY_ELASTIC=1`` a ``WorkloadTracker`` watches the
+loop's busy share, and under the ``spawn`` supervisor a sustained low or
+high share ends the run with the down- or up-scale exit code.  Several
+workers run through ``parallel/cluster.py``'s ``ClusterRunner``, which
+lowers one graph per shard with :func:`lower`.
 """
 
 from __future__ import annotations
 
+import os
+import sys
 import time as _time
 from collections import defaultdict
 from typing import Any, Callable
@@ -555,7 +562,15 @@ class GraphRunner:
                     op.on_end()
 
         _close_finished_sinks()
+        tracker = None
+        if os.environ.get("PATHWAY_ELASTIC") == "1":
+            from .telemetry import WorkloadTracker
+
+            tracker = WorkloadTracker()
+        rescale_code: int | None = None
         while live and len(finished) < len(live):
+            loop_t0 = _time.monotonic()
+            slept = 0.0
             got_any = False
             for op, source in live:
                 if op.id in finished:
@@ -583,25 +598,49 @@ class GraphRunner:
                 logical += 2
                 last_event = _time.monotonic()
             else:
-                _time.sleep(autocommit_ms / 1000.0)
+                slept = autocommit_ms / 1000.0
+                _time.sleep(slept)
             _close_finished_sinks()
             if self._snapshot_mgr is not None:
                 self._snapshot_mgr.maybe_snapshot()
             now = _time.monotonic()
+            if tracker is not None:
+                # busy fraction = non-sleep time / loop time
+                loop_el = max(now - loop_t0, 1e-9)
+                tracker.record(max(0.0, min(1.0, (loop_el - slept) / loop_el)))
+                code = tracker.recommendation()
+                if code is not None:
+                    from ..cli import MAX_PROCESSES
+                    from .telemetry import WorkloadTracker as _WT
+
+                    n_procs = int(os.environ.get("PATHWAY_PROCESSES", "1"))
+                    supervised = os.environ.get("PATHWAY_SPAWNED") == "1"
+                    at_min = code == _WT.EXIT_CODE_DOWNSCALE and n_procs <= 1
+                    at_max = (code == _WT.EXIT_CODE_UPSCALE
+                              and n_procs >= MAX_PROCESSES)
+                    if supervised and not at_min and not at_max:
+                        rescale_code = code
+                        break
+                    # standalone or at a bound: keep running
             if timeout_s is not None and now - start > timeout_s:
                 break
             if any(getattr(s, "replay_backfill_pending", False)
-                   for _o, s in live):
-                # waiting out a recorded gap of a paced journal backfill is
+                   or getattr(s, "reading", False) for _o, s in live):
+                # waiting out a recorded gap of a paced journal backfill,
+                # or a file source reading new files on its thread, is
                 # activity, not idleness (timeout_s stays a hard cap)
                 last_event = now
             elif idle_stop_s is not None and now - last_event > idle_stop_s:
                 break
-        # graceful drain: flush buffered sink output
+        # graceful drain, on a rescale too: flush buffered sink output
         for op in self.lg.scheduler.topo_order():
             op.on_end()
         sched.run_until_idle()
         sched.close_pool()
+        if rescale_code is not None:
+            print(f"[pathway-tpu] workload tracker requests rescale "
+                  f"(exit {rescale_code})", file=sys.stderr)
+            sys.exit(rescale_code)
         return self.lg.captures
 
 

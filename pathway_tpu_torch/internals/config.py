@@ -3,9 +3,10 @@
 
 All knobs are also settable programmatically.  Licensing gates the same
 features the JAX package gates (``internals/licensing.py``): a free demo
-key or an offline signed key unlocks them.  Of the knobs, the port's
-``pw.run`` reads none; it refuses ``PATHWAY_THREADS`` /
-``PATHWAY_PROCESSES`` > 1 from the environment itself.
+key or an offline signed key unlocks them.  ``pw.run`` reads the
+cluster's knobs (``threads``, ``processes``, ``process_id``,
+``first_port``), which the ``spawn`` supervisor sets in each worker's
+environment.
 """
 
 from __future__ import annotations

@@ -5,8 +5,8 @@ The part of ``pathway_tpu/io/_utils.py`` that ``io.fs``, ``io.csv``,
 src/connectors/data_format/ and the Reader trait,
 src/connectors/data_storage/mod.rs:516), with the file writers and what
 persistence needs of them: the file source's offsets and object cache,
-and a writer's snapshot resume.  Cluster partitioning of the scan is not
-ported: this package runs one process.
+and a writer's snapshot resume.  In a cluster the file and S3 scans are
+partitioned among the processes by ``partition_owner``.
 """
 
 from __future__ import annotations
@@ -37,6 +37,19 @@ from ..internals.value import (
     ref_scalar,
     ref_scalar_batch_rows,
 )
+
+
+def partition_owner(name: str, nprocs: int) -> int:
+    """Stable owner of a scanned object in an N-process cluster.  Agreed
+    without communication (each process filters its own listing) and
+    stable under file additions, so it hashes the NAME, with a mixing
+    hash: crc32 is linear, so names that differ in one digit
+    (part0.txt..part3.txt) would all land on one process."""
+    import hashlib
+
+    digest = hashlib.blake2b(name.encode(), digest_size=8).digest()
+    return int.from_bytes(digest, "little") % nprocs
+
 
 # a file that fails to parse this many times at one mtime is skipped
 # until it changes (a file mid-write fails once or twice)
@@ -216,6 +229,20 @@ class FilePollingSource(DataSource):
         self._polled = dict(offsets)
         self._seen = {}
 
+    # -- cluster partitioning ---------------------------------------------
+    _partition: tuple[int, int] | None = None
+
+    def set_partition(self, pid: int, nprocs: int) -> None:
+        """Worker sharding of the scan: each process reads a stable subset
+        of files (reference: per-worker source sharding,
+        src/connectors/data_storage/sharding.rs).  Keys are
+        content-derived, so a row's owner does not depend on which
+        process parsed it — the cluster exchange re-routes rows to their
+        key's shard.  Set before the scan thread starts."""
+        if self._thread is not None:
+            raise RuntimeError("set_partition() after the scan thread started")
+        self._partition = (pid, nprocs)
+
     def start(self) -> None:
         if self._thread is None:
             self._thread = threading.Thread(target=self._scan_loop,
@@ -225,13 +252,22 @@ class FilePollingSource(DataSource):
     def stop(self) -> None:
         self._stop.set()
 
+    #: True while a scan on the thread reads a new or changed file, until
+    #: its rows are queued: the streaming loop counts that as activity,
+    #: as the JAX package's scan inside ``poll`` never counts as idle (a
+    #: rescan that finds nothing new stays idle)
+    reading = False
+
     def _scan_loop(self) -> None:
         try:
             while not self._stop.is_set():
                 t0 = time.monotonic()
-                events = self.scan()
-                if events:
-                    self._found.put((events, dict(self._progress)))
+                try:
+                    events = self.scan()
+                    if events:
+                        self._found.put((events, dict(self._progress)))
+                finally:
+                    self.reading = False
                 self._stop.wait(max(self.poll_interval_s,
                                     time.monotonic() - t0))
         except Exception as exc:  # noqa: BLE001 - raised by poll
@@ -254,8 +290,14 @@ class FilePollingSource(DataSource):
             out = []
             for root, _dirs, files in os.walk(self.path):
                 out.extend(os.path.join(root, f) for f in files)
-            return sorted(out)
-        return sorted(glob.glob(self.path))
+            out = sorted(out)
+        else:
+            out = sorted(glob.glob(self.path))
+        if self._partition is not None:
+            pid, n = self._partition
+            out = [f for f in out
+                   if partition_owner(os.path.basename(f), n) == pid]
+        return out
 
     # -- the object cache --------------------------------------------------
     def _cache_put(self, f: str, mtime: float, payload: bytes) -> None:
@@ -354,6 +396,7 @@ class FilePollingSource(DataSource):
                     continue  # deleted since the listing
                 if self._seen.get(f) == mtime:
                     continue
+                self.reading = True
                 try:
                     dicts, payload = self._read(f)
                 except (OSError, ValueError) as exc:

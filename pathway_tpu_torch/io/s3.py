@@ -7,9 +7,9 @@ passed as ``AwsS3Settings(_client=...)``.  The scanner mirrors the
 filesystem source: per-object row offsets (exactly-once resume) and
 append-only streaming; a JSON line that does not parse is skipped.
 
-The port of ``pathway_tpu/io/s3.py``, for one process: the scan is not
-partitioned among cluster processes.  ``persistence.Backend.s3`` keeps
-its journals through the same client.
+The port of ``pathway_tpu/io/s3.py``.  In a cluster each process scans
+the objects whose key ``partition_owner`` gives it.
+``persistence.Backend.s3`` keeps its journals through the same client.
 """
 
 from __future__ import annotations
@@ -23,7 +23,7 @@ from typing import Any
 from ..internals.schema import SchemaMetaclass
 from ..internals.table import Table
 from ..internals.datasource import DataSource
-from ._utils import events_from_dicts, make_input_table
+from ._utils import events_from_dicts, make_input_table, partition_owner
 
 
 class AwsS3Settings:
@@ -137,6 +137,12 @@ class S3ScannerSource(DataSource):
         self._progress = dict(offsets)
         self._etags = {}
 
+    # -- cluster partitioning ----------------------------------------------
+    _partition: tuple[int, int] | None = None
+
+    def set_partition(self, pid: int, nprocs: int) -> None:
+        self._partition = (pid, nprocs)
+
     def _ensure_client(self):
         if self._client is None:
             self._client = self.settings.make_client()
@@ -145,8 +151,12 @@ class S3ScannerSource(DataSource):
     def _scan(self) -> list:
         client = self._ensure_client()
         events = []
-        for key, listed_etag in list_objects_paginated(
-                client, self.bucket, self.prefix):
+        entries = list_objects_paginated(client, self.bucket, self.prefix)
+        if self._partition is not None:
+            pid, n = self._partition
+            entries = [(k, e) for k, e in entries
+                       if partition_owner(k, n) == pid]
+        for key, listed_etag in entries:
             # the listing already carries ETags: unchanged objects skip the
             # GetObject round-trip entirely
             if (

@@ -11,7 +11,10 @@ and the speculation controller write.
 Entries are small running aggregates (best/EWMA/count), merged on
 ``observe``; one daemon writer thread flushes dirty state to disk
 atomically every few seconds and drains on ``shutdown()`` (registered
-atexit).  The file format is the reference's, versioned:
+atexit).  Several processes share one file (a cluster's workers): a
+flush re-reads and merges the file under an exclusive lock on
+``<path>.lock``, so no process's keys are lost; a key two processes both
+write keeps the last flush's aggregate.  The file format is the reference's, versioned:
 
 ```json
 {"version": 1,
@@ -33,6 +36,7 @@ where the reference starts empty.
 
 from __future__ import annotations
 
+import fcntl
 import json
 import logging
 import os
@@ -112,15 +116,20 @@ class CostDB:
                 return True
             ours = dict(self._entries)
             self._dirty = False
-        merged = _read_entries(self.path)
-        merged.update(ours)
-        payload = {"version": 1, "entries": merged}
-        tmp = f"{self.path}.{os.getpid()}.tmp"
+        tmp = f"{self.path}.{os.getpid()}.{threading.get_ident()}.tmp"
         try:
             os.makedirs(os.path.dirname(self.path) or ".", exist_ok=True)
-            with open(tmp, "w", encoding="utf-8") as fh:
-                json.dump(payload, fh, default=str)
-            os.replace(tmp, self.path)
+            # the read-merge-replace under one exclusive lock: two
+            # processes flushing at once would each merge the file as it
+            # was, and the second replace would drop the first's keys
+            with open(f"{self.path}.lock", "a") as lock:
+                fcntl.flock(lock, fcntl.LOCK_EX)
+                merged = _read_entries(self.path)
+                merged.update(ours)
+                with open(tmp, "w", encoding="utf-8") as fh:
+                    json.dump({"version": 1, "entries": merged}, fh,
+                              default=str)
+                os.replace(tmp, self.path)
             return True
         except OSError:
             logger.warning("cost store: cannot write %s; retrying on the "

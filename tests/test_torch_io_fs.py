@@ -130,3 +130,39 @@ def test_streaming_read_sees_a_new_file_and_a_deletion(tmp_path):
     assert events["a_gone"].is_set()
     assert seen == {"a.txt": [(b"alpha", True), (b"alpha", False)],
                     "b.txt": [(b"beta", True)]}
+
+
+@pytest.mark.parametrize("case", ["slow_first_read", "many_idle_files"])
+def test_idle_stop_counts_reading_new_files_only(tmp_path, case):
+    """The port scans on the source's thread: a read of new files longer
+    than ``idle_stop_s`` is activity (the JAX package's scan inside
+    ``poll`` never counts as idle), so its rows arrive; a rescan of
+    unchanged files is not, so the run still ends at its idle stop."""
+    import time as _time
+
+    from pathway_tpu_torch.io._utils import FilePollingSource, make_input_table
+
+    src = tmp_path / "src"
+    src.mkdir()
+    n_files = 1 if case == "slow_first_read" else 400
+    for i in range(n_files):
+        (src / f"f{i:04d}.txt").write_text(f"row{i}\n")
+
+    def parse(path):
+        if case == "slow_first_read":
+            _time.sleep(1.2)
+        return [{"data": ln} for ln in open(path).read().splitlines()]
+
+    schema = tpw.schema_from_types(data=str)
+    tpg.G.clear()
+    t = make_input_table(schema, FilePollingSource(str(src), parse, schema,
+                                                   poll_interval_s=0.05))
+    got = []
+    tpw.io.subscribe(t, on_change=lambda key, row, time, is_addition:
+                     got.append(row["data"]))
+    t0 = _time.monotonic()
+    tpw.run(device="cpu", idle_stop_s=0.5, timeout_s=30.0)
+    took = _time.monotonic() - t0
+    tpg.G.clear()
+    assert sorted(got) == sorted(f"row{i}" for i in range(n_files))
+    assert took < 10.0, took

@@ -101,6 +101,37 @@ def test_flush_merges_concurrent_writers(tmp_path):
     b.shutdown()
 
 
+def test_flushes_at_once_lose_no_key(tmp_path):
+    """A cluster's processes flush one store at once: each flush merges
+    under the file's lock, so every writer's keys survive (an unlocked
+    read-merge-replace let a later replace drop an earlier one's)."""
+    import threading
+
+    path = str(tmp_path / "shared.json")
+    dbs = [costdb.CostDB(path=path, flush_interval_s=60.0) for _ in range(8)]
+    start = threading.Barrier(len(dbs))
+
+    def writer(i, db):
+        start.wait(10)
+        for j in range(25):
+            db.observe(f"prog_{i}", f"b{j}", ms=1.0)
+            db.flush()
+
+    threads = [threading.Thread(target=writer, args=(i, db))
+               for i, db in enumerate(dbs)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(60)
+    assert not any(t.is_alive() for t in threads)
+    keys = {(e["program"], e["bucket"])
+            for e in json.load(open(path))["entries"].values()}
+    assert keys == {(f"prog_{i}", f"b{j}") for i in range(8)
+                    for j in range(25)}
+    for db in dbs:
+        db.shutdown()
+
+
 def test_missing_file_is_empty_and_a_bad_file_raises(tmp_path):
     db = costdb.CostDB(path=str(tmp_path / "absent.json"))
     assert len(db) == 0

@@ -141,6 +141,15 @@ def test_the_guard_covers_the_streaming_source_modules():
         assert f"pathway_tpu_torch.{name}" in _modules()
 
 
+def test_the_guard_covers_the_cluster_and_monitoring_modules():
+    """... and several workers and processes, monitoring, the engine's
+    telemetry, the CLI and the web dashboard."""
+    for name in ("parallel.sharded", "parallel.comm", "parallel.cluster",
+                 "cli", "__main__", "internals.monitoring", "web_dashboard",
+                 "web_dashboard.db", "web_dashboard.dashboard"):
+        assert f"pathway_tpu_torch.{name}" in _modules()
+
+
 # the JAX package's connectors this package does not port yet (ROADMAP
 # queue A, item 3): lakes, databases, vector stores, documents and apps
 QUEUED_CONNECTORS = [
@@ -409,6 +418,15 @@ def test_chip_smoke_queues_only_fails_without_a_card():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode != 0
     assert '"ok"' not in out.stdout and "queues" not in out.stdout
+
+
+def test_chip_smoke_cluster_only_fails_without_a_card():
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    out = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"),
+                          "--cluster-only"], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout and "cluster" not in out.stdout
 
 
 @pytest.mark.parametrize("call", ["tp_mesh()", "tp_mesh(2)",

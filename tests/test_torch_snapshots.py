@@ -8,8 +8,8 @@ and each error the JAX module swallows is decided here.
 the updates up to a time, its operators' states are pickled, a fresh
 lowering of the same program restores them and takes the rest, and its
 output must equal the uninterrupted run's after that time.  The Kafka
-and cluster cases of ``tests/test_snapshots.py`` wait for those
-connectors and the cluster.
+case of ``tests/test_snapshots.py`` waits for that connector; the
+cluster case runs two processes under the port's ``spawn``.
 """
 
 import collections
@@ -714,3 +714,53 @@ def test_snapshot_restart_is_exactly_once_under_operator_persisting(tmp_path):
     assert out["torch"] == out["jax"]
     assert out["torch"][0][-1] == {"a": 2, "b": 1, "c": 2}
     assert all(n == 1 for n in out["torch"][1].values())
+
+
+def test_cluster_coordinated_snapshots(tmp_path):
+    """Two processes with operator snapshots: every process snapshots after
+    draining the same tick (one consistent cut), and a restart over the
+    same storage and sink does not apply a peer-journaled event twice;
+    the sink equals the JAX package's single-process run."""
+    import textwrap
+
+    from .torch_cluster import run_in_process, spawn_cluster
+
+    data = tmp_path / "data"
+    data.mkdir()
+    for f in range(4):
+        (data / f"part{f}.txt").write_text(
+            "\n".join(f"w{(f + i) % 5}" for i in range(20)) + "\n")
+
+    def make(out, pdir):
+        script = tmp_path / f"app_{out.stem}.py"
+        script.write_text(textwrap.dedent(f"""
+            import pathway_tpu_torch as pw
+
+            t = pw.io.plaintext.read({str(data)!r} + "/*.txt",
+                                     mode="streaming")
+            counts = t.groupby(t.data).reduce(word=t.data,
+                                              count=pw.reducers.count())
+            pw.io.jsonlines.write(counts, {str(out)!r})
+            pw.run(persistence_config=pw.persistence.Config(
+                pw.persistence.Backend.filesystem({str(pdir)!r}),
+                snapshot_interval_ms=200,
+            ), idle_stop_s=1.2, device="cpu")
+        """))
+        return script
+
+    ref = tmp_path / "ref.jsonl"
+    run_in_process(make(ref, tmp_path / "jax_ps"), "jax")
+    out = tmp_path / "out.jsonl"
+    pdir = tmp_path / "ps"
+    script = make(out, pdir)
+    spawn_cluster(script, processes=2, timeout=120)
+    cols = ("word", "count")
+    first = squash_jsonl(out, cols)
+    assert first == squash_jsonl(ref, cols)
+    assert sum(c * m for (_w, c), m in first.items()) == 80
+    # each process wrote its own snapshot record
+    metas = [p.name for p in pdir.rglob("*") if "_p0" in p.name or
+             "_p1" in p.name]
+    assert any("_p0" in n for n in metas) and any("_p1" in n for n in metas)
+    spawn_cluster(script, processes=2, timeout=120)
+    assert squash_jsonl(out, cols) == first

@@ -12,6 +12,7 @@ fully-async select.
 """
 
 import io
+import os
 import contextlib
 
 import numpy as np
@@ -30,6 +31,7 @@ from pathway_tpu_torch.internals.datasource import SubjectDataSource
 from pathway_tpu_torch.internals.table import Table, Universe
 from pathway_tpu_torch.internals.trace import EngineErrorWithTrace
 from pathway_tpu_torch.obs import costdb, planner
+from pathway_tpu_torch.parallel import cluster as tcluster
 from pathway_tpu_torch.parallel import mapreduce as tmr
 
 PACKAGES = {"jax": (jpw, jrunner, jpg), "torch": (tpw, trunner, tpg)}
@@ -72,7 +74,14 @@ def _capture(pkg, build, tier="numpy", monkeypatch=None):
         pg.G.clear()
         out = build(pw)
         outs = out if isinstance(out, tuple) else (out,)
-        caps = runner.run_tables(*outs, **kw)
+        n_threads = int(os.environ.get("PATHWAY_THREADS", "1"))
+        if pkg == "torch" and n_threads > 1:
+            # the matrix leg (tests/test_torch_matrix.py): the port's
+            # sharded data plane against the JAX package's single shard
+            caps = tcluster.run_tables_sharded(*outs, n_shards=n_threads,
+                                               **kw)
+        else:
+            caps = runner.run_tables(*outs, **kw)
         pg.G.clear()
     return [_named(c.squash()) for c in caps]
 
@@ -373,24 +382,63 @@ def test_pw_run_streams_a_live_subject_through_subscribe():
     assert ended == [True]
 
 
-def test_pw_run_batch_and_the_refused_options():
-    t = tpw.debug.table_from_markdown(LEFT)
+def _subscribed_rows(pw, **run_kw):
+    t = pw.debug.table_from_markdown(LEFT)
     rows = []
-    tpw.io.subscribe(t, on_change=lambda key, row, time, is_addition:
-                     rows.append((row["k"], is_addition)))
-    tpw.run(device="cpu")
-    assert sorted(k for k, add in rows if add) == [1, 2, 2, 3, 4]
-    assert [k for k, add in rows if not add] == [1]
-    for kw, name in (({"with_http_server": True}, "HTTP"),
-                     ({"monitoring_level": "ALL"}, "monitoring")):
-        with pytest.raises(NotImplementedError, match=name):
-            tpw.run(device="cpu", **kw)
+    pw.io.subscribe(t, on_change=lambda key, row, time, is_addition:
+                    rows.append((key, row["k"], row["v"], time, is_addition)))
+    pw.run(**run_kw)
+    return sorted(rows)
 
 
-def test_pw_run_refuses_several_processes(monkeypatch):
-    monkeypatch.setenv("PATHWAY_PROCESSES", "2")
-    with pytest.raises(NotImplementedError, match="PATHWAY_PROCESSES"):
-        tpw.run(device="cpu")
+def test_pw_run_batch_and_the_refused_options(monkeypatch):
+    """``pw.run`` in batch, and with the options the port once refused —
+    the metrics server and monitoring — each giving the JAX package's
+    subscribed rows; an option ``pw.run`` does not know still raises."""
+    from pathway_tpu_torch.engine import telemetry
+
+    jpg.G.clear()
+    want = _subscribed_rows(jpw)
+    jpg.G.clear()
+    assert sorted(k for _key, k, _v, _t, add in want if add) == [1, 2, 2, 3, 4]
+    assert [k for _key, k, _v, _t, add in want if not add] == [1]
+    sock = __import__("socket").socket()
+    sock.bind(("127.0.0.1", 0))
+    monkeypatch.setattr(telemetry, "METRICS_PORT", sock.getsockname()[1])
+    sock.close()
+    for kw in ({}, {"with_http_server": True}, {"monitoring_level": "ALL"},
+               {"monitoring_level": tpw.MonitoringLevel.IN_OUT}):
+        tpg.G.clear()
+        assert _subscribed_rows(tpw, device="cpu", **kw) == want, kw
+    tpg.G.clear()
+    tpw.debug.table_from_markdown(LEFT)
+    with pytest.raises(TypeError, match="no_such_option"):
+        tpw.run(device="cpu", no_such_option=1)
+
+
+def test_pw_run_refuses_several_processes(tmp_path):
+    """``PATHWAY_PROCESSES=2`` under ``spawn``: the two processes' sink,
+    written once by process 0, equals the JAX package's single-process
+    run of the same program."""
+    from .torch_cluster import run_in_process, spawn_cluster, squash_jsonl
+
+    script = tmp_path / "app.py"
+
+    def make(out):
+        script.write_text(
+            "import pathway_tpu_torch as pw\n"
+            f"t = pw.debug.table_from_markdown({LEFT!r})\n"
+            "g = t.groupby(t.g).reduce(t.g, s=pw.reducers.sum(t.v))\n"
+            f"pw.io.jsonlines.write(g, {str(out)!r})\n"
+            "pw.run(device='cpu')\n")
+        return script
+
+    ref = tmp_path / "ref.jsonl"
+    run_in_process(make(ref), "jax")
+    out = tmp_path / "out.jsonl"
+    spawn_cluster(make(out), processes=2)
+    want = squash_jsonl(ref, ("g", "s"))
+    assert want and squash_jsonl(out, ("g", "s")) == want
 
 
 def test_debug_printers_equal_the_jax_package():

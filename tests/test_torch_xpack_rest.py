@@ -300,8 +300,8 @@ def test_threaded_vector_store_run_raises_from_join(fresh_port):  # noqa: F811
                                embedder=_ConstEmbedder(), device="cpu")
     assert vs.embedder.get_embedding_dimension() == 8
     th = vs.run_server("127.0.0.1", _free_port(), threaded=True,
-                       device="cpu", with_http_server=True)
-    with pytest.raises(NotImplementedError, match="HTTP"):
+                       device="cpu", not_a_run_option=True)
+    with pytest.raises(TypeError, match="not_a_run_option"):
         th.join(30.0)
 
 
