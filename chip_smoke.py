@@ -390,6 +390,35 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    bytes, frames and mark waits, device batches a process, the shared
    cost store's keys and kept observations; the kill's recovery s;
    rows/s without and with monitoring; ``phase_s``);
+4q. the database and vector-store connectors (after phase 4p; their
+   device work is the encoder and the scores kernel #3), against the
+   stand-ins of ``tests/torch_db_fakes.py``: (a) 4,096 of 4j's
+   ``make_docs`` documents as rows of a MySQL stand-in, read by
+   ``pw.io.mysql.read(mode="streaming")`` while 2% of them are updated
+   and 1% deleted in 8 commits, embedded by the MiniLM-width embedder on
+   the card and written through ``pw.io.{pinecone,qdrant,chroma,milvus,
+   weaviate}.write`` to stand-in HTTP servers on 127.0.0.1 and through
+   ``pw.io.leann.write``; a brute-force ``DataIndex`` over the same
+   column answers 32 queries once every store holds the last commit:
+   each store holds exactly the live rows, each vector within
+   ``DB_EMB_TOL`` of ``embed_batch``'s row of its text, the index's
+   top-10 = numpy's over a store's vectors (ties to the lower id; a swap
+   only within ``KNN_TOL``), #3 launched, no failed poll; (b) phase 4i's
+   wordcount stream (seed + 17, 8,192 updates) as a SQL Server
+   snapshot and three CDC transactions (5% retracting, 1% of the live
+   rows changing their key in the third), read by ``pw.io.mssql.read``,
+   counted by word on the device tier (both crossovers pinned to 1,024)
+   and with numpy pinned, each run writing through the Postgres, MySQL
+   and SQL Server snapshot writers (sqlite stand-ins), MongoDB,
+   Elasticsearch, ClickHouse (HTTP), QuestDB (ILP on a socket), DynamoDB
+   (SigV4-checked HTTP) and BigQuery (``insertAll`` over a socket; the
+   writer's ``_http`` seam, since its token exchange would leave the
+   machine): every sink's table = the numpy count on both tiers, and the
+   device run's ClickHouse, QuestDB and MongoDB tables read back equal
+   what it wrote.  Printed as a ``{"databases": ...}`` line (rows/s of
+   the sources' poll time and of each sink's ``write_batch`` time, the
+   commit -> last store's upsert lag p50 / p99, #3's launches, the
+   tiers' batches, ``phase_s``);
 5. print one ``{"kernels": [...]}`` line (launches on the main path,
    error against the plain version, kernel / plain / bound / library
    times at the main path's shapes: the median of 5 windows of 50
@@ -411,7 +440,8 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    (#3 split into its GEMM and GEMV entries by the index passes' sizes),
    ``launches_rag_rest`` in phase 4l's runs (#3 split the same way, #4
    the LLM reranker's), ``launches_persistence`` in phase 4m's run after
-   the restart (#3 split the same way, #1 and #2).
+   the restart (#3 split the same way, #1 and #2),
+   ``launches_databases`` #3's in phase 4q.
 
 Phase 2 also holds the port's PRNG (``models/prng.py``) on the card to
 ``PRNG_KNOWN``, keys and bits that ``jax.random`` gives (the CPU tests
@@ -438,6 +468,8 @@ build and prints its line and no result; ``--core-api-only`` runs phase
 ``--queues-only`` runs phase 4o alone (it builds no kernel) and prints
 its line and no result; ``--cluster-only`` runs phase 4p alone (it
 builds no kernel) and prints its line and no result;
+``--databases-only`` runs phase 4q alone after the build and prints its
+line and no result;
 ``--core-graph-costs`` times the graph algorithms of phase 4n once at
 their full sizes (one body run of each ``iterate``; no kernel, no
 result).
@@ -7833,7 +7865,8 @@ class AmqpBroker(TcpBroker):
 class HttpStandIn:
     """A 127.0.0.1 HTTP server (port 0) on its own thread: each request
     goes to ``handle(method, path, headers, body)``, which returns
-    ``(status, JSON object)``."""
+    ``(status, JSON object)`` (or ``(status, bytes)``, sent as they
+    are)."""
 
     def __init__(self):
         import http.server
@@ -7847,9 +7880,12 @@ class HttpStandIn:
                 body = self.rfile.read(n) if n else b""
                 headers = {k.lower(): v for k, v in self.headers.items()}
                 status, obj = outer.handle(method, self.path, headers, body)
-                out = json.dumps(obj).encode()
+                raw = isinstance(obj, bytes)
+                out = b"" if status == 204 else (
+                    obj if raw else json.dumps(obj).encode())
                 self.send_response(status)
-                self.send_header("Content-Type", "application/json")
+                self.send_header("Content-Type", "text/plain" if raw
+                                 else "application/json")
                 self.send_header("Content-Length", str(len(out)))
                 self.end_headers()
                 self.wfile.write(out)
@@ -7859,6 +7895,12 @@ class HttpStandIn:
 
             def do_POST(self):
                 self._answer("POST")
+
+            def do_PUT(self):
+                self._answer("PUT")
+
+            def do_DELETE(self):
+                self._answer("DELETE")
 
             def log_message(self, *args):
                 pass
@@ -9380,6 +9422,657 @@ def cluster_only(torch, np, seed, smi) -> int:
     return 0
 
 
+# -- phase 4q: the database and vector-store connectors ------------------------
+
+# (a): a MySQL table of 4j's make_docs documents, read streaming; 2% of its
+# rows updated and 1% deleted in DB_COMMITS commits while the run goes on
+DB_DOCS, DB_UPDATE, DB_DELETE = 4096, 0.02, 0.01
+DB_COMMITS, DB_COMMIT_GAP_S = 8, 0.1
+DB_QUERIES, DB_K = 32, 10
+DB_POLL_S = 0.1          # the polling sources' interval
+DB_IDLE_S = 1.0          # (a)'s run ends this long after its last row
+DB_WC_IDLE_S = 1.0       # (b)'s runs end this long after their last row
+DB_LIMIT_S = 300.0       # every run's timeout_s, a bound it never reaches
+# a stored vector against the encoder's embed_batch row of the same text,
+# each within this (bf16 on the card: a few units in the last place of a
+# unit vector's entries, from another batch's padding and GEMM shapes)
+DB_EMB_TOL = 1e-2
+# (b): phase 4i's wordcount stream (seed + 17) as the rows of a SQL Server
+# table, its first batch the snapshot and the others CDC transactions; in
+# the third batch 1% of the live rows change their primary key.  Cut from
+# 32,768 updates (the phase took 86.0 s, DynamoDB's signed call a row
+# 19.3 s of each tier's run) to 8,192
+DB_WC_ROWS_FULL, DB_WC_ROWS = 1 << 15, 1 << 13
+DB_WC_BATCHES, DB_REKEY = 4, 0.01
+DB_WC_GAP_S = 0.2        # between the CDC transactions
+DB_PIN = 1024            # the device run's pin of both crossovers
+DB_STORES = ("pinecone", "qdrant", "chroma", "milvus", "weaviate")
+DB_CREDS = QU_CREDS
+
+
+def db_sizes(scale: int = 1) -> dict:
+    """Phase 4q's counts, divided by ``scale`` for the CPU test, which
+    also narrows the encoder to one layer of width 64."""
+    encoder = MINILM if scale == 1 else dict(MINILM, d_model=64, n_layers=1,
+                                               n_heads=4, d_ff=128)
+    return dict(docs=DB_DOCS // scale, wc_rows=DB_WC_ROWS // scale,
+                pin=max(DB_PIN // scale, 16), encoder=encoder)
+
+
+class StoreServer(HttpStandIn):
+    """A ``tests/torch_db_fakes`` store behind a 127.0.0.1 HTTP server.
+    With ``sigv4 = (secret, region, service)`` a request whose signature
+    does not verify gets 403 and is counted in ``bad_signatures``."""
+
+    def __init__(self, store, sigv4=None):
+        self.store, self.sigv4, self.bad_signatures = store, sigv4, 0
+        super().__init__()
+
+    def handle(self, method, path, headers, body):
+        if self.sigv4 is not None and not sigv4_valid(headers, body,
+                                                      *self.sigv4):
+            self.bad_signatures += 1
+            return 403, {"__type": "InvalidSignatureException"}
+        return self.store.handle(method, path, headers, body)
+
+
+def db_timed_sinks(pg, acc: dict) -> None:
+    """Wrap the ``write_batch`` of every sink of the parse graph (keyed
+    by its writer's class) with ``qu_timed``."""
+    for node in pg.G.outputs:
+        w = node.params.get("writer")
+        if w is not None:
+            name = type(w).__name__.strip("_")
+            qu_timed(w, "write_batch", acc.setdefault(
+                name, {"s": 0.0, "calls": 0, "rows": 0}))
+
+
+def db_timed_poll(source, acc: dict) -> None:
+    """``acc``: the seconds, calls and rows of ``source.poll``."""
+    fn = source.poll
+
+    def poll():
+        t0 = time.perf_counter()
+        out = fn()
+        acc["s"] += time.perf_counter() - t0
+        acc["calls"] += 1
+        acc["rows"] += len(out or ())
+        return out
+
+    source.poll = poll
+
+
+def db_rates(acc: dict) -> dict:
+    return {k: dict(v, rows_per_s=v["rows"] / v["s"] if v["s"] else None)
+            for k, v in acc.items()}
+
+
+def db_vectors(torch, np, s, fakes) -> dict:
+    """(a): ``s.docs`` documents in the MySQL stand-in, read with
+    ``pw.io.mysql.read(mode="streaming")``, embedded by the embedder of
+    ``s.encoder`` (MiniLM's widths) on ``s.device`` and written to the Pinecone, Qdrant, Chroma,
+    Milvus and Weaviate stand-ins (HTTP on 127.0.0.1) and to LEANN's
+    index; a brute-force ``DataIndex`` over the same column answers
+    ``DB_QUERIES`` queries once the stores hold the last commit."""
+    import tempfile
+    import threading
+
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch.internals import parse_graph as pg
+    from pathway_tpu_torch.io.weaviate import _uuid_for
+    from pathway_tpu_torch.models.encoder import EncoderConfig
+    from pathway_tpu_torch.ops import _cuda
+    from pathway_tpu_torch.stdlib.indexing import BruteForceKnnFactory
+    from pathway_tpu_torch.xpacks.llm.embedders import (
+        SentenceTransformerEmbedder)
+
+    n = s.docs
+    rng = np.random.default_rng(s.seed + 4)
+    docs = make_docs(rng, n)
+    n_upd, n_del = int(n * DB_UPDATE), int(n * DB_DELETE)
+    picks = rng.choice(n, n_upd + n_del, replace=False).tolist()
+    upd, gone = picks[:n_upd], picks[n_upd:]
+    new_text = dict(zip(upd, make_docs(rng, n_upd)))
+    queries = [" ".join(docs[j].split()[5:17])
+               for j in rng.integers(0, n, size=DB_QUERIES)]
+    live = dict(enumerate(docs))
+    for i in upd:
+        live[i] = new_text[i]
+    for i in gone:
+        del live[i]
+
+    db = fakes.SqliteDbApi("mysql")
+    db.execute("CREATE TABLE docs (doc INTEGER PRIMARY KEY, text TEXT)")
+    with db.lock:
+        db.con.executemany("INSERT INTO docs VALUES (?, ?)",
+                           list(enumerate(docs)))
+        db.con.commit()
+    stores = {k: fakes.VectorStore(k, milvus_pk="doc") for k in DB_STORES}
+    servers = {k: StoreServer(v) for k, v in stores.items()}
+    root = tempfile.mkdtemp(prefix="pw_db_leann_")
+    emb = SentenceTransformerEmbedder(config=EncoderConfig(**s.encoder),
+                                      seed=s.seed, device=s.device,
+                                      device_resident=False)
+
+    def store_key(kind, doc):
+        return (doc if kind == "milvus" else _uuid_for(doc)
+                if kind == "weaviate" else str(doc))
+
+    commit_at: dict = {}
+    settled, errors = threading.Event(), []
+
+    def loaded(ids) -> bool:
+        return all(set(st.items) == {store_key(k, i) for i in ids}
+                   for k, st in stores.items())
+
+    def mutate():
+        """Once every store holds the first snapshot: the updates and
+        deletes in ``DB_COMMITS`` commits, then wait for every store to
+        hold the last one."""
+        try:
+            deadline = time.monotonic() + DB_LIMIT_S
+            while not loaded(range(n)):
+                require(time.monotonic() < deadline, "4q.a: load timed out")
+                time.sleep(0.02)
+            for c in range(DB_COMMITS):
+                with db.lock:
+                    for i in upd[c::DB_COMMITS]:
+                        db.con.execute("UPDATE docs SET text = ? WHERE "
+                                       "doc = ?", (new_text[i], i))
+                    for i in gone[c::DB_COMMITS]:
+                        db.con.execute("DELETE FROM docs WHERE doc = ?", (i,))
+                    db.con.commit()
+                    now = time.monotonic()
+                for i in upd[c::DB_COMMITS]:
+                    commit_at[i] = now
+                time.sleep(DB_COMMIT_GAP_S)
+            while not (loaded(live) and all(
+                    st.upserted_at[store_key(k, i)] >= commit_at[i]
+                    for k, st in stores.items() for i in upd)):
+                require(time.monotonic() < deadline, "4q.a: settle timed out")
+                time.sleep(0.01)
+        except BaseException as exc:  # the run's thread reports it
+            errors.append(exc)
+        finally:
+            settled.set()
+
+    class Doc(pw.Schema):
+        doc: int = pw.column_definition(primary_key=True)
+        text: str
+
+    class Query(pw.Schema):
+        qi: int
+        q: str
+
+    class Asker(pw.io.python.ConnectorSubject):
+        def run(self):
+            settled.wait(DB_LIMIT_S)
+            for j, q in enumerate(queries):
+                self.next(qi=j, q=q)
+
+    pg.G.clear()
+    t = pw.io.mysql.read({"_connection": db}, "docs", Doc, mode="streaming",
+                         poll_interval_s=DB_POLL_S)
+    source = t._node.params["source"]
+    e = t.select(doc=t.doc, text=t.text, vector=emb(t.text))
+    url = {k: v.url for k, v in servers.items()}
+    pw.io.pinecone.write(e, vector_column="vector", id_column="doc",
+                         metadata_columns=["doc"], index_host=url["pinecone"],
+                         api_key="smoke")
+    pw.io.qdrant.write(e, vector_column="vector", id_column="doc",
+                       metadata_columns=["doc"], url=url["qdrant"],
+                       collection="docs")
+    pw.io.chroma.write(e, vector_column="vector", id_column="doc",
+                       metadata_columns=["text"], url=url["chroma"],
+                       collection_id="docs", document_column="text")
+    pw.io.milvus.write(e, url["milvus"], "docs", primary_key=e.doc)
+    pw.io.weaviate.write(e, "Docs", primary_key=e.doc, vector=e.vector,
+                         http_host="127.0.0.1",
+                         http_port=servers["weaviate"].port)
+    prefix = os.path.join(root, "docs.leann")
+    pw.io.leann.write(e, prefix, e.text)
+    qt = pw.io.python.read(Asker(), schema=Query)
+    qe = qt.select(qi=qt.qi, qv=emb(qt.q))
+    index = BruteForceKnnFactory(dimensions=emb.get_embedding_dimension(),
+                                 reserved_space=n, device=s.device
+                                 ).build_index(e.vector, e)
+    reply = index.query_as_of_now(qe.qv, number_of_matches=DB_K)
+    answers: dict = {}
+
+    def keep(key, row, time, is_addition):
+        require(is_addition and row["qi"] not in answers,
+                "4q.a: an as-of-now answer was revised")
+        answers[row["qi"]] = (np.asarray(row["qv"], np.float32),
+                              list(row["docs"]))
+
+    pw.io.subscribe(reply.select(qi=qe.qi, qv=qe.qv, docs=reply.doc),
+                    on_change=keep)
+    sinks: dict = {}
+    db_timed_sinks(pg, sinks)
+    polls = {"s": 0.0, "calls": 0, "rows": 0}
+    db_timed_poll(source, polls)
+    th = threading.Thread(target=mutate, daemon=True)
+    th.start()
+    sync(torch, s)
+    _cuda.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        pw.run(device=s.device, autocommit_duration_ms=20,
+               idle_stop_s=DB_IDLE_S, timeout_s=DB_LIMIT_S)
+    finally:
+        pg.G.clear()
+        for srv in servers.values():
+            srv.close()
+    sync(torch, s)
+    run_s = time.perf_counter() - t0
+    launches = _cuda.LAUNCHES["knn_scores"]
+    th.join(10)
+    if errors:
+        raise errors[0]
+    require(source.n_failed_polls == 0,
+            f"4q.a: {source.n_failed_polls} failed polls")
+
+    # each store holds exactly the live rows, with one vector each
+    ids = sorted(live)
+    vecs = {}
+    for k, st in stores.items():
+        require(set(st.items) == {store_key(k, i) for i in ids},
+                f"4q.a: {k} holds {len(st.items)} rows, not the "
+                f"{len(ids)} live ones")
+        vecs[k] = np.asarray([st.items[store_key(k, i)][0] for i in ids],
+                             np.float32)
+    first = vecs[DB_STORES[0]]
+    for k in DB_STORES[1:]:
+        require(np.array_equal(vecs[k], first),
+                f"4q.a: {k}'s vectors differ from {DB_STORES[0]}'s")
+    require(stores["chroma"].requests and all(
+        stores["chroma"].items[str(i)][1]["text"] == live[i] for i in ids),
+        "4q.a: chroma's documents differ from the live rows")
+    ref = emb.encoder.embed_batch([live[i] for i in ids]).float().cpu(
+        ).numpy()
+    emb_err = float(np.abs(first - ref).max())
+    require(emb_err <= DB_EMB_TOL,
+            f"4q.a: stored vectors against embed_batch's: {emb_err}")
+    leann = pw.io.leann.load_native_index(prefix)
+    require(sorted(d["text"] for d in leann["documents"])
+            == sorted(live.values()), "4q.a: LEANN's documents")
+
+    # #3's top-10 against numpy's over the stores' vectors (a stable sort:
+    # ties to the lower doc id); a swap only of scores within KNN_TOL
+    require(sorted(answers) == list(range(DB_QUERIES)),
+            f"4q.a: {len(answers)} of {DB_QUERIES} queries answered")
+    m = first / np.linalg.norm(first, axis=1, keepdims=True)
+    near_ties = 0
+    for qi in range(DB_QUERIES):
+        qv, got = answers[qi]
+        sc = m @ (qv / np.linalg.norm(qv))
+        want = [ids[j] for j in np.argsort(-sc, kind="stable")[:DB_K]]
+        if got != want:
+            pos = {d: j for j, d in enumerate(ids)}
+            require(len(got) == DB_K and all(
+                abs(sc[pos[a]] - sc[pos[b]]) <= KNN_TOL
+                for a, b in zip(got, want)),
+                f"4q.a: query {qi}: #3's top-10 {got} != numpy's {want}")
+            near_ties += 1
+    if s.device == "cuda":
+        require(launches > 0, "4q.a: the index never launched #3")
+    lag = sorted(max(st.upserted_at[store_key(k, i)] for k, st in
+                     stores.items()) - commit_at[i] for i in upd)
+    return dict(
+        docs=n, updated=n_upd, deleted=n_del, live=len(ids),
+        commits=DB_COMMITS, queries=DB_QUERIES, run_s=run_s,
+        knn_launches=launches, near_tie_swaps=near_ties,
+        stored_vs_embed_batch_max_abs=emb_err,
+        failed_polls=source.n_failed_polls,
+        source=dict(polls, rows_per_s=polls["rows"] / polls["s"],
+                    scanned_rows_per_s=polls["calls"] * n / polls["s"]),
+        sinks=db_rates(sinks),
+        store_requests={k: len(st.requests) for k, st in stores.items()},
+        lag_ms_p50=1e3 * lag[len(lag) // 2],
+        lag_ms_p99=1e3 * lag[min(len(lag) - 1, int(0.99 * len(lag)))])
+
+
+def db_cdc_script(np, seed: int, n_rows: int) -> tuple:
+    """Phase 4i's wordcount stream as SQL Server table changes: the first
+    batch's rows ``(id, word)`` (the snapshot), then one transaction a
+    batch of ``("insert", id, word)``, ``("delete", id)`` (a retraction
+    of a live word deletes its oldest live row) and, in the third batch,
+    ``("rekey", old_id, new_id, word)`` for ``DB_REKEY`` of the live rows.
+    Also the final count of live rows by word."""
+    batches = ps_wordcount_rows(np, seed, n_rows, DB_WC_BATCHES)
+    by_word: dict = {}
+    words: dict = {}
+    next_id = 0
+    snapshot, txs = [], []
+    for b, batch in enumerate(batches):
+        ops = []
+        for w, d in batch:
+            if d > 0:
+                by_word.setdefault(w, []).append(next_id)
+                words[next_id] = w
+                (snapshot.append((next_id, w)) if b == 0
+                 else ops.append(("insert", next_id, w)))
+                next_id += 1
+            else:
+                i = by_word[w].pop(0)
+                del words[i]
+                ops.append(("delete", i))
+        if b == 2:
+            rng = np.random.default_rng(seed)
+            old = sorted(words)
+            for i in rng.choice(old, int(len(old) * DB_REKEY),
+                                replace=False).tolist():
+                w = words.pop(i)
+                by_word[w][by_word[w].index(i)] = next_id
+                words[next_id] = w
+                ops.append(("rekey", i, next_id, w))
+                next_id += 1
+        if b:
+            txs.append(ops)
+    uniq, counts = np.unique(np.asarray(list(words.values())),
+                             return_counts=True)
+    return snapshot, txs, dict(zip(uniq.tolist(), counts.tolist()))
+
+
+def db_cdc_run(torch, np, s, fakes, script, pin: int, read_back: bool
+               ) -> dict:
+    """One run of (b) over fresh stand-ins, both crossovers pinned to
+    ``pin``: the capture, each sink's final table, the sinks' timings
+    and the tiers' counts; with ``read_back``, a second run reading the
+    ClickHouse, QuestDB and MongoDB tables back."""
+    import collections
+    import threading
+    import urllib.request
+
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch.internals import parse_graph as pg
+
+    snapshot, txs, _want = script
+    cdc = fakes.MssqlCdc("events", ["id", "word"])
+    for i, w in snapshot:
+        cdc.rows[i] = (i, w)
+    key, secret, region = DB_CREDS
+    sql = {d: fakes.SqliteDbApi(d) for d in ("postgres", "mysql", "mssql")}
+    sql["postgres"].execute("CREATE TABLE wc (word TEXT PRIMARY KEY, "
+                            "n INTEGER)")
+    sql["mssql"].execute("CREATE TABLE wc (word TEXT PRIMARY KEY, "
+                         "n INTEGER)")
+    mongo, es = fakes.MongoClient(), fakes.EsClient()
+    ch, qdb = fakes.ClickHouse(), fakes.QuestDb()
+    dyn, bq = fakes.Dynamo(key_attrs=("word",)), fakes.BigQuery()
+    ch_srv, qdb_srv, bq_srv = StoreServer(ch), StoreServer(qdb), \
+        StoreServer(bq)
+    dyn_srv = StoreServer(dyn, sigv4=(secret, region, "dynamodb"))
+    ilp = fakes.IlpServer(qdb)
+
+    def bq_post(url, payload, headers):
+        """The BigQuery writer's seam, over a socket to the stand-in."""
+        path = url.split("/bigquery/v2", 1)[1]
+        req = urllib.request.Request(
+            f"{bq_srv.url}/bigquery/v2{path}", method="POST",
+            data=json.dumps(payload).encode(), headers=headers)
+        with urllib.request.urlopen(req, timeout=30) as resp:
+            return json.loads(resp.read())
+
+    class Event(pw.Schema):
+        id: int = pw.column_definition(primary_key=True)
+        word: str
+
+    def feed():
+        """The CDC transactions, once the snapshot is read."""
+        try:
+            while not cdc.queries.get("select"):
+                time.sleep(0.01)
+            for ops in txs:
+                time.sleep(DB_WC_GAP_S)
+                with cdc.transaction():
+                    for op in ops:
+                        if op[0] == "insert":
+                            cdc.upsert((op[1], op[2]))
+                        elif op[0] == "delete":
+                            cdc.delete(op[1])
+                        else:
+                            cdc.change_key(op[1], (op[2], op[3]))
+        except BaseException as exc:
+            errors.append(exc)
+
+    errors: list = []
+    saved = _pins(pin)
+    caps: dict = {}
+    sinks: dict = {}
+    settings = pw.io.clickhouse.ClickHouseSettings(host="127.0.0.1",
+                                                   port=ch_srv.port)
+    try:
+        pg.G.clear()
+        t = pw.io.mssql.read({"_connection": cdc}, "events", Event,
+                             autocommit_duration_ms=20)
+        source = t._node.params["source"]
+        counts = t.groupby(t.word).reduce(t.word, n=pw.reducers.count())
+        qu_capture(pw, counts, ["word", "n"], caps, "counts")
+        pw.io.postgres.write_snapshot(counts, {"_connection": sql["postgres"]},
+                                      "wc", primary_key=[counts.word])
+        pw.io.mysql.write_snapshot(counts, {"_connection": sql["mysql"]},
+                                   "wc", primary_key=[counts.word],
+                                   init_mode="create_if_not_exists")
+        pw.io.mssql.write_snapshot(counts, {"_connection": sql["mssql"]},
+                                   "wc", ["word"])
+        pw.io.mongodb.write(counts, "mongodb://smoke", "db", "wc",
+                            _client=mongo)
+        pw.io.elasticsearch.write(
+            counts, "http://127.0.0.1:9200",
+            pw.io.elasticsearch.ElasticSearchAuth("injected", client=es),
+            "wc")
+        pw.io.clickhouse.write_snapshot(counts, settings, "wc",
+                                        primary_key=["word"],
+                                        init_mode="create_if_not_exists")
+        pw.io.questdb.write(counts, "127.0.0.1", table_name="wc",
+                            port=ilp.port)
+        pw.io.dynamodb.write(counts, "wc", "word", access_key=key,
+                             secret_key=secret, region=region,
+                             endpoint=dyn_srv.url)
+        pw.io.bigquery.write(counts, "ds", "wc", _http=bq_post)
+        db_timed_sinks(pg, sinks)
+        polls = {"s": 0.0, "calls": 0, "rows": 0}
+        db_timed_poll(source, polls)
+        th = threading.Thread(target=feed, daemon=True)
+        th.start()
+        sync(torch, s)
+        t0 = time.perf_counter()
+        pw.run(device=s.device, autocommit_duration_ms=20,
+               idle_stop_s=DB_WC_IDLE_S, timeout_s=DB_LIMIT_S)
+        run_s = time.perf_counter() - t0
+        tiers = _device_batches()
+        th.join(30)
+        if errors:
+            raise errors[0]
+        require(source.n_failed_polls == 0,
+                f"4q.b: {source.n_failed_polls} failed polls")
+        ilp.drain(sinks["QuestDbWriter"]["rows"])
+
+        def net(rows) -> dict:
+            c = collections.Counter()
+            for w, n, d in rows:
+                c[(w, n)] += d
+            require(all(v in (0, 1) for v in c.values()),
+                    "4q.b: an appended row's diffs do not net to 0 or 1")
+            return {w: n for (w, n), v in c.items() if v}
+
+        tables = {
+            "postgres": dict(sql["postgres"].rows("SELECT word, n FROM wc")),
+            "mysql": {w: int(n) for w, n in sql["mysql"].rows(
+                'SELECT word, n FROM "wc"')},
+            "mssql": dict(sql["mssql"].rows("SELECT word, n FROM wc")),
+            "mongodb": {d["word"]: d["n"]
+                        for d in mongo.colls["wc"].values()},
+            "elasticsearch": {d["word"]: d["n"] for d in es.docs.values()},
+            "clickhouse": {r["word"]: r["n"] for r in ch.tables["wc"]},
+            "questdb": net((r["word"], r["n"], r["diff"])
+                           for r in qdb.tables["wc"]),
+            "dynamodb": {it["word"]["S"]: int(it["n"]["N"])
+                         for it in dyn.tables["wc"].values()},
+            "bigquery": net((r["word"], r["n"], r["diff"])
+                            for _i, r in bq.rows[("ds", "wc")]),
+        }
+        require(dyn_srv.bad_signatures == 0,
+                f"4q.b: {dyn_srv.bad_signatures} DynamoDB signatures failed")
+        out = dict(run_s=run_s, tiers=tiers, tables=tables,
+                   capture={r[0]: r[1] for r in qu_state(
+                       caps["counts"]).values()},
+                   source=dict(polls, rows_per_s=polls["rows"] / polls["s"]),
+                   sinks=db_rates(sinks),
+                   cdc_queries=dict(cdc.queries),
+                   requests=dict(clickhouse=len(ch.requests),
+                                 dynamodb=len(dyn.requests),
+                                 bigquery=len(bq.requests),
+                                 questdb_lines=len(qdb.lines)))
+        if not read_back:
+            return out
+
+        # the ClickHouse, QuestDB and MongoDB tables read back
+        class Wc(pw.Schema):
+            word: str = pw.column_definition(primary_key=True)
+            n: int
+
+        class WcLog(pw.Schema):
+            word: str
+            n: int
+            diff: int
+            time: int
+
+        pg.G.clear()
+        back: dict = {}
+        qu_capture(pw, pw.io.clickhouse.read(settings, "wc", Wc,
+                                             mode="static"),
+                   ["word", "n"], back, "clickhouse")
+        qu_capture(pw, pw.io.questdb.read(qdb_srv.url, "wc", WcLog,
+                                          mode="static"),
+                   ["word", "n", "diff", "time"], back, "questdb")
+        qu_capture(pw, pw.io.mongodb.read("mongodb://smoke", "db", "wc",
+                                          schema=Wc, mode="static",
+                                          _client=mongo),
+                   ["word", "n"], back, "mongodb")
+        t0 = time.perf_counter()
+        pw.run(device=s.device)
+        out["read_back_s"] = time.perf_counter() - t0
+        rows = {k: collections.Counter(r for _k, r in v.elements())
+                for k, v in back.items()}
+        require(rows["clickhouse"] == collections.Counter(
+            (r["word"], r["n"]) for r in ch.tables["wc"]),
+            "4q.b: ClickHouse's read-back differs from its table")
+        require(rows["questdb"] == collections.Counter(
+            (r["word"], r["n"], r["diff"], r["time"])
+            for r in qdb.tables["wc"]),
+            "4q.b: QuestDB's read-back differs from the lines written")
+        require(rows["mongodb"] == collections.Counter(
+            (d["word"], d["n"]) for d in mongo.colls["wc"].values()),
+            "4q.b: MongoDB's read-back differs from its collection")
+        out["read_back_rows"] = {k: sum(v.values()) for k, v in rows.items()}
+        return out
+    finally:
+        pg.G.clear()
+        _unpin(saved)
+        for srv in (ch_srv, qdb_srv, bq_srv, dyn_srv):
+            srv.close()
+        ilp.close()
+
+
+def db_cdc(torch, np, s, fakes) -> dict:
+    """(b): the CDC stream into the analytics sinks, on the device tier
+    and with numpy pinned; every sink's table equals the numpy count on
+    both, the tiers equal each other, and the device run's read-backs
+    equal what it wrote."""
+    script = db_cdc_script(np, s.seed + 17, s.wc_rows)
+    want = script[2]
+    runs = {"device": db_cdc_run(torch, np, s, fakes, script, s.pin, True),
+            "numpy": db_cdc_run(torch, np, s, fakes, script, DP_NEVER,
+                                False)}
+    for tier, r in runs.items():
+        require(r["capture"] == want,
+                f"4q.b: the {tier} run's counts differ from numpy's")
+        for sink, table in r["tables"].items():
+            require(table == want, f"4q.b: {sink}'s table on the {tier} "
+                    f"tier differs from the numpy count")
+        del r["tables"], r["capture"]
+    dev = runs["device"]["tiers"]
+    require(dev["vecplan"] + dev["segment"] > 0 and runs["numpy"]["tiers"][
+        "vecplan"] + runs["numpy"]["tiers"]["segment"] == 0,
+        f"4q.b: batches by tier {dev} / {runs['numpy']['tiers']}")
+    n_ops = sum(len(ops) for ops in script[1])
+    try:
+        import cryptography  # noqa: F401
+        have_crypto = True
+    except ImportError:
+        have_crypto = False
+    return dict(rows=s.wc_rows, snapshot_rows=len(script[0]),
+                cdc_changes=n_ops,
+                rekeyed=sum(op[0] == "rekey" for ops in script[1]
+                            for op in ops),
+                words=len(want), **runs,
+                bigquery_auth=("_http over a socket to the stand-in (no "
+                               "token exchange); cryptography "
+                               f"{'present' if have_crypto else 'absent'}"))
+
+
+def phase4q(torch, np, s) -> dict:
+    """``s``: the card line, the seed, the device, ``docs``, ``wc_rows``,
+    ``pin`` and ``encoder``.  Returns the ``{"databases": ...}`` line."""
+    import shutil
+    import tempfile
+
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch.obs import costdb, planner
+
+    # the stand-ins the port's connector tests use, from this checkout
+    from tests import torch_db_fakes as fakes
+
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="pw_databases_")
+    saved_env = {k: os.environ.get(k) for k in (
+        "PW_COSTDB_PATH", "no_proxy", "NO_PROXY")}
+    # every HTTP call of the phase is to 127.0.0.1: no proxy in the way
+    os.environ["no_proxy"] = os.environ["NO_PROXY"] = "127.0.0.1,localhost"
+    os.environ["PW_COSTDB_PATH"] = os.path.join(root, "costdb.json")
+    costdb.shutdown()
+    planner.invalidate_cache()
+    pw.set_license_key("demo-license-key-no-telemetry")  # the sinks' gates
+    try:
+        t0 = time.perf_counter()
+        vectors = db_vectors(torch, np, s, fakes)
+        vectors["part_s"] = time.perf_counter() - t0
+        log(f"4q.a ok: {vectors['live']} live rows in 5 stores and LEANN, "
+            f"#3 launched {vectors['knn_launches']} times, lag p50 "
+            f"{vectors['lag_ms_p50']:.0f} ms")
+        t0 = time.perf_counter()
+        cdc = db_cdc(torch, np, s, fakes)
+        cdc["part_s"] = time.perf_counter() - t0
+    finally:
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        costdb.shutdown()
+        planner.invalidate_cache()
+        shutil.rmtree(root, ignore_errors=True)
+    line = dict(card=s.smi, pin_device=s.pin, vectors=vectors, cdc=cdc,
+                reduced={"docs": [s.docs, DB_DOCS],
+                         "wc_rows": [s.wc_rows, DB_WC_ROWS_FULL]},
+                phase_s=time.perf_counter() - t_phase)
+    if line["phase_s"] > 45.0:
+        log(f"4q: the phase took {line['phase_s']:.1f}s, over its 45 s")
+    return line
+
+
+def databases_only(torch, np, seed, smi) -> int:
+    """``--databases-only``: phase 4q alone (after the kernels' build),
+    printing its line and no result."""
+    line = phase4q(torch, np, types.SimpleNamespace(
+        smi=smi, seed=seed, device="cuda", **db_sizes()))
+    print(json.dumps({"databases": line}), flush=True)
+    log("--databases-only: stopping after phase 4q")
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -9426,6 +10119,10 @@ def main() -> int:
                     help="run phase 4p (several workers and processes) "
                          "alone, without building the kernels; prints no "
                          "result")
+    ap.add_argument("--databases-only", action="store_true",
+                    help="build the kernels, then run phase 4q (the "
+                         "database and vector-store connectors) alone; "
+                         "prints no result")
     ap.add_argument("--nexmark-events", type=int, default=NX_EVENTS,
                     help="phase 4k's event count (default %(default)s)")
     args = ap.parse_args()
@@ -9517,6 +10214,8 @@ def main() -> int:
         return rag_rest_only(torch, np, dec, args.seed, smi)
     if args.persistence_only:
         return persistence_only(torch, np, dec, args.seed, engine_sizes, smi)
+    if args.databases_only:
+        return databases_only(torch, np, args.seed, smi)
 
     # phase 2: kernels against their plain versions
     g = torch.Generator().manual_seed(args.seed)
@@ -10081,6 +10780,16 @@ def main() -> int:
         f"{cluster_line['kill']['recovery_s']:.1f}s, metrics scraped in "
         f"{cluster_line['phase_s']:.1f}s")
     print(json.dumps({"cluster": cluster_line}), flush=True)
+
+    # phase 4q: the database and vector-store connectors (their device
+    # work is the encoder and #3), last; #3's launches go on the kernels
+    # line
+    db_line = phase4q(torch, np, types.SimpleNamespace(
+        smi=smi, seed=args.seed, device="cuda", **db_sizes()))
+    log(f"phase 4q ok: {db_line['vectors']['live']} rows in the vector "
+        f"stores, {db_line['cdc']['words']} words in nine sinks on both "
+        f"tiers in {db_line['phase_s']:.1f}s")
+    print(json.dumps({"databases": db_line}), flush=True)
     for k in kernels:
         if k["name"] in ("paged_attention", "paged_append_attend",
                          "flash_attention"):
@@ -10099,6 +10808,8 @@ def main() -> int:
         elif k["name"] == "knn_scores_q1":
             k["launches_persistence"] = ps_line["quickstart"][
                 "knn_launches_gemv"]
+        if k["name"] == "knn_scores":
+            k["launches_databases"] = db_line["vectors"]["knn_launches"]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({
         "rag": {

@@ -10,7 +10,15 @@ calls; ``pubsub`` over an injected publisher), ``s3`` (and its aliases
 ``redpanda``, ``debezium``, ``null`` and ``logstash``, and input
 synchronization groups.  Under ``pw.persistence`` the file, Kafka,
 Kinesis and S3 sources journal their rows with their offsets.  The
-lake, database, vector-store and document connectors are not ported.
+databases: ``postgres``, ``mysql`` and ``mssql`` over an injected or
+installed DB-API driver, ``mongodb`` and ``elasticsearch`` over their
+clients, ``clickhouse`` and ``questdb`` over HTTP and ILP, ``dynamodb``
+over SigV4-signed calls and ``bigquery`` over ``insertAll``.  The vector
+stores: ``pinecone``, ``qdrant``, ``chroma``, ``milvus`` and
+``weaviate`` over their REST APIs, and ``leann``'s index.  Not ported:
+the lakes and files (``deltalake``, ``iceberg``, ``duckdb``,
+``pyfilesystem``) and the documents and apps (``gdrive``,
+``sharepoint``, ``airbyte``, ``slack``).
 """
 
 from __future__ import annotations
@@ -19,8 +27,10 @@ import sys
 import types
 
 from . import (
-    csv, fs, http, jsonlines, kafka, kinesis, mqtt, nats, pubsub, python,
-    rabbitmq, s3, sqlite,
+    bigquery, clickhouse, csv, dynamodb, elasticsearch, fs, http, jsonlines,
+    kafka, kinesis, leann, milvus, mongodb, mqtt, mssql, mysql, nats,
+    postgres, pubsub, python, questdb, rabbitmq, s3, sqlite, vector_writers,
+    weaviate,
 )
 from ._schema_registry import SchemaRegistryHeader, SchemaRegistrySettings
 from ._subscribe import subscribe
@@ -69,6 +79,10 @@ minio = _alias(
     write=lambda table, path, *, minio_settings=None, **kw: s3.write(
         table, path, aws_s3_settings=minio_settings, **kw))
 redpanda = kafka
+# the vector-store sinks as pw.io.<name>.write
+pinecone = _alias("pinecone", write=vector_writers.write_pinecone)
+qdrant = _alias("qdrant", write=vector_writers.write_qdrant)
+chroma = _alias("chroma", write=vector_writers.write_chroma)
 
 
 def _debezium_read(rdkafka_settings, topic_name=None, *, schema=None, **kw):
@@ -88,6 +102,8 @@ logstash = _alias("logstash",
 __all__ = [
     "csv", "fs", "jsonlines", "kafka", "python", "http", "plaintext",
     "subscribe", "register_input_synchronization_group", "s3", "minio",
-    "nats", "mqtt", "rabbitmq", "kinesis", "redpanda", "debezium", "null",
-    "pubsub", "sqlite", "logstash",
+    "postgres", "mysql", "mongodb", "elasticsearch", "nats", "mqtt",
+    "rabbitmq", "kinesis", "dynamodb", "bigquery", "redpanda", "debezium",
+    "null", "clickhouse", "questdb", "pinecone", "qdrant", "chroma",
+    "weaviate", "milvus", "leann", "pubsub", "mssql", "sqlite", "logstash",
 ]

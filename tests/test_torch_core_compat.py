@@ -467,27 +467,32 @@ def test_live_table_snapshots_as_the_jax_packages(fresh_port):
 
 PARQUET_ROUNDTRIP = """
 import json, sys
-import pathway_tpu as jpw
-import pathway_tpu_torch as tpw
-
-out = {}
-for name, pw, kw in (("torch", tpw, {"device": "cpu"}), ("jax", jpw, {})):
-    path = sys.argv[1] + "/" + name + ".parquet"
-    t = pw.debug.table_from_markdown("a | b\\n1 | x\\n2 | y")
-    pw.debug.table_to_parquet(t, path, **kw)
-    df = pw.debug.table_to_pandas(pw.debug.table_from_parquet(path),
-                                  include_id=False, **kw)
-    out[name] = sorted(zip(df["a"].tolist(), df["b"].tolist()))
-print(json.dumps(out))
+import pyarrow.parquet  # noqa: F401 - before torch or jaxlib is loaded
+pkg, path = sys.argv[1], sys.argv[2]
+if pkg == "torch":
+    import pathway_tpu_torch as pw
+    kw = {"device": "cpu"}
+else:
+    import pathway_tpu as pw
+    kw = {}
+t = pw.debug.table_from_markdown("a | b\\n1 | x\\n2 | y")
+pw.debug.table_to_parquet(t, path, **kw)
+df = pw.debug.table_to_pandas(pw.debug.table_from_parquet(path),
+                              include_id=False, **kw)
+print(json.dumps(sorted(zip(df["a"].tolist(), df["b"].tolist()))))
 """
 
 
 def test_parquet_roundtrip_equals_the_jax_packages(tmp_path):
-    """In a fresh interpreter: pyarrow's parquet reader has crashed a
-    test process that ran the dataflow before it (the JAX package's own
-    roundtrip too), never a fresh one."""
+    """Each package's write and read in an interpreter of its own, with
+    pyarrow loaded before the package: pyarrow's parquet reader has
+    crashed pytest workers (and once this test's single interpreter,
+    which loaded torch, jaxlib and then pyarrow) under the suite's load,
+    never alone.  A crash names its signal and, through faulthandler,
+    where it happened."""
     import json
     import os
+    import signal
     import subprocess
     import sys
     from pathlib import Path
@@ -496,11 +501,16 @@ def test_parquet_roundtrip_equals_the_jax_packages(tmp_path):
     env = dict(os.environ, JAX_PLATFORMS="cpu",
                PYTHONPATH=os.pathsep.join(
                    [root, os.environ.get("PYTHONPATH", "")]))
-    proc = subprocess.run([sys.executable, "-c", PARQUET_ROUNDTRIP,
-                           str(tmp_path)], capture_output=True, text=True,
-                          env=env, timeout=300)
-    assert proc.returncode == 0, proc.stderr[-4000:]
-    got = json.loads(proc.stdout.strip().splitlines()[-1])
+    got = {}
+    for pkg in ("torch", "jax"):
+        proc = subprocess.run(
+            [sys.executable, "-X", "faulthandler", "-c", PARQUET_ROUNDTRIP,
+             pkg, str(tmp_path / f"{pkg}.parquet")],
+            capture_output=True, text=True, env=env, timeout=300)
+        how = (f"killed by {signal.Signals(-proc.returncode).name}"
+               if proc.returncode < 0 else f"exit {proc.returncode}")
+        assert proc.returncode == 0, f"{pkg}: {how}\n{proc.stderr[-4000:]}"
+        got[pkg] = json.loads(proc.stdout.strip().splitlines()[-1])
     assert got["torch"] == got["jax"] == [[1, "x"], [2, "y"]]
 
 

@@ -151,12 +151,10 @@ def test_the_guard_covers_the_cluster_and_monitoring_modules():
 
 
 # the JAX package's connectors this package does not port yet (ROADMAP
-# queue A, item 3): lakes, databases, vector stores, documents and apps
+# queue A, item 3): the lakes and files, the documents and apps
 QUEUED_CONNECTORS = [
-    "gdrive", "postgres", "mysql", "mongodb", "elasticsearch", "deltalake",
-    "iceberg", "dynamodb", "bigquery", "airbyte", "sharepoint",
-    "clickhouse", "questdb", "pinecone", "qdrant", "chroma", "weaviate",
-    "milvus", "leann", "slack", "duckdb", "mssql", "pyfilesystem",
+    "gdrive", "deltalake", "iceberg", "airbyte", "sharepoint", "slack",
+    "duckdb", "pyfilesystem",
 ]
 
 
@@ -172,7 +170,7 @@ def test_the_io_surface_is_the_jax_packages_less_the_queued_connectors():
                  "CsvParserSettings"):
         assert hasattr(pathway_tpu_torch.io, name)
     for alias in ("plaintext", "s3_csv", "minio", "debezium", "null",
-                  "logstash"):
+                  "logstash", "pinecone", "qdrant", "chroma"):
         mod = sys.modules[f"pathway_tpu_torch.io.{alias}"]
         assert getattr(pathway_tpu_torch.io, alias) is mod
 
@@ -182,6 +180,13 @@ def test_importing_io_loads_neither_jax_nor_the_jax_package():
         "import sys\n"
         "import pathway_tpu_torch.io as io\n"
         "assert io.kafka and io.s3 and io.register_input_synchronization_group\n"
+        "assert io.postgres.write and io.mysql.read and io.mssql.read\n"
+        "assert io.mongodb.read and io.elasticsearch.write\n"
+        "assert io.clickhouse.ClickHouseSettings and io.questdb.read\n"
+        "assert io.dynamodb.write and io.bigquery.write\n"
+        "assert io.pinecone.write and io.qdrant.write and io.chroma.write\n"
+        "assert io.milvus.write and io.weaviate.write\n"
+        "assert io.leann.load_native_index\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' "
         "or m.startswith('jax.') or m == 'pathway_tpu' "
         "or m.startswith('pathway_tpu.'))\n"

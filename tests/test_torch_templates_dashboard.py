@@ -87,21 +87,24 @@ def test_document_store_template_builds(tmp_path):
 
 
 def test_el_pipeline_template_builds():
-    """The Kafka half registers its source without touching the network;
-    the PostgreSQL sink is a connector the port has not taken yet (the
-    databases group of ROADMAP queue A item 3), and loading it raises,
-    naming it."""
+    """The Kafka source and the PostgreSQL sink register without touching
+    the network, into the same graph as the JAX package's."""
     env = dict(KAFKA_HOSTNAME="localhost:9092", KAFKA_GROUP_ID="g",
                KAFKA_TOPIC="t", DB_HOSTNAME="localhost", DB_PORT="5432",
                DB_NAME="db", DB_USER="u", DB_PASSWORD="p")
     jpg.G.clear()
     jpw.load_yaml(_text("el-pipeline"), **env)
+    want = [n.kind for n in jpg.G.nodes]
     assert len(jpg.G.outputs) == 1
     jpg.G.clear()
-    with pytest.raises(ModuleNotFoundError, match="postgres"):
+    tpg.G.clear()
+    try:
         tpw.load_yaml(_text("el-pipeline"), **env)
-    assert [n.kind for n in tpg.G.nodes] == ["input"]
-    assert not tpg.G.outputs
+        assert [n.kind for n in tpg.G.nodes] == want
+        [out] = tpg.G.outputs
+        assert type(out.params["writer"]).__name__ == "_PostgresWriter"
+    finally:
+        tpg.G.clear()
 
 
 def test_live_etl_template_runs_end_to_end(tmp_path, monkeypatch):
