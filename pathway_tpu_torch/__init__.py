@@ -37,9 +37,7 @@ The four TPU kernels on that path are hand-written CUDA kernels under
 
 Row keys come from ``native/``: the JAX package's C++ hash source,
 built with ``g++`` at first use, so a file read without a primary key
-keys its rows as the JAX package does.  ``viz`` (and ``Table.show`` /
-``plot`` / ``live_show``) is not ported: ``pw.viz`` raises naming the
-ROADMAP item.
+keys its rows as the JAX package does.
 
 The package imports ``torch`` and nothing of JAX or ``pathway_tpu``;
 module layout follows ``pathway_tpu`` so each module's counterpart is
@@ -233,6 +231,11 @@ Table.asof_now_join_left = asof_now_join_left
 Table.diff = ordered.diff
 Table.interpolate = statistical.interpolate
 Table.sort = temporal.sort
+Table.show = utils.viz_show
+from .stdlib import viz  # noqa: E402
+
+Table.plot = viz.plot
+Table.live_show = viz.live_show
 
 from .internals import universes  # noqa: E402
 from .internals.interactive import LiveTable, enable_interactive_mode  # noqa: E402
@@ -299,10 +302,8 @@ __all__ = [
 ]
 
 # names of the JAX package the port does not have yet, with the ROADMAP
-# item that ports them
-_NOT_PORTED = {
-    "viz": "stdlib/viz (ROADMAP queue A item 7)",
-}
+# item that ports them (none left)
+_NOT_PORTED: dict[str, str] = {}
 
 
 def __getattr__(name: str):

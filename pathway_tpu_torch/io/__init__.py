@@ -15,10 +15,12 @@ installed DB-API driver, ``mongodb`` and ``elasticsearch`` over their
 clients, ``clickhouse`` and ``questdb`` over HTTP and ILP, ``dynamodb``
 over SigV4-signed calls and ``bigquery`` over ``insertAll``.  The vector
 stores: ``pinecone``, ``qdrant``, ``chroma``, ``milvus`` and
-``weaviate`` over their REST APIs, and ``leann``'s index.  Not ported:
-the lakes and files (``deltalake``, ``iceberg``, ``duckdb``,
-``pyfilesystem``) and the documents and apps (``gdrive``,
-``sharepoint``, ``airbyte``, ``slack``).
+``weaviate`` over their REST APIs, and ``leann``'s index.  The lakes and
+files: ``deltalake`` and ``iceberg`` (their table formats, natively, over
+parquet), ``duckdb`` over an installed or injected connection and
+``pyfilesystem`` over a duck-typed filesystem.  The documents and apps:
+``gdrive`` and ``sharepoint`` over their clients, ``airbyte`` over a
+connector command speaking the Airbyte protocol, and ``slack``'s alerts.
 """
 
 from __future__ import annotations
@@ -27,10 +29,11 @@ import sys
 import types
 
 from . import (
-    bigquery, clickhouse, csv, dynamodb, elasticsearch, fs, http, jsonlines,
-    kafka, kinesis, leann, milvus, mongodb, mqtt, mssql, mysql, nats,
-    postgres, pubsub, python, questdb, rabbitmq, s3, sqlite, vector_writers,
-    weaviate,
+    airbyte, bigquery, clickhouse, csv, deltalake, duckdb, dynamodb,
+    elasticsearch, fs, gdrive, http, iceberg, jsonlines, kafka, kinesis,
+    leann, milvus, mongodb, mqtt, mssql, mysql, nats, postgres, pubsub,
+    pyfilesystem, python, questdb, rabbitmq, s3, sharepoint, slack, sqlite,
+    vector_writers, weaviate,
 )
 from ._schema_registry import SchemaRegistryHeader, SchemaRegistrySettings
 from ._subscribe import subscribe
@@ -98,12 +101,14 @@ logstash = _alias("logstash",
                   write=lambda table, endpoint, **kw: http.write(
                       table, endpoint, **kw))
 
-# the JAX package's list, less the connectors this package does not port
+# the JAX package's list, in its order
 __all__ = [
     "csv", "fs", "jsonlines", "kafka", "python", "http", "plaintext",
     "subscribe", "register_input_synchronization_group", "s3", "minio",
-    "postgres", "mysql", "mongodb", "elasticsearch", "nats", "mqtt",
-    "rabbitmq", "kinesis", "dynamodb", "bigquery", "redpanda", "debezium",
-    "null", "clickhouse", "questdb", "pinecone", "qdrant", "chroma",
-    "weaviate", "milvus", "leann", "pubsub", "mssql", "sqlite", "logstash",
+    "gdrive", "postgres", "mysql", "mongodb", "elasticsearch", "deltalake",
+    "iceberg", "nats", "mqtt", "rabbitmq", "kinesis", "dynamodb", "bigquery",
+    "redpanda", "airbyte", "debezium", "null", "sharepoint",
+    "clickhouse", "questdb", "pinecone", "qdrant", "chroma",
+    "weaviate", "milvus", "leann", "slack", "pubsub", "duckdb", "mssql",
+    "pyfilesystem", "sqlite", "logstash",
 ]

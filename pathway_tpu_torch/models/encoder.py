@@ -215,6 +215,8 @@ class TorchEncoder:
         self.tokenizer = tokenizer
         self._store = None
         self._query_encoder = None
+        self._host_batch = None
+        self._cpu_mirror = None
 
     @classmethod
     def from_hf(cls, model_name_or_path: str, **kwargs) -> "TorchEncoder":
@@ -304,12 +306,42 @@ class TorchEncoder:
             self.stats["texts"] += n
         return out
 
+    def host_batch(self):
+        """The batched host tier (``models/host_encoder.py``
+        ``TorchBatchEncoder``): ``encode`` over an f32 CPU copy of the
+        weights, whichever device the encoder is on.  Built once."""
+        if self._host_batch is None:
+            from .host_encoder import TorchBatchEncoder
+
+            self._host_batch = TorchBatchEncoder(self.cfg, self.params,
+                                                 self.tokenizer)
+        return self._host_batch
+
+    def embed_batch_host(self, texts: list[str], chunk: int = 128
+                         ) -> np.ndarray:
+        """(len(texts), d_model) f32 embeddings as numpy, computed on the
+        host in chunks of ``chunk`` texts (each padded to its own longest
+        text); stage times land in ``stats``."""
+        return self.host_batch().embed_batch(texts, chunk=chunk,
+                                             stats=self.stats)
+
     def embed_batch_fastest(self, texts: list[str]):
         """Bulk embedding by device: device-resident handles on the card
         (nothing fetched), ``embed_batch`` on the CPU."""
         if self.device.type == "cuda":
             return self.embed_batch_device(texts)
         return self.embed_batch(texts)
+
+    def cpu_mirror(self):
+        """The host mirror for single texts (``models/host_encoder.py``
+        ``make_host_mirror``): an f32 CPU copy of the weights.  Built
+        once."""
+        if self._cpu_mirror is None:
+            from .host_encoder import make_host_mirror
+
+            self._cpu_mirror = make_host_mirror(self.cfg, self.params,
+                                                self.tokenizer)
+        return self._cpu_mirror
 
     def compiled_query_encoder(self):
         """The single-query serving tier (``models/host_encoder.py``

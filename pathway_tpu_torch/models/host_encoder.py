@@ -1,4 +1,16 @@
-"""The single-query serving tier: one query embedded per call, at the
+"""The encoder's host tiers and its single-query serving tier.
+
+The host tiers are the counterparts of ``pathway_tpu/models/
+host_encoder.py``'s mirrors: ``NumpyEncoderMirror`` (one text a forward,
+in numpy), ``TorchBatchEncoder`` (bulk embedding) and
+``TorchEncoderMirror`` (one text a forward, what ``make_host_mirror``
+returns).  The two torch tiers run ``models/encoder.py``'s ``encode``
+over an f32 CPU copy of the encoder's weights, whichever device the
+encoder is on.  None sets torch's thread count:
+``torch.set_num_threads`` is process-wide, and here it would also change
+the threads of the process that drives the card.
+
+The single-query serving tier: one query embedded per call, at the
 lowest latency the device allows.
 
 Counterpart of ``pathway_tpu/models/host_encoder.py``
@@ -15,8 +27,10 @@ class's ``mode="eager"``.
 
 from __future__ import annotations
 
+import dataclasses
 import math
 import threading
+import time
 
 import numpy as np
 import torch
@@ -34,6 +48,198 @@ def _np_tree(params):
     if isinstance(params, torch.Tensor):
         return params.detach().to("cpu", torch.float32).numpy()
     return np.asarray(params, dtype=np.float32)
+
+
+def _erf_vec(x):
+    try:
+        from scipy.special import erf
+
+        return erf(x)
+    except ImportError:
+        # Abramowitz-Stegun 7.1.26 vectorized (<=1.5e-7 abs err)
+        sign = np.sign(x)
+        ax = np.abs(x)
+        t = 1.0 / (1.0 + 0.3275911 * ax)
+        y = 1.0 - (
+            ((((1.061405429 * t - 1.453152027) * t) + 1.421413741) * t
+             - 0.284496736) * t + 0.254829592
+        ) * t * np.exp(-ax * ax)
+        return sign * y
+
+
+class NumpyEncoderMirror:
+    """Single-text forward pass in numpy, weight-identical to the device
+    encoder."""
+
+    def __init__(self, cfg, params, tokenizer):
+        self.cfg = cfg
+        self.tokenizer = tokenizer
+        p = _np_tree(params)
+        self._p = p
+        # fused (D, 3D) qkv weight per layer: one BLAS call instead of three
+        self._layers = []
+        for L in p["layers"]:
+            wqkv = np.ascontiguousarray(
+                np.concatenate([L["wq"], L["wk"], L["wv"]], axis=1)
+            )
+            bqkv = None
+            if L.get("bq") is not None:
+                bqkv = np.concatenate([L["bq"], L["bk"], L["bv"]])
+            self._layers.append((wqkv, bqkv, L))
+
+    @property
+    def dimensions(self) -> int:
+        return self.cfg.d_model
+
+    def _act(self, v):
+        if self.cfg.act == "gelu":
+            return 0.5 * v * (1.0 + _erf_vec(v / np.float32(math.sqrt(2.0))))
+        if self.cfg.act == "relu":
+            return np.maximum(v, 0.0)
+        return 0.5 * v * (
+            1.0 + np.tanh(0.7978845608 * (v + 0.044715 * v ** 3))
+        )
+
+    def _ln(self, x, s, b):
+        mu = x.mean(-1, keepdims=True)
+        var = x.var(-1, keepdims=True)
+        return (x - mu) / np.sqrt(var + self.cfg.ln_eps) * s + b
+
+    def _forward_tokens(self, ids: np.ndarray) -> np.ndarray:
+        """(T,) int token ids -> (T, D) contextual embeddings."""
+        p = self._p
+        cfg = self.cfg
+        x = p["embed"][ids] + p["pos_embed"][: len(ids)]
+        if cfg.ln_placement == "post" and "ln_e_scale" in p:
+            x = self._ln(x, p["ln_e_scale"], p["ln_e_bias"])
+        H = cfg.n_heads
+        hd = cfg.d_model // H
+        T, D = x.shape
+        pre = cfg.ln_placement == "pre"
+        for wqkv, bqkv, L in self._layers:
+            h = self._ln(x, L["ln1_scale"], L["ln1_bias"]) if pre else x
+            qkv = h @ wqkv
+            if bqkv is not None:
+                qkv = qkv + bqkv
+            q, k, v = np.split(qkv, 3, axis=-1)
+            q = q.reshape(T, H, hd).transpose(1, 0, 2)  # (H, T, hd)
+            k = k.reshape(T, H, hd).transpose(1, 2, 0)  # (H, hd, T)
+            v = v.reshape(T, H, hd).transpose(1, 0, 2)
+            sc = np.matmul(q, k) / np.sqrt(hd)          # (H, T, T)
+            sc -= sc.max(-1, keepdims=True)
+            pr = np.exp(sc)
+            pr /= pr.sum(-1, keepdims=True)
+            a = np.matmul(pr, v).transpose(1, 0, 2).reshape(T, D)
+            a = a @ L["wo"]
+            if L.get("bo") is not None:
+                a = a + L["bo"]
+            if pre:
+                x = x + a
+                h = self._ln(x, L["ln2_scale"], L["ln2_bias"])
+            else:
+                x = self._ln(x + a, L["ln1_scale"], L["ln1_bias"])
+                h = x
+            ff = h @ L["w_up"]
+            if L.get("b_up") is not None:
+                ff = ff + L["b_up"]
+            ff = self._act(ff)
+            ff = ff @ L["w_down"]
+            if L.get("b_down") is not None:
+                ff = ff + L["b_down"]
+            if pre:
+                x = x + ff
+            else:
+                x = self._ln(x + ff, L["ln2_scale"], L["ln2_bias"])
+        if pre:
+            x = self._ln(x, p["ln_f_scale"], p["ln_f_bias"])
+        return x
+
+    def embed(self, text: str) -> np.ndarray:
+        ids = np.asarray(
+            self.tokenizer.encode(text)[: self.cfg.max_len] or [0],
+            dtype=np.int64,
+        )
+        x = self._forward_tokens(ids)
+        pooled = x.mean(0)
+        return pooled / (np.linalg.norm(pooled) + 1e-12)
+
+    def embed_batch(self, texts: list[str]) -> np.ndarray:
+        return np.stack([self.embed(t) for t in texts])
+
+    def __call__(self, text: str) -> np.ndarray:
+        return self.embed(text)
+
+
+class TorchBatchEncoder:
+    """The batched host tier: ``models/encoder.py``'s ``encode`` on torch
+    CPU tensors over an f32 copy of the weights, a chunk of texts a
+    forward, each chunk padded to its own longest text."""
+
+    def __init__(self, cfg, params, tokenizer):
+        from .encoder import params_to
+
+        self.cfg = dataclasses.replace(cfg, dtype=torch.float32)
+        self.params = params_to(params, "cpu", torch.float32)
+        self.tokenizer = tokenizer
+
+    @property
+    def dimensions(self) -> int:
+        return self.cfg.d_model
+
+    def embed_batch(self, texts: list[str], chunk: int = 128,
+                    stats: dict | None = None) -> np.ndarray:
+        """(len(texts), D) f32 rows as numpy; ``stats``
+        (``TorchEncoder.stats``-shaped) accumulates per-stage wall time
+        (``device_s``: the host forward)."""
+        from .encoder import encode
+
+        outs = [np.zeros((0, self.cfg.d_model), np.float32)]
+        for i in range(0, len(texts), chunk):
+            part = texts[i: i + chunk]
+            t0 = time.perf_counter()
+            toks = [self.tokenizer.encode(t)[: self.cfg.max_len] or [0]
+                    for t in part]
+            t1 = time.perf_counter()
+            T = max(len(t) for t in toks)
+            ids = torch.zeros((len(part), T), dtype=torch.int64)
+            mask = torch.zeros((len(part), T), dtype=torch.bool)
+            for j, t in enumerate(toks):
+                ids[j, : len(t)] = torch.as_tensor(t)
+                mask[j, : len(t)] = True
+            t2 = time.perf_counter()
+            with torch.no_grad():
+                outs.append(encode(self.params, self.cfg, ids,
+                                   None if bool(mask.all()) else mask
+                                   ).numpy())
+            if stats is not None:
+                stats["tokenize_s"] += t1 - t0
+                stats["pad_s"] += t2 - t1
+                stats["device_s"] += time.perf_counter() - t2
+                stats["texts"] += len(part)
+                stats["calls"] += 1
+        return np.concatenate(outs)
+
+    def embed(self, text: str) -> np.ndarray:
+        return self.embed_batch([text])[0]
+
+    def __call__(self, text: str) -> np.ndarray:
+        return self.embed(text)
+
+
+class TorchEncoderMirror(TorchBatchEncoder):
+    """The single-text host tier (what ``make_host_mirror`` returns): the
+    batched tier one text a forward, unpadded."""
+
+    def embed(self, text: str) -> np.ndarray:
+        return super().embed_batch([text])[0]
+
+    def embed_batch(self, texts: list[str]) -> np.ndarray:
+        return np.stack([self.embed(t) for t in texts])
+
+
+def make_host_mirror(cfg, params, tokenizer) -> TorchEncoderMirror:
+    """The latency tier's host backend: torch is always present here."""
+    return TorchEncoderMirror(cfg, params, tokenizer)
 
 
 class _Graph:

@@ -23,12 +23,13 @@ def test_chip_smoke_phase_4q_runs_on_the_cpu(tmp_path, monkeypatch):
     line = chip_smoke.phase4q(torch, np, types.SimpleNamespace(
         smi="cpu", seed=0, device="cpu", **sizes))
     vec, cdc = line["vectors"], line["cdc"]
-    assert vec["docs"] == 128 and vec["live"] == 128 - vec["deleted"] > 0
+    docs = chip_smoke.DB_DOCS // 32
+    assert vec["docs"] == docs and vec["live"] == docs - vec["deleted"] > 0
     assert vec["updated"] > 0 and vec["failed_polls"] == 0
     assert vec["stored_vs_embed_batch_max_abs"] <= chip_smoke.DB_EMB_TOL
     assert set(vec["store_requests"]) == set(chip_smoke.DB_STORES)
     assert cdc["rows"] == chip_smoke.DB_WC_ROWS // 32 and cdc["rekeyed"] > 0
     assert cdc["device"]["tiers"]["vecplan"] > 0
     assert cdc["device"]["read_back_rows"]["clickhouse"] == cdc["words"]
-    assert line["reduced"]["docs"] == [128, chip_smoke.DB_DOCS]
+    assert line["reduced"]["docs"] == [docs, chip_smoke.DB_DOCS_FULL]
     assert line["reduced"]["wc_rows"][1] == chip_smoke.DB_WC_ROWS_FULL

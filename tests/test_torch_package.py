@@ -150,17 +150,23 @@ def test_the_guard_covers_the_cluster_and_monitoring_modules():
         assert f"pathway_tpu_torch.{name}" in _modules()
 
 
-# the JAX package's connectors this package does not port yet (ROADMAP
-# queue A, item 3): the lakes and files, the documents and apps
-QUEUED_CONNECTORS = [
-    "gdrive", "deltalake", "iceberg", "airbyte", "sharepoint", "slack",
-    "duckdb", "pyfilesystem",
-]
+def test_the_guard_covers_the_last_slice():
+    """... and the lakes, files, documents and apps connectors, the viz
+    modules and the top-level utils."""
+    for name in ("io.deltalake", "io.iceberg", "io.duckdb",
+                 "io.pyfilesystem", "io.gdrive", "io.sharepoint", "io.slack",
+                 "io.airbyte", "stdlib.viz", "stdlib.viz.live", "utils"):
+        assert f"pathway_tpu_torch.{name}" in _modules()
+
+
+# the JAX package's connectors this package does not port yet: none
+QUEUED_CONNECTORS: list = []
 
 
 def test_the_io_surface_is_the_jax_packages_less_the_queued_connectors():
     import pathway_tpu as jpw
 
+    assert pathway_tpu_torch.io.__all__ == jpw.io.__all__
     want = [n for n in jpw.io.__all__ if n not in QUEUED_CONNECTORS]
     assert pathway_tpu_torch.io.__all__ == want
     assert all(hasattr(pathway_tpu_torch.io, n) for n in want)
