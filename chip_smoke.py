@@ -459,6 +459,36 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    embedder lag p50 / p99, the host tier's docs/s beside the card's,
    failed polls and downloads, #3's launches, the tiers' batches,
    ``phase_s``);
+4s. the API-served xpack (after phase 4r; its device work is the
+   encoder, #3, and #1, #2 and #4 for ``TorchChat``), over in-process
+   HTTP stand-ins on 127.0.0.1 that the classes' real ``urllib`` path
+   talks to: (a) 2,048 audio files (WAV, MP3 and FLAC magic bytes in
+   turn, 16 KiB each) and 64 WebM videos read by ``pw.io.fs.read``
+   (streaming) into a ``DocumentStore`` whose parser hands audio to
+   ``AudioParser`` (a Whisper stand-in, one multipart POST a file) and
+   video to ``TwelveLabsVideoParser`` (a task API stand-in, ready on the
+   second poll), transcripts of about 200 words of phase 4i's
+   vocabulary (seed + 20) embedded by the default
+   ``SentenceTransformerEmbedder`` (d 384) and indexed by
+   ``BruteForceKnnFactory`` on the card; (b) 64 questions (seed + 21),
+   each retrieving the top 3: 32 posted at once to a ``QARestServer``
+   over ``BaseRAGQuestionAnswerer(TorchChat, llm_scheduler=True)`` (the
+   paged engine), 16 from a Python subject in one pass answered by
+   ``TorchChat`` called on a column expression (the dense ``generate``),
+   16 posted to a second ``QARestServer`` over ``BedrockChat`` (a
+   Converse stand-in that verifies SigV4 over the double-encoded model
+   path).  The chat is f32 at GPT-2 small's widths and ``GEN_LAYERS``
+   layers, 16 new tokens.  Checks: the index holds each transcript
+   once; 8 questions' retrieved ids = a stable sort of the plain
+   scores; each scheduled answer = its prompt answered alone, each
+   expression answer = ``chat(messages)``, each Bedrock answer the
+   stand-in's; the stand-ins saw one correct call a file (the sniffed
+   extension), two polls a video, 16 signed Converse calls.  Printed
+   as an ``{"api_xpack": ...}`` line (documents transcribed and indexed
+   per second from the first stand-in request, the stand-ins' counts,
+   each route's answer p50 / p99, #1-#4's launches, ``cpu_only``: the
+   classes that need ``transformers``, ``openai`` or ``litellm``, which
+   the card's machine lacks, ``phase_s``);
 5. print one ``{"kernels": [...]}`` line (launches on the main path,
    error against the plain version, kernel / plain / bound / library
    times at the main path's shapes: the median of 5 windows of 50
@@ -482,7 +512,8 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    the LLM reranker's), ``launches_persistence`` in phase 4m's run after
    the restart (#3 split the same way, #1 and #2),
    ``launches_databases`` #3's in phase 4q, ``launches_documents`` #3's
-   in phase 4r.
+   in phase 4r, ``launches_api_xpack`` each kernel's in phase 4s (#3
+   split into its GEMM and GEMV entries by the index passes' sizes).
 
 Phase 2 also holds the port's PRNG (``models/prng.py``) on the card to
 ``PRNG_KNOWN``, keys and bits that ``jax.random`` gives (the CPU tests
@@ -495,7 +526,11 @@ non-zero.
 and prints no result; ``--obs-only`` runs phase 4f alone on synthetic
 prompts after the build and prints no result; ``--tp-only`` runs phase
 4g alone on synthetic prompts and a random 16,384 x 384 matrix after
-the build and prints no result; ``--models-only`` runs phase 4h alone
+the build and prints no result; ``--tp-divergence`` runs phase 4g's f32
+sampled requests at 4 layers on tp = 1 and tp = 2 over phase 4's RAG
+prompts after the build and prints the first token where they differ
+(both runs' logits there, their top-k / top-p boundary and the draw)
+and no result; ``--models-only`` runs phase 4h alone
 on synthetic prompts after the build and prints its line (with the
 ``knn_scores_clip`` kernel entry) and no result; ``--dataplane-only``
 runs phase 4i alone (it builds no kernel) and prints its line and no
@@ -511,7 +546,8 @@ its line and no result; ``--cluster-only`` runs phase 4p alone (it
 builds no kernel) and prints its line and no result;
 ``--databases-only`` runs phase 4q alone after the build and prints its
 line and no result; ``--documents-only`` runs phase 4r alone after the
-build and prints its line and no result;
+build and prints its line and no result; ``--api-xpack-only`` runs
+phase 4s alone after the build and prints its line and no result;
 ``--core-graph-costs`` times the graph algorithms of phase 4n once at
 their full sizes (one body run of each ``iterate``; no kernel, no
 result).
@@ -1484,6 +1520,22 @@ def make_docs(rng, n_docs: int, vocab_words: int = 20000):
         docs.append(" ".join(words[j] for j in picks[at:at + n]))
         at += n
     return docs
+
+
+def rag_prompts(np, docs, queries, hits) -> list[str]:
+    """Phase 4's ``N_PROMPTS`` RAG prompts of 100 to 600 words: a system
+    line, a query and the texts of two queries' top-10 ``hits``."""
+    system = ("answer the question using only the context below . "
+              "cite the passages you use . ") * 3
+    prompts = []
+    for i, n_tok in enumerate(np.linspace(100, 600, N_PROMPTS).astype(int)):
+        ctx = []
+        for key, _s in hits[i % len(hits)] + hits[(i + 1) % len(hits)]:
+            ctx.extend(docs[key].split())
+        body = f"question : {queries[i % len(queries)]} context : "
+        words = (system + body).split() + ctx
+        prompts.append(" ".join(words[:n_tok]))
+    return prompts
 
 
 def dense_greedy(torch, dec, cfg, params, prompt, n_new, device="cuda"):
@@ -3347,6 +3399,215 @@ def tp_only(torch, np, dec, seed, engine_sizes, smi) -> int:
     print(json.dumps({"tp": dict(line, launches_tp=launches_tp)}),
           flush=True)
     log("--tp-only: stopping after phase 4g")
+    return 0
+
+
+# --tp-divergence: phase 4g's f32 sampled requests at TPD_LAYERS layers,
+# tp = 1 against tp = 2 logical shards, every sampling call recorded;
+# TPD_SEEDS sampling seed bases (seeded()) are tried in turn until the
+# two runs' tokens differ
+TPD_LAYERS = 4
+TPD_SEEDS = (100, 1100, 2100, 3100)
+
+
+def tpd_margins(torch, dec, call: dict) -> tuple[float, float, float]:
+    """Over a sampling call's sampled rows, the nearest flips a logit
+    change could cause: the smallest gap between the Gumbel-noised winner
+    and runner-up; the smallest logit gap between ranks ``top_k - 1``
+    and ``top_k``; and the smallest distance from ``top_p`` of the
+    exclusive prefix mass at the nucleus's last kept or first dropped
+    rank."""
+    from pathway_tpu_torch.models import prng
+
+    rows = (call["temperature"] > 0).nonzero().flatten()
+    if not len(rows):
+        return math.inf, math.inf, math.inf
+    logits = call["logits"][rows]
+    t, k, p = (call[n][rows] for n in ("temperature", "top_k", "top_p"))
+    order, scaled, keep = dec._nucleus(logits, t, k, p)
+    noisy = torch.where(keep, scaled + prng.gumbel(call["keys"][rows],
+                                                   logits.shape[-1]),
+                        torch.full_like(scaled, float("-inf")))
+    top2 = torch.topk(noisy, 2, dim=-1).values
+    probs = torch.softmax(scaled, dim=-1)
+    excl = torch.cumsum(probs, dim=-1) - probs
+    edge = keep.sum(dim=-1, keepdim=True)  # first dropped rank
+    near = torch.cat([excl.gather(-1, edge - 1), excl.gather(
+        -1, torch.clamp(edge, max=logits.shape[-1] - 1))], dim=-1)
+    gap = top2[:, 0] - top2[:, 1]
+    ranked = logits.gather(-1, order)
+    kk = torch.clamp(k.to(torch.int64), 1, logits.shape[-1] - 1)[:, None]
+    k_gap = ranked.gather(-1, kk - 1) - ranked.gather(-1, kk)
+    return (float(gap[torch.isfinite(gap)].min()) if bool(
+        torch.isfinite(gap).any()) else math.inf,
+        float(k_gap.min()), float((near - p[:, None]).abs().min()))
+
+
+def tpd_row(torch, dec, call: dict, row: int) -> dict:
+    """One sampling call's row: the kept nucleus (top-k AND top-p), its
+    boundary (the logits and exclusive prefix mass at the last kept and
+    the first dropped rank) and the draw (the Gumbel-noised winner and
+    runner-up)."""
+    from pathway_tpu_torch.models import prng
+
+    logits = call["logits"][row:row + 1]
+    t, k, p = (call[n][row:row + 1] for n in ("temperature", "top_k",
+                                              "top_p"))
+    order, scaled, keep = dec._nucleus(logits, t, k, p)
+    probs = torch.softmax(scaled, dim=-1)
+    excl = torch.cumsum(probs, dim=-1) - probs
+    n_kept = int(keep.sum())
+    noisy = torch.where(keep, scaled + prng.gumbel(
+        call["keys"][row:row + 1], logits.shape[-1]),
+        torch.full_like(scaled, float("-inf")))[0]
+    top2 = torch.topk(noisy, 2)
+    ranks = [r for r in (n_kept - 1, n_kept) if r < logits.shape[-1]]
+    return dict(
+        kept=n_kept, top_k=int(k), top_p=float(p), temperature=float(t),
+        boundary=[dict(rank=r, id=int(order[0, r]),
+                       logit=float(logits[0, order[0, r]]),
+                       excl_mass=float(excl[0, r]), kept=bool(keep[0, r]))
+                  for r in ranks],
+        draw=[dict(id=int(order[0, i]), noisy=float(top2.values[j]),
+                   logit=float(logits[0, order[0, i]]))
+              for j, i in enumerate(top2.indices.tolist())],
+        token=int(call["out"][row]))
+
+
+def tp_divergence(torch, dec, s) -> dict:
+    """``s``: the card line, the seed, the device, phase 4's engine sizes
+    and prompts.  Runs phase 4g's f32 sampled requests on tp = 1 and
+    tp = 2 at ``DecoderConfig(n_layers=TPD_LAYERS)``, recording every
+    call of the sampling head; for each seed base tried, the largest
+    logit difference of the two runs and tp = 1's smallest margins
+    (:func:`tpd_margins`); then the first token where the runs differ:
+    both runs' row there (:func:`tpd_row`), and the largest logit
+    difference of the two runs over every earlier call."""
+    from pathway_tpu_torch.kvcache.engine import PagedDecodeEngine
+
+    t0 = time.perf_counter()
+    cfg = dec.DecoderConfig(n_layers=TPD_LAYERS, dtype=torch.float32)
+    lm = dec.TorchDecoderLM(cfg, seed=s.seed, device=s.device)
+    reqs = [(ids, NEW_TOKENS)
+            for ids in lm.encode_prompts(s.prompts, NEW_TOKENS)]
+    orig = dec._sample_rows
+    calls: list = []
+
+    def recording(logits, greedy_ids, temperature, top_k, top_p, keys):
+        out = orig(logits, greedy_ids, temperature, top_k, top_p, keys)
+        calls.append({n: v.detach().cpu().clone() for n, v in (
+            ("logits", logits), ("temperature", temperature),
+            ("top_k", top_k), ("top_p", top_p), ("keys", keys),
+            ("out", out))})
+        return out
+
+    line: dict = dict(card=s.smi, config=dict(
+        vocab_size=cfg.vocab_size, d_model=cfg.d_model,
+        n_layers=cfg.n_layers, n_heads=cfg.n_heads), tried=[])
+    dec._sample_rows = recording
+    try:
+        for seed0 in TPD_SEEDS:
+            runs = {}
+            for tp in (1, 2):
+                calls = []
+                eng = PagedDecodeEngine(
+                    cfg, lm.params, device=s.device, tp=tp,
+                    devices=[s.device] * tp if tp > 1 else None,
+                    **s.engine_sizes)
+                toks = eng.generate_batch(seeded(reqs, seed0))
+                # each shard's body draws from the gathered rows: tp
+                # calls a step, which must agree
+                require(len(calls) % tp == 0 and all(
+                    torch.equal(calls[i]["logits"], calls[i + j]["logits"])
+                    and torch.equal(calls[i]["out"], calls[i + j]["out"])
+                    for i in range(0, len(calls), tp) for j in range(tp)),
+                    f"tp-divergence: tp={tp}'s shards drew apart")
+                runs[tp] = (toks, calls[::tp], dict(eng.rounds))
+                del eng
+            (toks1, calls1, rounds1), (toks2, calls2, rounds2) = (
+                runs[1], runs[2])
+            n_tok = sum(len(t) for t in toks1)
+            n_diff = sum(a != b for x, y in zip(toks1, toks2)
+                         for a, b in zip(x, y))
+            require(len(calls1) == len(calls2),
+                    f"tp-divergence: {len(calls1)} against {len(calls2)} "
+                    "sampling calls")
+            margins = [tpd_margins(torch, dec, a) for a in calls1]
+            line["tried"].append(dict(
+                seed0=seed0, tokens=n_tok, tokens_differing=n_diff,
+                calls=len(calls1), rounds_equal=rounds1 == rounds2,
+                max_logit_diff=max(float((a["logits"] - b["logits"]).abs()
+                                         .max()) for a, b in zip(calls1,
+                                                                 calls2)),
+                min_draw_gap=min(m[0] for m in margins),
+                min_top_k_gap=min(m[1] for m in margins),
+                min_top_p_distance=min(m[2] for m in margins)))
+            if toks1 == toks2:
+                continue
+            drift = 0.0
+            for c, (a, b) in enumerate(zip(calls1, calls2)):
+                require(a["logits"].shape == b["logits"].shape,
+                        f"tp-divergence: call {c} shapes differ")
+                rows = (a["out"] != b["out"]).nonzero().flatten().tolist()
+                if not rows:
+                    drift = max(drift, float(
+                        (a["logits"] - b["logits"]).abs().max()))
+                    continue
+                row = rows[0]
+                diff = (a["logits"][row] - b["logits"][row]).abs()
+                line.update(
+                    seed0=seed0, call=c, calls=len(calls1), row=row,
+                    rounds=rounds1, rounds_tp2=rounds2,
+                    max_logit_diff_before=drift,
+                    max_logit_diff_here=float(diff.max()),
+                    max_logit_abs_here=float(a["logits"][row].abs().max()),
+                    tp1=tpd_row(torch, dec, a, row),
+                    tp2=tpd_row(torch, dec, b, row))
+                # the two drawn tokens: each one's logit and rank (in the
+                # stable descending sort the draw's noise is indexed by)
+                # in both runs
+                ranks = {tp: torch.argsort(torch.sort(
+                    -x["logits"][row], stable=True).indices)
+                    for tp, x in ((1, a), (2, b))}
+                line["drawn"] = {
+                    str(tok): {f"tp{tp}": dict(
+                        logit=float(x["logits"][row, tok]),
+                        rank=int(ranks[tp][tok]))
+                        for tp, x in ((1, a), (2, b))}
+                    for tok in {int(a["out"][row]), int(b["out"][row])}}
+                break
+            break
+    finally:
+        dec._sample_rows = orig
+    line["phase_s"] = time.perf_counter() - t0
+    return line
+
+
+def tp_divergence_only(torch, np, dec, seed, engine_sizes, smi) -> int:
+    """``--tp-divergence``: the trace of :func:`tp_divergence` on phase
+    4's RAG prompts, which the whole script's phase 4g runs, rebuilt from
+    phase 3's documents, queries and top-10 (its index over
+    ``embed_batch``'s rows, which phase 3 holds equal to the
+    device-resident route's), printing its line and no result."""
+    from pathway_tpu_torch.models.encoder import EncoderConfig, TorchEncoder
+    from pathway_tpu_torch.stdlib.indexing.inner_index import BruteForceKnn
+
+    rng = np.random.default_rng(seed)
+    docs = make_docs(rng, N_DOCS)
+    q_docs = rng.integers(0, N_DOCS, size=N_QUERIES)
+    queries = [" ".join(docs[j].split()[5:17]) for j in q_docs]
+    enc = TorchEncoder(EncoderConfig(**MINILM), seed=seed, device="cuda")
+    index = BruteForceKnn(enc.dimensions, reserved_space=N_DOCS,
+                          metric="cos", device="cuda")
+    for i, row in enumerate(enc.embed_batch(docs)):
+        index.add(i, row)
+    prompts = rag_prompts(np, docs, queries, index.search_batch(
+        enc.embed_batch(queries), 10))
+    line = tp_divergence(torch, dec, types.SimpleNamespace(
+        smi=smi, seed=seed, device="cuda", engine_sizes=engine_sizes,
+        prompts=prompts))
+    print(json.dumps({"tp_divergence": line}), flush=True)
+    log("--tp-divergence: stopping after the trace")
     return 0
 
 
@@ -8015,9 +8276,9 @@ class RegistryStandIn(HttpStandIn):
 
 
 def sigv4_valid(headers: dict, body: bytes, secret: str, region: str,
-                service: str) -> bool:
-    """An AWS SigV4 signature of a ``POST /`` recomputed from the request's
-    own signed headers with ``secret``."""
+                service: str, canonical_uri: str = "/") -> bool:
+    """An AWS SigV4 signature of a POST to ``canonical_uri`` recomputed
+    from the request's own signed headers with ``secret``."""
     import hashlib
     import hmac
     import re
@@ -8033,7 +8294,7 @@ def sigv4_valid(headers: dict, body: bytes, secret: str, region: str,
         return False
     names = signed.split(";")
     canonical = "\n".join([
-        "POST", "/", "",
+        "POST", canonical_uri, "",
         "".join(f"{n}:{headers.get(n, '').strip()}\n" for n in names),
         signed, hashlib.sha256(body).hexdigest()])
     to_sign = "\n".join([
@@ -10916,6 +11177,570 @@ def documents_only(torch, np, seed, smi) -> int:
     return 0
 
 
+# -- phase 4s: the API-served xpack: audio and video documents answered ----
+
+# (a): AX_AUDIO audio files (WAV, MP3 and FLAC magic bytes in turn, each
+# AX_FILE_BYTES long) through AudioParser and a Whisper stand-in, and
+# AX_VIDEOS videos (WebM magic bytes) through TwelveLabsVideoParser and a
+# stand-in of its task API that answers "ready" on a task's second poll;
+# each transcript about AX_WORDS words of phase 4i's vocabulary
+AX_AUDIO, AX_VIDEOS, AX_FILE_BYTES, AX_WORDS = 2048, 64, 16 * 1024, 200
+# (b): the questions of each route, each retrieving AX_K documents: the
+# question answerer's scheduler (TorchChat's paged engine, #1 and #2),
+# TorchChat on a column expression (the dense generate, #4) and
+# BedrockChat over a Converse stand-in
+AX_SCHEDULED, AX_EXPRESSION, AX_BEDROCK, AX_K = 32, 16, 16, 3
+AX_TOPK_CHECKED = 8     # scheduled questions whose retrieved ids are checked
+AX_NEW_TOKENS = 16
+AX_POLL_S = 0.01        # TwelveLabsVideoParser's poll interval
+AX_IDLE_S = 1.0         # the run ends this long after its last request
+AX_LIMIT_S = 300.0      # pw.run's timeout_s, a bound it never reaches
+AX_CREDS = QU_CREDS
+AX_KEYS = ("sk-smoke", "tl-smoke")  # the Whisper and TwelveLabs API keys
+AX_MODEL_ID = "anthropic.claude-3-haiku-20240307-v1:0"
+AX_CANNED = "the converse stand-in answers every question alike"
+AX_MAGIC = {"wav": b"RIFF", "mp3": b"ID3\x04", "flac": b"fLaC"}
+AX_VIDEO_MAGIC = b"\x1aE\xdf\xa3"  # EBML: WebM / Matroska
+AX_ID_AT = 16  # a file's id: 8 bytes, little-endian, at this offset
+# the classes held to the JAX package on the CPU only, and why
+AX_CPU_ONLY = {
+    "HFPipelineChat, HFTokenizer": "need transformers",
+    "OpenAIChat, OpenAIEmbedder, default_vision_llm": "need openai",
+    "LiteLLMChat, LiteLLMEmbedder, GeminiEmbedder": "need litellm",
+}
+
+
+def api_sizes(scale: int = 1) -> dict:
+    """Phase 4s's counts, divided by ``scale`` for the CPU test, which
+    also shortens the transcripts and narrows both models (the encoder
+    to one layer of width 64, the decoder to two)."""
+    if scale == 1:
+        return dict(audio=AX_AUDIO, videos=AX_VIDEOS, words=AX_WORDS,
+                    questions=(AX_SCHEDULED, AX_EXPRESSION, AX_BEDROCK),
+                    new_tokens=AX_NEW_TOKENS, encoder=None, decoder=GPT2_GEN)
+    return dict(audio=AX_AUDIO // scale, videos=max(AX_VIDEOS // scale, 1),
+                words=24, questions=(4, 2, 2), new_tokens=4,
+                encoder=dict(d_model=64, n_layers=1, n_heads=4, d_ff=128),
+                decoder=dict(GPT2_SMALL, d_model=64, n_layers=2, n_heads=4,
+                             d_ff=128, max_len=256))
+
+
+def ax_media(np, seed: int, n_audio: int, n_videos: int,
+             n_words: int) -> dict:
+    """Phase 4s's files and transcripts: ``files[name]`` the bytes (audio
+    ``a{i}.{ext}``, the three kinds in turn, then video ``v{j}.webm``),
+    each with its id ``i`` at ``AX_ID_AT``; ``texts[i]`` the transcript
+    the stand-ins give file ``i``, all distinct."""
+    rng = np.random.default_rng(seed)
+    vocab = [f"w{i:05d}" for i in range(DP_VOCAB)]
+    n = n_audio + n_videos
+    lens = rng.integers(n_words - n_words // 10, n_words + n_words // 10 + 1,
+                        size=n)
+    picks = rng.integers(0, DP_VOCAB, size=int(lens.sum()))
+    texts, at = [], 0
+    for k in lens:
+        texts.append(" ".join(vocab[j] for j in picks[at:at + k]))
+        at += k
+    require(len(set(texts)) == n, "4s: transcripts not distinct")
+    filler = rng.integers(0, 256, size=AX_FILE_BYTES, dtype=np.uint8).tobytes()
+    kinds = list(AX_MAGIC)
+    files = {}
+    for i in range(n):
+        if i < n_audio:
+            ext = kinds[i % len(kinds)]
+            name, magic = f"a{i:05d}.{ext}", AX_MAGIC[ext]
+        else:
+            name, magic = f"v{i - n_audio:03d}.webm", AX_VIDEO_MAGIC
+        head = magic.ljust(AX_ID_AT, b"\0") + i.to_bytes(8, "little")
+        files[name] = head + filler[len(head):]
+    return dict(files=files, texts=texts)
+
+
+def ax_file_id(contents: bytes) -> int:
+    return int.from_bytes(contents[AX_ID_AT:AX_ID_AT + 8], "little")
+
+
+def ax_multipart(content_type: str, body: bytes) -> dict:
+    """A multipart/form-data body's parts, ``{name: (filename, bytes)}``."""
+    import re
+
+    m = re.search(r"boundary=([^;\s]+)", content_type)
+    if m is None:
+        return {}
+    out = {}
+    for part in body.split(b"--" + m.group(1).encode())[1:]:
+        if part.startswith(b"--"):
+            break
+        head, _sep, data = part[2:].partition(b"\r\n\r\n")
+        disp = head.decode("latin-1")
+        name = re.search(r'\bname="([^"]*)"', disp)
+        fname = re.search(r'\bfilename="([^"]*)"', disp)
+        if name is not None:
+            out[name.group(1)] = (fname.group(1) if fname else None,
+                                  data[:-2])  # the part's closing CRLF
+    return out
+
+
+class WhisperStandIn(HttpStandIn):
+    """OpenAI's ``POST /v1/audio/transcriptions``: a multipart body with
+    the bearer key, a ``model`` part naming ``whisper-1`` and a ``file``
+    part whose filename has the extension of the file's magic bytes is
+    answered ``{"text": texts[id]}`` (the id read from the file); any
+    other request gets 400, counted in ``bad``.  ``requests`` counts the
+    answered ones by extension; ``t_first`` is the first arrival."""
+
+    def __init__(self, texts, api_key: str = AX_KEYS[0]):
+        super().__init__()
+        self.texts, self.api_key = texts, api_key
+        self.requests = collections.Counter()
+        self.bad = 0
+        self.t_first = None
+
+    def handle(self, method, path, headers, body):
+        with self.lock:
+            if self.t_first is None:
+                self.t_first = time.perf_counter()
+        parts = ax_multipart(headers.get("content-type", ""), body)
+        fname, data = parts.get("file", (None, b""))
+        ext = next((e for e, m in AX_MAGIC.items() if data.startswith(m)),
+                   None)
+        ok = (method == "POST" and path == "/v1/audio/transcriptions"
+              and headers.get("authorization") == f"Bearer {self.api_key}"
+              and parts.get("model", (None, b""))[1] == b"whisper-1"
+              and ext is not None and fname == f"audio.{ext}")
+        with self.lock:
+            if not ok:
+                self.bad += 1
+                return 400, {"error": {"message": "bad transcription call"}}
+            self.requests[ext] += 1
+        return 200, {"text": self.texts[ax_file_id(data)]}
+
+
+class TwelveLabsStandIn(HttpStandIn):
+    """TwelveLabs' task API under ``/v1.3``: ``POST /tasks`` (the video in
+    base64) opens a task, ``pending`` until its second ``GET
+    /tasks/{id}``, then ``ready``; ``POST /generate`` answers ``{"data":
+    texts[id]}`` for the task's video.  A request without the API key,
+    or to another path, is counted in ``bad``.  ``tasks`` maps a task id
+    to ``[file id, polls]``; ``t_first`` is the first arrival."""
+
+    def __init__(self, texts, api_key: str = AX_KEYS[1]):
+        super().__init__()
+        self.texts, self.api_key = texts, api_key
+        self.tasks: dict = {}
+        self.polls = self.generates = self.bad = 0
+        self.t_first = None
+
+    def handle(self, method, path, headers, body):
+        import base64
+
+        with self.lock:
+            if self.t_first is None:
+                self.t_first = time.perf_counter()
+            if headers.get("x-api-key") != self.api_key:
+                self.bad += 1
+                return 401, {"message": "missing API key"}
+            if method == "POST" and path == "/v1.3/tasks":
+                vid = ax_file_id(base64.b64decode(
+                    json.loads(body)["video_base64"]))
+                tid = f"task{len(self.tasks)}"
+                self.tasks[tid] = [vid, 0]
+                return 200, {"_id": tid, "status": "pending",
+                             "video_id": f"video{vid}"}
+            task = self.tasks.get(path.rsplit("/", 1)[-1])
+            if method == "GET" and path.startswith("/v1.3/tasks/") and task:
+                task[1] += 1
+                self.polls += 1
+                return 200, {"_id": path.rsplit("/", 1)[-1],
+                             "status": "ready" if task[1] >= 2 else "pending",
+                             "video_id": f"video{task[0]}"}
+            if method == "POST" and path == "/v1.3/generate":
+                self.generates += 1
+                vid = int(json.loads(body)["video_id"][len("video"):])
+                return 200, {"data": self.texts[vid]}
+            self.bad += 1
+            return 404, {"message": path}
+
+
+class ConverseStandIn(HttpStandIn):
+    """Bedrock's ``POST /model/{modelId}/converse``: a request on the
+    model's single-encoded path whose SigV4 signature (``x-amz-date``,
+    the body's sha256, a credential scope of ``bedrock-runtime``)
+    verifies over the double-encoded path, AWS's rule for services
+    other than S3, is answered with ``canned``; any other gets 403,
+    counted in ``bad``.  ``payloads`` keeps each answered request's
+    JSON body."""
+
+    def __init__(self, creds=AX_CREDS, model_id: str = AX_MODEL_ID,
+                 canned: str = AX_CANNED):
+        import urllib.parse
+
+        super().__init__()
+        self.creds, self.canned = creds, canned
+        self.path = f"/model/{urllib.parse.quote(model_id, safe='')}/converse"
+        self.canonical = urllib.parse.quote(self.path, safe="/")
+        self.payloads: list = []
+        self.bad = 0
+
+    def handle(self, method, path, headers, body):
+        _key, secret, region = self.creds
+        ok = (method == "POST" and path == self.path
+              and "x-amz-date" in headers
+              and sigv4_valid(headers, body, secret, region,
+                              "bedrock-runtime", self.canonical))
+        with self.lock:
+            if not ok:
+                self.bad += 1
+                return 403, {"message": "The request signature we "
+                                        "calculated does not match"}
+            self.payloads.append(json.loads(body))
+        return 200, {"output": {"message": {
+            "role": "assistant", "content": [{"text": self.canned}]}},
+            "stopReason": "end_turn"}
+
+
+def ax_client(c) -> dict:
+    """The client side of phase 4s while the run serves it: wait for the
+    index to hold every transcript, release the expression route's
+    questions and wait for their answers, then the scheduled route's
+    answers and contexts and the Bedrock route's answers, each route's
+    calls all at once."""
+    out = {}
+    try:
+        for port in c.ports:
+            wait_listening(port, 60.0)
+        out["t_indexed"] = wait_chunks(c.ports[0], c.n_docs, "4s")
+        c.go.set()
+        end = time.perf_counter() + RAG_DEADLINE_S
+        while len(c.expr_out) < len(c.q_expr):
+            require(time.perf_counter() < end,
+                    f"4s: {len(c.expr_out)} of {len(c.q_expr)} expression "
+                    "answers")
+            time.sleep(0.005)
+        out["scheduled"] = concurrently(
+            lambda q: timed_http(c.ports[0], "/v1/pw_ai_answer",
+                                 {"prompt": q}), c.q_sched)
+        out["context"] = concurrently(
+            lambda q: http_json(c.ports[0], "/v1/retrieve",
+                                {"query": q, "k": AX_K}), c.q_sched)
+        out["bedrock"] = concurrently(
+            lambda q: timed_http(c.ports[1], "/v1/pw_ai_answer",
+                                 {"prompt": q}), c.q_bed)
+    finally:
+        c.go.set()
+    return out
+
+
+def ax_route(lat_s: list) -> dict:
+    ms = [x * 1e3 for x in lat_s]
+    return dict(questions=len(ms), p50_ms=statistics.median(ms),
+                p99_ms=p99(ms))
+
+
+def phase4s(torch, np, dec, s) -> tuple[dict, dict]:
+    """``s``: the card line, the seed, the device, phase 4's engine sizes
+    and ``api_sizes``' counts and models.  Audio and video documents
+    answered through the API-served xpack in one ``pw.run``: the files ->
+    ``pw.io.fs.read`` (streaming) -> ``DocumentStore`` whose parser hands
+    audio to ``AudioParser`` (a Whisper stand-in) and video to
+    ``TwelveLabsVideoParser`` (its stand-in), embedded by the default
+    ``SentenceTransformerEmbedder`` and indexed by ``BruteForceKnnFactory``
+    on the card; questions answered by ``TorchChat`` through a
+    ``QARestServer`` over ``BaseRAGQuestionAnswerer(llm_scheduler=True)``,
+    by ``TorchChat`` called on a column expression of prompts (questions
+    from a Python subject), and by ``BedrockChat`` through a second
+    ``QARestServer``.  The chat is f32: its answers are held to the same
+    prompts answered alone.  Returns the ``{"api_xpack": ...}`` line and
+    the launches of #1-#4 over the run."""
+    import shutil
+    import tempfile
+    import threading
+
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch.internals import parse_graph as pg
+    from pathway_tpu_torch.models.encoder import EncoderConfig
+    from pathway_tpu_torch.obs import costdb, planner
+    from pathway_tpu_torch.ops import _cuda
+    from pathway_tpu_torch.ops import knn_cuda as kc
+    from pathway_tpu_torch.ops.knn import metric_scores
+    from pathway_tpu_torch.stdlib.indexing import BruteForceKnnFactory
+    from pathway_tpu_torch.xpacks.llm import question_answering as qa
+    from pathway_tpu_torch.xpacks.llm.document_store import DocumentStore
+    from pathway_tpu_torch.xpacks.llm.embedders import (
+        SentenceTransformerEmbedder)
+    from pathway_tpu_torch.xpacks.llm.llms import (BedrockChat, TorchChat,
+                                                   prompt_chat_single_qa)
+    from pathway_tpu_torch.xpacks.llm.parsers import (AudioParser,
+                                                      ParserBase,
+                                                      TwelveLabsVideoParser)
+    from pathway_tpu_torch.xpacks.llm.servers import QARestServer
+
+    t_phase = time.perf_counter()
+    on_card = s.device == "cuda"
+    n_sched, n_expr, n_bed = s.questions
+    media = ax_media(np, s.seed + 20, s.audio, s.videos, s.words)
+    texts = media["texts"]
+    rng = np.random.default_rng(s.seed + 21)
+    picks = rng.integers(0, len(texts), size=n_sched + n_expr + n_bed)
+    questions = [" ".join(texts[j].split()[5:17]) for j in picks]
+    c = types.SimpleNamespace(
+        n_docs=len(texts), q_sched=questions[:n_sched],
+        q_expr=questions[n_sched:n_sched + n_expr],
+        q_bed=questions[n_sched + n_expr:], go=threading.Event(),
+        expr_out={}, asked={})
+    root = tempfile.mkdtemp(prefix="pw_api_xpack_")
+    watched = os.path.join(root, "media")
+    os.mkdir(watched)
+    saved_env = {k: os.environ.get(k) for k in (
+        "PW_COSTDB_PATH", "no_proxy", "NO_PROXY")}
+    # every HTTP call of the phase is to 127.0.0.1: no proxy in the way
+    os.environ["no_proxy"] = os.environ["NO_PROXY"] = "127.0.0.1,localhost"
+    # a fresh cost store: the chat's "auto" tier is the fused dense one
+    os.environ["PW_COSTDB_PATH"] = os.path.join(root, "costdb.json")
+    costdb.shutdown()
+    planner.invalidate_cache()
+    whisper, tl, conv = (WhisperStandIn(texts), TwelveLabsStandIn(texts),
+                         ConverseStandIn())
+    try:
+        emb = SentenceTransformerEmbedder(
+            config=None if s.encoder is None else EncoderConfig(**s.encoder),
+            seed=s.seed, device=s.device)
+        cfg32 = dec.DecoderConfig(**s.decoder, dtype=torch.float32)
+        chat = TorchChat(cfg32, seed=s.seed, max_new_tokens=s.new_tokens,
+                         device=s.device)
+        eng = chat._lm.paged_engine(**s.engine_sizes)
+        # one untimed answer on each of TorchChat's tiers (the dense
+        # generate and the paged engine) and one embedding: first calls
+        # pay for allocations and the cost store's first records
+        warm = prompt_chat_single_qa(qa._prompt(texts[:AX_K], c.q_sched[0]))
+        chat(warm)
+        chat.generate_batch([warm])
+        emb._embed(c.q_sched[0])
+        eng.prefix.clear()
+        bedrock = BedrockChat(AX_MODEL_ID, region=AX_CREDS[2],
+                              access_key=AX_CREDS[0], secret_key=AX_CREDS[1],
+                              endpoint=conv.url)
+        audio = AudioParser(api_key=AX_KEYS[0], base_url=whisper.url + "/v1")
+        video = TwelveLabsVideoParser(api_key=AX_KEYS[1], index_id="smoke",
+                                      base_url=tl.url + "/v1.3",
+                                      poll_interval_s=AX_POLL_S)
+
+        class MediaParser(ParserBase):
+            """A file's bytes to the parser of its kind: WebM to the
+            video parser, the rest to the audio parser."""
+
+            def _parse(self, contents):
+                if contents.startswith(AX_VIDEO_MAGIC):
+                    return video._parse(contents)
+                return audio._parse(contents)
+
+        class Question(pw.Schema):
+            qi: int
+            prompt: str
+
+        class Asker(pw.io.python.ConnectorSubject):
+            def run(self):
+                c.go.wait(AX_LIMIT_S)
+                for i, q in enumerate(c.q_expr):
+                    c.asked[i] = time.perf_counter()
+                    self.next(qi=i, prompt=q)
+
+        clock = time.perf_counter  # the callbacks' `time` shadows the module
+        held = collections.Counter()
+
+        def on_chunk(key, row, time, is_addition):
+            held[row["text"]] += 1 if is_addition else -1
+
+        def on_answer(key, row, time, is_addition):
+            require(is_addition and row["qi"] not in c.expr_out,
+                    "4s: an expression answer was revised")
+            c.expr_out[row["qi"]] = (clock(), list(row["docs"]),
+                                     row["prompt"], row["answer"])
+
+        pg.G.clear()
+        files = pw.io.fs.read(watched, format="binary", mode="streaming",
+                              with_metadata=True)
+        store = DocumentStore(files, parser=MediaParser(),
+                              retriever_factory=BruteForceKnnFactory(
+                                  dimensions=emb.get_embedding_dimension(),
+                                  embedder=emb, reserved_space=c.n_docs,
+                                  device=s.device))
+        pw.io.subscribe(store.chunked_docs, on_change=on_chunk)
+        rag = qa.BaseRAGQuestionAnswerer(chat, store, search_topk=AX_K,
+                                         llm_scheduler=True)
+        require(rag._llm_scheduler.max_batch_size == eng.max_batch_size,
+                "4s: the llm scheduler is sized from the paged engine")
+        c.ports = (free_port(), free_port())
+        QARestServer("127.0.0.1", c.ports[0], rag)
+        QARestServer("127.0.0.1", c.ports[1], qa.BaseRAGQuestionAnswerer(
+            bedrock, store, search_topk=AX_K))
+        qt = pw.io.python.read(Asker(), schema=Question)
+        reply = store.index.query_as_of_now(qt.prompt, number_of_matches=AX_K)
+        prompts = reply.select(
+            qi=qt.qi, docs=reply.text, prompt=pw.apply_with_type(
+                lambda q, d: qa._prompt(list(d or ()), q), str, qt.prompt,
+                reply.text))
+        # the chat called on a column expression: one ApplyExpression
+        pw.io.subscribe(prompts.select(
+            qi=pw.this.qi, docs=pw.this.docs, prompt=pw.this.prompt,
+            answer=chat(pw.this.prompt)), on_change=on_answer)
+
+        # the files are written before the run (nothing reads them yet):
+        # its first scan reads them all
+        for name, data in media["files"].items():
+            with open(os.path.join(watched, name), "wb") as f:
+                f.write(data)
+        setup_s = time.perf_counter() - t_phase
+        if on_card:
+            torch.cuda.synchronize()
+        _cuda.reset_launches()
+        rounds0 = dict(eng.rounds)
+        t_run = time.perf_counter()
+        with RunRecorder() as rec:
+            th, run_errors = serve_in_thread(pw.run, dict(
+                device=s.device, timeout_s=AX_LIMIT_S, idle_stop_s=AX_IDLE_S))
+            try:
+                got = ax_client(c)
+            finally:
+                th.join(AX_LIMIT_S)
+                pg.G.clear()
+        end_run(th, run_errors, "4s")
+        if on_card:
+            torch.cuda.synchronize()
+        run_s = time.perf_counter() - t_run
+        launches = {n: _cuda.LAUNCHES[n] for n in (
+            "knn_scores", "paged_attention", "paged_append_attend",
+            "flash_attention")}
+        rounds = {k: n - rounds0.get(k, 0) for k, n in eng.rounds.items()}
+        passes = rec.knn_passes()
+        gemm, gemv = knn_variants(passes)
+        if on_card:
+            for name, n in launches.items():
+                require(n > 0, f"4s: the phase never launched {name}")
+            require(launches["knn_scores"] == gemm + gemv,
+                    f"4s: knn launches {launches['knn_scores']} against the "
+                    f"index passes {passes}")
+
+        # the stand-ins: every file transcribed once, by the right route
+        t_checks = time.perf_counter()
+        kinds = list(AX_MAGIC)
+        want_ext = collections.Counter(kinds[i % len(kinds)]
+                                       for i in range(s.audio))
+        require(whisper.bad == 0 and whisper.requests == want_ext,
+                f"4s: Whisper saw {dict(whisper.requests)} and {whisper.bad} "
+                f"bad requests, wanted {dict(want_ext)}")
+        require(tl.bad == 0 and len(tl.tasks) == s.videos
+                and tl.polls == 2 * s.videos and tl.generates == s.videos,
+                f"4s: TwelveLabs saw {len(tl.tasks)} tasks, {tl.polls} polls, "
+                f"{tl.generates} generates, {tl.bad} bad")
+        # the index holds each transcript exactly once
+        require({t: n for t, n in held.items() if n} == dict.fromkeys(
+            texts, 1), "4s: the index does not hold each transcript once")
+        # retrieval: the first scheduled questions' ids = a stable sort of
+        # the plain f32 scores over embed_batch's rows of the transcripts
+        enc = emb.encoder
+        m = enc.embed_batch(texts).float()
+        m = m / (torch.linalg.norm(m, dim=1, keepdim=True) + 1e-12)
+        n_check = min(AX_TOPK_CHECKED, n_sched)
+        q_rows = torch.stack([torch.from_numpy(np.asarray(emb._embed(q)))
+                              for q in c.q_sched[:n_check]]).to(m.device)
+        plain = metric_scores(q_rows, m, "cos_prenorm",
+                              kc.knn_scores_reference)
+        order = torch.sort(plain, dim=1, descending=True, stable=True).indices
+        key_of = {t: i for i, t in enumerate(texts)}
+        err = 0.0
+        for qi, res in enumerate(got["context"][:n_check]):
+            keys = [key_of[d["text"]] for d in res]
+            require(keys == order[qi, :AX_K].tolist(),
+                    f"4s: retrieve {qi} ids {keys} differ from the plain "
+                    f"scores' {order[qi, :AX_K].tolist()}")
+            err = max([err] + [abs(d["score"] - float(plain[qi, k]))
+                               for d, k in zip(res, keys)])
+        require(err <= KNN_TOL, f"4s: retrieve scores err {err}")
+        # each scheduled answer = its prompt answered alone by the engine
+        for i, q in enumerate(c.q_sched):
+            ctx = [d["text"] for d in got["context"][i]]
+            require(len(ctx) == AX_K, "4s: answer context")
+            msgs = prompt_chat_single_qa(qa._prompt(ctx, q))
+            answer = got["scheduled"][i][0]
+            require(answer == chat.generate_batch([msgs])[0],
+                    f"4s: scheduled answer {i} differs from the same prompt "
+                    "answered alone")
+            require(len(answer.split()) == s.new_tokens,
+                    f"4s: scheduled answer {i}: {answer!r}")
+        # each expression answer = chat(messages) on the same messages
+        for i, (_t, docs, prompt, answer) in sorted(c.expr_out.items()):
+            require(len(docs) == AX_K
+                    and prompt == qa._prompt(docs, c.q_expr[i]),
+                    f"4s: expression prompt {i}")
+            require(answer == chat(prompt_chat_single_qa(prompt)),
+                    f"4s: expression answer {i} differs from chat(messages)")
+        # Bedrock: every call signed and answered, the question inside
+        require(conv.bad == 0 and len(conv.payloads) == n_bed,
+                f"4s: Converse saw {len(conv.payloads)} signed calls and "
+                f"{conv.bad} bad ones")
+        require(all(a == AX_CANNED for a, _dt in got["bedrock"]),
+                "4s: a Bedrock answer is not the stand-in's")
+        asked = [p["messages"][0]["content"][0]["text"]
+                 for p in conv.payloads]
+        require(all(any(q in a for a in asked) for q in c.q_bed)
+                and all(p["inferenceConfig"] == {"maxTokens": 512}
+                        for p in conv.payloads),
+                "4s: the Converse payloads")
+        checks_s = time.perf_counter() - t_checks
+    finally:
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        costdb.shutdown()
+        planner.invalidate_cache()
+        for server in (whisper, tl, conv):
+            server.close()
+        shutil.rmtree(root, ignore_errors=True)
+    t_first = min(t for t in (whisper.t_first, tl.t_first) if t is not None)
+    index_s = got["t_indexed"] - t_first
+    expr_lat = [c.expr_out[i][0] - c.asked[i] for i in range(n_expr)]
+    line = dict(
+        card=s.smi, audio=s.audio, videos=s.videos, docs=c.n_docs,
+        words=s.words, file_bytes=AX_FILE_BYTES, k=AX_K, chat_dtype="float32",
+        new_tokens=s.new_tokens,
+        docs_per_s_transcribed_indexed=c.n_docs / index_s, index_s=index_s,
+        stand_ins=dict(whisper=dict(whisper.requests),
+                       twelvelabs=dict(tasks=len(tl.tasks), polls=tl.polls,
+                                       generates=tl.generates),
+                       converse=len(conv.payloads)),
+        routes=dict(
+            scheduled=ax_route([dt for _a, dt in got["scheduled"]]),
+            expression=ax_route(expr_lat),
+            bedrock=ax_route([dt for _a, dt in got["bedrock"]])),
+        topk_checked=n_check, retrieve_scores_err=err,
+        index_query_batches=passes, knn_launches_gemm=gemm,
+        knn_launches_gemv=gemv, launches=launches, engine_rounds=rounds,
+        setup_s=setup_s, run_s=run_s, checks_s=checks_s,
+        cpu_only=AX_CPU_ONLY,
+        reduced={"decoder_layers": [s.decoder["n_layers"],
+                                    GPT2_SMALL["n_layers"]],
+                 "audio": [s.audio, AX_AUDIO], "videos": [s.videos,
+                                                          AX_VIDEOS]},
+        phase_s=time.perf_counter() - t_phase)
+    if line["phase_s"] > 30.0:
+        log(f"4s: the phase took {line['phase_s']:.1f}s, over its 30 s")
+    return line, launches
+
+
+def api_xpack_only(torch, np, dec, seed, engine_sizes, smi) -> int:
+    """``--api-xpack-only``: phase 4s alone (after the kernels' build),
+    printing its line and no result."""
+    line, _launches = phase4s(torch, np, dec, types.SimpleNamespace(
+        smi=smi, seed=seed, device="cuda", engine_sizes=engine_sizes,
+        **api_sizes()))
+    print(json.dumps({"api_xpack": line}), flush=True)
+    log("--api-xpack-only: stopping after phase 4s")
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -10970,6 +11795,15 @@ def main() -> int:
                     help="build the kernels, then run phase 4r (the "
                          "documents and apps connectors) alone; prints no "
                          "result")
+    ap.add_argument("--api-xpack-only", action="store_true",
+                    help="build the kernels, then run phase 4s (audio and "
+                         "video documents answered through the API-served "
+                         "xpack) alone; prints no result")
+    ap.add_argument("--tp-divergence", action="store_true",
+                    help="build the kernels, then trace phase 4g's f32 "
+                         "sampled tokens at 4 layers on tp = 1 against "
+                         "tp = 2 (the first token that differs, its "
+                         "logits, nucleus and draw); prints no result")
     ap.add_argument("--nexmark-events", type=int, default=NX_EVENTS,
                     help="phase 4k's event count (default %(default)s)")
     args = ap.parse_args()
@@ -11052,6 +11886,9 @@ def main() -> int:
                         EngineFailedError)
     if args.tp_only:
         return tp_only(torch, np, dec, args.seed, engine_sizes, smi)
+    if args.tp_divergence:
+        return tp_divergence_only(torch, np, dec, args.seed, engine_sizes,
+                                  smi)
     if args.models_only:
         return models_only(torch, np, dec, args.seed, engine_sizes, smi)
     if args.rag_pipeline_only:
@@ -11065,6 +11902,8 @@ def main() -> int:
         return databases_only(torch, np, args.seed, smi)
     if args.documents_only:
         return documents_only(torch, np, args.seed, smi)
+    if args.api_xpack_only:
+        return api_xpack_only(torch, np, dec, args.seed, engine_sizes, smi)
 
     # phase 2: kernels against their plain versions
     g = torch.Generator().manual_seed(args.seed)
@@ -11282,17 +12121,7 @@ def main() -> int:
     cfg32 = dec.DecoderConfig(**GPT2_GEN,
                               dtype=torch.float32)
     lm32 = dec.TorchDecoderLM(cfg32, seed=args.seed, device="cuda")
-    system = ("answer the question using only the context below . "
-              "cite the passages you use . ") * 3
-    prompts = []
-    targets = np.linspace(100, 600, N_PROMPTS).astype(int)
-    for i, n_tok in enumerate(targets):
-        ctx = []
-        for key, _s in hits[i % len(hits)] + hits[(i + 1) % len(hits)]:
-            ctx.extend(docs[key].split())
-        body = f"question : {queries[i % len(queries)]} context : "
-        words = (system + body).split() + ctx
-        prompts.append(" ".join(words[:n_tok]))
+    prompts = rag_prompts(np, docs, queries, hits)
     reqs = [(ids, NEW_TOKENS)
             for ids in lm32.encode_prompts(prompts, NEW_TOKENS)]
     eng32 = lm32.paged_engine(**engine_sizes)
@@ -11649,6 +12478,17 @@ def main() -> int:
         f" Airbyte words on both tiers into DuckDB, Slack and the live view "
         f"in {doc_line['phase_s']:.1f}s")
     print(json.dumps({"documents": doc_line}), flush=True)
+
+    # phase 4s: audio and video documents answered through the API-served
+    # xpack (the encoder, #3, and #1, #2 and #4 for TorchChat's routes),
+    # last; its launches go on the kernels line
+    api_line, api_launches = phase4s(torch, np, dec, types.SimpleNamespace(
+        smi=smi, seed=args.seed, device="cuda", engine_sizes=engine_sizes,
+        **api_sizes()))
+    log(f"phase 4s ok: {api_line['docs']} audio and video files transcribed"
+        f" and indexed at {api_line['docs_per_s_transcribed_indexed']:.0f} "
+        f"docs/s, answers on three routes in {api_line['phase_s']:.1f}s")
+    print(json.dumps({"api_xpack": api_line}), flush=True)
     for k in kernels:
         if k["name"] in ("paged_attention", "paged_append_attend",
                          "flash_attention"):
@@ -11670,6 +12510,13 @@ def main() -> int:
         if k["name"] == "knn_scores":
             k["launches_databases"] = db_line["vectors"]["knn_launches"]
             k["launches_documents"] = doc_line["documents"]["knn_launches"]
+        if k["name"] in ("paged_attention", "paged_append_attend",
+                         "flash_attention"):
+            k["launches_api_xpack"] = api_launches[k["name"]]
+        elif k["name"] == "knn_scores":
+            k["launches_api_xpack"] = api_line["knn_launches_gemm"]
+        elif k["name"] == "knn_scores_q1":
+            k["launches_api_xpack"] = api_line["knn_launches_gemv"]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({
         "rag": {

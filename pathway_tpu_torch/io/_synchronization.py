@@ -136,6 +136,14 @@ def register_input_synchronization_group(*columns: Any, max_difference: Any,
     pg.G.sync_groups.append(_SyncGroupSpec(columns, max_difference, name))
 
 
+def clear_groups() -> None:
+    """Drop every registered group (``parse_graph.G.clear()`` drops them
+    too)."""
+    from ..internals import parse_graph as pg
+
+    pg.G.sync_groups.clear()
+
+
 class _SyncGate:
     """DataSource wrapper: holds events back until the group allows them."""
 

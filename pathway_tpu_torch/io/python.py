@@ -3,7 +3,9 @@ reference: io/python/__init__.py:49 ConnectorSubject)."""
 
 from __future__ import annotations
 
+import csv
 import json
+import time
 from typing import Any
 
 from ..internals import dtype as dt
@@ -56,8 +58,11 @@ class ConnectorSubject:
     def next_bytes(self, message: bytes) -> None:
         self.next(data=message)
 
-    def remove(self, **kwargs: Any) -> None:
+    def _remove(self, **kwargs: Any) -> None:
         self._source.push(self._row(kwargs), -1, kwargs.get("_key"))
+
+    def remove(self, **kwargs: Any) -> None:
+        self._remove(**kwargs)
 
     def close(self) -> None:
         pass  # the source closes when run() returns
@@ -95,4 +100,19 @@ def read(
                             persistent_id=kwargs.get("persistent_id"))
 
 
-__all__ = ["ConnectorSubject", "read"]
+class InteractiveCsvPlayer(ConnectorSubject):
+    """Replays a CSV file's rows as a stream, one row every 10 ms divided
+    by ``speedup``."""
+
+    def __init__(self, csv_file: str, speedup: float = 1.0):
+        self.csv_file = csv_file
+        self.speedup = speedup
+
+    def run(self):
+        with open(self.csv_file, newline="") as f:
+            for row in csv.DictReader(f):
+                self.next(**row)
+                time.sleep(0.01 / self.speedup)
+
+
+__all__ = ["ConnectorSubject", "InteractiveCsvPlayer", "read"]

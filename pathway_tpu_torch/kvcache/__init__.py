@@ -5,15 +5,17 @@ hash-chained prefix sharing, the ragged paged attention kernels, the
 continuous-batching paged engine with speculation, the constant-memory
 state engine, and the host-memory session tier.  ``paged_attention``
 stays a submodule here (callers import the module and its kernel
-wrappers), not a re-exported function.
+wrappers), not a re-exported function; its plain version
+``paged_attention_reference`` is exported, as in the JAX package.
 """
 
 from .backend import CacheBackend, UnsupportedCacheOp, make_backend
 from .block_pool import BlockPool, PoolExhausted, SequenceState
-from .engine import EngineHungError, PagedDecodeEngine
+from .engine import EngineHungError, PagedDecodeEngine, resolve_tp
+from .paged_attention import paged_attention_reference
 from .prefix_cache import PrefixCache
 from .speculative import (Drafter, DraftModelDrafter, NGramDrafter,
-                          SpecController)
+                          SpecController, SpecResourceError)
 from .statecache import StateCache, StateDecodeEngine
 from .tiering import SessionStore
 
@@ -30,8 +32,11 @@ __all__ = [
     "SequenceState",
     "SessionStore",
     "SpecController",
+    "SpecResourceError",
     "StateCache",
     "StateDecodeEngine",
     "UnsupportedCacheOp",
     "make_backend",
+    "paged_attention_reference",
+    "resolve_tp",
 ]

@@ -1,5 +1,7 @@
 """Self-contained word-level hash tokenizer (no downloaded vocab files);
-gives the same ids as ``pathway_tpu.models.tokenizer.HashTokenizer``."""
+gives the same ids as ``pathway_tpu.models.tokenizer.HashTokenizer``.
+``HFTokenizer`` wraps a HuggingFace tokenizer saved on the machine, for
+real subword vocabularies."""
 
 from __future__ import annotations
 
@@ -38,3 +40,19 @@ class HashTokenizer:
 
     def count_tokens(self, text: str) -> int:
         return len(self.tokenize(text))
+
+
+class HFTokenizer:
+    """Wrap a locally-available HuggingFace tokenizer."""
+
+    def __init__(self, name_or_path: str):
+        from transformers import AutoTokenizer
+
+        self._tok = AutoTokenizer.from_pretrained(name_or_path)
+        self.vocab_size = self._tok.vocab_size
+
+    def encode(self, text: str) -> list[int]:
+        return self._tok.encode(text, add_special_tokens=False)
+
+    def count_tokens(self, text: str) -> int:
+        return len(self.encode(text))

@@ -84,6 +84,10 @@ class DeviceVecStore:
         self._fill += n_rows
         return [DeviceVec(self, bid, start + r) for r in range(n)]
 
+    def n_batches(self) -> int:
+        """Buffers started so far."""
+        return self._n_bufs
+
     def gather(self, refs: list[tuple[int, int]],
                pad_to: int | None = None) -> torch.Tensor:
         """One (N, d) tensor on the device holding the given (buffer, row)

@@ -30,7 +30,8 @@ from .admission import (
     TokenBucket,
 )
 from .fleet import ReplicaFleet
-from .metrics import FleetStats, ServeStats, fleet_stats, serve_stats
+from .metrics import (FleetStats, ServeStats, fleet_stats,
+                      render_prometheus_lines, serve_stats)
 from .scheduler import RequestScheduler, shared_scheduler
 
 __all__ = [
@@ -49,6 +50,7 @@ __all__ = [
     "ShedError",
     "TokenBucket",
     "fleet_stats",
+    "render_prometheus_lines",
     "serve_stats",
     "shared_scheduler",
 ]

@@ -3,9 +3,9 @@ python/pathway/xpacks/llm/): the embedder, the chat, the parsers,
 splitters and prompts, the document stores (``DocumentStore``,
 ``SlidesDocumentStore``), the question answerers and their REST servers,
 the rerankers, the vector store, the MCP server and retrieval
-evaluation.  Of the parsers, ``default_vision_llm``, ``AudioParser`` and
-``TwelveLabsVideoParser`` are not ported: each drives an outside
-service."""
+evaluation.  The API-served chats, embedders and parsers (OpenAI,
+LiteLLM, Bedrock, Whisper, TwelveLabs) speak to their services through
+client packages or ``urllib``, each with a seam for a stand-in."""
 
 from . import (
     document_store,

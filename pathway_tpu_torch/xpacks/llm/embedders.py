@@ -13,6 +13,11 @@ an ``ApplyExpression`` whose ``batch_fn`` embeds a whole update batch in
 one call (``_embed_many_traced``), as the JAX ``BaseEmbedder`` does: a
 ``DataIndex`` over it receives ``DeviceVec`` handles when
 ``device_resident``.
+
+The API embedders (``OpenAIEmbedder``, ``LiteLLMEmbedder``,
+``GeminiEmbedder``) call their client packages and return (d,) f32 rows;
+``BedrockEmbedder`` and ``MarengoEmbedder`` raise ``ImportError`` when
+called, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -189,3 +194,83 @@ class SentenceTransformerEmbedder:
 
     def get_embedding_dimension(self, **kwargs) -> int:
         return self._enc.dimensions
+
+
+TorchEmbedder = SentenceTransformerEmbedder
+
+
+class OpenAIEmbedder(BaseEmbedder):
+    """OpenAI's embeddings through the ``openai`` client.  ``capacity``,
+    ``cache_strategy`` and ``retry_strategy`` are accepted and ignored,
+    as in the JAX package."""
+
+    def __init__(self, model: str = "text-embedding-3-small", *,
+                 capacity: int | None = None, api_key: str | None = None,
+                 cache_strategy=None, retry_strategy=None, **kwargs):
+        self.model = model
+        self.kwargs = dict(kwargs)
+        self.api_key = api_key
+
+    def _embed(self, text: str) -> np.ndarray:
+        try:
+            import openai
+        except ImportError as exc:
+            raise ImportError(
+                "OpenAIEmbedder requires the openai package") from exc
+        client = openai.OpenAI(api_key=self.api_key)
+        res = client.embeddings.create(input=[text or " "], model=self.model,
+                                       **self.kwargs)
+        return np.array(res.data[0].embedding, dtype=np.float32)
+
+
+class LiteLLMEmbedder(BaseEmbedder):
+    """Any embedding model ``litellm.embedding`` reaches."""
+
+    def __init__(self, model: str, *, cache_strategy=None,
+                 retry_strategy=None, **kwargs):
+        self.model = model
+        self.kwargs = kwargs
+
+    def _embed(self, text: str) -> np.ndarray:
+        try:
+            import litellm
+        except ImportError as exc:
+            raise ImportError("LiteLLMEmbedder requires litellm") from exc
+        res = litellm.embedding(model=self.model, input=[text or " "],
+                                **self.kwargs)
+        return np.array(res["data"][0]["embedding"], dtype=np.float32)
+
+
+class GeminiEmbedder(LiteLLMEmbedder):
+    def __init__(self, model: str = "models/text-embedding-004", **kwargs):
+        super().__init__(model=f"gemini/{model}", **kwargs)
+
+
+class BedrockEmbedder(BaseEmbedder):
+    """Needs boto3, which neither package carries: a call raises
+    ``ImportError``, as in the JAX package."""
+
+    def __init__(self, model_id: str = "amazon.titan-embed-text-v2:0",
+                 **kwargs):
+        self.model_id = model_id
+
+    def _embed(self, text):
+        raise ImportError("BedrockEmbedder requires boto3 + AWS credentials")
+
+
+class MarengoEmbedder(BaseEmbedder):
+    """Needs the twelvelabs client: a call raises ``ImportError``, as in
+    the JAX package."""
+
+    def __init__(self, *args, **kwargs):
+        pass
+
+    def _embed(self, text):
+        raise ImportError("MarengoEmbedder requires the twelvelabs client")
+
+
+__all__ = [
+    "BaseEmbedder", "SentenceTransformerEmbedder", "TorchEmbedder",
+    "OpenAIEmbedder", "LiteLLMEmbedder", "GeminiEmbedder", "BedrockEmbedder",
+    "MarengoEmbedder",
+]

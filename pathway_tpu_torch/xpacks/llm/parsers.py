@@ -10,15 +10,22 @@ extractor of FlateDecode text streams (pypdf when it is installed);
 ``SlideParser`` over the port's ``TorchClip`` (PPM decodes natively,
 other formats through pillow; a slide deck's pages are embedded in one
 ``embed_image_batch`` forward); ``PaddleOCRParser`` (paddleocr when
-installed, else the native template engine of ``_ocr.py``).
-
-Not ported, each because it drives an outside service:
-``default_vision_llm`` (an OpenAI chat), ``AudioParser`` (OpenAI's
-transcription API over HTTP) and ``TwelveLabsVideoParser``.
+installed, else the native template engine of ``_ocr.py``);
+``default_vision_llm`` (an ``OpenAIChat``); ``AudioParser`` (OpenAI's
+Whisper transcription endpoint, one multipart POST a file) and
+``TwelveLabsVideoParser`` (TwelveLabs' task API: upload, poll until
+ready, generate), both spoken over ``urllib`` with an ``_http`` test
+seam.
 """
 
 from __future__ import annotations
 
+import base64
+import json
+import os
+import time
+import urllib.request
+import uuid
 import zlib
 
 from ...internals import dtype as dt
@@ -209,8 +216,6 @@ class ImageParser(ParserBase):
                 metas[i]["height"] = int(image.shape[0])
                 texts[i] = f"image {image.shape[1]}x{image.shape[0]}"
         if self.llm is not None:
-            import base64
-
             for i, contents in enumerate(images):
                 b64 = base64.b64encode(contents).decode()
                 texts[i] = self.llm([{
@@ -316,8 +321,137 @@ def ParseUnstructured(**kwargs):  # noqa: N802
     return UnstructuredParser(**kwargs)
 
 
+def default_vision_llm():
+    """Default vision-capable chat for image/slide parsing (reference:
+    parsers.py:46 — OpenAIChat on the default vision model with cache +
+    backoff).  The on-device CLIP path (ImageParser) needs no LLM; this is
+    the API-served alternative."""
+    from ...internals.udfs import ExponentialBackoffRetryStrategy
+    from .llms import OpenAIChat
+
+    return OpenAIChat(
+        model="gpt-4o-mini",
+        retry_strategy=ExponentialBackoffRetryStrategy(max_retries=4),
+    )
+
+
+class AudioParser(ParserBase):
+    """Transcribe audio via OpenAI's Whisper transcription endpoint
+    (reference: parsers.py:1330).  Spoken as a plain multipart REST call
+    with an injectable ``_http(url, body, headers)`` test seam; no client
+    package needed.  A failed call raises."""
+
+    def __init__(self, model: str = "whisper-1", *,
+                 api_key: str | None = None,
+                 base_url: str = "https://api.openai.com/v1",
+                 filename: str | None = None, _http=None, **kwargs):
+        self.model = model
+        self.api_key = api_key or os.environ.get("OPENAI_API_KEY", "")
+        self.base_url = base_url.rstrip("/")
+        self.filename = filename  # None: sniffed from the magic bytes
+        self._http = _http
+
+    @staticmethod
+    def _sniff_filename(contents: bytes) -> str:
+        """The endpoint infers the audio format from the filename
+        extension, so the part name must carry a real one."""
+        if contents[:4] == b"RIFF":
+            return "audio.wav"
+        if contents[:4] == b"OggS":
+            return "audio.ogg"
+        if contents[:4] == b"fLaC":
+            return "audio.flac"
+        if contents[4:8] == b"ftyp":
+            return "audio.m4a"
+        return "audio.mp3"  # ID3 / MPEG frame sync, and anything else
+
+    def _parse(self, contents: bytes):
+        boundary = uuid.uuid4().hex
+        fname = self.filename or self._sniff_filename(contents)
+        parts = (
+            f"--{boundary}\r\nContent-Disposition: form-data; "
+            f'name="model"\r\n\r\n{self.model}\r\n'
+            f"--{boundary}\r\nContent-Disposition: form-data; "
+            f'name="file"; filename="{fname}"\r\n'
+            "Content-Type: application/octet-stream\r\n\r\n"
+        ).encode() + contents + f"\r\n--{boundary}--\r\n".encode()
+        headers = {
+            "Authorization": f"Bearer {self.api_key}",
+            "Content-Type": f"multipart/form-data; boundary={boundary}",
+        }
+        url = f"{self.base_url}/audio/transcriptions"
+        if self._http is not None:  # test seam
+            out = self._http(url, parts, headers)
+        else:
+            req = urllib.request.Request(url, data=parts, headers=headers,
+                                         method="POST")
+            with urllib.request.urlopen(req, timeout=120) as resp:
+                out = json.loads(resp.read())
+        return [(out.get("text", ""), {"model": self.model})]
+
+
+class TwelveLabsVideoParser(ParserBase):
+    """Describe videos via the TwelveLabs Pegasus REST API (reference:
+    parsers.py:1399: upload asset -> wait ready -> generate text).  REST
+    spoken directly with an injectable ``_http(method, url, payload,
+    headers)`` seam.  A task that reports ``failed`` raises
+    ``RuntimeError``, one not ready within ``max_wait_s``
+    ``TimeoutError``."""
+
+    def __init__(self, *, api_key: str | None = None, index_id: str = "",
+                 prompt: str = "Describe this video in detail.",
+                 base_url: str = "https://api.twelvelabs.io/v1.3",
+                 poll_interval_s: float = 2.0, max_wait_s: float = 600.0,
+                 _http=None, **kwargs):
+        self.api_key = api_key or os.environ.get("TWELVE_LABS_API_KEY", "")
+        self.index_id = index_id
+        self.prompt = prompt
+        self.base_url = base_url.rstrip("/")
+        self.poll_interval_s = poll_interval_s
+        self.max_wait_s = max_wait_s
+        self._http = _http
+
+    def _call(self, method: str, url: str, payload, headers):
+        if self._http is not None:
+            return self._http(method, url, payload, headers)
+        data = json.dumps(payload).encode() if payload is not None else None
+        req = urllib.request.Request(url, data=data, headers=headers,
+                                     method=method)
+        with urllib.request.urlopen(req, timeout=120) as resp:
+            return json.loads(resp.read())
+
+    def _parse(self, contents: bytes):
+        headers = {"x-api-key": self.api_key,
+                   "Content-Type": "application/json"}
+        task = self._call(
+            "POST", f"{self.base_url}/tasks",
+            {"index_id": self.index_id,
+             "video_base64": base64.b64encode(contents).decode()},
+            headers,
+        )
+        task_id = task.get("_id") or task.get("id")
+        video_id = task.get("video_id")
+        deadline = time.monotonic() + self.max_wait_s
+        while task.get("status") not in ("ready", "failed"):
+            if time.monotonic() > deadline:
+                raise TimeoutError("TwelveLabs task not ready in time")
+            time.sleep(self.poll_interval_s)
+            task = self._call("GET", f"{self.base_url}/tasks/{task_id}",
+                              None, headers)
+            video_id = task.get("video_id", video_id)
+        if task.get("status") == "failed":
+            raise RuntimeError(f"TwelveLabs task failed: {task}")
+        gen = self._call(
+            "POST", f"{self.base_url}/generate",
+            {"video_id": video_id, "prompt": self.prompt}, headers,
+        )
+        text = gen.get("data", "") or gen.get("text", "")
+        return [(text, {"video_id": video_id})]
+
+
 __all__ = [
     "ParserBase", "Utf8Parser", "ParseUtf8", "PypdfParser",
     "UnstructuredParser", "ParseUnstructured", "DoclingParser",
-    "ImageParser", "SlideParser", "PaddleOCRParser",
+    "ImageParser", "SlideParser", "PaddleOCRParser", "AudioParser",
+    "TwelveLabsVideoParser", "default_vision_llm",
 ]
