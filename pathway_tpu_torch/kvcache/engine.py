@@ -89,12 +89,17 @@ reference's name (``pw.decode_step``, ``pw.mixed_step``,
 int32 index arrays, so its buckets carry the reference's labels; each
 dispatch->sync window is recorded against its program after the sync.
 The engine records its spans on the flight recorder (``engine.run``,
-``engine.request``, ``engine.admission``, ``engine.sync``,
-``engine.host_gap``, ``engine.device.<kind>``, ``engine.decode_step``,
+``engine.request``, ``engine.pending``, ``engine.admission``,
+``engine.sync``, ``engine.host_gap``, ``engine.issue.<kind>``,
+``engine.device.<kind>``, ``engine.decode_step``,
 ``engine.prefill_chunk``, ``engine.chain``, ``engine.verify``,
 ``engine.draft``; the events ``engine.restart`` and ``engine.degraded``),
 its counters on the pool's ``KVCacheStats``, and dumps the recorder when
-it fails.
+it fails.  A round's ``engine.issue.<kind>`` (dispatch -> every kernel
+enqueued, with the ``rows`` it carries of ``capacity``) starts with its
+``engine.device.<kind>`` (dispatch -> the sync's return, host issue
+included); ``engine.pending`` runs from the engine learning of a request
+to the end of its first admission.
 """
 
 from __future__ import annotations
@@ -295,7 +300,7 @@ def _prio(v) -> int:
 class _Request:
     __slots__ = ("prompt", "max_new", "priority", "stop_token", "emitted",
                  "index", "on_done", "on_error", "sampling", "session",
-                 "on_token", "t_arrival", "span", "ctx")
+                 "on_token", "t_arrival", "span", "ctx", "waiting")
 
     def __init__(self, prompt, max_new: int, *, priority: int = 1,
                  stop_token: int | None = None, index: int | None = None,
@@ -329,6 +334,9 @@ class _Request:
             prompt_tokens=len(self.prompt), max_new=self.max_new,
         )
         self.ctx = self.span.ctx
+        # True until the first admission ends (the engine.pending span);
+        # a preempted request's re-admission is not a new wait
+        self.waiting = True
 
 
 class _Active:
@@ -540,8 +548,9 @@ class PagedDecodeEngine:
         self._seq_counter = 0
         self._lock = threading.RLock()
         self._run_id: str | None = None
-        # device-busy / host-gap accounting: _note_dispatch opens the
-        # device window (closing any host gap), _note_sync closes it
+        # dispatch-window / host-gap accounting: _note_dispatch opens a
+        # round's dispatch->sync window (closing any host gap),
+        # _note_sync closes it
         self._t_device_idle: float | None = None
         self._t_dispatch: float | None = None
         self._t_failure: float | None = None
@@ -819,8 +828,9 @@ class PagedDecodeEngine:
         self._t_device_idle = None
         self._t_dispatch = None
         self._t_failure = None
-        # the engine-run trace: device-busy / host-gap / sync spans of
-        # this run under one root (requests keep their own traces)
+        # the engine-run trace: issue, dispatch->sync window, host-gap and
+        # sync spans of this run under one root (requests keep their own
+        # traces)
         run_span = obs.start_span("engine.run", ctx=(obs.new_trace_id(), 0),
                                   pool=self.pool.name)
         self._run_ctx = run_span.ctx
@@ -1006,11 +1016,16 @@ class PagedDecodeEngine:
                 status = self._try_admit(req, running, deliver)
                 if status == "wait":
                     # recurs every round while the pool is full: the
-                    # blocked time shows as the request-start -> admission
-                    # gap instead of a flood of spans
+                    # blocked time lands in the request's engine.pending
+                    # span when it is admitted, not in a flood of spans
                     break
-                obs.record_span("engine.admission", t0a, time.perf_counter(),
-                                ctx=req.ctx, outcome=status)
+                t1a = time.perf_counter()
+                obs.record_span("engine.admission", t0a, t1a, ctx=req.ctx,
+                                outcome=status)
+                if req.waiting:
+                    req.waiting = False
+                    obs.record_span("engine.pending", req.span.t0, t1a,
+                                    ctx=req.ctx)
                 pending.popleft()
             if not running:
                 break
@@ -1055,8 +1070,9 @@ class PagedDecodeEngine:
     def _note_sync(self) -> None:
         """A device->host sync just returned with nothing queued behind
         it: the dispatch->sync window lands as an ``engine.device.<kind>``
-        span (device busy) and the device is idle until the next
-        dispatch."""
+        span (the host's issue of the round and the device's work both
+        lie inside it, so it is not busy time) and the device is idle
+        until the next dispatch."""
         now = time.perf_counter()
         if self._t_dispatch is not None:
             obs.record_span("engine.device." + self._dispatch_kind,
@@ -1077,6 +1093,16 @@ class PagedDecodeEngine:
         self._t_dispatch = now
         self._dispatch_kind = kind
         return now
+
+    def _note_issued(self, rows: int) -> None:
+        """The round's step program returned, every kernel of it enqueued:
+        an ``engine.issue.<kind>`` span from the dispatch (the start of
+        the round's ``engine.device.<kind>`` window), with the live
+        ``rows`` the round carries of ``capacity``."""
+        obs.record_span("engine.issue." + self._dispatch_kind,
+                        self._t_dispatch, time.perf_counter(),
+                        ctx=self._run_ctx, rows=rows,
+                        capacity=self.max_batch_size)
 
     def _synced(self, ids) -> tuple[np.ndarray, float]:
         """The round's ids on the host, the ``engine.sync`` span recorded
@@ -1277,6 +1303,7 @@ class PagedDecodeEngine:
                 samp = self._sampling_arrays([(0, req)], 1)
                 prog = self._sampled_programs()["prefill"]
                 ids, _, _ = prog(*args, *samp)
+            self._note_issued(1)
             # the sync stays inside the cleanup: a failed sync must not
             # leak the just-prefilled blocks
             ids, t_end = self._synced(ids)
@@ -1424,6 +1451,7 @@ class PagedDecodeEngine:
             d(row_tables), d(row_start), d(row_nvalid), d(row_token_idx),
             d(tok_row), d(tok_col), d(sb), d(so), d(logit_idx),
         )
+        self._note_issued(len(rows))
         ids, t_sync1 = self._synced(ids)
         ms = (t_sync1 - t_disp) * 1e3
         self.rounds["verify"] += 1
@@ -1547,6 +1575,7 @@ class PagedDecodeEngine:
         else:
             prog = self._sampled_programs()["chained"]
             ids, _, _ = prog(*args, *samp)
+        self._note_issued(len(acts))
         self.rounds["chain"] += 1
         return acts, kreal, ids, t_disp, prog
 
@@ -1646,6 +1675,7 @@ class PagedDecodeEngine:
         else:
             prog = self._sampled_programs()["step"]
             ids, _, _ = prog(*args, *samp)
+        self._note_issued(len(reserved))
         ids, t_sync1 = self._synced(ids)
         prog.record_dispatch(t_sync1 - t_disp, t_end=t_sync1,
                              items=len(reserved))
@@ -1766,6 +1796,7 @@ class PagedDecodeEngine:
         else:
             prog = self._sampled_programs()["mixed"]
             ids, _, _ = prog(*args, *samp)
+        self._note_issued(len(rows))
         ids, t_sync1 = self._synced(ids)
         prog.record_dispatch(t_sync1 - t_disp, t_end=t_sync1, items=t)
         self.rounds["mixed"] += 1

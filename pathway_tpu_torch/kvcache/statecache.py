@@ -367,6 +367,7 @@ class StateDecodeEngine:
     _dev = PagedDecodeEngine._dev
     _note_sync = PagedDecodeEngine._note_sync
     _note_dispatch = PagedDecodeEngine._note_dispatch
+    _note_issued = PagedDecodeEngine._note_issued
     _synced = PagedDecodeEngine._synced
     _note_mixed = PagedDecodeEngine._note_mixed
     _restarted = PagedDecodeEngine._restarted
@@ -669,6 +670,7 @@ class StateDecodeEngine:
         else:
             prog = self._sampled_programs()["step"]
             ids, _ = prog(*args, *samp)
+        self._note_issued(len(acts))
         ids, t_sync1 = self._synced(ids)
         prog.record_dispatch(t_sync1 - t_disp, t_end=t_sync1,
                              items=len(acts))
@@ -740,6 +742,7 @@ class StateDecodeEngine:
         else:
             prog = self._sampled_programs()["mixed"]
             ids, _ = prog(*args, *samp)
+        self._note_issued(len(rows))
         ids, t_sync1 = self._synced(ids)
         prog.record_dispatch(t_sync1 - t_disp, t_end=t_sync1,
                              items=int(n_valid.sum()))
@@ -789,6 +792,7 @@ class StateDecodeEngine:
         else:
             prog = self._sampled_programs()["chained"]
             ids, _ = prog(*args, *samp)
+        self._note_issued(len(acts))
         self.rounds["chain"] += 1
         return acts, kreal, ids, t_disp, prog
 

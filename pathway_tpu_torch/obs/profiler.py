@@ -521,24 +521,6 @@ class ProgramRegistry:
                 best = max(best or 0, mem["temp_bytes"])
         return best
 
-    def window_fracs(self, t0: float, t1: float) -> dict[str, float]:
-        """Per-PROGRAM share of a wall-clock window (perf_counter
-        timeline): how much of the window each program's dispatch->sync
-        intervals covered.  Bounded by the per-record reservoir: keep
-        queried windows short relative to the dispatch rate."""
-        wall = max(t1 - t0, 1e-9)
-        out: dict[str, float] = {}
-        for rec in self.records():
-            tot = 0.0
-            for t_end, dur, _items in list(rec.reservoir):
-                s0, s1 = t_end - dur, t_end
-                if s1 <= t0 or s0 >= t1:
-                    continue
-                tot += min(s1, t1) - max(s0, t0)
-            if tot > 0:
-                out[rec.program] = out.get(rec.program, 0.0) + tot / wall
-        return out
-
     # -- summary / export --------------------------------------------------
     def summary(self, *, peak_flops=None, membw=None, analyze: bool = True,
                 memory: bool = False) -> dict:

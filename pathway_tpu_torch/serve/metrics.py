@@ -82,6 +82,12 @@ class ServeStats:
             self.batched_requests += occupancy
             self.time_in_queue_s += time_in_queue_s
 
+    def record_queue_wait(self, seconds: float) -> None:
+        """Queue time of requests that left the queue for execution: a
+        forming batch's and those an in-flight batch admits alike."""
+        with self._lock:
+            self.time_in_queue_s += seconds
+
     # -- reading -----------------------------------------------------------
     @property
     def queue_depth(self) -> int:
@@ -280,8 +286,9 @@ class KVCacheStats:
             self.spec_emitted += emitted
 
     def record_host_gap(self, seconds: float) -> None:
-        """Host-critical-path time between a chain's sync completing and
-        the next chain being queued on the device."""
+        """Host-critical-path time between a round's sync returning and
+        the next round's dispatch, whatever the rounds' kind (chain,
+        decode step, mixed, prefill, verify)."""
         with self._lock:
             self.host_gap_s += seconds
 

@@ -337,6 +337,7 @@ class RequestScheduler:
         # device call, so expired work never occupies a batch slot
         now = time.monotonic()
         live = []
+        waited = 0.0
         for w in batch:
             if w.cancelled:
                 # detached after the pop but before execution; its caller
@@ -353,10 +354,16 @@ class RequestScheduler:
                 if w.queue_span is not None:
                     w.queue_span.finish(outcome="shed_deadline")
             else:
-                # queue wait ends here: the request is in a formed batch
+                # queue wait ends here: the request is in a forming batch,
+                # or an in-flight batch admits it
                 if w.queue_span is not None:
                     w.queue_span.finish(outcome="dispatched")
+                waited += now - w.enqueued
                 live.append(w)
+        if live:
+            # a batch's first requests and those an in-flight batch polls
+            # alike: each request's wait is counted here, once
+            self.stats.record_queue_wait(waited)
         return live
 
     # -- step-boundary admission (continuous batching for steppable tiers) --
@@ -402,7 +409,6 @@ class RequestScheduler:
     def _execute(self, batch: list[_Waiter]) -> None:
         n = len(batch)
         payloads = self._pad([w.payload for w in batch])
-        t0 = time.monotonic()
         tp0 = time.perf_counter()
         self._inflight_waiters = batch
         try:
@@ -412,7 +418,7 @@ class RequestScheduler:
                     f"batch_fn returned {len(results)} results for {n} items"
                 )
         except Exception as exc:  # noqa: BLE001 — propagate to every caller
-            self.stats.record_batch(n, sum(t0 - w.enqueued for w in batch))
+            self.stats.record_batch(n)
             tp1 = time.perf_counter()
             obs.record_span("serve.batch", tp0, tp1, ctx=self._obs_ctx,
                             scheduler=self.name, n=n,
@@ -426,7 +432,7 @@ class RequestScheduler:
             return
         finally:
             self._inflight_waiters = ()
-        self.stats.record_batch(n, sum(t0 - w.enqueued for w in batch))
+        self.stats.record_batch(n)
         tp1 = time.perf_counter()
         obs.record_span("serve.batch", tp0, tp1, ctx=self._obs_ctx,
                         scheduler=self.name, n=n, padded=len(payloads))

@@ -10,8 +10,9 @@ At the tiny configuration with the JAX package's weights carried across:
   names the shape and this file (the recompile provenance);
 - every program has counted FLOPs and bytes, and a K-step chain counts K
   single decode steps (within 1%);
-- dispatch windows are recorded, decompose a run (``window_fracs``) and
-  ride in flight-recorder dumps as counter tracks; the surfaces
+- dispatch windows are recorded, the engine's per-kind dispatch->sync
+  and issue spans decompose a run, and the windows ride in
+  flight-recorder dumps as counter tracks; the surfaces
   (``summary``, ``profile_dump``, ``render_prometheus_lines``,
   ``otlp_points``, ``publish_to_costdb``, ``profile_diff``) render;
 - the profiler's bookkeeping (per-call cost x calls + per-record cost x
@@ -165,6 +166,7 @@ def test_counted_work_and_the_chain_counts_k_steps(weights):
 def test_dispatch_windows_are_recorded_and_decompose_a_run(weights):
     _je, te = _engines(weights, "t_obs_frac")
     te.generate_batch(list(REQS))  # first calls outside the window
+    rounds0 = sum(te.rounds.values())
     t0 = time.perf_counter()
     te.generate_batch(list(REQS))
     t1 = time.perf_counter()
@@ -175,9 +177,20 @@ def test_dispatch_windows_are_recorded_and_decompose_a_run(weights):
     assert rec.device_windows == 0 and rec.device_unread == 0
     row = rec.as_row()
     assert row["device_window_ms"] is None and row["dispatches"] > 0
-    fracs = profiler.registry().window_fracs(t0, t1)
-    assert "pw.chained_decode" in fracs
-    assert all(0 < v <= 1.000001 for v in fracs.values())
+    # the run's rounds by kind: each dispatch->sync window and the issue
+    # span that starts with it, inside the run
+    run = [s for s in obs.recorder().snapshot()
+           if s.trace_id == te._run_ctx[0]]
+    device = {s.t0: s for s in run if s.name.startswith("engine.device.")}
+    issue = [s for s in run if s.name.startswith("engine.issue.")]
+    assert "engine.device.chain" in {s.name for s in device.values()}
+    assert len(issue) == len(device) == sum(te.rounds.values()) - rounds0
+    for s in issue:
+        d = device[s.t0]
+        assert d.name.rsplit(".", 1)[1] == s.name.rsplit(".", 1)[1]
+        assert t0 <= d.t0 <= s.t1 <= d.t1 <= t1
+    windows = sum(d.t1 - d.t0 for d in device.values())
+    assert 0 < windows <= t1 - t0
     # the memory watermark is measured on the card only
     assert rec.try_memory() is None and not te._chained._mem_armed
 

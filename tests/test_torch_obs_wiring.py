@@ -239,6 +239,122 @@ def test_chained_request_span_tree(weights):
     assert snap["host_gap_s"] > 0 and snap["blocks_total"] == 95
 
 
+ROUND_CASES = {
+    # chunked admission: mixed rounds, then chains and plain steps
+    "chunked": (dict(), [([1, 2, 3, 4, 5], 12), ([7, 8, 9], 12),
+                         (list(range(4, 30)), 6)], {"mixed", "chain"}),
+    "whole_prefill": (dict(chunked_prefill=False),
+                      [([1, 2, 3, 4, 5], 12), ([7, 8, 9], 12)],
+                      {"prefill", "chain"}),
+    "speculative": (dict(speculative="ngram"),
+                    [([5, 6, 7, 5, 6, 7, 5, 6], 12), ([9, 9, 9, 9], 12)],
+                    {"mixed", "verify"}),
+    "state": (None, [([1, 2, 3, 4, 5], 12), ([7, 8, 9], 12)],
+              {"mixed", "chain"}),
+}
+
+
+@pytest.mark.parametrize("case", sorted(ROUND_CASES))
+def test_every_dispatch_records_one_issue_span(weights, store, case):
+    """Each round's engine.issue.<kind> starts with its engine.device.<kind>
+    (both at the dispatch), ends inside it, and carries rows <= capacity."""
+    _pj, pt = weights
+    kw, reqs, kinds = ROUND_CASES[case]
+    if kw is None:
+        eng = StateDecodeEngine(CFG_T, pt, device="cpu", max_slots=24,
+                                max_batch_size=4, prefill_chunk=8,
+                                chain_steps=4, name="t_obs_issue_state")
+    else:
+        eng = _engine(pt, f"t_obs_issue_{case}", **kw)
+    eng.generate_batch(list(reqs))
+    run = [s for s in obs.recorder().snapshot()
+           if s.trace_id == eng._run_ctx[0]]
+    device = {s.t0: s for s in run if s.name.startswith("engine.device.")}
+    issue = [s for s in run if s.name.startswith("engine.issue.")]
+    assert len(issue) == len(device) == sum(eng.rounds.values())
+    assert {s.name.rsplit(".", 1)[1] for s in issue} >= kinds
+    for s in issue:
+        d = device[s.t0]
+        assert d.name.rsplit(".", 1)[1] == s.name.rsplit(".", 1)[1]
+        assert d.t0 <= s.t1 <= d.t1
+        assert s.attrs["capacity"] == eng.max_batch_size
+        assert 1 <= s.attrs["rows"] <= s.attrs["capacity"]
+
+
+@pytest.mark.parametrize("sizes", [dict(), dict(num_blocks=16)],
+                         ids=["rows", "blocks"])
+def test_every_request_has_one_pending_span(weights, sizes):
+    """Six requests on four rows (and, with 16 blocks, a pool that makes
+    them wait and preempts): each has one engine.pending under its
+    engine.request, from the request's start to the end of its first
+    admission."""
+    _pj, pt = weights
+    eng = _engine(pt, "t_obs_pending", **sizes)
+    reqs = [(list(range(1 + i, 9 + i)), 10) for i in range(6)]
+    out = eng.generate_batch(list(reqs))
+    assert all(len(o) == 10 for o in out)
+    spans = obs.recorder().snapshot()
+    roots = [s for s in spans if s.name == "engine.request"]
+    assert len(roots) == 6
+    waits = []
+    for root in roots:
+        kids = [s for s in spans if s.trace_id == root.trace_id
+                and s.parent_id == root.span_id]
+        pend = [s for s in kids if s.name == "engine.pending"]
+        adm = sorted((s for s in kids if s.name == "engine.admission"),
+                     key=lambda s: s.t0)
+        assert len(pend) == 1 and adm
+        assert pend[0].t0 == root.t0 and pend[0].t1 == adm[0].t1
+        waits.append(pend[0].t1 - pend[0].t0)
+    # two requests waited for rows: their pending spans hold rounds
+    waits.sort()
+    assert waits[-1] > 10 * waits[0]
+
+
+def test_time_in_queue_counts_every_request_once(weights):
+    """A batch's first request and one its engine polls mid-batch each add
+    their queue wait to ServeStats.time_in_queue_s, once: the counter
+    equals the sum of the requests' serve.queue spans."""
+    import threading
+    import time
+
+    _pj, pt = weights
+    eng = _engine(pt, "t_obs_queue")
+    sched = RequestScheduler(
+        lambda reqs: eng.serve_batch(reqs, scheduler=sched),
+        name="t_obs_queue_s", max_batch_size=1, batch_linger_ms=0.0,
+        start=False)
+    before = sched.stats.snapshot()["time_in_queue_s"]
+    outs = []
+    threads = [threading.Thread(
+        target=lambda p: outs.append(sched.submit((p, 6))), args=(p,))
+        for p in ([1, 2, 3], [4, 5, 6, 7])]
+    try:
+        for i, t in enumerate(threads):
+            t.start()
+            limit = time.perf_counter() + 10
+            while sched.queue_depth <= i and time.perf_counter() < limit:
+                time.sleep(0.001)
+        time.sleep(0.1)  # both queued: a double count would add >= 0.1 s
+        sched.start()
+        for t in threads:
+            t.join(timeout=60)
+    finally:
+        sched.shutdown()
+    assert not any(t.is_alive() for t in threads)
+    assert sorted(len(o) for o in outs) == [6, 6]
+    spans = obs.recorder().snapshot()
+    # one batch: the second request was polled into it by the engine
+    assert sum(1 for s in spans if s.name == "serve.batch") == 1
+    queued = [s for s in spans if s.name == "serve.queue"]
+    assert len(queued) == 2
+    assert all(s.attrs["outcome"] == "dispatched" for s in queued)
+    got = sched.stats.snapshot()["time_in_queue_s"] - before
+    want = sum(s.t1 - s.t0 for s in queued)
+    assert want >= 0.2
+    assert abs(got - want) < 0.02, (got, want)
+
+
 def test_scheduler_spans_and_the_engine_joining_them(weights):
     _pj, pt = weights
     eng = _engine(pt, "t_obs_sched")
